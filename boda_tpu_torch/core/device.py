@@ -1,0 +1,73 @@
+"""Device selection, feature probes and the platform tag of the port.
+
+Counterpart of boda_tpu/core/features.py and of the device part of
+boda_tpu/backend/xla.py (XlaBackend.init / get_plat_tag). A device is asked
+for by name ('cuda', 'cuda:0', 'cpu'); asking for CUDA where there is none
+raises. Nothing falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+from pathlib import Path
+
+import torch
+
+from boda_tpu.core.error import RtErr
+
+# the CUDA toolkit's own default root, where CUDA_HOME names none
+_CUDA_DEFAULT_ROOT = "/usr/local/cuda"
+
+
+def nvcc_path() -> str:
+    """The nvcc to build the kernels with: on PATH, else under $CUDA_HOME
+    (or the toolkit's default root); raises if there is none."""
+    p = shutil.which("nvcc")
+    if p:
+        return p
+    root = os.environ.get("CUDA_HOME") or _CUDA_DEFAULT_ROOT
+    nvcc = Path(root) / "bin" / "nvcc"
+    if nvcc.exists():
+        return str(nvcc)
+    raise RtErr(f"nvcc not found (not on PATH, not at {nvcc}): the port's "
+                "CUDA kernels cannot be built")
+
+
+def is_feature_enabled(name: str) -> bool:
+    """Probe a capability of this process: torch, cuda or nvcc."""
+    if name == "torch":
+        return True
+    if name == "cuda":
+        return torch.cuda.is_available()
+    if name == "nvcc":
+        try:
+            nvcc_path()
+        except RtErr:
+            return False
+        return True
+    return False
+
+
+def get_device(name: str) -> torch.device:
+    """torch.device for `name`, checked: CUDA must exist when asked for."""
+    dev = torch.device(name)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RtErr(f"device '{name}' requested but CUDA is not available")
+        if dev.index is None:  # tensors report their index: name it
+            dev = torch.device("cuda", torch.cuda.current_device())
+        if dev.index >= torch.cuda.device_count():
+            raise RtErr(f"device '{name}' out of range "
+                        f"({torch.cuda.device_count()} CUDA devices)")
+    elif dev.type != "cpu":
+        raise RtErr(f"unsupported device '{name}' (cuda or cpu)")
+    return dev
+
+
+def plat_tag(dev: torch.device) -> str:
+    """Platform tag for wisdom and reports: torch:cuda:<device name> or
+    torch:cpu:cpu."""
+    if dev.type == "cuda":
+        return f"torch:cuda:{torch.cuda.get_device_name(dev)}"
+    return "torch:cpu:cpu"

@@ -1,0 +1,188 @@
+"""The torch network executor: the port of boda_tpu/engine/rtc_fwd.py.
+
+`TorchFwd` is the ConvFwd engine `engine=torch`. At init it lowers the pipe
+with the JAX package's own lowering (engine/lower.lower_pipe: variant
+pick, ReLU fusion and the NHWC/bf16 fused-storage pass), builds each step
+from the port's templates, and puts the weights on the device once. A
+forward runs the steps eagerly in plan order on that device.
+
+Left out so far (the config refuses them as unused values): per-call
+mode and its timing, stats, quantize hooks, nan_check, the mesh, wisdom,
+op_tunes_pat, act_scales_fn and device-side input preprocessing.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from boda_tpu.core.config import Attr, register
+from boda_tpu.core.dims import NDA, Dims
+from boda_tpu.core.error import RtErr
+from boda_tpu.core.timers import timer
+from boda_tpu.engine.iface import ConvFwd
+from boda_tpu.engine.lower import Plan, lower_pipe, resolve_plan_weights
+from boda_tpu.graph.pipe import ConvPipe
+from boda_tpu.ops.cnn_variants import OpTune
+
+from ..core.device import get_device
+from ..ops.cuda.util import torch_dtype
+from ..ops.registry import get_template
+
+
+def weights_to_torch(plan: Plan, op_params: dict, device: torch.device,
+                     dtype: torch.dtype | None = None) -> dict[str, torch.Tensor]:
+    """The plan's weights (resolve_plan_weights: numpy) as tensors on
+    `device`, floating ones cast to `dtype` when given. The single place
+    where the JAX package's parameters enter the port."""
+    out = {}
+    for n, v in resolve_plan_weights(plan, op_params).items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        out[n] = t.to(device)
+    return out
+
+
+def _storage_dtype(dims: Dims, plan: Plan) -> torch.dtype:
+    dt = torch_dtype(dims.dtype)
+    if plan.storage_nhwc and len(dims.shape) == 4 and plan.edge_prec == "bf16" \
+            and dt.is_floating_point:
+        return torch.bfloat16
+    return dt
+
+
+def _storage_in(v: torch.Tensor, dims: Dims, plan: Plan) -> torch.Tensor:
+    """Logical (NCHW, node dtype) input -> the plan's storage form."""
+    if plan.storage_nhwc and v.dim() == 4:
+        v = v.to(_storage_dtype(dims, plan)).permute(0, 2, 3, 1).contiguous()
+    return v
+
+
+def _storage_out(v: torch.Tensor, dims: Dims, plan: Plan) -> torch.Tensor:
+    """Storage-form tensor -> logical (NCHW, node dtype) output."""
+    if plan.storage_nhwc and v.dim() == 4:
+        v = v.permute(0, 3, 1, 2)
+    return v.to(torch_dtype(dims.dtype)).contiguous()
+
+
+def build_forward(plan: Plan, device: torch.device,
+                  keep_all_nodes: bool = False):
+    """The whole-net function fwd(inputs, weights, out_nodes=()) -> dict,
+    counterpart of rtc_fwd.build_fused_forward.
+
+    inputs: every node of plan.input_nodes, as logical (NCHW, node dtype)
+    tensors on `device`; names, shapes, dtypes and device are checked.
+    weights: weights_to_torch(plan, ...). Returns the plan's outputs plus
+    `out_nodes` (every produced node under keep_all_nodes), logical form.
+    When the plan's fused-storage pass is on, the conversion to and from
+    NHWC / the edge dtype happens once, at this boundary."""
+    fns = []
+    for s in plan.steps:
+        tmpl = get_template(s.func_name)
+        fns.append((tmpl.build(tmpl.check_args(s.sig)), tmpl, s))
+    node_dims = plan.node_dims
+    weight_set = set(plan.weight_nodes)
+    want_inputs = set(plan.input_nodes)
+
+    def _check_inputs(inputs: dict):
+        got = set(inputs)
+        if got != want_inputs:
+            raise RtErr(f"build_forward: inputs {sorted(got)} != the plan's "
+                        f"input nodes {sorted(want_inputs)}")
+        for n, v in inputs.items():
+            nd = node_dims[n]
+            if not isinstance(v, torch.Tensor):
+                raise RtErr(f"build_forward: input '{n}' is a "
+                            f"{type(v).__name__}, not a torch.Tensor")
+            if tuple(v.shape) != tuple(nd.shape):
+                raise RtErr(f"build_forward: input '{n}' shape "
+                            f"{tuple(v.shape)} != the plan's logical dims "
+                            f"{tuple(nd.shape)} ({nd})")
+            if v.dtype != torch_dtype(nd.dtype):
+                raise RtErr(f"build_forward: input '{n}' dtype {v.dtype} != "
+                            f"{torch_dtype(nd.dtype)}")
+            if v.device != device:
+                raise RtErr(f"build_forward: input '{n}' on {v.device}, "
+                            f"the engine runs on {device}")
+
+    def fwd(inputs: dict, weights: dict, out_nodes=()) -> dict:
+        _check_inputs(inputs)
+        vals = dict(weights)
+        for n, v in inputs.items():
+            vals[n] = _storage_in(v, node_dims[n], plan)
+        for fn, tmpl, s in fns:
+            ins = []
+            for an in tmpl.in_args() + tmpl.io_args():
+                if an not in s.arg_nodes:
+                    continue
+                node = s.arg_nodes[an]
+                if node not in vals:
+                    what = "weight node" if node in weight_set else "node"
+                    raise RtErr(f"build_forward: {what} '{node}' read by "
+                                f"step {s.call_tag} has no value (weights "
+                                f"from another plan, or no earlier step "
+                                f"writes it)")
+                ins.append(vals[node])
+            outs = fn(*ins)
+            if not isinstance(outs, (tuple, list)):
+                outs = (outs,)
+            for an, ov in zip(tmpl.out_args() + tmpl.io_args(), outs):
+                if an in s.arg_nodes:
+                    vals[s.arg_nodes[an]] = ov
+        names = list(plan.output_nodes)
+        if keep_all_nodes:
+            names += [n for n in vals if n not in weights and n not in inputs
+                      and n in node_dims and n not in names]
+        names += [n for n in out_nodes if n not in names]
+        missing = [n for n in names if n not in vals]
+        if missing:
+            raise RtErr(f"build_forward: node(s) {missing} are not produced "
+                        f"by any step")
+        return {n: _storage_out(vals[n], node_dims[n], plan) for n in names}
+
+    return fwd
+
+
+@register(ConvFwd, "torch", help="PyTorch executor with hand-written CUDA "
+                                 "kernels (sm_90a)")
+class TorchFwd(ConvFwd):
+    op_tune = Attr(OpTune, default="()", help="default tuning record")
+    fuse = Attr(bool, default=True,
+                help="fused storage: with layout=nhwc every inter-op edge "
+                     "is stored NHWC (bf16 under prec=bf16)")
+    keep_all_nodes = Attr(bool, default=False,
+                          help="return every produced node (for digest "
+                               "comparison)")
+    force_zero_bias = Attr(bool, default=False,
+                           help="zero every bias blob at init (debug "
+                                "determinism hook; reference rtc_fwd.cc:59)")
+    device = Attr(str, default="cuda", help="torch device: cuda[:i] or cpu")
+
+    def init(self, pipe: ConvPipe) -> None:
+        self.pipe = pipe
+        self.dev = get_device(self.device)
+        with timer("torch_fwd_init"):
+            self.plan = lower_pipe(pipe, self.op_tune, fuse_relu=True,
+                                   fused_storage=self.fuse)
+            self.fwd = build_forward(self.plan, self.dev,
+                                     keep_all_nodes=self.keep_all_nodes)
+            self.weights = weights_to_torch(self.plan, pipe.op_params,
+                                            self.dev)
+            if self.force_zero_bias:
+                self.weights = {n: (torch.zeros_like(v)
+                                    if n.endswith("biases") else v)
+                                for n, v in self.weights.items()}
+
+    def run_fwd(self, to_set: dict[str, NDA],
+                to_get: list[str]) -> dict[str, NDA]:
+        with timer("run_fwd"):
+            inputs = {n: torch.from_numpy(np.ascontiguousarray(v.v)).to(self.dev)
+                      for n, v in to_set.items()}
+            want = [n for n in to_get if n not in self.weights]
+            with torch.no_grad():
+                outs = self.fwd(inputs, self.weights, out_nodes=want)
+            return {n: NDA(self.plan.node_dims[n],
+                           (self.weights[n] if n in self.weights
+                            else outs[n]).cpu().numpy())
+                    for n in to_get}

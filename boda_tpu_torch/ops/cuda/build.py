@@ -1,0 +1,99 @@
+"""Build and load the port's hand-written CUDA kernels (boda_tpu_torch/csrc).
+
+At first use, every `csrc/*.cu` is compiled by `nvcc` for sm_90a into one
+shared library with a plain C interface, under `build/torch_kernels/` of
+the checkout, named by a hash of the sources and flags; a later process
+with the same sources loads the existing library. The library is bound
+with ctypes: every entry point gets explicit `argtypes`, with `c_void_p`
+for pointers and the stream (a bare Python int would be cut to 32 bits).
+
+No PyTorch header is compiled, so a build takes seconds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+from boda_tpu.core.error import RtErr
+
+from ...core.device import nvcc_path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point -> argtypes (all return the launch's cudaGetLastError())
+ENTRY_POINTS = {
+    # A, B, bias, C, M, N, K, in_bf16, out_bf16, relu, stream
+    "boda_matmul_ext": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, w, bias, out, n, H, W, C, oc, ky, kx, py, px, in_bf16, out_bf16,
+    # relu, stream
+    "boda_tconv": [_P, _P, _P, _P] + [_I] * 12 + [_P],
+}
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libboda_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build_library() -> tuple[Path, float, str]:
+    """Compile the kernels if this source hash has no library yet.
+
+    Returns (library path, seconds spent compiling, compiler log). The
+    library is written to a temporary name and renamed into place, so a
+    concurrent process never loads a half-written file."""
+    lib = library_path()
+    if lib.exists():
+        return lib, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RtErr(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    os.replace(tmp, lib)
+    return lib, secs, log
+
+
+@functools.lru_cache(maxsize=1)
+def load_kernels() -> ctypes.CDLL:
+    """The kernel library of this checkout, built at first use and loaded
+    once per process."""
+    path, _secs, _log = build_library()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in ENTRY_POINTS.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_launch(rc: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error code (a refused launch never
+    runs, and only cudaGetLastError reports it)."""
+    if rc != 0:
+        raise RtErr(f"{what}: kernel launch failed with cudaError {rc}")

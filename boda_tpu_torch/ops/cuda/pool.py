@@ -1,0 +1,69 @@
+"""The `pool` template (forward): max and average pooling, caffe semantics.
+
+Port of boda_tpu/ops/pallas/pool.py, which computes pooling outside Pallas
+too. Caffe's ceil-mode output size can put a last window partly outside
+the padded input; torch's own ceil_mode drops a window that would start
+in the right-hand padding, so the input is padded explicitly instead (with
+-inf for max, 0 for sums) and the valid windows are cropped to (oy, ox).
+Average pooling divides by caffe's clipped window count, and under NHWC
+storage it sums in f32 and returns the edge dtype (pool.py:165-213).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from boda_tpu.ops.op_base import OpBase
+from boda_tpu.ops.pallas import pool as jpool
+
+from ..registry import template
+
+
+@template
+class Pool(jpool.Pool):
+    """Max / average pooling over NCHW or NHWC storage tensors. The
+    pool_bwd and (non-storage) layout keys change only the JAX program's
+    backward and transposes, not forward values, so they are not read."""
+
+    @classmethod
+    def build(cls, rfs: OpBase):
+        ind, outd, ky, kx, sy, sx, py, px, avg = jpool._params(rfs)
+        oy, ox = outd["y"], outd["x"]
+        extra_y = max(0, (oy - 1) * sy + ky - (ind["y"] + 2 * py))
+        extra_x = max(0, (ox - 1) * sx + kx - (ind["x"] + 2 * px))
+        pads = (px, px + extra_x, py, py + extra_y)
+        nhwc = rfs.str_vals.get("io_layout") == "nhwc"
+        if avg:
+            # caffe divisor: the window clipped to the padded image at the
+            # high edge only
+            H, W = ind["y"], ind["x"]
+            cy = np.array([min(y * sy - py + ky, H + py) - (y * sy - py)
+                           for y in range(oy)])
+            cx = np.array([min(x * sx - px + kx, W + px) - (x * sx - px)
+                           for x in range(ox)])
+            cnt_np = np.maximum(cy[:, None] * cx[None, :], 1).astype(np.float32)
+            cnt_by_dev: dict = {}
+
+        def pool_nchw(x):
+            if avg:
+                cnt = cnt_by_dev.get(x.device)
+                if cnt is None:
+                    cnt = cnt_by_dev[x.device] = torch.from_numpy(cnt_np).to(
+                        x.device)
+                s = F.avg_pool2d(F.pad(x, pads), (ky, kx), (sy, sx),
+                                 divisor_override=1)
+                return s[:, :, :oy, :ox] / cnt
+            m = F.max_pool2d(F.pad(x, pads, value=float("-inf")), (ky, kx),
+                             (sy, sx))
+            return m[:, :, :oy, :ox]
+
+        if not nhwc:
+            return pool_nchw
+
+        def pool_nhwc(xh):
+            x = xh.permute(0, 3, 1, 2)
+            y = pool_nchw(x.float()).to(xh.dtype) if avg else pool_nchw(x)
+            return y.permute(0, 2, 3, 1).contiguous()
+        return pool_nhwc

@@ -1,0 +1,102 @@
+"""matmul_ext (kernel B1) and the `sgemm` template.
+
+Port of boda_tpu/ops/pallas/sgemm.py. `matmul_ext` wraps the hand-written
+CUDA kernel in csrc/sgemm.cu (see its header for what bounds it and how it
+is built); `matmul_ext_plain` is the same function in plain PyTorch. The
+wrapper checks its operands, then runs the plain version for CPU tensors
+and the kernel for CUDA tensors.
+
+Differences from the Pallas version, by design: B arrives as (N, K), the
+natural layout of a conv filter, and ragged edges are masked in the kernel
+instead of padding A, B and bias in device memory (sgemm.py:184-197).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from boda_tpu.core.error import RtErr
+from boda_tpu.ops.op_base import OpBase
+from boda_tpu.ops.pallas import sgemm as jsgemm
+
+from ..registry import template
+from .build import check_launch, load_kernels
+from .util import check_operand, full_fp32, torch_dtype, use_kernel
+
+
+def _check(a, b, bias, out_dtype):
+    check_operand(a, "matmul_ext a", 2)
+    check_operand(b, "matmul_ext b", 2)
+    if b.dtype != a.dtype:
+        raise RtErr(f"matmul_ext: a is {a.dtype} but b is {b.dtype}")
+    (M, K), (N, Kb) = a.shape, b.shape
+    if Kb != K:
+        raise RtErr(f"matmul_ext: a {tuple(a.shape)} and b (N,K) "
+                    f"{tuple(b.shape)} disagree on K")
+    if min(M, N, K) < 1:
+        raise RtErr(f"matmul_ext: empty product M={M} N={N} K={K}")
+    if max(M, N, K) >= 2 ** 31:
+        raise RtErr(f"matmul_ext: extent over int32 (M={M} N={N} K={K})")
+    if bias is not None:
+        check_operand(bias, "matmul_ext bias", 1, (torch.float32,))
+        if bias.shape[0] != N:
+            raise RtErr(f"matmul_ext: bias length {bias.shape[0]} != N={N}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise RtErr(f"matmul_ext: output dtype {out_dtype} not f32/bf16")
+
+
+def matmul_ext_plain(a, b, bias=None, relu=False, out_dtype=torch.float32):
+    """Plain PyTorch matmul_ext: f32 matmul of the f32-cast operands (full
+    FP32 on a card), + bias in f32, ReLU, one cast to out_dtype."""
+    with full_fp32():
+        c = torch.matmul(a.float(), b.float().t())
+    if bias is not None:
+        c = c + bias
+    if relu:
+        c = torch.relu(c)
+    return c.to(out_dtype)
+
+
+def matmul_ext(a, b, bias=None, relu=False, out_dtype=torch.float32):
+    """C[M,N] = relu?(a[M,K] . b[N,K]^T + bias[N]) accumulated in f32.
+
+    a and b: contiguous, both f32 or both bf16. bias: contiguous f32 [N] or
+    None. Returns a new [M,N] tensor of out_dtype (f32 or bf16).
+
+    On CUDA tensors the launch is asynchronous on the current stream; an
+    input freed after the call is reused only in that stream's order by
+    torch's caching allocator, so no synchronisation is needed."""
+    _check(a, b, bias, out_dtype)
+    if not use_kernel(a, b, bias):
+        return matmul_ext_plain(a, b, bias, relu, out_dtype)
+    (M, K), N = a.shape, b.shape[0]
+    c = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    rc = load_kernels().boda_matmul_ext(
+        a.data_ptr(), b.data_ptr(),
+        bias.data_ptr() if bias is not None else None, c.data_ptr(),
+        M, N, K, int(a.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), int(bool(relu)),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    check_launch(rc, "matmul_ext")
+    matmul_ext.launches += 1
+    return c
+
+
+matmul_ext.launches = 0
+
+
+@template
+class Sgemm(jsgemm.Sgemm):
+    """c[M,N] = a[M,K] . b[K,N] on kernel B1 (JAX: Pallas sgemm)."""
+
+    @classmethod
+    def build(cls, rfs: OpBase):
+        in_dt = torch.bfloat16 if rfs.str_vals.get("prec") == "bf16" \
+            else torch_dtype(rfs.get_dims("a").dtype)
+        out_dt = torch_dtype(rfs.get_dims("c").dtype)
+
+        def fn(a, b):
+            # the sig's b is (K, N); the kernel takes (N, K)
+            return matmul_ext(a.to(in_dt).contiguous(),
+                              b.to(in_dt).t().contiguous(), out_dtype=out_dt)
+        return fn

@@ -1,0 +1,68 @@
+"""The port never imports jax: the machine with the card has none.
+
+In a fresh interpreter an import hook refuses jax and jaxlib; the port is
+imported, mini is built, lowered and run on the CPU through make_engine
+and through the CLI entry point (python -m boda_tpu_torch run_cnet), and
+chip_smoke.py's imports are exercised too.
+"""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+BLOCK_JAX = """
+import sys
+
+class _NoJax:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib"):
+            raise ImportError(f"import of {name} refused: the port runs "
+                              "without jax")
+        return None
+
+sys.meta_path.insert(0, _NoJax())
+"""
+
+RUN_MINI = BLOCK_JAX + """
+import runpy
+import boda_tpu_torch.engine.torch_fwd  # registers engine=torch
+from boda_tpu.core.dims import NDA
+from boda_tpu.engine.iface import make_engine
+from boda_tpu.models.zoo import build_model
+from boda_tpu.ops.pallas.gen_data import gen_test_nda
+import chip_smoke  # noqa: F401
+
+pipe = build_model("mini", batch=2)
+eng = make_engine("(engine=torch,device=cpu,op_tune=(prec=bf16,layout=nhwc))")
+eng.init(pipe)
+d = pipe.get_data_img_dims()
+out = eng.run_fwd({"data": NDA(d, gen_test_nda(d, 0, 0.1))}, ["prob"])
+assert out["prob"].v.shape == (2, 10, 1, 1)
+sys.argv = ["boda_tpu_torch", "run_cnet", "--model=mini",
+            "--conv_fwd=(engine=torch,device=cpu)"]
+try:
+    runpy.run_module("boda_tpu_torch", run_name="__main__")
+except SystemExit as e:
+    assert e.code in (0, None), e.code
+assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+print("NOJAX_OK")
+"""
+
+
+def test_port_runs_without_jax():
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    r = subprocess.run([sys.executable, "-c", RUN_MINI], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    assert "run_cnet: out node 'prob'" in r.stdout
+    assert "NOJAX_OK" in r.stdout
+
+
+def test_import_hook_refuses_jax():
+    # the hook itself works: a direct import of jax fails under it
+    r = subprocess.run([sys.executable, "-c", BLOCK_JAX + "import jax"],
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and "refused" in r.stderr
