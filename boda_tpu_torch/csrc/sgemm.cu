@@ -27,25 +27,13 @@ using boda::kBM;
 using boda::kBN;
 using boda::kThreads;
 
-// Rows of a row-major [rows, K] matrix, four consecutive k per call.
-template <typename TIn>
-struct RowMajorLoader {
-  const TIn* __restrict__ X;
-  int rows;
-  int K;
-  __device__ __forceinline__ void operator()(int r, int k, float v[4]) const {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      v[j] = (r < rows && k + j < K) ? boda::to_f32(X[(size_t)r * K + k + j]) : 0.f;
-  }
-};
-
 template <typename TIn, typename TOut>
 __global__ void __launch_bounds__(kThreads)
     matmul_ext_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
                       const float* __restrict__ bias, TOut* __restrict__ C, int M,
                       int N, int K, int relu) {
-  boda::gemm_tile<TOut>(RowMajorLoader<TIn>{A, M, K}, RowMajorLoader<TIn>{B, N, K},
+  boda::gemm_tile<TOut>(boda::RowMajorLoader<TIn>{A, M, K},
+                        boda::RowMajorLoader<TIn>{B, N, K},
                         bias, C, M, N, K, relu);
 }
 

@@ -66,6 +66,18 @@ def _storage_out(v: torch.Tensor, dims: Dims, plan: Plan) -> torch.Tensor:
     return v.to(torch_dtype(dims.dtype)).contiguous()
 
 
+def produced_nodes(plan: Plan) -> set[str]:
+    """The nodes a forward of `plan` can return: its inputs and every node a
+    step writes. A fused step (fused_stem, resblock) writes only its last
+    member's output, so the interior nodes of the fused ops are not here."""
+    out = set(plan.input_nodes)
+    for s in plan.steps:
+        tmpl = get_template(s.func_name)
+        out.update(node for an, node in s.arg_nodes.items()
+                   if an in tmpl.out_args() + tmpl.io_args())
+    return out
+
+
 def build_forward(plan: Plan, device: torch.device,
                   keep_all_nodes: bool = False):
     """The whole-net function fwd(inputs, weights, out_nodes=()) -> dict,
@@ -167,6 +179,7 @@ class TorchFwd(ConvFwd):
                                    fused_storage=self.fuse)
             self.fwd = build_forward(self.plan, self.dev,
                                      keep_all_nodes=self.keep_all_nodes)
+            self._produced = produced_nodes(self.plan)
             self.weights = weights_to_torch(self.plan, pipe.op_params,
                                             self.dev)
             if self.force_zero_bias:
@@ -176,10 +189,16 @@ class TorchFwd(ConvFwd):
 
     def run_fwd(self, to_set: dict[str, NDA],
                 to_get: list[str]) -> dict[str, NDA]:
+        want = [n for n in to_get if n not in self.weights]
+        # checked before the forward runs, with the JAX engine's message
+        # (rtc_fwd.py:482-499)
+        bad = [n for n in want if n not in self._produced]
+        if bad:
+            raise RtErr(f"run_fwd: node(s) {bad} are not produced by any "
+                        f"step (eliminated by fusion?)")
         with timer("run_fwd"):
             inputs = {n: torch.from_numpy(np.ascontiguousarray(v.v)).to(self.dev)
                       for n, v in to_set.items()}
-            want = [n for n in to_get if n not in self.weights]
             with torch.no_grad():
                 outs = self.fwd(inputs, self.weights, out_nodes=want)
             return {n: NDA(self.plan.node_dims[n],

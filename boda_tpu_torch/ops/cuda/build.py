@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels (boda_tpu_torch/csrc).
 
-At first use, every `csrc/*.cu` is compiled by `nvcc` for sm_90a into one
-shared library with a plain C interface, under `build/torch_kernels/` of
-the checkout, named by a hash of the sources and flags; a later process
-with the same sources loads the existing library. The library is bound
+At first use, every `csrc/*.cu` is compiled by its own `nvcc` for sm_90a,
+all started together, and the objects are linked into one shared library
+with a plain C interface, under `build/torch_kernels/` of the checkout,
+named by a hash of the sources and flags; a later process with the same
+sources loads the existing library. The library is bound
 with ctypes: every entry point gets explicit `argtypes`, with `c_void_p`
 for pointers and the stream (a bare Python int would be cut to 32 bits).
 
@@ -27,8 +28,9 @@ from ...core.device import nvcc_path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +41,12 @@ ENTRY_POINTS = {
     # x, w, bias, out, n, H, W, C, oc, ky, kx, py, px, in_bf16, out_bf16,
     # relu, stream
     "boda_tconv": [_P, _P, _P, _P] + [_I] * 12 + [_P],
+    # x, w, bias, out, n, H, W, C, oc, ky, kx, sy, sx, py, px, pky, pkx, psy,
+    # psx, oy, ox, ty, tx, in_bf16, out_bf16, relu, stream
+    "boda_fused_stem": [_P, _P, _P, _P] + [_I] * 22 + [_P],
+    # x, w1, b1, w2, b2, w3, b3, out, n, H, W, C, Cm, ty, bm, in_bf16,
+    # out_bf16, relu_out, stream
+    "boda_resblock": [_P] * 8 + [_I] * 10 + [_P],
 }
 
 
@@ -54,8 +62,23 @@ def library_path() -> Path:
     return BUILD_DIR / f"libboda_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands side by side; return their output, or raise with
+    the output of each one that failed once all have ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [f"{' '.join(c)} -> {p.returncode}\n{o}"
+              for c, p, o in zip(cmds, procs, outs) if p.returncode != 0]
+    if failed:
+        raise RtErr("nvcc failed:\n" + "\n".join(failed))
+    return "".join(outs)
+
+
 def build_library() -> tuple[Path, float, str]:
-    """Compile the kernels if this source hash has no library yet.
+    """Compile the kernels if this source hash has no library yet: one
+    nvcc per source, all at once, then one link.
 
     Returns (library path, seconds spent compiling, compiler log). The
     library is written to a temporary name and renamed into place, so a
@@ -64,19 +87,17 @@ def build_library() -> tuple[Path, float, str]:
     if lib.exists():
         return lib, 0.0, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RtErr(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    os.replace(tmp, lib)
-    return lib, secs, log
+    srcs = sorted(CSRC.glob("*.cu"))
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [str(Path(tmpdir) / f"{p.stem}.o") for p in srcs]
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(p)]
+                        for o, p in zip(objs, srcs)])
+        tmp = str(Path(tmpdir) / lib.name)
+        log += _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, lib)
+    return lib, time.perf_counter() - t0, log
 
 
 @functools.lru_cache(maxsize=1)

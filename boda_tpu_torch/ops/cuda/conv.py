@@ -1,15 +1,18 @@
-"""Convolution templates on kernel B1: k1conv, conv, ipconv; and s2d_conv.
+"""Convolution templates on kernel B1: k1conv, conv, ipconv; and the
+vendor convs xla_conv and s2d_conv.
 
-Port of boda_tpu/ops/pallas/conv.py (K1Conv, Conv, IpConv, S2dConv). The
-three matmul variants reshape or im2col their input with plain torch ops
-and run the product, bias and ReLU on `matmul_ext` (kernel B1), with the
-bias added in f32 as build_matmul_ext does. Each takes and returns NCHW
-tensors, or NHWC storage tensors in the edge dtype when the plan's
-fused-storage pass marked the step io_layout=nhwc.
+Port of boda_tpu/ops/pallas/conv.py (K1Conv, Conv, IpConv, XlaConv,
+S2dConv). The three matmul variants reshape or im2col their input with
+plain torch ops and run the product, bias and ReLU on `matmul_ext`
+(kernel B1), with the bias added in f32 as build_matmul_ext does. Each
+template takes and returns NCHW tensors, or NHWC storage tensors in the
+edge dtype when the plan's fused-storage pass marked the step
+io_layout=nhwc.
 
-S2dConv is a vendor role in the JAX package (an XLA conv over a 2x2
-phase-stacked input). Here it is F.conv2d at stride 2 in full FP32: the
-phase stacking only re-indexes the same arithmetic, so it is dropped.
+XlaConv and S2dConv are vendor roles in the JAX package (XLA convs, the
+latter over a 2x2 phase-stacked input). Here both are F.conv2d on cuDNN in
+full FP32; the phase stacking only re-indexes the same arithmetic, so it
+is dropped.
 """
 
 from __future__ import annotations
@@ -119,32 +122,56 @@ class IpConv(jconv.IpConv):
         return fn
 
 
+def _cudnn_conv(rfs: OpBase):
+    """A vendor conv step as F.conv2d (cuDNN) in full FP32 on the
+    compute-dtype-rounded operands, + f32 bias, ReLU and one rounding to
+    the stored dtype: the f32-output XLA conv of the JAX package
+    (conv.py:281-296, :334-379). Takes and returns NCHW, or NHWC storage
+    tensors when the plan's fused-storage pass marked the step."""
+    ind, outd, fd, sy, sx, py, px, relu = conv_params(rfs)
+    io_nhwc, _ = storage_io(rfs)
+    cdt, odt = compute_dtype(rfs), store_dtype(rfs)
+
+    def fn(x, w, b=None):
+        xc = x.to(cdt).float()
+        if io_nhwc:
+            xc = xc.permute(0, 3, 1, 2)
+        with full_fp32():
+            y = F.conv2d(xc, w.to(cdt).float(), stride=(sy, sx),
+                         padding=(py, px))
+        if b is not None:
+            y = y + b.float()[None, :, None, None]
+        if relu:
+            y = torch.relu(y)
+        y = y.to(odt)
+        return y.permute(0, 2, 3, 1).contiguous() if io_nhwc else y
+    return fn
+
+
+@template
+class XlaConv(jconv.XlaConv):
+    """The vendor conv (cuDNN's role; XLA's in the JAX package,
+    conv.py:128-296), non-quantised: NCHW or storage NHWC, f32 or bf16
+    operands, bias and ReLU. The int8 forms are refused."""
+
+    @classmethod
+    def build(cls, rfs: OpBase):
+        for k in ("quant8", "in_q8", "out_q8", "grad_q8"):
+            if rfs.get_u32_or(k, 0):
+                raise RtErr(f"xla_conv: the int8 form ({k}=1) is not ported "
+                            f"to torch yet (ROADMAP A6)")
+        return _cudnn_conv(rfs)
+
+
 @template
 class S2dConv(jconv.S2dConv):
-    """The thin-channel stride-2 stem conv (ResNet conv1: 7x7/s2, C=3) as
-    F.conv2d in full FP32 on the compute-dtype-rounded operands, + f32 bias,
-    ReLU and one rounding to the stored dtype, as the JAX path's f32-output
-    conv does (conv.py:334-379)."""
+    """The thin-channel stride-2 stem conv (ResNet conv1: 7x7/s2, C=3) on
+    cuDNN as a plain stride-2 conv: the JAX package's 2x2 phase stacking
+    only re-indexes the same arithmetic, so it is dropped."""
 
     @classmethod
     def build(cls, rfs: OpBase):
         ind, outd, fd, sy, sx, py, px, relu = conv_params(rfs)
         if (sy, sx) != (2, 2):
             raise RtErr(f"s2d_conv: needs stride 2, got ({sy}, {sx})")
-        io_nhwc, _ = storage_io(rfs)
-        cdt, odt = compute_dtype(rfs), store_dtype(rfs)
-
-        def fn(x, w, b=None):
-            xc = x.to(cdt).float()
-            if io_nhwc:
-                xc = xc.permute(0, 3, 1, 2)
-            with full_fp32():
-                y = F.conv2d(xc, w.to(cdt).float(), stride=(sy, sx),
-                             padding=(py, px))
-            if b is not None:
-                y = y + b.float()[None, :, None, None]
-            if relu:
-                y = torch.relu(y)
-            y = y.to(odt)
-            return y.permute(0, 2, 3, 1).contiguous() if io_nhwc else y
-        return fn
+        return _cudnn_conv(rfs)

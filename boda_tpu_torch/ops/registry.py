@@ -25,8 +25,8 @@ def template(cls: type[KernelTemplate]) -> type[KernelTemplate]:
 
 
 def _load_templates() -> None:
-    from .cuda import (conv, elementwise, pool, sgemm, softmax,  # noqa: F401
-                       tconv)
+    from .cuda import (conv, elementwise, pool, resblock,  # noqa: F401
+                       sgemm, softmax, stem, tconv)
 
 
 def all_templates() -> dict[str, type[KernelTemplate]]:

@@ -1,35 +1,44 @@
 #!/usr/bin/env python3
 """Smoke test of the boda_tpu_torch port on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases env,build,kernels,...]
 
-Phases, run in order, each fatal on failure:
+Phases, run in order, each fatal on failure (all of them by default):
   env      card name and power limit (nvidia-smi), torch / CUDA / nvcc versions
   build    nvcc builds the hand-written kernels (boda_tpu_torch/csrc) for sm_90a
-  kernels  each kernel against its plain PyTorch version at ResNet-50 shapes
-           (timed with CUDA events) and at ragged edge shapes, f32 (mrd <=
-           1e-4) and bf16 (mrd <= 5e-3)
-  digests  TorchFwd at batch 1 against the per-node digest archives recorded
-           on a TPU (tests/data/tpu_digests): resnet-50@shapes40 (trained
-           weights, mrd 3e-3) and resnet-50 (zoo weights, mrd 8e-3)
+  kernels  each kernel against its plain PyTorch version at the ResNet-50
+           shapes of its path (timed with CUDA events) and at ragged edge
+           shapes, f32 (mrd <= 1e-4) and bf16 (mrd <= 5e-3); the fused_stem
+           template's NCHW f32 and NHWC-storage bf16 forms against the bare
+           kernel
+  digests  TorchFwd at batch 1 under the f32 tune and the fused f32 tune
+           against the per-node digest archives recorded on a TPU
+           (tests/data/tpu_digests): resnet-50@shapes40 (trained weights,
+           mrd 3e-3) and resnet-50 (zoo weights, mrd 8e-3); a fused plan is
+           compared on the nodes it produces
   agree    cls_agree on 64 held-out shapes-src images with the trained
-           40-class ResNet-50: bf16+NHWC tune vs f32 tune, top-1 >= 0.90
-           each and top-1 agreement >= 0.97
-  full     run_cnet on the 1000-class ResNet-50 at batch 32 under both
-           tunes: kernel launch counts per forward (40 matmul_ext, 13
-           tconv), finite softmax rows, ms per forward and imgs/s
+           40-class ResNet-50, against the f32 tune: the bf16+NHWC tune and
+           the fused bf16+NHWC tune, top-1 >= 0.90 each and top-1 agreement
+           >= 0.97
+  full     run_cnet on the 1000-class ResNet-50 at batch 32 under the four
+           tunes: kernel launch counts per forward (unfused: 40 matmul_ext,
+           13 tconv; fused: 14 matmul_ext, 3 tconv, 1 fused_stem, 12
+           resblock), finite softmax rows, ms per forward and imgs/s
 
-A run that passes ends with three lines: the nvidia-smi name and power
-limit; a JSON object with one entry per kernel ("launches": launches in
-the f32 run_cnet forward, "launches_bf16_nhwc": in the bf16 one, "ms" and
-"plain_ms": summed over the timed shapes, "max_abs_err": over every
-checked shape) and the b32 forward times; and {"ok": true, "device":
-{...}}. Without a CUDA device, or outside a checkout of the repo, it
-exits non-zero and prints no result. It never imports jax.
+A run of every phase that passes ends with three lines: the nvidia-smi name
+and power limit; a JSON object with one entry per kernel ("launches":
+launches in one forward of that kernel's own main path, the f32 tune for
+matmul_ext and tconv and the fused f32 tune for fused_stem and resblock;
+"launches_by_tune": in each tune's forward; "ms" and "plain_ms": summed
+over the timed shapes; "max_abs_err": over every checked shape) and the b32
+forward times; and {"ok": true, "device": {...}}. Without a CUDA device, or
+outside a checkout of the repo, it exits non-zero and prints no result. It
+never imports jax.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import json
@@ -43,8 +52,31 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 DATA = ROOT / "tests" / "data"
 TRAINED = DATA / "resnet50-shapes40.boda"
-# the tunes of the main path: the engine default and the bf16 NHWC-storage one
-TUNES = {"f32": "()", "bf16_nhwc": "(prec=bf16,layout=nhwc)"}
+# the tunes of the main paths: the engine default, the bf16 NHWC-storage
+# tune, and both with the stem and the identity bottlenecks fused
+FUSED = "fuse_stem=1,fuse_resblock=1"
+TUNES = {"f32": "()", "bf16_nhwc": "(prec=bf16,layout=nhwc)",
+         "fused_f32": f"({FUSED})",
+         "fused_bf16_nhwc": f"(prec=bf16,layout=nhwc,{FUSED})"}
+# exact kernel launches per ResNet-50 forward under each tune
+UNFUSED_LAUNCHES = {"matmul_ext": 40, "tconv": 13, "fused_stem": 0,
+                    "resblock": 0}
+FUSED_LAUNCHES = {"matmul_ext": 14, "tconv": 3, "fused_stem": 1,
+                  "resblock": 12}
+LAUNCHES = {"f32": UNFUSED_LAUNCHES, "bf16_nhwc": UNFUSED_LAUNCHES,
+            "fused_f32": FUSED_LAUNCHES, "fused_bf16_nhwc": FUSED_LAUNCHES}
+# the tune whose forward is each kernel's own main path
+KERNEL_PATH = {"matmul_ext": "f32", "tconv": "f32",
+               "fused_stem": "fused_f32", "resblock": "fused_f32"}
+SOURCES = {
+    "matmul_ext": ("boda_tpu_torch/csrc/sgemm.cu",
+                   "boda_tpu/ops/pallas/sgemm.py:114"),
+    "tconv": ("boda_tpu_torch/csrc/tconv.cu", "boda_tpu/ops/pallas/tconv.py:62"),
+    "fused_stem": ("boda_tpu_torch/csrc/stem.cu",
+                   "boda_tpu/ops/pallas/stem.py:57"),
+    "resblock": ("boda_tpu_torch/csrc/resblock.cu",
+                 "boda_tpu/ops/pallas/resblock.py:31"),
+}
 F32_MRD, BF16_MRD = 1e-4, 5e-3
 
 
@@ -93,7 +125,6 @@ def mrd(got, want) -> float:
 def phase_env(ctx: dict) -> None:
     import torch
     from boda_tpu_torch.core.device import nvcc_path
-    ctx["smi"] = smi_line()
     print(f"nvidia-smi: {ctx['smi']}")
     nvcc = nvcc_path()
     ver = subprocess.run([nvcc, "--version"], capture_output=True, text=True,
@@ -115,8 +146,8 @@ def phase_build(ctx: dict) -> None:
 
 
 def _kernel_cases():
-    """(name, kernel, fn kwargs builder) at the shapes the ResNet-50 main
-    path gives each kernel. Inputs are made on the card from a seed."""
+    """(label, kernel, shape) at the shapes the ResNet-50 main paths give
+    each kernel. Inputs are made on the card from a seed."""
     return [
         # res2a_branch2a: 1x1 64->64 at b32, 56^2 (k1conv)
         ("res2a_branch2a 1x1 M=100352 K=64 N=64", "matmul_ext",
@@ -134,12 +165,26 @@ def _kernel_cases():
         # a res5 3x3 at batch 1: C=oc=512 at 7^2 (mostly empty tiles)
         ("res5 3x3 n=1 7^2 C=512", "tconv",
          dict(n=1, H=7, W=7, C=512, oc=512, relu=True)),
+        # conv1 7x7/s2/p3 + pool1 3x3/s2 ceil at b32: 224^2 -> 56^2
+        ("conv1+pool1 n=32 224^2 3->64", "fused_stem",
+         dict(n=32, H=224, W=224, C=3, oc=64)),
+        # the fused identity bottlenecks at b32, and res5 at batch 1
+        ("res2b n=32 56^2 C=256 Cm=64", "resblock",
+         dict(n=32, H=56, W=56, C=256, Cm=64)),
+        ("res4b n=32 14^2 C=1024 Cm=256", "resblock",
+         dict(n=32, H=14, W=14, C=1024, Cm=256)),
+        ("res5b n=32 7^2 C=2048 Cm=512", "resblock",
+         dict(n=32, H=7, W=7, C=2048, Cm=512)),
+        ("res5b n=1 7^2 C=2048 Cm=512", "resblock",
+         dict(n=1, H=7, W=7, C=2048, Cm=512)),
     ]
 
 
 def _edge_cases():
     """Ragged shapes the ResNet-50 path never gives the kernels (K and C
-    not multiples of 4 or of a tile, a 5x5 filter): checked, not timed."""
+    not multiples of 4 or of a tile, a 5x5 filter, a stem whose pool
+    windows run past the conv output, bands that do not divide H): checked,
+    not timed."""
     return [
         ("edge M=77 K=50 N=33", "matmul_ext", dict(M=77, K=50, N=33, relu=True)),
         ("edge M=1 K=3 N=1", "matmul_ext", dict(M=1, K=3, N=1, relu=False)),
@@ -147,76 +192,134 @@ def _edge_cases():
          dict(n=2, H=5, W=9, C=13, oc=70, k=5, pad=2, relu=False)),
         ("edge 1x1 n=1 3x3 C=6 oc=5", "tconv",
          dict(n=1, H=3, W=3, C=6, oc=5, k=1, pad=0, relu=True)),
+        # tests/test_stem.py:53-54
+        ("edge stem n=2 48x40 oc=8 no bias", "fused_stem",
+         dict(n=2, H=48, W=40, C=3, oc=8, bias=False)),
+        ("edge stem n=1 58^2 oc=16", "fused_stem",
+         dict(n=1, H=58, W=58, C=3, oc=16)),
+        # tests/test_resblock.py:150-151, and one without the output ReLU
+        ("edge resblock n=1 10^2 C=16 Cm=8", "resblock",
+         dict(n=1, H=10, W=10, C=16, Cm=8)),
+        ("edge resblock n=2 9x7 C=32 Cm=8", "resblock",
+         dict(n=2, H=9, W=7, C=32, Cm=8)),
+        ("edge resblock relu_out=0 n=2 5x6 C=12 Cm=5", "resblock",
+         dict(n=2, H=5, W=6, C=12, Cm=5, relu_out=False)),
     ]
+
+
+def _kernel_args(kname, kw, dt, dev, gen):
+    """(kernel call, plain call in dt, plain call in f32) on seeded inputs
+    of one case. The f32 plain result is what a bf16 output is held
+    against: the kernel's one rounding to bf16 then costs at most half an
+    ulp, 2^-8 of the largest value."""
+    import torch
+    from boda_tpu_torch.ops.cuda.resblock import resblock, resblock_plain
+    from boda_tpu_torch.ops.cuda.sgemm import matmul_ext, matmul_ext_plain
+    from boda_tpu_torch.ops.cuda.stem import fused_stem, fused_stem_plain
+    from boda_tpu_torch.ops.cuda.tconv import tconv, tconv_plain
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen) * scale).to(dt)
+
+    if kname == "matmul_ext":
+        M, K, N = kw["M"], kw["K"], kw["N"]
+        args = (randn(M, K), randn(N, K, scale=K ** -0.5),
+                torch.randn(N, device=dev, generator=gen), kw["relu"])
+        fns, plain = matmul_ext, matmul_ext_plain
+    elif kname == "tconv":
+        n, H, W, C, oc = kw["n"], kw["H"], kw["W"], kw["C"], kw["oc"]
+        k, pad = kw.get("k", 3), kw.get("pad", 1)
+        args = (randn(n, H, W, C), randn(oc, C, k, k, scale=(k * k * C) ** -0.5),
+                torch.randn(oc, device=dev, generator=gen), (pad, pad),
+                kw["relu"])
+        fns, plain = tconv, tconv_plain
+    elif kname == "fused_stem":
+        n, H, W, C, oc = kw["n"], kw["H"], kw["W"], kw["C"], kw["oc"]
+        bias = torch.randn(oc, device=dev, generator=gen) \
+            if kw.get("bias", True) else None
+        args = (randn(n, H, W, C), randn(oc, C, 7, 7, scale=(49 * C) ** -0.5),
+                bias, (3, 3), ((3, 3), (2, 2)), True)
+        fns, plain = fused_stem, fused_stem_plain
+    else:
+        n, H, W, C, Cm = kw["n"], kw["H"], kw["W"], kw["C"], kw["Cm"]
+        args = (randn(n, H, W, C), randn(Cm, C, scale=C ** -0.5),
+                randn(Cm, scale=0.1), randn(Cm, Cm, 3, 3, scale=(9 * Cm) ** -0.5),
+                randn(Cm, scale=0.1), randn(C, Cm, scale=Cm ** -0.5),
+                randn(C, scale=0.1), kw.get("relu_out", True))
+        fns, plain = resblock, resblock_plain
+    return (lambda: fns(*args, out_dtype=dt),
+            lambda: plain(*args, out_dtype=dt),
+            lambda: plain(*args)), args
+
+
+def _check_stem_template(args, dt, got) -> str:
+    """The fused_stem template in the form each main path runs it (f32:
+    NCHW in and out; bf16: NHWC bf16-edge storage) on the same operands
+    must give the bare kernel's output exactly."""
+    import torch
+    from boda_tpu.ops.pallas.stem import make_stem_op
+    from boda_tpu_torch.ops.registry import get_template
+    x, w, bias = args[:3]
+    n, H, W, C = x.shape
+    op = make_stem_op(n, C, H, W, w.shape[0], bias=bias is not None)
+    if dt == torch.bfloat16:
+        op.str_vals.update(prec="bf16", io_layout="nhwc", edge_prec="bf16")
+    t = get_template("fused_stem")
+    fn = t.build(t.check_args(op))
+    targs = (x, w) + ((bias,) if bias is not None else ())
+    if dt == torch.bfloat16:
+        out, form = fn(*targs), "NHWC bf16 storage"
+    else:
+        out = fn(x.permute(0, 3, 1, 2).contiguous(), *targs[1:])
+        out, form = out.permute(0, 2, 3, 1), "NCHW f32"
+    check(torch.equal(out, got), f"fused_stem template ({form}) differs "
+                                 f"from the bare kernel")
+    return form
 
 
 def phase_kernels(ctx: dict) -> None:
     import torch
-    from boda_tpu_torch.ops.cuda.sgemm import matmul_ext, matmul_ext_plain
-    from boda_tpu_torch.ops.cuda.tconv import tconv, tconv_plain
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     stats: dict[str, dict] = {}
     timed = {c[0] for c in _kernel_cases()}
     for label, kname, kw in _kernel_cases() + _edge_cases():
         for dt in (torch.float32, torch.bfloat16):
-            if kname == "matmul_ext":
-                M, K, N = kw["M"], kw["K"], kw["N"]
-                a = torch.randn(M, K, device=dev, generator=gen).to(dt)
-                b = (torch.randn(N, K, device=dev, generator=gen)
-                     * K ** -0.5).to(dt)
-                bias = torch.randn(N, device=dev, generator=gen)
-                args = (a, b, bias, kw["relu"])
-                run_k = lambda: matmul_ext(*args, out_dtype=dt)  # noqa: E731
-                run_p = lambda: matmul_ext_plain(*args, out_dtype=dt)  # noqa: E731
-                ref = lambda: matmul_ext_plain(*args)  # noqa: E731
-                source, replaces = "boda_tpu_torch/csrc/sgemm.cu", \
-                    "boda_tpu/ops/pallas/sgemm.py:114"
-            else:
-                n, H, W, C, oc = kw["n"], kw["H"], kw["W"], kw["C"], kw["oc"]
-                k, pad = kw.get("k", 3), kw.get("pad", 1)
-                x = torch.randn(n, H, W, C, device=dev, generator=gen).to(dt)
-                w = (torch.randn(oc, C, k, k, device=dev, generator=gen)
-                     * (k * k * C) ** -0.5).to(dt)
-                bias = torch.randn(oc, device=dev, generator=gen)
-                args = (x, w, bias, (pad, pad), kw["relu"])
-                run_k = lambda: tconv(*args, out_dtype=dt)  # noqa: E731
-                run_p = lambda: tconv_plain(*args, out_dtype=dt)  # noqa: E731
-                ref = lambda: tconv_plain(*args)  # noqa: E731
-                source, replaces = "boda_tpu_torch/csrc/tconv.cu", \
-                    "boda_tpu/ops/pallas/tconv.py:62"
+            (run_k, run_p, ref), args = _kernel_args(kname, kw, dt, dev, gen)
             got = run_k()
             torch.cuda.synchronize()
-            # bf16 outputs are held against the plain version's f32 result
-            # (before its own rounding): the kernel's one rounding to bf16
-            # then costs at most half an ulp, 2^-8 of the largest value
             want = ref()
             err = mrd(got, want)
             abs_err = float((got.double() - want.double()).abs().max())
             check(bool(torch.isfinite(got.float()).all()),
                   f"{kname} {label} {dt}: non-finite output")
             toler = F32_MRD if dt == torch.float32 else BF16_MRD
-            print(f"kernel {kname:10s} {str(dt)[6:]:8s} {label:40s} "
+            print(f"kernel {kname:10s} {str(dt)[6:]:8s} {label:44s} "
                   f"mrd={err:.3e} (<= {toler:g}) max_abs={abs_err:.3e}",
                   end="")
             check(err <= toler, f"{kname} {label} {dt}: mrd {err:.3e} > "
                                 f"{toler:g}")
-            if label not in timed:
-                print()
-                continue
-            ms = cuda_ms(run_k, 20)
-            plain_ms = cuda_ms(run_p, 20)
-            print(f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
+            if kname == "fused_stem":
+                print(f" template {_check_stem_template(args, dt, got)} "
+                      f"exact", end="")
+            source, replaces = SOURCES[kname]
             s = stats.setdefault(kname, {
                 "name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "max_abs_err": 0.0, "max_mrd": 0.0,
                 "ms": 0.0, "plain_ms": 0.0, "cases": []})
             s["max_abs_err"] = max(s["max_abs_err"], abs_err)
             s["max_mrd"] = max(s["max_mrd"], err)
+            if label not in timed:
+                print()
+                continue
+            ms = cuda_ms(run_k, 20)
+            plain_ms = cuda_ms(run_p, 20)
+            print(f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
             s["ms"] += ms
             s["plain_ms"] += plain_ms
             s["cases"].append({"case": label, "dtype": str(dt)[6:],
                                "mrd": err, "ms": ms, "plain_ms": plain_ms})
+            del args, got, want
     ctx["kernels"] = stats
 
 
@@ -232,34 +335,48 @@ def phase_digests(ctx: dict) -> None:
     from boda_tpu.models.zoo import build_model
     from boda_tpu.ops.pallas.gen_data import gen_test_nda
     from boda_tpu.testing.comp import comp_digests, read_digest_stream
+    from boda_tpu_torch.engine.torch_fwd import produced_nodes
     for archive, kw, wfn, toler in (
             ("resnet-50@shapes40", {"num_classes": 40}, TRAINED, 3e-3),
             ("resnet-50", {}, None, 8e-3)):
-        t0 = time.perf_counter()
-        pipe = build_model("resnet-50", batch=1, **kw)
-        if wfn is not None:
-            load_weights_into_pipe(pipe, str(wfn))
-        eng = make_engine("(engine=torch,device=cuda,op_tune=(),"
-                          "keep_all_nodes=1)")
-        eng.init(pipe)
-        d = pipe.get_data_img_dims()
-        blob = NDA(d, gen_test_nda(d, 0, 0.1))
-        outs = eng.run_fwd({pipe.data_img_node_names[0]: blob},
-                           _nodes_to_get(pipe))
         kg = read_digest_stream(DATA / "tpu_digests" / archive /
                                 "digest-rtc.boda")
-        missing = [k for k in kg if k not in outs]
-        check(not missing, f"digests {archive}: nodes missing: {missing[:5]}")
-        errs = comp_digests(outs, kg, toler, ignore_missing=True)
-        print(f"digests {archive}: {len(kg)} nodes vs TPU archive, "
-              f"mrd toler {toler:g}: {len(errs)} mismatches "
-              f"({time.perf_counter() - t0:.1f} s)")
-        for e in errs[:10]:
-            print(f"  {e}")
-        check(not errs, f"digests {archive}: {len(errs)} mismatches")
+        for tune_name in ("f32", "fused_f32"):
+            t0 = time.perf_counter()
+            pipe = build_model("resnet-50", batch=1, **kw)
+            if wfn is not None:
+                load_weights_into_pipe(pipe, str(wfn))
+            eng = make_engine(f"(engine=torch,device=cuda,keep_all_nodes=1,"
+                              f"op_tune={TUNES[tune_name]})")
+            eng.init(pipe)
+            d = pipe.get_data_img_dims()
+            blob = NDA(d, gen_test_nda(d, 0, 0.1))
+            # a fused plan has no values for its fused ops' interior nodes
+            produced = produced_nodes(eng.plan)
+            outs = eng.run_fwd({pipe.data_img_node_names[0]: blob},
+                               [n for n in _nodes_to_get(pipe)
+                                if n in produced])
+            want = {k: v for k, v in kg.items() if k in produced}
+            missing = [k for k in want if k not in outs]
+            check(not missing, f"digests {archive} {tune_name}: nodes "
+                               f"missing: {missing[:5]}")
+            check(tune_name != "f32" or len(want) == len(kg),
+                  f"digests {archive}: the f32 plan lacks "
+                  f"{len(kg) - len(want)} archived nodes")
+            errs = comp_digests(outs, want, toler)
+            print(f"digests {archive} {tune_name}: {len(want)} of {len(kg)} "
+                  f"nodes vs TPU archive, mrd toler {toler:g}: {len(errs)} "
+                  f"mismatches ({time.perf_counter() - t0:.1f} s)")
+            for e in errs[:10]:
+                print(f"  {e}")
+            check(not errs, f"digests {archive} {tune_name}: {len(errs)} "
+                            f"mismatches")
+            del eng
 
 
-def phase_agree(ctx: dict) -> None:
+def _cls_agree(tune_a: str, tune_b: str) -> dict:
+    """cls_agree of engine=torch under two tunes on the 64 held-out images;
+    returns its statistics, checked against the accuracy gates."""
     from boda_tpu.core.has_main import create_and_run_has_main
     src = ("(mode=shapes-src,num_imgs=64,start_ix=100000,ysz=224,xsz=224,"
            "num_classes=40,seed=1,mean=128,scale=0.015625)")
@@ -269,42 +386,55 @@ def phase_agree(ctx: dict) -> None:
         create_and_run_has_main(
             f"(mode=cls_agree,model=resnet-50,model_opts=(num_classes=40),"
             f"batch=32,weights_fn={TRAINED},src={src},"
-            f"conv_fwd=(engine=torch,op_tune={TUNES['bf16_nhwc']}),"
-            f"conv_fwd_b=(engine=torch,op_tune={TUNES['f32']}))", {})
+            f"conv_fwd=(engine=torch,op_tune={TUNES[tune_a]}),"
+            f"conv_fwd_b=(engine=torch,op_tune={TUNES[tune_b]}))", {})
     out = buf.getvalue().strip()
-    print(f"cls_agree (a=bf16_nhwc, b=f32, {time.perf_counter() - t0:.1f} s):"
-          f" {out.splitlines()[-1] if out else '<no output>'}")
+    print(f"cls_agree (a={tune_a}, b={tune_b}, "
+          f"{time.perf_counter() - t0:.1f} s): "
+          f"{out.splitlines()[-1] if out else '<no output>'}")
     stats = {k: float(v) for k, v in re.findall(r"(\w+)=([0-9.]+)", out)}
     check(stats.get("num_test") == 64, f"cls_agree: num_test {stats}")
     check(stats["top_1_acc_a"] >= 0.90 and stats["top_1_acc_b"] >= 0.90,
-          f"cls_agree: top-1 below 0.90: {stats}")
-    check(stats["top_1_agree"] >= 0.97, f"cls_agree: agreement {stats}")
+          f"cls_agree {tune_a} vs {tune_b}: top-1 below 0.90: {stats}")
+    check(stats["top_1_agree"] >= 0.97,
+          f"cls_agree {tune_a} vs {tune_b}: agreement {stats}")
+    return stats
+
+
+def phase_agree(ctx: dict) -> None:
+    for tune_a in ("bf16_nhwc", "fused_bf16_nhwc"):
+        _cls_agree(tune_a, "f32")
 
 
 def phase_full(ctx: dict) -> None:
     import torch
     from boda_tpu.core.has_main import create_and_run_has_main
+    from boda_tpu_torch.ops.cuda.resblock import resblock
     from boda_tpu_torch.ops.cuda.sgemm import matmul_ext
+    from boda_tpu_torch.ops.cuda.stem import fused_stem
     from boda_tpu_torch.ops.cuda.tconv import tconv
+    wrappers = {"matmul_ext": matmul_ext, "tconv": tconv,
+                "fused_stem": fused_stem, "resblock": resblock}
     batch = 32
     launches = {}
     for tune_name, tune in TUNES.items():
         buf = io.StringIO()
-        matmul_ext.launches = tconv.launches = 0
+        for w in wrappers.values():
+            w.launches = 0
         with contextlib.redirect_stdout(buf):
             hm = create_and_run_has_main(
                 f"(mode=run_cnet,model=resnet-50,batch={batch},dump_top=1,"
                 f"conv_fwd=(engine=torch,op_tune={tune}))", {})
         torch.cuda.synchronize()
-        counts = {"matmul_ext": matmul_ext.launches, "tconv": tconv.launches}
+        counts = {k: w.launches for k, w in wrappers.items()}
         launches[tune_name] = counts
         dig = [ln for ln in buf.getvalue().splitlines()
                if ln.startswith("digest:")]
-        print(f"run_cnet resnet-50 b{batch} {tune_name}: launches {counts}; "
-              f"{dig[0] if dig else '<no digest line>'}")
-        check(counts == {"matmul_ext": 40, "tconv": 13},
-              f"run_cnet {tune_name}: launches {counts} != 40 matmul_ext, "
-              f"13 tconv")
+        print(f"run_cnet resnet-50 b{batch} {tune_name} {tune}: launches "
+              f"{counts}; {dig[0] if dig else '<no digest line>'}")
+        check(counts == LAUNCHES[tune_name],
+              f"run_cnet {tune_name}: launches {counts} != "
+              f"{LAUNCHES[tune_name]}")
         eng = hm.conv_fwd
         steps = {}
         for s in eng.plan.steps:
@@ -336,7 +466,19 @@ def phase_full(ctx: dict) -> None:
     ctx["launches"] = launches
 
 
+PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
+          "digests": phase_digests, "agree": phase_agree, "full": phase_full}
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases to run, in order (default: "
+                         "all; the result lines need all)")
+    phases = ap.parse_args().phases.split(",")
+    unknown = [p for p in phases if p not in PHASES]
+    if unknown:
+        ap.error(f"unknown phases {unknown} (have: {','.join(PHASES)})")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: no card, "
@@ -355,23 +497,25 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    ctx: dict = {}
-    for name, fn in (("env", phase_env), ("build", phase_build),
-                     ("kernels", phase_kernels), ("digests", phase_digests),
-                     ("agree", phase_agree), ("full", phase_full)):
+    ctx: dict = {"smi": smi_line()}
+    for name in phases:
         t0 = time.perf_counter()
         print(f"== phase {name}", flush=True)
-        fn(ctx)
+        PHASES[name](ctx)
         print(f"== phase {name} passed ({time.perf_counter() - t0:.1f} s)",
               flush=True)
     if "jax" in sys.modules:
         raise SmokeFailure("jax was imported")
+    if phases != list(PHASES):
+        print(f"chip_smoke: phases {phases} passed; no result without all "
+              f"of them")
+        return 0
 
     kernels = []
     for name, s in ctx["kernels"].items():
-        kernels.append({**s, "launches": ctx["launches"]["f32"][name],
-                        "launches_bf16_nhwc":
-                            ctx["launches"]["bf16_nhwc"][name]})
+        by_tune = {t: c[name] for t, c in ctx["launches"].items()}
+        kernels.append({**s, "launches": by_tune[KERNEL_PATH[name]],
+                        "launches_by_tune": by_tune})
     print(smi_line())
     print(json.dumps({"kernels": kernels,
                       "forward_ms_b32": ctx["fwd_ms"]}))

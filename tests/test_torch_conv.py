@@ -1,8 +1,8 @@
-"""The port's conv templates (k1conv, conv, ipconv on kernel B1; s2d_conv)
-against the JAX templates in fallback mode and against each template's
-float64 ref_impl, on the same seeded inputs, in each storage form the
-lowering gives them: NCHW f32, NHWC storage with f32 edges, and NHWC
-storage with bf16 edges under prec=bf16.
+"""The port's conv templates (k1conv, conv, ipconv on kernel B1; the
+vendor convs s2d_conv and xla_conv) against the JAX templates in fallback
+mode and against each template's float64 ref_impl, on the same seeded
+inputs, in each storage form the lowering gives them: NCHW f32, NHWC
+storage with f32 edges, and NHWC storage with bf16 edges under prec=bf16.
 
 Tolerances: f32 rtol = atol = 2e-5; bf16 mrd <= 5e-3 (the repo's bf16
 mrd_toler).
@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from boda_tpu.core.error import RtErr
 from boda_tpu.ops.pallas.conv import make_conv_op
 from boda_tpu.ops.registry import get_template as jax_template
 from boda_tpu.testing.comp import mrd
@@ -26,6 +27,9 @@ CONVS = {
     "conv-3x3-s2": (1, 16, 9, 9, 12, 3, 2, 1, "conv", False),
     "ipconv": (2, 8, 3, 3, 10, 3, 1, 0, "ipconv", False),
     "s2d_conv-7x7": (2, 3, 16, 16, 8, 7, 2, 3, "s2d_conv", True),
+    # the vendor conv of the use_culibs=1 tunes (cuDNN in the port)
+    "xla_conv-3x3-s1": (2, 16, 7, 7, 20, 3, 1, 1, "xla_conv", True),
+    "xla_conv-5x5-s2": (1, 6, 11, 9, 12, 5, 2, 2, "xla_conv", False),
 }
 # storage form -> (prec, io_layout, edge_prec)
 FORMS = {"nchw": ("", "", ""), "nhwc-f32": ("", "nhwc", ""),
@@ -100,3 +104,12 @@ def test_conv_templates_without_bias(monkeypatch):
     got = pt.build(rfs)(torch.from_numpy(x), torch.from_numpy(wts)).numpy()
     np.testing.assert_allclose(got, pt.ref_impl(rfs, x, wts), rtol=2e-5,
                                atol=2e-5)
+
+
+@pytest.mark.parametrize("key", ["quant8", "in_q8", "out_q8", "grad_q8"])
+def test_xla_conv_refuses_the_int8_forms(key):
+    op = _op("xla_conv-3x3-s1", "nchw")
+    op.set_u32(key, 1)
+    pt = get_template("xla_conv")
+    with pytest.raises(RtErr, match=f"int8 form \\({key}=1\\).*ROADMAP A6"):
+        pt.build(op)

@@ -1,7 +1,9 @@
 """The whole slice: TorchFwd (engine=torch) on the CPU against the JAX
-engine (engine=rtc, fallback mode) and against the per-node digests
-recorded on a TPU, plus weights_to_torch, the forward's input checks and
-run_cnet driven through the normal entry point.
+engine (engine=rtc, fallback mode) under the unfused and the fused
+(fuse_stem, fuse_resblock) tunes and against the per-node digests recorded
+on a TPU, plus weights_to_torch, the forward's input checks, the nodes a
+fused plan no longer produces, and run_cnet driven through the normal
+entry point.
 
 Tolerances (testing/comp.comp_digests, mrd over every node): 5e-4 for the
 f32 tune (the repo's cross-engine default and the `mini` TPU archive's),
@@ -26,12 +28,18 @@ from boda_tpu.models.zoo import NetBuilder, build_model
 from boda_tpu.ops.cnn_variants import make_op_tune
 from boda_tpu.ops.pallas.gen_data import gen_test_nda
 from boda_tpu.testing.comp import comp_digests, read_digest_stream
-from boda_tpu_torch.engine.torch_fwd import build_forward, weights_to_torch
+from boda_tpu_torch.engine.torch_fwd import build_forward, produced_nodes, \
+    weights_to_torch
 
 ARCHIVE = Path(__file__).parent / "data" / "tpu_digests"
 TUNES = {"f32": ("()", 5e-4), "bf16-nhwc": ("(prec=bf16,layout=nhwc)", 5e-3)}
 SLICE_STEPS = {"s2d_conv": 1, "pool": 2, "k1conv": 2, "conv": 1, "tconv": 1,
                "eltwise": 1, "relu": 1, "ipconv": 1, "softmax": 1}
+FUSED = "fuse_stem=1,fuse_resblock=1"
+FUSED_TUNES = {"f32": (f"({FUSED})", 5e-4),
+               "bf16-nhwc": (f"(prec=bf16,layout=nhwc,{FUSED})", 5e-3)}
+FUSED_SLICE_STEPS = {"fused_stem": 1, "resblock": 1, "pool": 1, "ipconv": 1,
+                     "softmax": 1}
 
 
 def build_slice_net(batch=2):
@@ -51,18 +59,48 @@ def build_slice_net(batch=2):
     return b.done(seed=7)
 
 
+def build_fused_slice_net(batch=2):
+    """A small net for the fused tunes: a 7x7/s2 stem with a ceil-mode max
+    pool (fused_stem), one identity bottleneck with C=16, Cm=8 (resblock),
+    a global average pool, an fc and softmax."""
+    b = NetBuilder("fused_slice", batch, 3, 32, 32)
+    b.conv("conv1", 16, 7, 2, 3).pool("pool1", 3, 2)
+    shortcut = b.cur
+    b.conv("res_a", 8, 1).conv("res_b", 8, 3, 1, 1)
+    b.conv("res_c", 16, 1, relu=False)
+    b.eltwise("res_sum", [shortcut, b.cur]).relu("res_relu")
+    b.pool("gpool", 0, 1, avg=True, global_=True)
+    b.conv("fc", 10, 1, relu=False).softmax("prob")
+    return b.done(seed=7)
+
+
+def _bf16_exact(pipe):
+    for v in pipe.op_params.values():
+        v.v[...] = torch.from_numpy(v.v).bfloat16().float().numpy()
+
+
+def _step_counts(plan):
+    steps = {}
+    for s in plan.steps:
+        steps[s.func_name] = steps.get(s.func_name, 0) + 1
+    return steps
+
+
 def _all_nodes(pipe):
     return [n for n, nd in pipe.nodes.items()
             if nd.dims is not None and nd.top_for]
 
 
 def _run(pipe, spec):
+    """Run engine `spec` on a seeded input; fetch every node of the pipe
+    that its plan produces (a fused plan drops its fused ops' interiors)."""
     eng = make_engine(spec)
     eng.init(pipe)
     d = pipe.get_data_img_dims()
     blob = NDA(d, gen_test_nda(d, 0, 0.1))
+    produced = produced_nodes(eng.plan)
     return eng, eng.run_fwd({pipe.data_img_node_names[0]: blob},
-                            _all_nodes(pipe))
+                            [n for n in _all_nodes(pipe) if n in produced])
 
 
 @pytest.mark.parametrize("tune", list(TUNES))
@@ -75,20 +113,74 @@ def test_slice_net_matches_jax_engine(monkeypatch, tune):
         # an f32 weight as it is (sgemm.py:181-183) and the CPU multiplies
         # in f32, while a TPU at DEFAULT precision and the port round it
         # to bf16; exact weights compare the two engines on equal operands
-        for n, v in pipe.op_params.items():
-            v.v[...] = torch.from_numpy(v.v).bfloat16().float().numpy()
+        _bf16_exact(pipe)
     jeng, jouts = _run(pipe, f"(engine=rtc,keep_all_nodes=1,op_tune={op_tune})")
     teng, touts = _run(pipe, f"(engine=torch,device=cpu,keep_all_nodes=1,"
                              f"op_tune={op_tune})")
-    steps = {}
-    for s in teng.plan.steps:
-        steps[s.func_name] = steps.get(s.func_name, 0) + 1
-    assert steps == SLICE_STEPS
+    assert _step_counts(teng.plan) == SLICE_STEPS
     assert teng.plan.storage_nhwc == (tune == "bf16-nhwc")
     assert sorted(touts) == sorted(jouts)
     kg = {n: nda_digest(v) for n, v in jouts.items()}
     errs = comp_digests(touts, kg, toler)
     assert not errs, errs
+
+
+@pytest.mark.parametrize("tune", list(FUSED_TUNES))
+def test_fused_slice_net_matches_jax_engine(monkeypatch, tune):
+    monkeypatch.setenv("BODA_PALLAS_MODE", "fallback")
+    op_tune, toler = FUSED_TUNES[tune]
+    pipe = build_fused_slice_net()
+    if tune == "bf16-nhwc":
+        # bf16-exact weights and biases: the JAX whole-net path runs the
+        # resblock's fallback, which adds the bias unrounded
+        # (resblock.py:61-64), while the port follows the Pallas kernel
+        # body, which rounds it to bf16 like the weights (:171-177)
+        _bf16_exact(pipe)
+    jeng, jouts = _run(pipe, f"(engine=rtc,keep_all_nodes=1,op_tune={op_tune})")
+    teng, touts = _run(pipe, f"(engine=torch,device=cpu,keep_all_nodes=1,"
+                             f"op_tune={op_tune})")
+    assert _step_counts(teng.plan) == FUSED_SLICE_STEPS
+    assert teng.plan.storage_nhwc == (tune == "bf16-nhwc")
+    # the fused ops' interior nodes are produced by neither engine
+    assert sorted(touts) == sorted(jouts)
+    assert not {"conv1", "res_a", "res_b", "res_c"} & set(touts)
+    kg = {n: nda_digest(v) for n, v in jouts.items()}
+    errs = comp_digests(touts, kg, toler)
+    assert not errs, errs
+
+
+def test_resnet50_culibs_fused_matches_jax_engine(monkeypatch):
+    # the JAX package's own fusion gates (tests/test_resblock.py:178-198,
+    # tests/test_stem.py:85-96) under the use_culibs=1 tune, whose
+    # unfused convs are the vendor xla_conv (cuDNN in the port)
+    monkeypatch.setenv("BODA_PALLAS_MODE", "fallback")
+    pipe = build_model("resnet-50", batch=1, ysz=64, xsz=64)
+    tune = f"(use_culibs=1,{FUSED},s2d=0)"
+    _, jouts = _run(pipe, f"(engine=rtc,keep_all_nodes=1,op_tune={tune})")
+    teng, touts = _run(pipe, f"(engine=torch,device=cpu,keep_all_nodes=1,"
+                             f"op_tune={tune})")
+    steps = _step_counts(teng.plan)
+    assert (steps["resblock"], steps["fused_stem"], steps["xla_conv"]) \
+        == (12, 1, 17)
+    assert sorted(touts) == sorted(jouts)
+    kg = {n: nda_digest(v) for n, v in jouts.items()}
+    errs = comp_digests(touts, kg, 5e-4)
+    assert not errs, errs
+
+
+def test_run_fwd_refuses_nodes_removed_by_fusion():
+    pipe = build_fused_slice_net()
+    eng = make_engine(f"(engine=torch,device=cpu,op_tune=({FUSED}))")
+    eng.init(pipe)
+    assert produced_nodes(eng.plan) == {"data", "pool1", "res_sum", "gpool",
+                                        "fc", "prob"}
+    d = pipe.get_data_img_dims()
+    blob = NDA(d, gen_test_nda(d, 0, 0.1))
+    got = eng.run_fwd({"data": blob}, ["pool1", "res_sum", "prob"])
+    assert got["res_sum"].v.shape == (2, 16, 8, 8)
+    with pytest.raises(RtErr, match=r"\['res_b'\] are not produced by any "
+                                    r"step \(eliminated by fusion\?\)"):
+        eng.run_fwd({"data": blob}, ["res_b", "prob"])
 
 
 def test_mini_matches_tpu_digest_archive():

@@ -2,7 +2,8 @@
 
 In a fresh interpreter an import hook refuses jax and jaxlib; the port is
 imported, mini is built, lowered and run on the CPU through make_engine
-and through the CLI entry point (python -m boda_tpu_torch run_cnet), and
+and through the CLI entry point (python -m boda_tpu_torch run_cnet),
+ResNet-50 runs under the fused tune (fused_stem, resblock), and
 chip_smoke.py's imports are exercised too.
 """
 
@@ -41,6 +42,16 @@ eng.init(pipe)
 d = pipe.get_data_img_dims()
 out = eng.run_fwd({"data": NDA(d, gen_test_nda(d, 0, 0.1))}, ["prob"])
 assert out["prob"].v.shape == (2, 10, 1, 1)
+# the fused tune: fused_stem and the 12 identity bottlenecks of ResNet-50
+rn = build_model("resnet-50", batch=1, ysz=64, xsz=64)
+eng = make_engine("(engine=torch,device=cpu,op_tune=(prec=bf16,layout=nhwc,"
+                  "fuse_stem=1,fuse_resblock=1))")
+eng.init(rn)
+kinds = [s.func_name for s in eng.plan.steps]
+assert (kinds.count("fused_stem"), kinds.count("resblock")) == (1, 12), kinds
+d = rn.get_data_img_dims()
+out = eng.run_fwd({"data": NDA(d, gen_test_nda(d, 0, 0.1))}, ["prob"])
+assert out["prob"].v.shape == (1, 1000, 1, 1)
 sys.argv = ["boda_tpu_torch", "run_cnet", "--model=mini",
             "--conv_fwd=(engine=torch,device=cpu)"]
 try:

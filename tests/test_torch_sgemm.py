@@ -116,6 +116,6 @@ def test_plain_version_does_not_count_a_launch():
 
 
 def test_registry_names_unknown_templates():
-    with pytest.raises(RtErr, match="no kernel template 'xla_conv'.*"
+    with pytest.raises(RtErr, match="no kernel template 'lrn'.*"
                                     "k1conv.*sgemm.*tconv"):
-        get_template("xla_conv")
+        get_template("lrn")
