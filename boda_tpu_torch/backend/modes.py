@@ -1,0 +1,53 @@
+"""torch_rtc_test: the backend smoke test on the port.
+
+Port of boda_tpu/backend/modes.py (rtc_test): create three vars, copy two
+inputs in, run the `dot` template (c = a * b) through the port's Codegen,
+sync, copy c out and check it. Registered as torch_rtc_test beside the JAX
+rtc_test.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from boda_tpu.backend import modes as jmodes
+from boda_tpu.backend.iface import Backend
+from boda_tpu.core.config import Attr
+from boda_tpu.core.dims import NDA, Dims
+from boda_tpu.core.error import RtErr
+from boda_tpu.core.has_main import mode
+from boda_tpu.ops.op_base import OpBase
+
+from ..ops.registry import Codegen
+from .torch_be import check_port_backend
+
+
+@mode("torch_rtc_test", help="backend smoke test on the port: run the 'dot' "
+                             "kernel and verify")
+class TorchRtcTest(jmodes.RtcTest):
+    rtc = Attr(Backend, default="torch",
+               help="backend to test: be=torch (device=cuda by default) or "
+                    "be=interp")
+
+    def main(self):
+        check_port_backend(self.rtc, self.TYPE_ID)
+        self.rtc.init()
+        cg = Codegen(self.rtc)
+        dims = Dims.make(n=self.n)
+        for v in ("a", "b", "c"):
+            self.rtc.create_var_with_dims(v, dims)
+        a = np.arange(self.n, dtype=np.float32) * 0.5
+        b = np.ones(self.n, dtype=np.float32) * 2.0
+        self.rtc.copy_nda_to_var("a", NDA(dims, a))
+        self.rtc.copy_nda_to_var("b", NDA(dims, b))
+        op = OpBase({"type": "dot", "func_name": "dot"})
+        for v in ("a", "b", "c"):
+            op.set_dims(v, dims)
+        cid = cg.gen_and_run(op, {"a": "a", "b": "b", "c": "c"})
+        self.rtc.finish_and_sync()
+        c = self.rtc.copy_var_to_nda("c").v
+        if not np.allclose(c, a * b):
+            raise RtErr(f"{self.TYPE_ID} FAILED: dot output mismatch")
+        dur = self.rtc.get_dur(cid, cid)
+        print(f"{self.TYPE_ID} PASSED plat={self.rtc.get_plat_tag()} "
+              f"n={self.n} dur={dur * 1e6:.1f}us")

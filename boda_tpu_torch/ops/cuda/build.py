@@ -47,6 +47,8 @@ ENTRY_POINTS = {
     # x, w1, b1, w2, b2, w3, b3, out, n, H, W, C, Cm, ty, bm, in_bf16,
     # out_bf16, relu_out, stream
     "boda_resblock": [_P] * 8 + [_I] * 10 + [_P],
+    # A, B, scale, C, M, N, K, stream
+    "boda_sgemm_int8": [_P] * 4 + [_I] * 3 + [_P],
 }
 
 

@@ -1,5 +1,5 @@
-"""Elementwise templates: relu, eltwise (SUM, MAX, PROD) and inference
-dropout.
+"""Elementwise templates: relu, eltwise (SUM, MAX, PROD), inference
+dropout, and dot (c = a * b, the kernel of the torch_rtc_test smoke mode).
 
 Port of boda_tpu/ops/pallas/elementwise.py, which computes these outside
 Pallas too. Each works on NCHW or NHWC storage alike, in the tensors'
@@ -15,6 +15,13 @@ from boda_tpu.ops.op_base import OpBase
 from boda_tpu.ops.pallas import elementwise as jew
 
 from ..registry import template
+
+
+@template
+class Dot(jew.Dot):
+    @classmethod
+    def build(cls, rfs: OpBase):
+        return torch.mul
 
 
 @template

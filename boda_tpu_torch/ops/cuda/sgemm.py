@@ -1,4 +1,5 @@
-"""matmul_ext (kernel B1) and the `sgemm` template.
+"""matmul_ext (kernel B1), the `sgemm` template on it, and the vendor
+`xla_sgemm` template on cuBLAS.
 
 Port of boda_tpu/ops/pallas/sgemm.py. `matmul_ext` wraps the hand-written
 CUDA kernel in csrc/sgemm.cu (see its header for what bounds it and how it
@@ -99,4 +100,24 @@ class Sgemm(jsgemm.Sgemm):
             # the sig's b is (K, N); the kernel takes (N, K)
             return matmul_ext(a.to(in_dt).contiguous(),
                               b.to(in_dt).t().contiguous(), out_dtype=out_dt)
+        return fn
+
+
+@template
+class XlaSgemm(jsgemm.XlaSgemm):
+    """The vendor sgemm (cuBLAS's role; jnp.dot on XLA in the JAX package,
+    sgemm.py:236-267), which ops_prof's kg tune (use_culibs=1) runs and
+    checks every other tune against: torch.matmul in full FP32, or on bf16
+    operands under prec=bf16, summed in f32. A bf16 product comes out of
+    cuBLAS rounded once to bf16, where XLA keeps it in f32."""
+
+    @classmethod
+    def build(cls, rfs: OpBase):
+        in_dt = torch.bfloat16 if rfs.str_vals.get("prec") == "bf16" \
+            else torch.float32
+        out_dt = torch_dtype(rfs.get_dims("c").dtype)
+
+        def fn(a, b):
+            with full_fp32():
+                return torch.matmul(a.to(in_dt), b.to(in_dt)).to(out_dt)
         return fn

@@ -88,14 +88,17 @@ def compute_dtype(rfs: OpBase) -> torch.dtype:
 @contextlib.contextmanager
 def full_fp32():
     """Run f32 matmuls and cuDNN convs in full FP32, not TF32 (the port of
-    the JAX package's Precision.HIGHEST). Restores the previous settings."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    the JAX package's Precision.HIGHEST), and sum bf16 matmuls in f32 (no
+    reduced-precision reductions). Restores the previous settings."""
+    mm = torch.backends.cuda.matmul
+    prev = mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction
+    mm.allow_tf32 = False
+    mm.allow_bf16_reduced_precision_reduction = False
     try:
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
             yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction = prev
 
 
 def check_operand(t: torch.Tensor, name: str, ndim: int,

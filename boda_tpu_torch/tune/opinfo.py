@@ -1,0 +1,133 @@
+"""cnn_op_info and cnn_prof on the port: per-op FLOPs, bytes, arithmetic
+intensity and, with run=1, time, achieved rate and % of peak.
+
+Port of boda_tpu/tune/opinfo.py (cnn_op_info :76-154, cnn_prof :157-191)
+on the port's Codegen, profile_rcg_call and machine model
+(core/machine.py). %peak is against the op's own-precision peak of the
+backend's card (or `peak_flops` when given); a card the machine model
+does not know raises.
+
+One difference from the JAX op_prec (opinfo.py:38-47): there an op with no
+prec annotation defaults to bf16, the TPU's matrix-unit precision. The
+port runs such an op in full FP32 on the CUDA cores, so it is scored
+against the FP32 peak (67 TF/s on an H100 SXM), not the bf16 tensor-core
+peak (989 TF/s), which would put every f32 op 15x further from its roof.
+
+Registered as torch_cnn_op_info and torch_cnn_prof, beside the JAX modes.
+"""
+
+from __future__ import annotations
+
+from boda_tpu.backend.iface import Backend
+from boda_tpu.core.config import Attr
+from boda_tpu.core.error import RtErr
+from boda_tpu.core.has_main import mode
+from boda_tpu.ops.cnn_variants import add_codegen_annotations
+from boda_tpu.ops.op_base import OpBase
+from boda_tpu.testing.comp import comp_vars
+from boda_tpu.tune import opinfo as jopinfo
+from boda_tpu.tune.opinfo import op_bytes
+
+from ..backend.torch_be import check_port_backend
+from ..core.machine import PRECS, peak_flops
+from ..ops.registry import Codegen, get_template
+from .prof import profile_rcg_call
+
+
+def op_prec(sig: OpBase, tune_prec: str = "") -> str:
+    """The precision an annotated op sig computes in: int8 on the quant8
+    path, else its prec annotation or the tune's, else f32."""
+    if sig.get_u32_or("quant8", 0):
+        return "int8"
+    p = sig.str_vals.get("prec") or tune_prec or "f32"
+    return p if p in PRECS else "f32"
+
+
+@mode("torch_cnn_op_info", help="cnn_op_info on the port: per-op flops/AI/"
+                                "roofline report (+optional run)")
+class TorchCnnOpInfo(jopinfo.CnnOpInfo):
+    rtc = Attr(Backend, default="torch",
+               help="backend: be=torch (device=cuda by default) or be=interp")
+
+    def _peak(self, prec: str) -> float:
+        """peak_flops when given, else the backend card's peak in prec."""
+        if self.peak_flops:
+            return self.peak_flops
+        if not hasattr(self.rtc, "device_kind"):
+            raise RtErr(f"{self.TYPE_ID}: be={self.rtc.TYPE_ID} has no card "
+                        f"to take peaks from; give peak_flops")
+        return peak_flops(self.rtc.device_kind(), prec)
+
+    def main(self):
+        ops = self.get_ops()
+        cg = None
+        if self.run:
+            check_port_backend(self.rtc, self.TYPE_ID)
+            self.rtc.ensure_init()
+            cg = Codegen(self.rtc)
+        print(f"{'op':58s} {'func':12s} {'Mflops':>10s} {'MB':>8s} {'AI':>7s}"
+              + (f" {'prec':>4s} {'secs':>11s} {'GF/s':>9s} {'%peak':>6s}"
+                 if self.run else ""))
+        n_err = 0
+        rows = []
+        for op in ops:
+            top = op.copy()
+            add_codegen_annotations(top, self.op_tune)
+            tmpl = get_template(top.func_name)
+            rfs = tmpl.check_args(top)
+            fl = tmpl.flops(rfs)
+            by = op_bytes(rfs)
+            line = (f"{str(op.to_compact_lexp())[:58]:58s} {top.func_name:12s} "
+                    f"{fl / 1e6:10.1f} {by / 1e6:8.2f} {fl / max(by, 1):7.1f}")
+            secs_gfs, op_pk = None, None
+            if self.run:
+                prec = op_prec(top, self.op_tune.prec)
+                op_pk = self._peak(prec)
+                try:
+                    secs, outs = profile_rcg_call(cg, top, self.run_iter)
+                    gfs = fl / secs / 1e9 if secs > 0 else 0.0
+                    secs_gfs = (secs, gfs)
+                    line += (f" {prec:>4s} {secs:11.3e} {gfs:9.1f} "
+                             f"{100 * gfs * 1e9 / op_pk:6.2f}")
+                    if self.comp_tune is not None:
+                        cop = op.copy()
+                        add_codegen_annotations(cop, self.comp_tune)
+                        csecs, couts = profile_rcg_call(cg, cop, self.run_iter)
+                        errs = comp_vars(couts, outs, self.mrd_toler)
+                        line += (f"  comp={csecs:.3e}({top.func_name} vs "
+                                 f"{cop.func_name})")
+                        if errs:
+                            line += " COMP_FAIL: " + "; ".join(errs)
+                            n_err += 1
+                except RtErr as e:
+                    line += f" ERROR {e}"
+                    n_err += 1
+            print(line)
+            rows.append((top.func_name, fl, by, secs_gfs, op_pk))
+        if self.latex_fn:
+            self._write_latex(rows)
+        if n_err:
+            raise RtErr(f"{self.TYPE_ID}: {n_err} errors")
+
+    def _write_latex(self, rows) -> None:
+        with open(self.out_path(self.latex_fn), "w") as f:
+            f.write("\\begin{tabular}{%s}\n"
+                    % ("l r r r" + (" r r" if self.run else "")))
+            f.write("op & MFLOPs & MB & AI"
+                    + (" & GF/s & \\%peak" if self.run else "") + " \\\\\n"
+                    "\\hline\n")
+            for fn_name, fl, by, sg, pk in rows:
+                r = (f"{fn_name} & {fl / 1e6:.1f} & {by / 1e6:.2f} & "
+                     f"{fl / max(by, 1):.1f}")
+                if sg:
+                    r += f" & {sg[1]:.1f} & {100 * sg[1] * 1e9 / pk:.2f}"
+                f.write(r + " \\\\\n")
+            f.write("\\end{tabular}\n")
+        print(f"wrote latex table to {self.latex_fn}")
+
+
+@mode("torch_cnn_prof", help="cnn_prof on the port: per-op profile of a "
+                             "NET's ops (no sig file needed)")
+class TorchCnnProf(TorchCnnOpInfo, jopinfo.CnnProf):
+    """cnn_prof (opinfo.py:157-191) on the port: the same report over the
+    conv and fc ops of a zoo model or prototxt, deduplicated by sig."""

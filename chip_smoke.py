@@ -10,7 +10,9 @@ Phases, run in order, each fatal on failure (all of them by default):
            shapes of its path (timed with CUDA events) and at ragged edge
            shapes, f32 (mrd <= 1e-4) and bf16 (mrd <= 5e-3); the fused_stem
            template's NCHW f32 and NHWC-storage bf16 forms against the bare
-           kernel
+           kernel; sgemm_int8 bit-equal to its plain version at 1024^3 and
+           4096^3 (timed, with its quantize pass alone) and at ragged shapes
+           (K=50, K=3, K=4099, an all-zero A)
   digests  TorchFwd at batch 1 under the f32 tune and the fused f32 tune
            against the per-node digest archives recorded on a TPU
            (tests/data/tpu_digests): resnet-50@shapes40 (trained weights,
@@ -23,17 +25,27 @@ Phases, run in order, each fatal on failure (all of them by default):
   full     run_cnet on the 1000-class ResNet-50 at batch 32 under the four
            tunes: kernel launch counts per forward (unfused: 40 matmul_ext,
            13 tconv; fused: 14 matmul_ext, 3 tconv, 1 fused_stem, 12
-           resblock), finite softmax rows, ms per forward and imgs/s
+           resblock; no sgemm_int8), finite softmax rows, ms per forward and
+           imgs/s
+  ops_prof the per-op path (mode torch_ops_prof, be=torch): the six square
+           SGEMMs of tests/data/ops/sgemm-baseline.txt (128^3-4096^3) under
+           the tunes kg (cuBLAS FP32), hand (B1) and int8 (B3, mrd 5e-2 vs
+           kg), then kg and bf16 at mrd 5e-3; the 21 ResNet-50 b32 conv sigs
+           of resnet50-convs.txt under kg (cuDNN FP32) and hand (B1, B2),
+           then kg and bf16; no COMP_FAIL, KG_DIGEST_FAIL or ERROR, exactly
+           6 x run_iter sgemm_int8 launches in the int8 sweep, wisdom under
+           build/ops_prof/, a table of ms, TF/s (TOPS) and % of the card's
+           own-precision peak per op and tune; then torch_rtc_test
 
 A run of every phase that passes ends with three lines: the nvidia-smi name
 and power limit; a JSON object with one entry per kernel ("launches":
-launches in one forward of that kernel's own main path, the f32 tune for
-matmul_ext and tconv and the fused f32 tune for fused_stem and resblock;
-"launches_by_tune": in each tune's forward; "ms" and "plain_ms": summed
-over the timed shapes; "max_abs_err": over every checked shape) and the b32
-forward times; and {"ok": true, "device": {...}}. Without a CUDA device, or
-outside a checkout of the repo, it exits non-zero and prints no result. It
-never imports jax.
+launches in one run of that kernel's own main path, the f32 tune's forward
+for matmul_ext and tconv, the fused f32 tune's for fused_stem and resblock,
+and the int8 SGEMM sweep of ops_prof for sgemm_int8; "launches_by_tune": in
+each of those runs; "ms" and "plain_ms": summed over the timed shapes;
+"max_abs_err": over every checked shape) and the b32 forward times; and
+{"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
+of the repo, it exits non-zero and prints no result. It never imports jax.
 """
 
 from __future__ import annotations
@@ -60,14 +72,16 @@ TUNES = {"f32": "()", "bf16_nhwc": "(prec=bf16,layout=nhwc)",
          "fused_bf16_nhwc": f"(prec=bf16,layout=nhwc,{FUSED})"}
 # exact kernel launches per ResNet-50 forward under each tune
 UNFUSED_LAUNCHES = {"matmul_ext": 40, "tconv": 13, "fused_stem": 0,
-                    "resblock": 0}
+                    "resblock": 0, "sgemm_int8": 0}
 FUSED_LAUNCHES = {"matmul_ext": 14, "tconv": 3, "fused_stem": 1,
-                  "resblock": 12}
+                  "resblock": 12, "sgemm_int8": 0}
 LAUNCHES = {"f32": UNFUSED_LAUNCHES, "bf16_nhwc": UNFUSED_LAUNCHES,
             "fused_f32": FUSED_LAUNCHES, "fused_bf16_nhwc": FUSED_LAUNCHES}
-# the tune whose forward is each kernel's own main path
+# each kernel's own main path: the tune whose forward runs it, or the
+# per-op sweep (ops_prof's int8 sgemm run) for sgemm_int8
 KERNEL_PATH = {"matmul_ext": "f32", "tconv": "f32",
-               "fused_stem": "fused_f32", "resblock": "fused_f32"}
+               "fused_stem": "fused_f32", "resblock": "fused_f32",
+               "sgemm_int8": "ops_prof"}
 SOURCES = {
     "matmul_ext": ("boda_tpu_torch/csrc/sgemm.cu",
                    "boda_tpu/ops/pallas/sgemm.py:114"),
@@ -76,8 +90,27 @@ SOURCES = {
                    "boda_tpu/ops/pallas/stem.py:57"),
     "resblock": ("boda_tpu_torch/csrc/resblock.cu",
                  "boda_tpu/ops/pallas/resblock.py:31"),
+    "sgemm_int8": ("boda_tpu_torch/csrc/qsgemm.cu",
+                   "boda_tpu/ops/pallas/qsgemm.py:47"),
 }
 F32_MRD, BF16_MRD = 1e-4, 5e-3
+# the per-op path: torch_ops_prof calls (op-sig file, tunes, tolerances).
+# bf16 runs in calls of its own, since its tolerance is wider than the f32
+# tunes' (func_mrd_toler keys by func name, and f32 and bf16 are both sgemm)
+OPS_RUN_ITER = 5
+OPS_PROF = [
+    ("sgemm", "sgemm-baseline.txt",
+     "(kg=(use_culibs=1),hand=(),int8=(prec=int8))",
+     "func_mrd_toler=(sgemm_int8=5e-2)"),
+    ("sgemm_bf16", "sgemm-baseline.txt", "(kg=(use_culibs=1),bf16=(prec=bf16))",
+     "mrd_toler=5e-3"),
+    ("rn50_convs", "resnet50-convs.txt", "(kg=(use_culibs=1),hand=())", ""),
+    ("rn50_convs_bf16", "resnet50-convs.txt",
+     "(kg=(use_culibs=1),bf16=(prec=bf16))", "mrd_toler=5e-3"),
+]
+# exact sgemm_int8 launches of the int8 sweep: 6 ops x run_iter timed calls
+# (profile_rcg_call makes no launch outside its timed loop)
+OPS_INT8_LAUNCHES = 6 * OPS_RUN_ITER
 
 
 class SmokeFailure(Exception):
@@ -277,11 +310,74 @@ def _check_stem_template(args, dt, got) -> str:
     return form
 
 
+def _qsgemm_cases():
+    """(label, M, K, N, A all zero, timed) of sgemm_int8: the square sizes
+    of the per-op sweep (tests/data/ops/sgemm-baseline.txt), timed; ragged
+    shapes (K not a multiple of 4 or 16), a single element and an all-zero
+    A, checked."""
+    return [("1024^3", 1024, 1024, 1024, False, True),
+            ("4096^3", 4096, 4096, 4096, False, True),
+            ("edge M=77 K=50 N=33", 77, 50, 33, False, False),
+            ("edge M=1 K=3 N=1", 1, 3, 1, False, False),
+            ("edge zero A M=130 K=96 N=70", 130, 96, 70, True, False),
+            ("edge M=200 K=4099 N=129", 200, 4099, 129, False, False)]
+
+
+def _check_qsgemm(stats: dict, dev, gen) -> None:
+    """sgemm_int8 against its plain version on the card: bit-equal (the
+    int32 sums are exact and both round the same), and its time, the plain
+    version's, and those of its two parts alone: the quantize pass and the
+    kernel's product."""
+    import torch
+    from boda_tpu_torch.ops.cuda.qsgemm import int8_product, \
+        quantize_operands, sgemm_int8, sgemm_int8_plain
+    source, replaces = SOURCES["sgemm_int8"]
+    s = stats["sgemm_int8"] = {
+        "name": "sgemm_int8", "route": "cuda", "source": source,
+        "replaces": replaces, "max_abs_err": 0.0, "max_mrd": 0.0,
+        "ms": 0.0, "plain_ms": 0.0, "cases": []}
+    for label, M, K, N, zero_a, timed in _qsgemm_cases():
+        a = torch.randn(M, K, device=dev, generator=gen)
+        if zero_a:
+            a.zero_()
+        b = torch.randn(K, N, device=dev, generator=gen)
+        got = sgemm_int8(a, b)
+        torch.cuda.synchronize()
+        want = sgemm_int8_plain(a, b)
+        abs_err = float((got.double() - want.double()).abs().max())
+        s["max_abs_err"] = max(s["max_abs_err"], abs_err)
+        print(f"kernel sgemm_int8 f32->f32 {label:36s} bit-equal="
+              f"{bool(torch.equal(got, want))} max_abs={abs_err:.3e}", end="")
+        check(torch.equal(got, want), f"sgemm_int8 {label}: differs from its "
+                                      f"plain version (max abs {abs_err:.3e})")
+        check(bool(torch.isfinite(got).all()), f"sgemm_int8 {label}: "
+                                               f"non-finite output")
+        if not timed:
+            print()
+            continue
+        ms = cuda_ms(lambda: sgemm_int8(a, b), 20)
+        plain_ms = cuda_ms(lambda: sgemm_int8_plain(a, b), 20)
+        quant_ms = cuda_ms(lambda: quantize_operands(a, b), 20)
+        q = quantize_operands(a, b)
+        prod_ms = cuda_ms(lambda: int8_product(*q), 20)
+        tops = 2 * M * N * K / ms / 1e9
+        print(f" kernel {ms:.4f} ms ({tops:.1f} TOPS) plain {plain_ms:.4f} ms;"
+              f" quantize pass {quant_ms:.4f} ms, product alone "
+              f"{prod_ms:.4f} ms ({2 * M * N * K / prod_ms / 1e9:.1f} TOPS)")
+        s["ms"] += ms
+        s["plain_ms"] += plain_ms
+        s["cases"].append({"case": label, "dtype": "float32", "mrd": 0.0,
+                           "ms": ms, "plain_ms": plain_ms,
+                           "quantize_ms": quant_ms, "product_ms": prod_ms,
+                           "tops": tops})
+
+
 def phase_kernels(ctx: dict) -> None:
     import torch
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     stats: dict[str, dict] = {}
+    _check_qsgemm(stats, dev, gen)
     timed = {c[0] for c in _kernel_cases()}
     for label, kname, kw in _kernel_cases() + _edge_cases():
         for dt in (torch.float32, torch.bfloat16):
@@ -406,17 +502,124 @@ def phase_agree(ctx: dict) -> None:
         _cls_agree(tune_a, "f32")
 
 
-def phase_full(ctx: dict) -> None:
-    import torch
-    from boda_tpu.core.has_main import create_and_run_has_main
+def _wrappers() -> dict:
+    """Each kernel's wrapper, whose `launches` counts its launches."""
+    from boda_tpu_torch.ops.cuda.qsgemm import sgemm_int8
     from boda_tpu_torch.ops.cuda.resblock import resblock
     from boda_tpu_torch.ops.cuda.sgemm import matmul_ext
     from boda_tpu_torch.ops.cuda.stem import fused_stem
     from boda_tpu_torch.ops.cuda.tconv import tconv
-    wrappers = {"matmul_ext": matmul_ext, "tconv": tconv,
-                "fused_stem": fused_stem, "resblock": resblock}
+    return {"matmul_ext": matmul_ext, "tconv": tconv,
+            "fused_stem": fused_stem, "resblock": resblock,
+            "sgemm_int8": sgemm_int8}
+
+
+def _op_label(op) -> str:
+    """A short name for an op sig of the per-op sweep."""
+    if op.type == "sgemm":
+        a, b = op.get_dims("a"), op.get_dims("b")
+        return f"sgemm {a['M']}x{a['K']}x{b['N']}"
+    f, i = op.get_dims("filts"), op.get_dims("in")
+    st = op.get_dims("stride")
+    return (f"conv {f['y']}x{f['x']}/s{st['y']} {f['in_chan']}->"
+            f"{f['out_chan']} {i['y']}^2 b{i['img']}")
+
+
+def _tune_specs(tunes: str) -> dict[str, str]:
+    """'(kg=(use_culibs=1),hand=())' -> {'kg': '(use_culibs=1)', 'hand': '()'}"""
+    return dict(re.findall(r"(\w+)=(\((?:[^()]|\([^()]*\))*\))", tunes[1:-1]))
+
+
+def _ops_prof_table(text: str, tunes: str, peaks) -> list[str]:
+    """One row per OP line of a torch_ops_prof run: ms, TF/s (TOPS for
+    int8) and % of the card's peak in the op's own precision."""
+    from boda_tpu.ops.cnn_variants import add_codegen_annotations, \
+        make_op_tune
+    from boda_tpu.ops.op_base import OpBase
+    from boda_tpu_torch.tune.opinfo import op_prec
+    tune_specs = _tune_specs(tunes)
+    rows = []
+    for m in re.finditer(r"^OP (\(.*\)) tune=(\w+) be=\w+ func=(\w+) "
+                         r"secs=(\S+) GF/s=(\S+) ", text, re.M):
+        op = OpBase.from_lexp(m[1])
+        top = op.copy()
+        tune = make_op_tune(tune_specs[m[2]])
+        add_codegen_annotations(top, tune)
+        prec = op_prec(top, tune.prec)
+        tfs = float(m[5]) / 1e3
+        rows.append(f"  {_op_label(op):34s} {m[2]:5s} {m[3]:10s} "
+                    f"{float(m[4]) * 1e3:9.4f} ms {tfs:8.2f} "
+                    f"{'TOPS ' if prec == 'int8' else 'TF/s '}"
+                    f"{100 * tfs * 1e12 / peaks.flops(prec):6.2f}% of {prec} "
+                    f"peak")
+    return rows
+
+
+def phase_ops_prof(ctx: dict) -> None:
+    """The per-op path: torch_ops_prof on be=torch over the SGEMM sizes and
+    the ResNet-50 b32 conv sigs, then torch_rtc_test, each in-process
+    through the mode a user runs (python -m boda_tpu_torch <mode>)."""
+    import torch
+    from boda_tpu.core.has_main import create_and_run_has_main
+    from boda_tpu.tune.wisdom import read_wisdom_file
+    from boda_tpu_torch.core.machine import card_peaks
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    out_dir = ROOT / "build" / "ops_prof"
+    wrappers = _wrappers()
+    for name, ops_fn, tunes, tol in OPS_PROF:
+        for w in wrappers.values():
+            w.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                create_and_run_has_main(
+                    f"(mode=torch_ops_prof,ops_fn={DATA / 'ops' / ops_fn},"
+                    f"op_tunes={tunes},run_iter={OPS_RUN_ITER},"
+                    f"{tol + ',' if tol else ''}boda_output_dir={out_dir},"
+                    f"wisdom_out_fn={name}.wis)", {})
+        finally:
+            text = buf.getvalue()
+            for ln in text.splitlines():
+                if "COMP_FAIL" in ln or "KG_DIGEST_FAIL" in ln \
+                        or "ERROR" in ln or "UNVERIFIED" in ln:
+                    print(f"  {ln}")
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        n_ok = len(re.findall(r"^OP .* ok$", text, re.M))
+        print(f"torch_ops_prof {name} ({ops_fn}, {tunes} {tol}): {n_ok} runs "
+              f"ok, launches {counts} ({time.perf_counter() - t0:.1f} s)")
+        for row in _ops_prof_table(text, tunes, peaks):
+            print(row)
+        n_ops = len((DATA / "ops" / ops_fn).read_text().split())  # 1 per line
+        n_tunes = len(_tune_specs(tunes))
+        check(n_ok == n_ops * n_tunes,
+              f"torch_ops_prof {name}: {n_ok} runs ok of {n_ops * n_tunes}")
+        plats = {p for w in read_wisdom_file(out_dir / f"{name}.wis")
+                 for t in w.tunes.values() for p in t.runs}
+        check(plats == {f"torch:cuda:{torch.cuda.get_device_name(0)}"},
+              f"torch_ops_prof {name}: wisdom plat tags {plats}")
+        if name == "sgemm":
+            check(counts["sgemm_int8"] == OPS_INT8_LAUNCHES,
+                  f"torch_ops_prof {name}: {counts['sgemm_int8']} sgemm_int8 "
+                  f"launches != {OPS_INT8_LAUNCHES}")
+            ctx.setdefault("launches", {})["ops_prof"] = counts
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        create_and_run_has_main("(mode=torch_rtc_test,n=1048576)", {})
+    line = buf.getvalue().splitlines()[0]
+    print(line)
+    check(line.startswith("torch_rtc_test PASSED plat=torch:cuda:"),
+          f"torch_rtc_test: {line}")
+    print(f"  on [{ctx['smi']}]")
+
+
+def phase_full(ctx: dict) -> None:
+    import torch
+    from boda_tpu.core.has_main import create_and_run_has_main
+    wrappers = _wrappers()
     batch = 32
-    launches = {}
+    launches = ctx.setdefault("launches", {})
     for tune_name, tune in TUNES.items():
         buf = io.StringIO()
         for w in wrappers.values():
@@ -463,11 +666,11 @@ def phase_full(ctx: dict) -> None:
         ctx.setdefault("fwd_ms", {})[tune_name] = ms
         del hm, eng
         torch.cuda.empty_cache()
-    ctx["launches"] = launches
 
 
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
-          "digests": phase_digests, "agree": phase_agree, "full": phase_full}
+          "digests": phase_digests, "agree": phase_agree, "full": phase_full,
+          "ops_prof": phase_ops_prof}
 
 
 def main() -> int:
@@ -493,7 +696,7 @@ def main() -> int:
         print("chip_smoke: nvidia-smi not found", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    import boda_tpu_torch.engine.torch_fwd  # noqa: F401  (registers engine=torch)
+    import boda_tpu_torch.modes  # noqa: F401  (engine=torch, be=torch, torch_*)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

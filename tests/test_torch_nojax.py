@@ -3,8 +3,9 @@
 In a fresh interpreter an import hook refuses jax and jaxlib; the port is
 imported, mini is built, lowered and run on the CPU through make_engine
 and through the CLI entry point (python -m boda_tpu_torch run_cnet),
-ResNet-50 runs under the fused tune (fused_stem, resblock), and
-chip_smoke.py's imports are exercised too.
+ResNet-50 runs under the fused tune (fused_stem, resblock), the per-op
+modes torch_rtc_test and torch_ops_prof (with sgemm_int8) run through the
+CLI, and chip_smoke.py's imports are exercised too.
 """
 
 import os
@@ -52,12 +53,17 @@ assert (kinds.count("fused_stem"), kinds.count("resblock")) == (1, 12), kinds
 d = rn.get_data_img_dims()
 out = eng.run_fwd({"data": NDA(d, gen_test_nda(d, 0, 0.1))}, ["prob"])
 assert out["prob"].v.shape == (1, 1000, 1, 1)
-sys.argv = ["boda_tpu_torch", "run_cnet", "--model=mini",
-            "--conv_fwd=(engine=torch,device=cpu)"]
-try:
-    runpy.run_module("boda_tpu_torch", run_name="__main__")
-except SystemExit as e:
-    assert e.code in (0, None), e.code
+for argv in (["run_cnet", "--model=mini", "--conv_fwd=(engine=torch,device=cpu)"],
+             ["torch_rtc_test", "--rtc=(be=torch,device=cpu)"],
+             ["torch_ops_prof", "--ops_fn=tests/data/ops/sgemm-tiny.txt",
+              "--rtcs=(t=(be=torch,device=cpu),ref=(be=interp))",
+              "--op_tunes=(kg=(use_culibs=1),hand=(),int8=(prec=int8))",
+              "--func_mrd_toler=(sgemm_int8=5e-2)", "--run_iter=1"]):
+    sys.argv = ["boda_tpu_torch", *argv]
+    try:
+        runpy.run_module("boda_tpu_torch", run_name="__main__")
+    except SystemExit as e:
+        assert e.code in (0, None), (argv, e.code)
 assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
 print("NOJAX_OK")
 """
@@ -69,6 +75,10 @@ def test_port_runs_without_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
     assert "run_cnet: out node 'prob'" in r.stdout
+    assert "torch_rtc_test PASSED plat=torch:cpu:cpu" in r.stdout
+    assert r.stdout.count("func=sgemm_int8 ") == 4  # 2 ops x 2 backends
+    for bad in ("COMP_FAIL", "ERROR"):
+        assert bad not in r.stdout
     assert "NOJAX_OK" in r.stdout
 
 
