@@ -1,0 +1,159 @@
+"""Classification agreement of two engine configs over a labeled stream.
+
+The port's copy of part of boda_tpu/apps/eval_cls.py: `score_batch`, the
+labeled `shapes-src` source (the procedural dataset of io/synth.py) and the
+`cls_agree` mode, whose default engines are engine=torch. The JAX
+package's LMDB and labeled-npy sources and its test_lmdb, lmdb_* and
+display modes are not on the port's paths and are left out.
+
+Labeled block convention: block.nda = one image (chan,y,x float32,
+already preprocessed) and a named subblock 'label' holding a 1-elem
+int/float nda with the ground-truth class index.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..core.config import Attr, register
+from ..core.dims import NDA, Dims
+from ..core.error import RtErr
+from ..core.has_main import mode
+from ..engine.iface import ConvFwd
+from ..io.data_stream import DataBlock, DataStream
+from .run_cnet import RunCnetBase
+
+
+def score_batch(out_batch: np.ndarray, labels_gt: list[int],
+                top_k: int = 1) -> int:
+    """Count batch rows whose gt label is in the top-k output channels
+    (reference: score_batch, lmdb_caffe_io.cc:10-34)."""
+    assert out_batch.ndim == 4 and out_batch.shape[2:] == (1, 1)
+    num_out = out_batch.shape[1]
+    num_pos = 0
+    for i, gt in enumerate(labels_gt):
+        if not gt < num_out:
+            raise RtErr(f"gt output index too large for number of network "
+                        f"outputs: i={i} batch_labels_gt[i]={gt} "
+                        f"num_out={num_out} -- gt data / network mismatch?")
+        p = out_batch[i, :, 0, 0]
+        top = np.argsort(-p)[:top_k]
+        if gt in top:
+            num_pos += 1
+    return num_pos
+
+
+@register(DataStream, "shapes-src",
+          help="labeled blocks from the procedural shapes dataset")
+class ShapesSrc(DataStream):
+    """Deterministic trainable dataset (io/synth.py): image i is a pure
+    function of (seed, start_ix + i), so train/val splits are index
+    ranges reproducible in any process. Images are pre-rendered once at
+    first init (re-init after EOF — cnet_train's epoch wrap — reuses the
+    cache) and served preprocessed: (pixel - mean) * scale."""
+
+    num_imgs = Attr(int, req=True)
+    start_ix = Attr(int, default=0, help="first dataset index (split base)")
+    ysz = Attr(int, default=32)
+    xsz = Attr(int, default=32)
+    num_classes = Attr(int, default=10)
+    seed = Attr(int, default=0)
+    mean = Attr(float, default=128.0)
+    scale = Attr(float, default=1.0 / 64.0)
+    tag = Attr(str, default="data")
+
+    def data_stream_init(self):
+        from ..io.synth import render_shapes
+        if getattr(self, "_imgs", None) is None:
+            self._imgs, self._labels = render_shapes(
+                range(self.start_ix, self.start_ix + self.num_imgs),
+                self.ysz, self.xsz, self.num_classes, self.seed)
+        self._ix = 0
+
+    def proc_block(self, db: DataBlock) -> DataBlock:
+        if self._ix >= self.num_imgs:
+            return DataBlock()
+        v = (self._imgs[self._ix].astype(np.float32) - self.mean) * self.scale
+        ret = DataBlock(NDA(Dims.make(tn="float", chan=3, y=self.ysz,
+                                      x=self.xsz), v),
+                        tag=self.tag, frame_ix=self._ix,
+                        timestamp_ns=self._ix)
+        ret.set_sdb(DataBlock(NDA(Dims.make(tn="float", v=1),
+                                  np.array([self._labels[self._ix]],
+                                           np.float32)), tag="label"))
+        self._ix += 1
+        return ret
+
+    def seek_to_block(self, frame_ix: int) -> bool:
+        self._ix = min(frame_ix, self.num_imgs)
+        return True
+
+    def get_pos_info_str(self) -> str:
+        return f"shapes-src: {self._ix}/{self.num_imgs}"
+
+
+@mode("cls_agree",
+      help="prediction agreement of two engine configs over a labeled "
+           "stream (quantization accuracy gate)")
+class ClsAgree(RunCnetBase):
+    """Accuracy gate for selective-precision configs (VERDICT r3 #1): run
+    the SAME net through two execution configs (conv_fwd = the reference
+    precision, conv_fwd_b = the candidate, e.g. the int8 preset via
+    op_tunes_pat/act_scales_fn) over one labeled stream and report, per
+    the BASELINE north star's 'top-5 predictions matching' clause:
+    per-config top-1 accuracy, top-1 prediction agreement, candidate
+    top-1 ∈ reference top-5, and mean top-5 set overlap. The reference's
+    analog gate was output-digest comparison against ground-truth runs
+    (test_compute.cc:267-269, comp_util.H:13)."""
+
+    conv_fwd_b = Attr(ConvFwd, default="torch",
+                      help="candidate engine config (e.g. int8 preset)")
+    src = Attr(DataStream, req=True, help="labeled-block stream spec")
+    max_imgs = Attr(int, default=0, help="stop after this many (0: all)")
+
+    def main(self):
+        pipe = self.setup_cnet()
+        self.conv_fwd_b.init(pipe)
+        d = pipe.get_data_img_dims()
+        batch_sz = d["img"]
+        data_node = pipe.data_img_node_names[0]
+        top = pipe.get_single_top_node().name
+        self.src.data_stream_init()
+        num_test = num_pos_a = num_pos_b = 0
+        top1_agree = b1_in_a5 = 0
+        top5_overlap = 0.0
+        while not self.max_imgs or num_test < self.max_imgs:
+            imgs, labels = [], []
+            for _ in range(batch_sz):
+                b = self.src.proc_block(DataBlock())
+                if not b.valid():
+                    break
+                lab = b.get_sdb("label")
+                if lab is None:
+                    raise RtErr("cls_agree: stream block missing 'label' "
+                                "subblock")
+                imgs.append(b.nda.v)
+                labels.append(int(lab.nda.v.ravel()[0]))
+            if not labels:
+                break
+            while len(imgs) < batch_sz:  # pad short final batch
+                imgs.append(np.zeros_like(imgs[0]))
+            batch = NDA(d, np.stack(imgs).astype(d.dtype))
+            pa = self.conv_fwd.run_fwd({data_node: batch}, [top])[top].v
+            pb = self.conv_fwd_b.run_fwd({data_node: batch}, [top])[top].v
+            num_pos_a += score_batch(pa, labels)
+            num_pos_b += score_batch(pb, labels)
+            for i in range(len(labels)):
+                ta = np.argsort(-pa[i, :, 0, 0])[:5]
+                tb = np.argsort(-pb[i, :, 0, 0])[:5]
+                top1_agree += int(ta[0] == tb[0])
+                b1_in_a5 += int(tb[0] in ta)
+                top5_overlap += len(set(ta) & set(tb)) / 5.0
+            num_test += len(labels)
+        n = max(num_test, 1)
+        print(f"top_1_acc_a={num_pos_a / n:g} top_1_acc_b={num_pos_b / n:g} "
+              f"top_1_agree={top1_agree / n:g} "
+              f"b_top1_in_a_top5={b1_in_a5 / n:g} "
+              f"top_5_overlap={top5_overlap / n:g} "
+              f"num_pos_a={num_pos_a} num_pos_b={num_pos_b} "
+              f"num_test={num_test}")

@@ -2,35 +2,31 @@
 
 Port of boda_tpu/backend/modes.py (rtc_test): create three vars, copy two
 inputs in, run the `dot` template (c = a * b) through the port's Codegen,
-sync, copy c out and check it. Registered as torch_rtc_test beside the JAX
-rtc_test.
+sync, copy c out and check it. Registered as torch_rtc_test.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from boda_tpu.backend import modes as jmodes
-from boda_tpu.backend.iface import Backend
-from boda_tpu.core.config import Attr
-from boda_tpu.core.dims import NDA, Dims
-from boda_tpu.core.error import RtErr
-from boda_tpu.core.has_main import mode
-from boda_tpu.ops.op_base import OpBase
-
+from ..core.config import Attr
+from ..core.dims import NDA, Dims
+from ..core.error import RtErr
+from ..core.has_main import HasMain, mode
+from ..ops.op_base import OpBase
 from ..ops.registry import Codegen
-from .torch_be import check_port_backend
+from .iface import Backend
 
 
 @mode("torch_rtc_test", help="backend smoke test on the port: run the 'dot' "
                              "kernel and verify")
-class TorchRtcTest(jmodes.RtcTest):
+class TorchRtcTest(HasMain):
     rtc = Attr(Backend, default="torch",
                help="backend to test: be=torch (device=cuda by default) or "
                     "be=interp")
+    n = Attr(int, default=1024, help="vector length")
 
     def main(self):
-        check_port_backend(self.rtc, self.TYPE_ID)
         self.rtc.init()
         cg = Codegen(self.rtc)
         dims = Dims.make(n=self.n)

@@ -1,10 +1,9 @@
 """The port's Backend: `be=torch`, one torch device as a boda backend.
 
-Port of boda_tpu/backend/xla.py on the contract of boda_tpu/backend/iface.py
-(named device vars and reshaped views, host<->device copies, compile, run
-by instance name with var-name or by-value NDA args, sync, per-call
-timing). It is registered on the JAX package's Backend base, so `Attr(Backend)`
-fields and `rtcs=(t=(be=torch))` parse it.
+Port of boda_tpu/backend/xla.py on the contract of backend/iface.py (named
+device vars and reshaped views, host<->device copies, compile, run by
+instance name with var-name or by-value NDA args, sync, per-call timing).
+`Attr(Backend)` fields and `rtcs=(t=(be=torch))` parse it.
 
 Vars are torch tensors on `device` (default cuda, through core/device's
 get_device: asking for cuda without a card raises, nothing falls back to
@@ -30,25 +29,12 @@ import time
 import numpy as np
 import torch
 
-from boda_tpu.backend.iface import Backend, CompiledFunc, RtcFuncCall
-from boda_tpu.core.config import Attr, register
-from boda_tpu.core.dims import NDA, Dims
-from boda_tpu.core.error import RtErr
-
+from ..core.config import Attr, register
 from ..core.device import get_device, plat_tag
+from ..core.dims import NDA, Dims
+from ..core.error import RtErr
 from ..ops.cuda.util import torch_dtype
-
-# the backends the port's modes accept: this one, and the JAX package's
-# numpy reference (be=interp) as the known-good second backend
-PORT_BACKENDS = ("torch", "interp")
-
-
-def check_port_backend(be: Backend, mode: str) -> None:
-    """Refuse a backend that the port's per-op modes cannot run (be=xla is
-    the JAX package's)."""
-    if be.TYPE_ID not in PORT_BACKENDS:
-        raise RtErr(f"{mode}: backend be={be.TYPE_ID} is not the port's "
-                    f"(use be=torch or be=interp)")
+from .iface import Backend, CompiledFunc, RtcFuncCall
 
 
 @register(Backend, "torch", help="PyTorch on one device (default cuda) "

@@ -1,1 +1,2 @@
-"""Device selection and feature probes."""
+"""The port's core: errors, named dims, lexp, config, timers, digests,
+geometry, device selection and the card's peaks."""

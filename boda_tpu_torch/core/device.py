@@ -14,7 +14,7 @@ from pathlib import Path
 
 import torch
 
-from boda_tpu.core.error import RtErr
+from .error import RtErr
 
 # the CUDA toolkit's own default root, where CUDA_HOME names none
 _CUDA_DEFAULT_ROOT = "/usr/local/cuda"

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from boda_tpu.core.error import RtErr
+from .error import RtErr
 
 PRECS = ("f32", "bf16", "int8")
 

@@ -1,0 +1,47 @@
+"""Network execution engine interface: the has_conv_fwd_t equivalent.
+
+Capability parity with has_conv_fwd.H: a 3-method engine —
+init(pipe), run_fwd(to_set, to_get), get_info_log() — selected
+polymorphically (reference engines: 'rtc' generated-kernel engine and
+'caffe' known-good reference engine).
+
+The port's copy of boda_tpu/engine/iface.py, with one engine: 'torch'
+(engine/torch_fwd.py). The JAX package's 'rtc' and 'ref' engines are not
+ported.
+"""
+
+from __future__ import annotations
+
+from typing import Union
+
+from ..core.config import Config
+from ..core.dims import NDA
+from ..graph.pipe import ConvPipe
+
+
+class ConvFwd(Config):
+    """Polymorphic base: select with engine=<type_id>."""
+
+    TID_KEY = "engine"
+
+    def init(self, pipe: ConvPipe) -> None:
+        raise NotImplementedError
+
+    def run_fwd(self, to_set: dict[str, NDA], to_get: list[str]) -> dict[str, NDA]:
+        raise NotImplementedError
+
+    def get_info_log(self) -> str:
+        return ""
+
+
+
+def make_engine(spec: Union[str, dict, None] = None) -> ConvFwd:
+    from . import torch_fwd  # noqa: F401  (registers engine=torch)
+    if spec is None:
+        spec = "torch"
+    if isinstance(spec, dict):
+        from ..core.lexp import Lexp
+        return ConvFwd.init_from_lexp(Lexp.from_obj(spec))
+    if not spec.startswith("("):
+        spec = f"(engine={spec})"
+    return ConvFwd.init_from_lexp(spec)

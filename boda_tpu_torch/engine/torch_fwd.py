@@ -1,8 +1,8 @@
 """The torch network executor: the port of boda_tpu/engine/rtc_fwd.py.
 
 `TorchFwd` is the ConvFwd engine `engine=torch`. At init it lowers the pipe
-with the JAX package's own lowering (engine/lower.lower_pipe: variant
-pick, ReLU fusion and the NHWC/bf16 fused-storage pass), builds each step
+(engine/lower.lower_pipe, the port's copy of the JAX package's lowering:
+variant pick, ReLU fusion and the NHWC/bf16 fused-storage pass), builds each step
 from the port's templates, and puts the weights on the device once. A
 forward runs the steps eagerly in plan order on that device.
 
@@ -16,25 +16,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from boda_tpu.core.config import Attr, register
-from boda_tpu.core.dims import NDA, Dims
-from boda_tpu.core.error import RtErr
-from boda_tpu.core.timers import timer
-from boda_tpu.engine.iface import ConvFwd
-from boda_tpu.engine.lower import Plan, lower_pipe, resolve_plan_weights
-from boda_tpu.graph.pipe import ConvPipe
-from boda_tpu.ops.cnn_variants import OpTune
-
+from ..core.config import Attr, register
 from ..core.device import get_device
+from ..core.dims import NDA, Dims
+from ..core.error import RtErr
+from ..core.timers import timer
+from ..graph.pipe import ConvPipe
+from ..ops.cnn_variants import OpTune
 from ..ops.cuda.util import torch_dtype
 from ..ops.registry import get_template
+from .iface import ConvFwd
+from .lower import Plan, lower_pipe, resolve_plan_weights
 
 
 def weights_to_torch(plan: Plan, op_params: dict, device: torch.device,
                      dtype: torch.dtype | None = None) -> dict[str, torch.Tensor]:
     """The plan's weights (resolve_plan_weights: numpy) as tensors on
     `device`, floating ones cast to `dtype` when given. The single place
-    where the JAX package's parameters enter the port."""
+    where the pipe's numpy parameters become tensors."""
     out = {}
     for n, v in resolve_plan_weights(plan, op_params).items():
         t = torch.from_numpy(np.ascontiguousarray(v))
@@ -80,15 +79,17 @@ def produced_nodes(plan: Plan) -> set[str]:
 
 def build_forward(plan: Plan, device: torch.device,
                   keep_all_nodes: bool = False):
-    """The whole-net function fwd(inputs, weights, out_nodes=()) -> dict,
-    counterpart of rtc_fwd.build_fused_forward.
+    """The whole-net function fwd(inputs, weights, out_nodes=(),
+    step_hook=None) -> dict, counterpart of rtc_fwd.build_fused_forward.
 
     inputs: every node of plan.input_nodes, as logical (NCHW, node dtype)
     tensors on `device`; names, shapes, dtypes and device are checked.
     weights: weights_to_torch(plan, ...). Returns the plan's outputs plus
     `out_nodes` (every produced node under keep_all_nodes), logical form.
     When the plan's fused-storage pass is on, the conversion to and from
-    NHWC / the edge dtype happens once, at this boundary."""
+    NHWC / the edge dtype happens once, at this boundary. step_hook, when
+    given, is called with each step and returns a context manager that the
+    step runs in (a per-step timer, for instance)."""
     fns = []
     for s in plan.steps:
         tmpl = get_template(s.func_name)
@@ -118,7 +119,7 @@ def build_forward(plan: Plan, device: torch.device,
                 raise RtErr(f"build_forward: input '{n}' on {v.device}, "
                             f"the engine runs on {device}")
 
-    def fwd(inputs: dict, weights: dict, out_nodes=()) -> dict:
+    def fwd(inputs: dict, weights: dict, out_nodes=(), step_hook=None) -> dict:
         _check_inputs(inputs)
         vals = dict(weights)
         for n, v in inputs.items():
@@ -136,7 +137,11 @@ def build_forward(plan: Plan, device: torch.device,
                                 f"from another plan, or no earlier step "
                                 f"writes it)")
                 ins.append(vals[node])
-            outs = fn(*ins)
+            if step_hook is None:
+                outs = fn(*ins)
+            else:
+                with step_hook(s):
+                    outs = fn(*ins)
             if not isinstance(outs, (tuple, list)):
                 outs = (outs,)
             for an, ov in zip(tmpl.out_args() + tmpl.io_args(), outs):

@@ -1,15 +1,17 @@
-"""Registers the port's modes and backends: importing this module adds
-engine=torch, be=torch (and the JAX package's be=interp, the numpy
-reference backend the per-op modes accept beside it), and the per-op modes
-torch_rtc_test, torch_ops_prof, torch_cnn_op_info and torch_cnn_prof.
+"""Mode registration hub: importing this module registers the port's CLI
+modes, engine and backends (the port's counterpart of boda_tpu/modes.py):
 
-The per-op modes carry a torch_ prefix because mode registration is
-process-global: a port class registered as `ops_prof` would replace the
-JAX package's `ops_prof` for everything later in the process.
+  run_cnet, cnet_predict             apps/run_cnet.py
+  cls_agree (and stream shapes-src)  apps/eval_cls.py
+  torch_rtc_test                     backend/modes.py
+  torch_ops_prof                     tune/prof.py
+  torch_cnn_op_info, torch_cnn_prof  tune/opinfo.py
+
+plus engine=torch (engine/torch_fwd.py) and the backends be=torch
+(backend/torch_be.py) and be=interp (backend/interp.py).
 """
 
-from boda_tpu.backend import interp  # noqa: F401  (be=interp)
-
-from .backend import modes as _backend_modes  # noqa: F401  (torch_rtc_test)
-from .engine import torch_fwd  # noqa: F401  (engine=torch)
-from .tune import opinfo, prof  # noqa: F401  (torch_ops_prof, torch_cnn_*)
+from .apps import eval_cls, run_cnet  # noqa: F401
+from .backend import interp, modes as _backend_modes, torch_be  # noqa: F401
+from .engine import torch_fwd  # noqa: F401
+from .tune import opinfo, prof  # noqa: F401

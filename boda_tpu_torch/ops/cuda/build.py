@@ -22,9 +22,8 @@ import tempfile
 import time
 from pathlib import Path
 
-from boda_tpu.core.error import RtErr
-
 from ...core.device import nvcc_path
+from ...core.error import RtErr
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
@@ -38,9 +37,9 @@ _I = ctypes.c_int
 ENTRY_POINTS = {
     # A, B, bias, C, M, N, K, in_bf16, out_bf16, relu, stream
     "boda_matmul_ext": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, w, bias, out, n, H, W, C, oc, ky, kx, py, px, in_bf16, out_bf16,
-    # relu, stream
-    "boda_tconv": [_P, _P, _P, _P] + [_I] * 12 + [_P],
+    # x, w, bias, out, ws, n, H, W, C, oc, ky, kx, py, px, in_bf16,
+    # out_bf16, relu, splits, vec, stream
+    "boda_tconv": [_P] * 5 + [_I] * 14 + [_P],
     # x, w, bias, out, n, H, W, C, oc, ky, kx, sy, sx, py, px, pky, pkx, psy,
     # psx, oy, ox, ty, tx, in_bf16, out_bf16, relu, stream
     "boda_fused_stem": [_P, _P, _P, _P] + [_I] * 22 + [_P],

@@ -13,21 +13,125 @@ XlaConv and S2dConv are vendor roles in the JAX package (XLA convs, the
 latter over a 2x2 phase-stacked input). Here both are F.conv2d on cuDNN in
 full FP32; the phase stacking only re-indexes the same arithmetic, so it
 is dropped.
+
+The conv family's metadata is the JAX package's (conv.py:35-126):
+`conv_params`, the shared `_ConvBase` (declared args, reduced-signature
+keys, flops, the float64 reference) and `make_conv_op`. The JAX deconv
+template is not on the port's paths and is left out.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from boda_tpu.core.error import RtErr
-from boda_tpu.ops.op_base import OpBase
-from boda_tpu.ops.pallas import conv as jconv
-from boda_tpu.ops.pallas.conv import conv_params
-
-from ..registry import template
+from ...core.dims import Dims
+from ...core.error import RtErr
+from ..op_base import OpBase
+from ..registry import IN, OUT, KernelTemplate, adecl, template
 from .sgemm import matmul_ext
 from .util import compute_dtype, full_fp32, storage_io, store_dtype
+
+
+# the member tags of a sibling-fused conv (the JAX xla_conv2,
+# boda_tpu/ops/pallas/conv2.py:31): up to 4-way fusion; read by the lowering
+SIBS = ("a", "b", "c", "d")
+
+
+def conv_params(rfs: OpBase):
+    ind = rfs.get_dims("in")
+    outd = rfs.get_dims("out")
+    fd = rfs.get_dims("filts")
+    st = rfs.get_dims_or_none("stride")
+    pad = rfs.get_dims_or_none("in_pad")
+    sy, sx = (st["y"], st["x"]) if st else (1, 1)
+    py, px = (pad["y"], pad["x"]) if pad else (0, 0)
+    relu = rfs.get_u32_or("conv_has_relu", 0) == 1
+    return ind, outd, fd, sy, sx, py, px, relu
+
+
+def conv_flops(rfs: OpBase) -> int:
+    _ind, outd, fd, *_ = conv_params(rfs)
+    return 2 * outd.sz() * fd["in_chan"] * fd["y"] * fd["x"]
+
+
+class _ConvBase(KernelTemplate):
+    args = [adecl("in", IN, "img chan y x"),
+            adecl("filts", IN, "out_chan in_chan y x"),
+            # set by the weight-prequantization pass (engine/lower.py):
+            # filts arrive int8 with this per-out_chan dequant scale
+            adecl("filts_scale", IN, "out_chan", opt=True),
+            adecl("biases", IN, "out_chan", opt=True),
+            adecl("out", OUT, "img chan y x")]
+    sig_nda_keys = ["in_pad", "stride", "kern_sz", "conv_has_relu", "work",
+                    "quant8", "act_scale", "prequant_w",
+                    "in_q8", "out_q8", "out_scale", "grad_q8"]
+    sig_str_keys = ["prec", "layout"]
+    nhwc_ok = True
+
+    @classmethod
+    def flops(cls, rfs: OpBase) -> int:
+        return conv_flops(rfs)
+
+    @classmethod
+    def ref_impl(cls, rfs: OpBase, x, w, *rest):
+        """Direct float64 conv reference (shared by all variants)."""
+        ind, outd, fd, sy, sx, py, px, relu = conv_params(rfs)
+        if rfs.get_u32_or("prequant_w", 0):
+            # prequantized weights: (x, wq, sws[, b]) — dequantize first
+            sws, rest = rest[0], rest[1:]
+            w = np.asarray(w, np.float64) \
+                * np.asarray(sws, np.float64).reshape(-1, 1, 1, 1)
+        b = rest[0] if rest else None
+        x = np.asarray(x, np.float64)
+        if rfs.get_u32_or("in_q8", 0):
+            # int8 storage edge: input arrives quantized at the static
+            # act_scale — dequantize
+            x = x * (float(rfs.nda_vals["act_scale"].item()) / 127.0)
+        w = np.asarray(w, np.float64)
+        n, C, H, W = x.shape
+        oc, ic, ky, kx = w.shape
+        oy, ox = outd["y"], outd["x"]
+        xp = np.pad(x, ((0, 0), (0, 0), (py, py), (px, px)))
+        out = np.zeros((n, oc, oy, ox))
+        for yy in range(ky):
+            for xx in range(kx):
+                win = xp[:, :, yy:yy + oy * sy:sy, xx:xx + ox * sx:sx]
+                win = win[:, :, :oy, :ox]
+                out += np.einsum("nchw,oc->nohw", win, w[:, :, yy, xx],
+                                 optimize=True)
+        if b is not None:
+            out += np.asarray(b, np.float64)[None, :, None, None]
+        if relu:
+            out = np.maximum(out, 0)
+        if rfs.get_u32_or("out_q8", 0):
+            # int8 storage edge: the epilogue stores the quantized value
+            os_ = float(rfs.nda_vals["out_scale"].item())
+            out = np.clip(np.round(out * (127.0 / os_)), -127, 127) \
+                .astype(np.int8)
+        return out
+
+
+def make_conv_op(n: int, cin: int, h: int, w: int, cout: int, ky: int, kx: int,
+                 sy: int = 1, sx: int = 1, py: int = 0, px: int = 0,
+                 func_name: str = "xla_conv", relu: bool = False,
+                 bias: bool = True) -> OpBase:
+    """Helper: construct a Convolution op sig in reference layout."""
+    oy = (h + 2 * py - ky) // sy + 1
+    ox = (w + 2 * px - kx) // sx + 1
+    op = OpBase({"type": "Convolution", "func_name": func_name})
+    op.set_dims("in", Dims.make(img=n, chan=cin, y=h, x=w))
+    op.set_dims("filts", Dims.make(out_chan=cout, in_chan=cin, y=ky, x=kx))
+    if bias:
+        op.set_dims("biases", Dims.make(out_chan=cout))
+    op.set_dims("out", Dims.make(img=n, chan=cout, y=oy, x=ox))
+    op.set_null_dims("in_pad", y=py, x=px)
+    op.set_null_dims("stride", y=sy, x=sx)
+    op.set_null_dims("kern_sz", y=ky, x=kx)
+    if relu:
+        op.set_u32("conv_has_relu", 1)
+    return op
 
 
 def _bias_f32(b):
@@ -35,9 +139,11 @@ def _bias_f32(b):
 
 
 @template
-class K1Conv(jconv.K1Conv):
+class K1Conv(_ConvBase):
     """1x1 conv (stride 1 or a strided subsample) as one B1 product:
     (img*y*x, in_chan) . (out_chan, in_chan)^T."""
+
+    name = "k1conv"
 
     @classmethod
     def build(cls, rfs: OpBase):
@@ -66,10 +172,12 @@ class K1Conv(jconv.K1Conv):
 
 
 @template
-class Conv(jconv.Conv):
+class Conv(_ConvBase):
     """General (strided) conv as an im2col B1 product: the (img*oy*ox,
     ky*kx*C) patch matrix, in tap-major channel-minor order, times the
     filter reordered to (out_chan, ky, kx, C)."""
+
+    name = "conv"
 
     @classmethod
     def build(cls, rfs: OpBase):
@@ -96,9 +204,11 @@ class Conv(jconv.Conv):
 
 
 @template
-class IpConv(jconv.IpConv):
+class IpConv(_ConvBase):
     """Inner product (fc): the flattened input times the filter, whose
     (chan, y, x) axes are reordered to (y, x, chan) under NHWC storage."""
+
+    name = "ipconv"
 
     @classmethod
     def build(cls, rfs: OpBase):
@@ -149,10 +259,12 @@ def _cudnn_conv(rfs: OpBase):
 
 
 @template
-class XlaConv(jconv.XlaConv):
+class XlaConv(_ConvBase):
     """The vendor conv (cuDNN's role; XLA's in the JAX package,
     conv.py:128-296), non-quantised: NCHW or storage NHWC, f32 or bf16
     operands, bias and ReLU. The int8 forms are refused."""
+
+    name = "xla_conv"
 
     @classmethod
     def build(cls, rfs: OpBase):
@@ -164,10 +276,12 @@ class XlaConv(jconv.XlaConv):
 
 
 @template
-class S2dConv(jconv.S2dConv):
+class S2dConv(_ConvBase):
     """The thin-channel stride-2 stem conv (ResNet conv1: 7x7/s2, C=3) on
     cuDNN as a plain stride-2 conv: the JAX package's 2x2 phase stacking
     only re-indexes the same arithmetic, so it is dropped."""
+
+    name = "s2d_conv"
 
     @classmethod
     def build(cls, rfs: OpBase):

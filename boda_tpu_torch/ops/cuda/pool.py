@@ -15,21 +15,61 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from boda_tpu.ops.op_base import OpBase
-from boda_tpu.ops.pallas import pool as jpool
+from ..op_base import OpBase
+from ..registry import IN, OUT, KernelTemplate, adecl, template
 
-from ..registry import template
+
+def _params(rfs: OpBase):
+    ind = rfs.get_dims("in")
+    outd = rfs.get_dims("out")
+    ks = rfs.get_dims_or_none("kern_sz")
+    st = rfs.get_dims_or_none("stride")
+    pad = rfs.get_dims_or_none("in_pad")
+    ky, kx = (ks["y"], ks["x"]) if ks else (ind["y"], ind["x"])
+    if ky == 0 or kx == 0:  # global pooling: kernel covers the whole input
+        ky, kx = ind["y"], ind["x"]
+    sy, sx = (st["y"], st["x"]) if st else (1, 1)
+    py, px = (pad["y"], pad["x"]) if pad else (0, 0)
+    avg = rfs.str_vals.get("avg_pool", "0") == "1"
+    return ind, outd, ky, kx, sy, sx, py, px, avg
 
 
 @template
-class Pool(jpool.Pool):
+class Pool(KernelTemplate):
     """Max / average pooling over NCHW or NHWC storage tensors. The
     pool_bwd and (non-storage) layout keys change only the JAX program's
     backward and transposes, not forward values, so they are not read."""
 
+    name = "pool"
+    args = [adecl("in", IN, "img chan y x"), adecl("out", OUT, "img chan y x")]
+    sig_nda_keys = ["kern_sz", "stride", "in_pad"]
+    sig_str_keys = ["avg_pool", "layout", "pool_bwd"]
+    nhwc_ok = True
+
+    @classmethod
+    def ref_impl(cls, rfs: OpBase, x):
+        ind, outd, ky, kx, sy, sx, py, px, avg = _params(rfs)
+        x = np.asarray(x)
+        n, c, H, W = x.shape
+        oy, ox = outd["y"], outd["x"]
+        out = np.zeros((n, c, oy, ox), dtype=x.dtype)
+        for yy in range(oy):
+            for xx in range(ox):
+                y0, x0 = yy * sy - py, xx * sx - px
+                y1, x1 = min(y0 + ky, H), min(x0 + kx, W)
+                y0c, x0c = max(y0, 0), max(x0, 0)
+                win = x[:, :, y0c:y1, x0c:x1]
+                if avg:
+                    # caffe: divide by clipped-to-padded-image window size
+                    cnt = (min(y0 + ky, H + py) - y0) * (min(x0 + kx, W + px) - x0)
+                    out[:, :, yy, xx] = win.sum(axis=(2, 3)) / max(cnt, 1)
+                else:
+                    out[:, :, yy, xx] = win.max(axis=(2, 3)) if win.size else 0
+        return out
+
     @classmethod
     def build(cls, rfs: OpBase):
-        ind, outd, ky, kx, sy, sx, py, px, avg = jpool._params(rfs)
+        ind, outd, ky, kx, sy, sx, py, px, avg = _params(rfs)
         oy, ox = outd["y"], outd["x"]
         extra_y = max(0, (oy - 1) * sy + ky - (ind["y"] + 2 * py))
         extra_x = max(0, (ox - 1) * sx + kx - (ind["x"] + 2 * px))

@@ -16,14 +16,14 @@ the plain version for CPU tensors and the kernel for CUDA tensors.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from boda_tpu.core.error import RtErr
-from boda_tpu.ops.op_base import OpBase
-from boda_tpu.ops.pallas import qsgemm as jqsgemm
-
-from ..registry import template
+from ...core.error import RtErr
+from ..op_base import OpBase
+from ..registry import IN, OUT, KernelTemplate, adecl, template
 from .build import check_launch, load_kernels
+from .sgemm import _mnk
 from .util import check_operand, use_kernel
 
 # the largest K for which no sum of K products of two values in [-127, 127]
@@ -126,10 +126,37 @@ def sgemm_int8(a, b):
 sgemm_int8.launches = 0
 
 
+def _quant_sym_np(v):
+    """Symmetric max-abs quantization: (q, scale) with v ~ q * scale
+    (boda_tpu/ops/pallas/qsgemm.py:21-26)."""
+    amax = np.abs(v).max() or 1.0
+    scale = amax / 127.0
+    q = np.clip(np.round(v / scale), -127, 127).astype(np.int8)
+    return q, np.float32(scale)
+
+
 @template
-class SgemmInt8(jqsgemm.SgemmInt8):
+class SgemmInt8(KernelTemplate):
     """c[M,N] = dequant(quant8(a) . quant8(b)) on kernel B3 (JAX: Pallas
     sgemm_int8). The `work` block shapes of the sig are not used."""
+
+    name = "sgemm_int8"
+    args = [adecl("a", IN, "M K"), adecl("b", IN, "K N"),
+            adecl("c", OUT, "M N")]
+    sig_nda_keys = ["work"]
+
+    @classmethod
+    def flops(cls, rfs: OpBase) -> int:
+        M, N, K = _mnk(rfs)
+        return 2 * M * N * K
+
+    @classmethod
+    def ref_impl(cls, rfs: OpBase, a, b):
+        qa, sa = _quant_sym_np(np.asarray(a, np.float32))
+        qb, sb = _quant_sym_np(np.asarray(b, np.float32))
+        acc = qa.astype(np.int64) @ qb.astype(np.int64)
+        return (acc.astype(np.float64) * (float(sa) * float(sb))) \
+            .astype(np.float32)
 
     @classmethod
     def build(cls, rfs: OpBase):

@@ -15,14 +15,13 @@ the compute dtype like the weights, and h1 and h2 are stored in it.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from boda_tpu.core.error import RtErr
-from boda_tpu.ops.op_base import OpBase
-from boda_tpu.ops.pallas import resblock as jresblock
-
-from ..registry import template
+from ...core.error import RtErr
+from ..op_base import OpBase
+from ..registry import IN, OUT, KernelTemplate, adecl, template
 from .build import check_launch, load_kernels
 from .util import check_operand, compute_dtype, full_fp32, storage_io, \
     torch_dtype, use_kernel
@@ -178,8 +177,48 @@ resblock.launches = 0
 
 
 @template
-class ResBlock(jresblock.ResBlock):
+class ResBlock(KernelTemplate):
     """The fused identity bottleneck on kernel B5 (JAX: Pallas resblock)."""
+
+    name = "resblock"
+    nhwc_ok = True
+    args = [adecl("in", IN, "img chan y x"),
+            adecl("w1", IN, "out_chan in_chan y x"),
+            adecl("b1", IN, "out_chan"),
+            adecl("w2", IN, "out_chan in_chan y x"),
+            adecl("b2", IN, "out_chan"),
+            adecl("w3", IN, "out_chan in_chan y x"),
+            adecl("b3", IN, "out_chan"),
+            adecl("out", OUT, "img chan y x")]
+    sig_str_keys = ["prec"]
+    sig_nda_keys = ["relu_out"]
+
+    @classmethod
+    def flops(cls, rfs: OpBase) -> int:
+        xd = rfs.get_dims("in")
+        Cm = rfs.get_dims("w2")["out_chan"]
+        C = xd["chan"]
+        return 2 * xd["img"] * xd["y"] * xd["x"] * (C * Cm + 9 * Cm * Cm + Cm * C)
+
+    @classmethod
+    def ref_impl(cls, rfs: OpBase, x, w1, b1, w2, b2, w3, b3):
+        from .conv import Conv, make_conv_op
+        relu_out = rfs.get_u32_or("relu_out", 1) == 1
+
+        def conv_ref(v, w, b, relu, pad):
+            n_, c_, h_, w_sz = v.shape
+            k = w.shape[2]
+            op = make_conv_op(n_, c_, h_, w_sz, w.shape[0], k, k, py=pad,
+                              px=pad, relu=relu)
+            return Conv.ref_impl(Conv.check_args(op), v, w, b)
+
+        h = conv_ref(np.asarray(x), np.asarray(w1), np.asarray(b1), True, 0)
+        h = conv_ref(h, np.asarray(w2), np.asarray(b2), True, 1)
+        y = conv_ref(h, np.asarray(w3), np.asarray(b3), False, 0)
+        y = y + np.asarray(x, y.dtype)
+        if relu_out:
+            y = np.maximum(y, 0)
+        return y.astype(np.asarray(x).dtype)
 
     @classmethod
     def build(cls, rfs: OpBase):

@@ -14,13 +14,12 @@ instead of padding A, B and bias in device memory (sgemm.py:184-197).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from boda_tpu.core.error import RtErr
-from boda_tpu.ops.op_base import OpBase
-from boda_tpu.ops.pallas import sgemm as jsgemm
-
-from ..registry import template
+from ...core.error import RtErr
+from ..op_base import OpBase
+from ..registry import IN, OUT, KernelTemplate, adecl, template
 from .build import check_launch, load_kernels
 from .util import check_operand, full_fp32, torch_dtype, use_kernel
 
@@ -86,9 +85,35 @@ def matmul_ext(a, b, bias=None, relu=False, out_dtype=torch.float32):
 matmul_ext.launches = 0
 
 
+def _mnk(rfs: OpBase) -> tuple[int, int, int]:
+    a = rfs.get_dims("a")
+    b = rfs.get_dims("b")
+    return a["M"], b["N"], a["K"]
+
+
+class _SgemmBase(KernelTemplate):
+    """The sgemm family's metadata (boda_tpu/ops/pallas/sgemm.py:210-267):
+    c[M,N] = a[M,K] . b[K,N], referenced in float64."""
+
+    args = [adecl("a", IN, "M K"), adecl("b", IN, "K N"), adecl("c", OUT, "M N")]
+    sig_str_keys = ["prec"]
+
+    @classmethod
+    def flops(cls, rfs: OpBase) -> int:
+        M, N, K = _mnk(rfs)
+        return 2 * M * N * K
+
+    @classmethod
+    def ref_impl(cls, rfs: OpBase, a, b):
+        return np.asarray(a, np.float64) @ np.asarray(b, np.float64)
+
+
 @template
-class Sgemm(jsgemm.Sgemm):
+class Sgemm(_SgemmBase):
     """c[M,N] = a[M,K] . b[K,N] on kernel B1 (JAX: Pallas sgemm)."""
+
+    name = "sgemm"
+    sig_nda_keys = ["work"]
 
     @classmethod
     def build(cls, rfs: OpBase):
@@ -104,12 +129,14 @@ class Sgemm(jsgemm.Sgemm):
 
 
 @template
-class XlaSgemm(jsgemm.XlaSgemm):
+class XlaSgemm(_SgemmBase):
     """The vendor sgemm (cuBLAS's role; jnp.dot on XLA in the JAX package,
     sgemm.py:236-267), which ops_prof's kg tune (use_culibs=1) runs and
     checks every other tune against: torch.matmul in full FP32, or on bf16
     operands under prec=bf16, summed in f32. A bf16 product comes out of
     cuBLAS rounded once to bf16, where XLA keeps it in f32."""
+
+    name = "xla_sgemm"
 
     @classmethod
     def build(cls, rfs: OpBase):

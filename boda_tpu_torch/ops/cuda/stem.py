@@ -18,14 +18,57 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from boda_tpu.core.error import RtErr
-from boda_tpu.ops.op_base import OpBase
-from boda_tpu.ops.pallas import stem as jstem
-
-from ..registry import template
+from ...core.dims import Dims
+from ...core.error import RtErr
+from ..op_base import OpBase
+from ..registry import IN, OUT, adecl, template
 from .build import check_launch, load_kernels
+from .conv import _ConvBase
 from .util import check_operand, compute_dtype, full_fp32, storage_io, \
     store_dtype, use_kernel
+
+
+def _stem_params(rfs: OpBase):
+    ind = rfs.get_dims("in")
+    outd = rfs.get_dims("out")
+    fd = rfs.get_dims("filts")
+    st = rfs.get_dims_or_none("stride")
+    pad = rfs.get_dims_or_none("in_pad")
+    pk = rfs.get_dims("pool_kern")
+    ps = rfs.get_dims("pool_stride")
+    pp = rfs.get_dims_or_none("pool_pad")
+    return (ind, outd, fd,
+            (st["y"], st["x"]) if st else (1, 1),
+            (pad["y"], pad["x"]) if pad else (0, 0),
+            (pk["y"], pk["x"]), (ps["y"], ps["x"]),
+            (pp["y"], pp["x"]) if pp else (0, 0))
+
+
+def make_stem_op(n: int, cin: int, h: int, w: int, cout: int,
+                 k: int = 7, s: int = 2, p: int = 3,
+                 pool_k: int = 3, pool_s: int = 2,
+                 bias: bool = True) -> OpBase:
+    """The fused_stem op sig of a k x k / s conv (pad p, ReLU) and a
+    ceil-mode pool_k / pool_s max pool (boda_tpu/ops/pallas/stem.py:277)."""
+    cy = (h + 2 * p - k) // s + 1
+    cx = (w + 2 * p - k) // s + 1
+    oy = -(-(cy - pool_k) // pool_s) + 1
+    ox = -(-(cx - pool_k) // pool_s) + 1
+    op = OpBase({"type": "fused_stem", "func_name": "fused_stem"})
+    op.set_dims("in", Dims.make(img=n, chan=cin, y=h, x=w))
+    op.set_dims("filts", Dims.make(out_chan=cout, in_chan=cin, y=k, x=k))
+    if bias:
+        op.set_dims("biases", Dims.make(out_chan=cout))
+    op.set_dims("out", Dims.make(img=n, chan=cout, y=oy, x=ox))
+    op.set_null_dims("in_pad", y=p, x=p)
+    op.set_null_dims("stride", y=s, x=s)
+    op.set_null_dims("kern_sz", y=k, x=k)
+    op.set_null_dims("pool_kern", y=pool_k, x=pool_k)
+    op.set_null_dims("pool_stride", y=pool_s, x=pool_s)
+    op.set_null_dims("pool_pad", y=0, x=0)
+    op.set_u32("conv_has_relu", 1)
+    return op
+
 
 # conv positions a block of the kernel computes at most (csrc/stem.cu kMaxPos)
 MAX_CONV_TILE = 160
@@ -140,12 +183,49 @@ fused_stem.launches = 0
 
 
 @template
-class FusedStem(jstem.FusedStem):
+class FusedStem(_ConvBase):
     """conv + bias + ReLU + max-pool on kernel B4 (JAX: Pallas fused_stem)."""
+
+    name = "fused_stem"
+    args = [adecl("in", IN, "img chan y x"),
+            adecl("filts", IN, "out_chan in_chan y x"),
+            adecl("biases", IN, "out_chan", opt=True),
+            adecl("out", OUT, "img chan y x")]
+    sig_nda_keys = ["in_pad", "stride", "kern_sz", "conv_has_relu",
+                    "pool_kern", "pool_stride", "pool_pad"]
+    sig_str_keys = ["prec", "layout"]
+
+    @classmethod
+    def flops(cls, rfs: OpBase) -> int:
+        ind, _outd, fd, (sy, sx), (py, px), _pk, _ps, _pp = _stem_params(rfs)
+        cy = (ind["y"] + 2 * py - fd["y"]) // sy + 1
+        cx = (ind["x"] + 2 * px - fd["x"]) // sx + 1
+        return 2 * ind["img"] * cy * cx * fd["out_chan"] * \
+            fd["in_chan"] * fd["y"] * fd["x"]
+
+    @classmethod
+    def ref_impl(cls, rfs: OpBase, x, w, b=None):
+        from .pool import Pool
+        ind, outd, fd, (sy, sx), (py, px), (pky, pkx), (psy, psx), \
+            (ppy, ppx) = _stem_params(rfs)
+        cy = (ind["y"] + 2 * py - fd["y"]) // sy + 1
+        cx = (ind["x"] + 2 * px - fd["x"]) // sx + 1
+        crfs = rfs.copy()
+        crfs.set_dims("out", Dims.make(tn=outd.tn, img=ind["img"],
+                                       chan=fd["out_chan"], y=cy, x=cx))
+        conv = _ConvBase.ref_impl(crfs, x, w, b)  # includes bias+relu
+        prfs = OpBase({"type": "Pooling"})
+        prfs.set_dims("in", Dims.make(tn=outd.tn, img=ind["img"],
+                                      chan=fd["out_chan"], y=cy, x=cx))
+        prfs.set_dims("out", outd)
+        prfs.set_null_dims("kern_sz", y=pky, x=pkx)
+        prfs.set_null_dims("stride", y=psy, x=psx)
+        prfs.set_null_dims("in_pad", y=ppy, x=ppx)
+        return Pool.ref_impl(prfs, conv)
 
     @classmethod
     def build(cls, rfs: OpBase):
-        ind, outd, fd, stride, pad, pk, ps, pp = jstem._stem_params(rfs)
+        ind, outd, fd, stride, pad, pk, ps, pp = _stem_params(rfs)
         # the Pallas kernel's own preconditions (stem.py:64-65,75)
         if pp != (0, 0):
             raise RtErr(f"fused_stem: pool pad 0 only, got {pp}")

@@ -1,10 +1,12 @@
-"""tconv (kernel B2) and the `tconv` template.
+"""tconv (kernel B2), its planner and the `tconv` template.
 
 Port of boda_tpu/ops/pallas/tconv.py. `tconv` wraps the hand-written CUDA
-kernel in csrc/tconv.cu, a stride-1 implicit-GEMM conv on NHWC input (see
-its header for what bounds it and how it is built); `tconv_plain` is the
-same function in plain PyTorch. The wrapper checks its operands, then runs
-the plain version for CPU tensors and the kernel for CUDA tensors.
+kernel in csrc/tconv.cu, a stride-1 implicit-GEMM conv on NHWC input with
+the filter in OHWI order (see its header for what bounds it and how it is
+built): bf16 on the tensor cores, f32 in full FP32 on FFMA. `tconv_plan`
+picks its tile and its K split; `tconv_plain` is the same function in
+plain PyTorch. The wrapper checks its operands, then runs the plain
+version for CPU tensors and the kernel for CUDA tensors.
 
 Unlike the Pallas version, conv padding is a masked load in the kernel:
 no padded copy of x (tconv.py:193-196) and no channel padding to 128.
@@ -12,18 +14,78 @@ no padded copy of x (tconv.py:193-196) and no channel padding to 128.
 
 from __future__ import annotations
 
+import math
+from dataclasses import dataclass
+
 import torch
 import torch.nn.functional as F
 
-from boda_tpu.core.error import RtErr
-from boda_tpu.ops.op_base import OpBase
-from boda_tpu.ops.pallas import tconv as jtconv
-from boda_tpu.ops.pallas.conv import conv_params
-
+from ...core.error import RtErr
+from ..op_base import OpBase
 from ..registry import template
 from .build import check_launch, load_kernels
+from .conv import _ConvBase, conv_params
 from .util import check_operand, compute_dtype, full_fp32, \
     storage_io, store_dtype, use_kernel
+
+TILE = 128                   # block tile: 128 pixels x 128 output channels
+BK = {torch.bfloat16: 64, torch.float32: 8}   # K chunk of each route
+VEC = {torch.bfloat16: 8, torch.float32: 4}   # channels of one 16-byte load
+MIN_CHUNKS_PER_SPLIT = 2
+# Split-K, by route: (split grids of fewer than this many output tiles per
+# SM, least split count). A split grid takes the smallest power of two of
+# splits, from the least, that puts 1.5 blocks per SM on the card. From
+# the kernel timed alone by split count at the ResNet-50 3x3 shapes (the
+# `tconv splits` lines of chip_smoke.py; PERF.md), where this rule picks
+# the fastest count timed or one within noise of it: the bf16 kernel is short
+# enough that the partial sums' round trip through the workspace costs
+# more than an idle quarter of the card (res4b b32, 98 tiles: 0.038 ms
+# unsplit, 0.042 in 2 splits), so it splits only grids under half the
+# SMs; the f32 kernel is fastest in 4 splits at res3, res4b and res5 at
+# batch 32 (res4b: 0.298 unsplit, 0.268 in 2, 0.241 in 4, 0.251 in 8).
+SPLIT = {torch.bfloat16: (0.5, 1), torch.float32: (2, 4)}
+SPLIT_FILL = 1.5
+
+
+@dataclass(frozen=True)
+class TConvPlan:
+    """How csrc/tconv.cu runs one conv: its route ("mma": bf16 on the tensor
+    cores, "ffma": f32 on the CUDA cores), whether operands move in 16-byte
+    loads (vec: C a multiple of 8 channels in bf16, 4 in f32), the block
+    tile, the K chunk, and the number of K splits (1: no split-K)."""
+    route: str
+    vec: bool
+    tile_m: int
+    tile_n: int
+    bk: int
+    splits: int
+    blocks: int              # tiles of the output, before the split
+
+
+def tconv_plan(n: int, H: int, W: int, C: int, oc: int, ky: int, kx: int,
+               dtype: torch.dtype, pad: tuple[int, int],
+               sms: int) -> TConvPlan:
+    """The kernel's plan for x [n, H, W, C] (dtype) and an [oc, ky, kx, C]
+    filter at padding `pad`, on a card with `sms` SMs. The output tiles
+    are 128 x 128; where they are fewer than the route's SPLIT threshold,
+    the K chunks are split as SPLIT says, each split summing at least
+    MIN_CHUNKS_PER_SPLIT chunks."""
+    if dtype not in BK:
+        raise RtErr(f"tconv_plan: dtype {dtype} not f32/bf16")
+    M = n * (H + 2 * pad[0] - ky + 1) * (W + 2 * pad[1] - kx + 1)
+    blocks = math.ceil(M / TILE) * math.ceil(oc / TILE)
+    chunks = math.ceil(ky * kx * C / BK[dtype])
+    below, least = SPLIT[dtype]
+    splits = 1
+    if blocks < below * sms:
+        splits = least
+        while blocks * splits < SPLIT_FILL * sms:
+            splits *= 2
+        per = max(MIN_CHUNKS_PER_SPLIT, math.ceil(chunks / splits))
+        splits = math.ceil(chunks / per)
+    return TConvPlan("mma" if dtype == torch.bfloat16 else "ffma",
+                     C % VEC[dtype] == 0, TILE, TILE, BK[dtype], splits,
+                     blocks)
 
 
 def _check(x, w, bias, pad, out_dtype):
@@ -32,9 +94,10 @@ def _check(x, w, bias, pad, out_dtype):
     if w.dtype != x.dtype:
         raise RtErr(f"tconv: x is {x.dtype} but w is {w.dtype}")
     n, H, W, C = x.shape
-    oc, wc, ky, kx = w.shape
+    oc, ky, kx, wc = w.shape
     if wc != C:
-        raise RtErr(f"tconv: x has {C} channels, w {tuple(w.shape)} has {wc}")
+        raise RtErr(f"tconv: x has {C} channels, w {tuple(w.shape)} (OHWI) "
+                    f"has {wc}")
     py, px = pad
     oy, ox = H + 2 * py - ky + 1, W + 2 * px - kx + 1
     if min(n, C, oc, oy, ox) < 1 or py < 0 or px < 0:
@@ -54,9 +117,10 @@ def _check(x, w, bias, pad, out_dtype):
 def tconv_plain(x, w, bias=None, pad=(0, 0), relu=False,
                 out_dtype=torch.float32):
     """Plain PyTorch tconv: F.conv2d of the f32-cast operands in full FP32,
-    + bias in f32, ReLU, one cast; NHWC in and out."""
+    + bias in f32, ReLU, one cast; NHWC in and out, the filter OHWI."""
     with full_fp32():
-        y = F.conv2d(x.permute(0, 3, 1, 2).float(), w.float(), padding=pad)
+        y = F.conv2d(x.permute(0, 3, 1, 2).float(),
+                     w.permute(0, 3, 1, 2).float(), padding=pad)
     if bias is not None:
         y = y + bias[None, :, None, None]
     if relu:
@@ -65,26 +129,37 @@ def tconv_plain(x, w, bias=None, pad=(0, 0), relu=False,
 
 
 def tconv(x, w, bias=None, pad=(0, 0), relu=False, out_dtype=torch.float32):
-    """Stride-1 conv: out[n,oy,ox,oc] = relu?(sum x[n,..,C] * w[oc,C,ky,kx]
+    """Stride-1 conv: out[n,oy,ox,oc] = relu?(sum x[n,..,C] * w[oc,..,C]
     + bias[oc]), accumulated in f32.
 
-    x: contiguous NHWC; w: contiguous OIHW of x's dtype (f32 or bf16);
-    bias: contiguous f32 [oc] or None; pad: (py, px). Returns a new NHWC
-    tensor of out_dtype (f32 or bf16).
+    x: contiguous NHWC; w: contiguous OHWI [oc, ky, kx, C] of x's dtype (f32
+    or bf16); bias: contiguous f32 [oc] or None; pad: (py, px). Returns a
+    new NHWC tensor of out_dtype (f32 or bf16). A split-K plan adds an f32
+    workspace of splits x (n*oy*ox) x oc for the partial sums.
 
     On CUDA tensors the launch is asynchronous on the current stream; an
-    input freed after the call is reused only in that stream's order by
-    torch's caching allocator, so no synchronisation is needed."""
+    input (or the workspace) freed after the call is reused only in that
+    stream's order by torch's caching allocator, so no synchronisation is
+    needed."""
     n, H, W, C, oc, ky, kx, oy, ox = _check(x, w, bias, pad, out_dtype)
     if not use_kernel(x, w, bias):
         return tconv_plain(x, w, bias, pad, relu, out_dtype)
+    plan = tconv_plan(n, H, W, C, oc, ky, kx, x.dtype, pad,
+                      torch.cuda.get_device_properties(x.device)
+                      .multi_processor_count)
+    # torch allocations are 256-byte aligned; a view into one may not be
+    vec = plan.vec and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     out = torch.empty((n, oy, ox, oc), dtype=out_dtype, device=x.device)
+    ws = torch.empty((plan.splits, n * oy * ox, oc), dtype=torch.float32,
+                     device=x.device) if plan.splits > 1 else None
     rc = load_kernels().boda_tconv(
         x.data_ptr(), w.data_ptr(),
         bias.data_ptr() if bias is not None else None, out.data_ptr(),
+        ws.data_ptr() if ws is not None else None,
         n, H, W, C, oc, ky, kx, pad[0], pad[1],
         int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        int(bool(relu)), torch.cuda.current_stream(x.device).cuda_stream)
+        int(bool(relu)), plan.splits, int(vec),
+        torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(rc, "tconv")
     tconv.launches += 1
     return out
@@ -94,8 +169,10 @@ tconv.launches = 0
 
 
 @template
-class TConv(jtconv.TConv):
+class TConv(_ConvBase):
     """Stride-1 direct conv on kernel B2 (JAX: Pallas tconv)."""
+
+    name = "tconv"
 
     @classmethod
     def build(cls, rfs: OpBase):
@@ -112,7 +189,8 @@ class TConv(jtconv.TConv):
             # the Pallas kernel adds the bias rounded to the compute dtype
             # (tconv.py:199), unlike build_matmul_ext's f32 bias
             bias = None if b is None else b.to(cdt).float().contiguous()
-            y = tconv(xh.contiguous(), w.to(cdt).contiguous(), bias, (py, px),
-                      relu, odt)
+            # the kernel reads the filter K-contiguous: OIHW -> OHWI
+            wh = w.to(cdt).permute(0, 2, 3, 1).contiguous()
+            y = tconv(xh.contiguous(), wh, bias, (py, px), relu, odt)
             return y if io_nhwc else y.permute(0, 3, 1, 2).contiguous()
         return fn

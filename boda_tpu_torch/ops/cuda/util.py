@@ -15,8 +15,8 @@ import contextlib
 import numpy as np
 import torch
 
-from boda_tpu.core.error import RtErr
-from boda_tpu.ops.op_base import OpBase
+from ...core.error import RtErr
+from ..op_base import OpBase
 
 _NP_TO_TORCH = {
     np.dtype(np.float32): torch.float32,

@@ -13,25 +13,31 @@ port runs such an op in full FP32 on the CUDA cores, so it is scored
 against the FP32 peak (67 TF/s on an H100 SXM), not the bf16 tensor-core
 peak (989 TF/s), which would put every f32 op 15x further from its roof.
 
-Registered as torch_cnn_op_info and torch_cnn_prof, beside the JAX modes.
+The modes keep the names torch_cnn_op_info and torch_cnn_prof they had
+when they shared the JAX package's process-global mode registry.
 """
 
 from __future__ import annotations
 
-from boda_tpu.backend.iface import Backend
-from boda_tpu.core.config import Attr
-from boda_tpu.core.error import RtErr
-from boda_tpu.core.has_main import mode
-from boda_tpu.ops.cnn_variants import add_codegen_annotations
-from boda_tpu.ops.op_base import OpBase
-from boda_tpu.testing.comp import comp_vars
-from boda_tpu.tune import opinfo as jopinfo
-from boda_tpu.tune.opinfo import op_bytes
-
-from ..backend.torch_be import check_port_backend
+from ..backend.iface import Backend
+from ..core.config import Attr
+from ..core.error import RtErr
+from ..core.has_main import HasMain, mode
 from ..core.machine import PRECS, peak_flops
+from ..ops.cnn_variants import OpTune, add_codegen_annotations
+from ..ops.op_base import OpBase, read_op_sigs
 from ..ops.registry import Codegen, get_template
+from ..testing.comp import comp_vars
 from .prof import profile_rcg_call
+
+
+def op_bytes(rfs) -> int:
+    """Bytes of a reduced sig's tensors (boda_tpu/tune/opinfo.py:23-28)."""
+    n = 0
+    for k, v in rfs.nda_vals.items():
+        if v.dims.tn != "none":
+            n += v.dims.bytes_sz()
+    return n
 
 
 def op_prec(sig: OpBase, tune_prec: str = "") -> str:
@@ -45,9 +51,21 @@ def op_prec(sig: OpBase, tune_prec: str = "") -> str:
 
 @mode("torch_cnn_op_info", help="cnn_op_info on the port: per-op flops/AI/"
                                 "roofline report (+optional run)")
-class TorchCnnOpInfo(jopinfo.CnnOpInfo):
+class TorchCnnOpInfo(HasMain):
+    ops_fn = Attr(str, req=True, help="op-sig list file")
     rtc = Attr(Backend, default="torch",
                help="backend: be=torch (device=cuda by default) or be=interp")
+    op_tune = Attr(OpTune, default="()")
+    comp_tune = Attr(OpTune, default=None, help="comparison tune (e.g. (use_culibs=1))")
+    run = Attr(bool, default=False, help="also run+time each op")
+    run_iter = Attr(int, default=5)
+    peak_flops = Attr(float, default=0.0, help="peak FLOP/s (0=auto from device)")
+    mrd_toler = Attr(float, default=5e-4)
+    latex_fn = Attr(str, default="", help="also write a LaTeX table here "
+                    "(reference: conv_op_info_to_latex_t, latex-util.H:22)")
+
+    def get_ops(self):
+        return read_op_sigs(self.ops_fn)
 
     def _peak(self, prec: str) -> float:
         """peak_flops when given, else the backend card's peak in prec."""
@@ -62,7 +80,6 @@ class TorchCnnOpInfo(jopinfo.CnnOpInfo):
         ops = self.get_ops()
         cg = None
         if self.run:
-            check_port_backend(self.rtc, self.TYPE_ID)
             self.rtc.ensure_init()
             cg = Codegen(self.rtc)
         print(f"{'op':58s} {'func':12s} {'Mflops':>10s} {'MB':>8s} {'AI':>7s}"
@@ -128,6 +145,35 @@ class TorchCnnOpInfo(jopinfo.CnnOpInfo):
 
 @mode("torch_cnn_prof", help="cnn_prof on the port: per-op profile of a "
                              "NET's ops (no sig file needed)")
-class TorchCnnProf(TorchCnnOpInfo, jopinfo.CnnProf):
+class TorchCnnProf(TorchCnnOpInfo):
     """cnn_prof (opinfo.py:157-191) on the port: the same report over the
     conv and fc ops of a zoo model or prototxt, deduplicated by sig."""
+
+    ops_fn = Attr(str, default="", help="(unused; ops come from the model)")
+    model = Attr(str, default="", help="zoo model name")
+    ptt_fn = Attr(str, default="", help="or a prototxt path")
+    batch = Attr(int, default=1)
+    dedup = Attr(bool, default=True, help="collapse duplicate op sigs")
+    sigs_out_fn = Attr(str, default="", help="also write the op-sig list "
+                       "here (feeds ops_prof sweeps)")
+
+    def get_ops(self):
+        from ..graph.modes import _load_pipe
+        from ..ops.op_base import write_op_sigs
+        pipe = _load_pipe(self)
+        ops = []
+        seen = set()
+        for op in pipe.topo_order():
+            if op.type not in ("Convolution", "Deconvolution", "InnerProduct"):
+                continue
+            o = op.copy()
+            o.str_vals.pop("caffe_name", None)
+            if self.dedup:
+                k = o._key()
+                if k in seen:
+                    continue
+                seen.add(k)
+            ops.append(o)
+        if self.sigs_out_fn:
+            write_op_sigs(self.out_path(self.sigs_out_fn), ops)
+        return ops

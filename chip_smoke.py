@@ -8,11 +8,22 @@ Phases, run in order, each fatal on failure (all of them by default):
   build    nvcc builds the hand-written kernels (boda_tpu_torch/csrc) for sm_90a
   kernels  each kernel against its plain PyTorch version at the ResNet-50
            shapes of its path (timed with CUDA events) and at ragged edge
-           shapes, f32 (mrd <= 1e-4) and bf16 (mrd <= 5e-3); the fused_stem
-           template's NCHW f32 and NHWC-storage bf16 forms against the bare
-           kernel; sgemm_int8 bit-equal to its plain version at 1024^3 and
-           4096^3 (timed, with its quantize pass alone) and at ragged shapes
-           (K=50, K=3, K=4099, an all-zero A)
+           shapes (tconv: C not a multiple of 8, M and oc not multiples of
+           its 128 tile, split K), f32 (mrd <= 1e-4) and bf16 (mrd <=
+           5e-3); the fused_stem template's NCHW f32 and NHWC-storage bf16
+           forms against the bare kernel; sgemm_int8 bit-equal to its plain
+           version at 1024^3 and 4096^3 (timed, with its quantize pass
+           alone) and at ragged shapes (K=50, K=3, K=4099, an all-zero A).
+           Each timed case also prints its bound (the larger of its FLOPs
+           over the card's peak in its precision and its bytes, each input
+           read and each output written once, over HBM bandwidth;
+           core/machine.card_peaks) and the time of the PyTorch call that
+           computes the same function (library: torch.addmm, F.conv2d on
+           channels_last, torch._int_mm + the scale), or of the sequence
+           of calls where no single one does (fused_stem: conv, ReLU,
+           max-pool; resblock: three convs, add, ReLU). Then the tconv
+           kernel alone, timed by K split count at the ResNet-50 3x3
+           shapes (what tconv_plan's split rule rests on)
   digests  TorchFwd at batch 1 under the f32 tune and the fused f32 tune
            against the per-node digest archives recorded on a TPU
            (tests/data/tpu_digests): resnet-50@shapes40 (trained weights,
@@ -26,7 +37,8 @@ Phases, run in order, each fatal on failure (all of them by default):
            tunes: kernel launch counts per forward (unfused: 40 matmul_ext,
            13 tconv; fused: 14 matmul_ext, 3 tconv, 1 fused_stem, 12
            resblock; no sgemm_int8), finite softmax rows, ms per forward and
-           imgs/s
+           imgs/s, and each template's summed step time over one more
+           forward (CUDA events around each step)
   ops_prof the per-op path (mode torch_ops_prof, be=torch): the six square
            SGEMMs of tests/data/ops/sgemm-baseline.txt (128^3-4096^3) under
            the tunes kg (cuBLAS FP32), hand (B1) and int8 (B3, mrd 5e-2 vs
@@ -42,10 +54,15 @@ and power limit; a JSON object with one entry per kernel ("launches":
 launches in one run of that kernel's own main path, the f32 tune's forward
 for matmul_ext and tconv, the fused f32 tune's for fused_stem and resblock,
 and the int8 SGEMM sweep of ops_prof for sgemm_int8; "launches_by_tune": in
-each of those runs; "ms" and "plain_ms": summed over the timed shapes;
-"max_abs_err": over every checked shape) and the b32 forward times; and
-{"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
-of the repo, it exits non-zero and prints no result. It never imports jax.
+each of those runs; "ms", "plain_ms", "bound_ms" and "library_ms":
+summed over the timed shapes, "bound_by" that of the case with the
+largest bound; "library_ms" is null for fused_stem and resblock, which
+no single PyTorch call computes, and "library_sequence_ms" holds the
+time of the sequence of calls that does; "max_abs_err": over every
+checked shape; "cases": each timed case), the b32 forward times and the
+per-template step times; and {"ok": true, "device": {...}}. Without a
+CUDA device, or outside a checkout of the repo, it exits non-zero and
+prints no result. It imports neither jax nor the JAX package boda_tpu.
 """
 
 from __future__ import annotations
@@ -225,6 +242,12 @@ def _edge_cases():
          dict(n=2, H=5, W=9, C=13, oc=70, k=5, pad=2, relu=False)),
         ("edge 1x1 n=1 3x3 C=6 oc=5", "tconv",
          dict(n=1, H=3, W=3, C=6, oc=5, k=1, pad=0, relu=True)),
+        # M = 429 and oc = 72 off the 128 tile; then a K split (18 splits
+        # in bf16, 96 in f32 on 132 SMs; ops/cuda/tconv.tconv_plan)
+        ("edge 3x3 n=3 13x11 C=64 oc=72", "tconv",
+         dict(n=3, H=13, W=11, C=64, oc=72, relu=True)),
+        ("edge split-K 3x3 n=1 7^2 C=256 oc=200", "tconv",
+         dict(n=1, H=7, W=7, C=256, oc=200, relu=False)),
         # tests/test_stem.py:53-54
         ("edge stem n=2 48x40 oc=8 no bias", "fused_stem",
          dict(n=2, H=48, W=40, C=3, oc=8, bias=False)),
@@ -262,7 +285,8 @@ def _kernel_args(kname, kw, dt, dev, gen):
     elif kname == "tconv":
         n, H, W, C, oc = kw["n"], kw["H"], kw["W"], kw["C"], kw["oc"]
         k, pad = kw.get("k", 3), kw.get("pad", 1)
-        args = (randn(n, H, W, C), randn(oc, C, k, k, scale=(k * k * C) ** -0.5),
+        # the filter in OHWI order, as the tconv template hands it over
+        args = (randn(n, H, W, C), randn(oc, k, k, C, scale=(k * k * C) ** -0.5),
                 torch.randn(oc, device=dev, generator=gen), (pad, pad),
                 kw["relu"])
         fns, plain = tconv, tconv_plain
@@ -285,12 +309,111 @@ def _kernel_args(kname, kw, dt, dev, gen):
             lambda: plain(*args)), args
 
 
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None and hasattr(t, "element_size"))
+
+
+def _work(kname, args, out) -> int:
+    """FLOPs (OPs for sgemm_int8) of one call of a kernel case."""
+    if kname in ("matmul_ext", "sgemm_int8"):
+        (M, K), N = args[0].shape, out.shape[1]
+        return 2 * M * N * K
+    if kname == "tconv":
+        _oc, ky, kx, C = args[1].shape
+        return 2 * out.numel() * ky * kx * C
+    if kname == "fused_stem":
+        x, w = args[:2]
+        n, H, W, C = x.shape
+        (py, px), (sy, sx) = args[3], (2, 2)
+        cy, cx = (H + 2 * py - 7) // sy + 1, (W + 2 * px - 7) // sx + 1
+        return 2 * n * cy * cx * w.shape[0] * 49 * C
+    x, w1 = args[:2]
+    n, H, W, C = x.shape
+    Cm = w1.shape[0]
+    return 2 * n * H * W * (2 * C * Cm + 9 * Cm * Cm)
+
+
+def bound(peaks, prec: str, work: int, nbytes: int) -> tuple[float, str]:
+    """(ms, what bounds it): the least time the card could take for `work`
+    operations in `prec` moving `nbytes`, each input read once and each
+    output written once."""
+    t_ops = work / peaks.flops(prec)
+    t_bytes = nbytes / peaks.hbm_bw
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _library(kname, args, dt):
+    """(fn, kind) of the PyTorch yardstick of a kernel case: one call that
+    computes the same function ("call"), or the sequence of calls that
+    does where no single one does ("sequence"). The port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    cl = torch.channels_last
+    if kname == "matmul_ext":
+        a, b, bias = args[:3]
+        bb = bias.to(dt)
+        return (lambda: torch.addmm(bb, a, b.t())), "call"
+    if kname == "tconv":
+        x, w, bias, pad = args[:4]
+        # the NHWC x and the OHWI filter are channels_last NCHW / OIHW views
+        xc, wc, bb = x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2), bias.to(dt)
+        return (lambda: F.conv2d(xc, wc, bb, padding=pad)), "call"
+    if kname == "fused_stem":
+        x, w, bias, pad, pool = args[:5]
+        xc, wc = x.permute(0, 3, 1, 2), w.contiguous(memory_format=cl)
+        bb = None if bias is None else bias.to(dt)
+        return (lambda: F.max_pool2d(torch.relu(F.conv2d(
+            xc, wc, bb, stride=2, padding=pad)), pool[0], pool[1],
+            ceil_mode=True)), "sequence"
+    x, w1, b1, w2, b2, w3, b3, relu_out = args
+    C, Cm = x.shape[3], w1.shape[0]
+    xc = x.permute(0, 3, 1, 2)
+    w1c = w1.reshape(Cm, C, 1, 1).contiguous(memory_format=cl)
+    w2c = w2.contiguous(memory_format=cl)
+    w3c = w3.reshape(C, Cm, 1, 1).contiguous(memory_format=cl)
+
+    def seq():
+        h = torch.relu(F.conv2d(xc, w1c, b1))
+        h = torch.relu(F.conv2d(h, w2c, b2, padding=1))
+        y = F.conv2d(h, w3c, b3) + xc
+        return torch.relu(y) if relu_out else y
+    return seq, "sequence"
+
+
+def _stats(name: str) -> dict:
+    source, replaces = SOURCES[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": 0.0, "max_mrd": 0.0,
+            "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": None,
+            "library_ms": 0.0, "cases": []}
+
+
+def _add_case(s: dict, case: dict) -> None:
+    """Sum a timed case into its kernel's entry. A case timed against a
+    sequence of calls keeps that time as library_sequence_ms: its
+    library_ms, and its kernel's, is null."""
+    for k in ("ms", "plain_ms", "bound_ms"):
+        s[k] += case[k]
+    if case["library"] == "sequence":
+        case["library_sequence_ms"] = case["library_ms"]
+        case["library_ms"] = None
+        s["library_sequence_ms"] = s.get("library_sequence_ms", 0.0) + \
+            case["library_sequence_ms"]
+    s["library_ms"] = None if s["library_ms"] is None \
+        or case["library_ms"] is None else s["library_ms"] + case["library_ms"]
+    if all(case["bound_ms"] >= c["bound_ms"] for c in s["cases"]):
+        s["bound_by"] = case["bound_by"]
+    s["cases"].append(case)
+
+
 def _check_stem_template(args, dt, got) -> str:
     """The fused_stem template in the form each main path runs it (f32:
     NCHW in and out; bf16: NHWC bf16-edge storage) on the same operands
     must give the bare kernel's output exactly."""
     import torch
-    from boda_tpu.ops.pallas.stem import make_stem_op
+    from boda_tpu_torch.ops.cuda.stem import make_stem_op
     from boda_tpu_torch.ops.registry import get_template
     x, w, bias = args[:3]
     n, H, W, C = x.shape
@@ -323,7 +446,7 @@ def _qsgemm_cases():
             ("edge M=200 K=4099 N=129", 200, 4099, 129, False, False)]
 
 
-def _check_qsgemm(stats: dict, dev, gen) -> None:
+def _check_qsgemm(stats: dict, dev, gen, peaks) -> None:
     """sgemm_int8 against its plain version on the card: bit-equal (the
     int32 sums are exact and both round the same), and its time, the plain
     version's, and those of its two parts alone: the quantize pass and the
@@ -331,11 +454,7 @@ def _check_qsgemm(stats: dict, dev, gen) -> None:
     import torch
     from boda_tpu_torch.ops.cuda.qsgemm import int8_product, \
         quantize_operands, sgemm_int8, sgemm_int8_plain
-    source, replaces = SOURCES["sgemm_int8"]
-    s = stats["sgemm_int8"] = {
-        "name": "sgemm_int8", "route": "cuda", "source": source,
-        "replaces": replaces, "max_abs_err": 0.0, "max_mrd": 0.0,
-        "ms": 0.0, "plain_ms": 0.0, "cases": []}
+    s = stats["sgemm_int8"] = _stats("sgemm_int8")
     for label, M, K, N, zero_a, timed in _qsgemm_cases():
         a = torch.randn(M, K, device=dev, generator=gen)
         if zero_a:
@@ -361,23 +480,38 @@ def _check_qsgemm(stats: dict, dev, gen) -> None:
         q = quantize_operands(a, b)
         prod_ms = cuda_ms(lambda: int8_product(*q), 20)
         tops = 2 * M * N * K / ms / 1e9
+        bound_ms, bound_by = bound(peaks, "int8", 2 * M * N * K,
+                                   _nbytes(a, b, got))
+        # the yardstick: torch._int_mm on the quantized operands, then the
+        # scale; n/a where its shape rules refuse the case
+        qa, qbt, sc = q[0], q[1].t(), q[2]
+        try:
+            torch._int_mm(qa, qbt)
+            lib_ms = cuda_ms(lambda: torch._int_mm(qa, qbt) * sc, 20)
+        except RuntimeError:
+            lib_ms = None
         print(f" kernel {ms:.4f} ms ({tops:.1f} TOPS) plain {plain_ms:.4f} ms;"
               f" quantize pass {quant_ms:.4f} ms, product alone "
-              f"{prod_ms:.4f} ms ({2 * M * N * K / prod_ms / 1e9:.1f} TOPS)")
-        s["ms"] += ms
-        s["plain_ms"] += plain_ms
-        s["cases"].append({"case": label, "dtype": "float32", "mrd": 0.0,
-                           "ms": ms, "plain_ms": plain_ms,
-                           "quantize_ms": quant_ms, "product_ms": prod_ms,
-                           "tops": tops})
+              f"{prod_ms:.4f} ms ({2 * M * N * K / prod_ms / 1e9:.1f} TOPS);"
+              f" bound {bound_ms:.4f} ms ({bound_by}); library _int_mm + "
+              f"scale {'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+        _add_case(s, {"case": label, "dtype": "float32", "mrd": 0.0,
+                      "ms": ms, "plain_ms": plain_ms,
+                      "quantize_ms": quant_ms, "product_ms": prod_ms,
+                      "tops": tops, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": lib_ms,
+                      "library": "call: torch._int_mm * scale (quantized "
+                                 "operands)"})
 
 
 def phase_kernels(ctx: dict) -> None:
     import torch
+    from boda_tpu_torch.core.machine import card_peaks
+    peaks = card_peaks(torch.cuda.get_device_name(0))
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     stats: dict[str, dict] = {}
-    _check_qsgemm(stats, dev, gen)
+    _check_qsgemm(stats, dev, gen, peaks)
     timed = {c[0] for c in _kernel_cases()}
     for label, kname, kw in _kernel_cases() + _edge_cases():
         for dt in (torch.float32, torch.bfloat16):
@@ -398,11 +532,7 @@ def phase_kernels(ctx: dict) -> None:
             if kname == "fused_stem":
                 print(f" template {_check_stem_template(args, dt, got)} "
                       f"exact", end="")
-            source, replaces = SOURCES[kname]
-            s = stats.setdefault(kname, {
-                "name": kname, "route": "cuda", "source": source,
-                "replaces": replaces, "max_abs_err": 0.0, "max_mrd": 0.0,
-                "ms": 0.0, "plain_ms": 0.0, "cases": []})
+            s = stats.setdefault(kname, _stats(kname))
             s["max_abs_err"] = max(s["max_abs_err"], abs_err)
             s["max_mrd"] = max(s["max_mrd"], err)
             if label not in timed:
@@ -410,13 +540,60 @@ def phase_kernels(ctx: dict) -> None:
                 continue
             ms = cuda_ms(run_k, 20)
             plain_ms = cuda_ms(run_p, 20)
-            print(f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-            s["ms"] += ms
-            s["plain_ms"] += plain_ms
-            s["cases"].append({"case": label, "dtype": str(dt)[6:],
-                               "mrd": err, "ms": ms, "plain_ms": plain_ms})
-            del args, got, want
+            prec = "bf16" if dt == torch.bfloat16 else "f32"
+            bound_ms, bound_by = bound(peaks, prec, _work(kname, args, got),
+                                       _nbytes(*args, got))
+            lib, lib_kind = _library(kname, args, dt)
+            lib_ms = cuda_ms(lib, 20)
+            print(f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+                  f"{bound_ms:.4f} ms ({bound_by}) library {lib_kind} "
+                  f"{lib_ms:.4f} ms")
+            _add_case(s, {"case": label, "dtype": str(dt)[6:], "mrd": err,
+                          "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by,
+                          "library_ms": lib_ms, "library": lib_kind})
+            del args, got, want, lib
     ctx["kernels"] = stats
+    _tconv_splits(dev)
+
+
+# (n, H = W, C = oc): the ResNet-50 3x3 convs that reach tconv
+SPLIT_SHAPES = [(1, 7, 512), (32, 7, 512), (32, 14, 256), (32, 28, 128)]
+
+
+def _tconv_splits(dev) -> None:
+    """The tconv kernel alone, timed by K split count at the ResNet-50 3x3
+    shapes, for the planner's split rule: the planned count, powers of two
+    up to 16, and twice the planned count, each through the C entry point
+    with its buffers allocated once."""
+    import torch
+    from boda_tpu_torch.ops.cuda.build import load_kernels
+    from boda_tpu_torch.ops.cuda.tconv import tconv_plan
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n, H, C in SPLIT_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(n, H, H, C, device=dev).to(dt)
+            w = (torch.randn(C, 3, 3, C, device=dev) * 0.02).to(dt)
+            b = torch.randn(C, device=dev)
+            out = torch.empty(n, H, H, C, device=dev, dtype=dt)
+            plan = tconv_plan(n, H, H, C, C, 3, 3, dt, (1, 1), sms)
+            bf = int(dt == torch.bfloat16)
+            row = []
+            for sp in sorted({1, 2, 4, 8, 16, plan.splits, 2 * plan.splits}):
+                ws = torch.empty(sp, n * H * H, C, device=dev)
+
+                def run():
+                    check(lib.boda_tconv(
+                        x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                        out.data_ptr(), ws.data_ptr(), n, H, H, C, C, 3, 3,
+                        1, 1, bf, bf, 1, sp, int(plan.vec), stream) == 0,
+                        f"tconv splits={sp}: launch failed")
+                row.append(f"{sp}: {cuda_ms(run, 50):.4f}")
+            print(f"tconv splits n={n} {H}^2 C={C} {str(dt)[6:]}: planned "
+                  f"{plan.splits} on {sms} SMs; ms by splits "
+                  + " ".join(row), flush=True)
 
 
 def _nodes_to_get(pipe):
@@ -425,13 +602,13 @@ def _nodes_to_get(pipe):
 
 
 def phase_digests(ctx: dict) -> None:
-    from boda_tpu.apps.train import load_weights_into_pipe
-    from boda_tpu.core.dims import NDA
-    from boda_tpu.engine.iface import make_engine
-    from boda_tpu.models.zoo import build_model
-    from boda_tpu.ops.pallas.gen_data import gen_test_nda
-    from boda_tpu.testing.comp import comp_digests, read_digest_stream
+    from boda_tpu_torch.apps.train import load_weights_into_pipe
+    from boda_tpu_torch.core.dims import NDA
+    from boda_tpu_torch.engine.iface import make_engine
     from boda_tpu_torch.engine.torch_fwd import produced_nodes
+    from boda_tpu_torch.models.zoo import build_model
+    from boda_tpu_torch.ops.cuda.gen_data import gen_test_nda
+    from boda_tpu_torch.testing.comp import comp_digests, read_digest_stream
     for archive, kw, wfn, toler in (
             ("resnet-50@shapes40", {"num_classes": 40}, TRAINED, 3e-3),
             ("resnet-50", {}, None, 8e-3)):
@@ -473,7 +650,7 @@ def phase_digests(ctx: dict) -> None:
 def _cls_agree(tune_a: str, tune_b: str) -> dict:
     """cls_agree of engine=torch under two tunes on the 64 held-out images;
     returns its statistics, checked against the accuracy gates."""
-    from boda_tpu.core.has_main import create_and_run_has_main
+    from boda_tpu_torch.core.has_main import create_and_run_has_main
     src = ("(mode=shapes-src,num_imgs=64,start_ix=100000,ysz=224,xsz=224,"
            "num_classes=40,seed=1,mean=128,scale=0.015625)")
     buf = io.StringIO()
@@ -533,9 +710,9 @@ def _tune_specs(tunes: str) -> dict[str, str]:
 def _ops_prof_table(text: str, tunes: str, peaks) -> list[str]:
     """One row per OP line of a torch_ops_prof run: ms, TF/s (TOPS for
     int8) and % of the card's peak in the op's own precision."""
-    from boda_tpu.ops.cnn_variants import add_codegen_annotations, \
+    from boda_tpu_torch.ops.cnn_variants import add_codegen_annotations, \
         make_op_tune
-    from boda_tpu.ops.op_base import OpBase
+    from boda_tpu_torch.ops.op_base import OpBase
     from boda_tpu_torch.tune.opinfo import op_prec
     tune_specs = _tune_specs(tunes)
     rows = []
@@ -560,9 +737,9 @@ def phase_ops_prof(ctx: dict) -> None:
     the ResNet-50 b32 conv sigs, then torch_rtc_test, each in-process
     through the mode a user runs (python -m boda_tpu_torch <mode>)."""
     import torch
-    from boda_tpu.core.has_main import create_and_run_has_main
-    from boda_tpu.tune.wisdom import read_wisdom_file
+    from boda_tpu_torch.core.has_main import create_and_run_has_main
     from boda_tpu_torch.core.machine import card_peaks
+    from boda_tpu_torch.tune.wisdom import read_wisdom_file
     peaks = card_peaks(torch.cuda.get_device_name(0))
     out_dir = ROOT / "build" / "ops_prof"
     wrappers = _wrappers()
@@ -614,9 +791,34 @@ def phase_ops_prof(ctx: dict) -> None:
     print(f"  on [{ctx['smi']}]")
 
 
+def _template_ms(eng, inputs: dict, top: str) -> dict:
+    """{template: (steps, summed ms)} over one forward of `eng`, each step
+    between two CUDA events."""
+    import torch
+    events = []
+
+    @contextlib.contextmanager
+    def timed(step):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        yield
+        t1.record()
+        events.append((step.func_name, t0, t1))
+
+    with torch.inference_mode():
+        eng.fwd(inputs, eng.weights, step_hook=timed)[top]
+    torch.cuda.synchronize()
+    per: dict = {}
+    for f, t0, t1 in events:
+        n, t = per.get(f, (0, 0.0))
+        per[f] = (n + 1, t + t0.elapsed_time(t1))
+    return per
+
+
 def phase_full(ctx: dict) -> None:
     import torch
-    from boda_tpu.core.has_main import create_and_run_has_main
+    from boda_tpu_torch.core.has_main import create_and_run_has_main
     wrappers = _wrappers()
     batch = 32
     launches = ctx.setdefault("launches", {})
@@ -664,6 +866,13 @@ def phase_full(ctx: dict) -> None:
               f"{ms:.3f} ms = {batch / ms * 1e3:.1f} imgs/s on "
               f"[{ctx['smi']}]")
         ctx.setdefault("fwd_ms", {})[tune_name] = ms
+        per = _template_ms(eng, {data: x}, top)
+        print("  per template, one more forward (CUDA events per step): "
+              + ", ".join(f"{f} x{n} {t:.3f} ms" for f, (n, t) in
+                          sorted(per.items(), key=lambda kv: -kv[1][1]))
+              + f"; sum {sum(t for _, t in per.values()):.3f} ms")
+        ctx.setdefault("template_ms", {})[tune_name] = {
+            f: {"steps": n, "ms": t} for f, (n, t) in per.items()}
         del hm, eng
         torch.cuda.empty_cache()
 
@@ -687,16 +896,15 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false: no card, "
               "nothing run", file=sys.stderr)
         return 1
-    if not (ROOT / "boda_tpu_torch" / "csrc").is_dir() or \
-            not (ROOT / "boda_tpu").is_dir():
+    if not (ROOT / "boda_tpu_torch" / "csrc").is_dir():
         print(f"chip_smoke: {ROOT} is not a checkout of the repo "
-              "(boda_tpu_torch/csrc, boda_tpu missing)", file=sys.stderr)
+              "(boda_tpu_torch/csrc missing)", file=sys.stderr)
         return 1
     if shutil.which("nvidia-smi") is None:
         print("chip_smoke: nvidia-smi not found", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    import boda_tpu_torch.modes  # noqa: F401  (engine=torch, be=torch, torch_*)
+    import boda_tpu_torch.modes  # noqa: F401  (the port's modes and engine)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -707,8 +915,9 @@ def main() -> int:
         PHASES[name](ctx)
         print(f"== phase {name} passed ({time.perf_counter() - t0:.1f} s)",
               flush=True)
-    if "jax" in sys.modules:
-        raise SmokeFailure("jax was imported")
+    for pkg in ("jax", "boda_tpu"):
+        if pkg in sys.modules:
+            raise SmokeFailure(f"{pkg} was imported")
     if phases != list(PHASES):
         print(f"chip_smoke: phases {phases} passed; no result without all "
               f"of them")
@@ -721,7 +930,8 @@ def main() -> int:
                         "launches_by_tune": by_tune})
     print(smi_line())
     print(json.dumps({"kernels": kernels,
-                      "forward_ms_b32": ctx["fwd_ms"]}))
+                      "forward_ms_b32": ctx["fwd_ms"],
+                      "template_ms_b32": ctx["template_ms"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,7 @@
 """The port's Backend (be=torch, backend/torch_be.py) on the Backend
-contract of boda_tpu/backend/iface.py, its Codegen and gen_data template,
-and torch_rtc_test; on device=cpu, the only device here.
+contract of its backend/iface.py (the copy of boda_tpu/backend/iface.py),
+its Codegen and gen_data template, and torch_rtc_test; on device=cpu, the
+only device here.
 
 gen_data vars are compared with the JAX XlaBackend's bit for bit: both
 packages make the pattern with the same numpy function.
@@ -10,14 +11,18 @@ import numpy as np
 import pytest
 import torch
 
-from boda_tpu.backend.iface import CompiledFunc, RtcFuncCall, make_backend
-from boda_tpu.core.dims import NDA, Dims
-from boda_tpu.core.error import RtErr
-from boda_tpu.core.has_main import create_and_run_has_main
-from boda_tpu.ops.op_base import OpBase
+from boda_tpu.backend import iface as jiface
+from boda_tpu.core import dims as jdims
+from boda_tpu.ops import op_base as jop_base
 from boda_tpu.ops.registry import Codegen as JaxCodegen
 from boda_tpu_torch import modes  # noqa: F401  (be=torch, torch_* modes)
+from boda_tpu_torch.backend.iface import CompiledFunc, RtcFuncCall, \
+    make_backend
 from boda_tpu_torch.backend.torch_be import TorchBackend
+from boda_tpu_torch.core.dims import NDA, Dims
+from boda_tpu_torch.core.error import RtErr
+from boda_tpu_torch.core.has_main import create_and_run_has_main
+from boda_tpu_torch.ops.op_base import OpBase
 from boda_tpu_torch.ops.registry import Codegen
 
 
@@ -122,7 +127,8 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 
 
 def test_port_modes_refuse_the_jax_backend():
-    with pytest.raises(RtErr, match="be=xla is not the port's"):
+    # the port registers no be=xla: its config refuses the name
+    with pytest.raises(RtErr, match="unknown be 'xla' for Backend"):
         create_and_run_has_main("(mode=torch_rtc_test,rtc=xla,n=8)", {})
 
 
@@ -136,17 +142,21 @@ def test_torch_rtc_test(capsys, rtc):
 
 @pytest.mark.parametrize("mode", [0, 1, 2, 3, 4])
 def test_gen_data_vars_equal_the_jax_backends(mode):
-    dims = Dims.make(tn="float", img=2, chan=3, y=5, x=7)
     got = {}
-    for name, be, cg_cls in (("torch", _be(), Codegen),
-                             ("xla", make_backend("xla"), JaxCodegen)):
+    # each package's backend, codegen, Dims, NDA and OpBase
+    for name, be, cg_cls, dims_mod, op_cls in (
+            ("torch", _be(), Codegen, (Dims, NDA), OpBase),
+            ("xla", jiface.make_backend("xla"), JaxCodegen,
+             (jdims.Dims, jdims.NDA), jop_base.OpBase)):
+        dims_cls, nda_cls = dims_mod
         be.init()
         cg = cg_cls(be)
+        dims = dims_cls.make(tn="float", img=2, chan=3, y=5, x=7)
         be.create_var_with_dims("out", dims)
-        op = OpBase({"type": "gen_data", "func_name": "gen_data"})
+        op = op_cls({"type": "gen_data", "func_name": "gen_data"})
         op.set_dims("out", dims)
         op.set_u32("mode", mode)
-        op.nda_vals["scale"] = NDA.scalar(0.1, "float")
+        op.nda_vals["scale"] = nda_cls.scalar(0.1, "float")
         cg.gen_and_run(op, {"out": "out"})
         be.finish_and_sync()
         got[name] = be.copy_var_to_nda("out").v

@@ -13,11 +13,18 @@ import numpy as np
 import pytest
 import torch
 
-from boda_tpu.core.error import RtErr
 from boda_tpu.ops.pallas.conv import make_conv_op
 from boda_tpu.ops.registry import get_template as jax_template
 from boda_tpu.testing.comp import mrd
+from boda_tpu_torch.core.error import RtErr
+from boda_tpu_torch.ops.op_base import OpBase
 from boda_tpu_torch.ops.registry import get_template
+
+
+def _port_op(op):
+    """The port's copy of a JAX op sig, through its lexp text."""
+    return OpBase.from_lexp(str(op.to_lexp()))
+
 
 # name -> (n, cin, h, w, cout, k, stride, pad, func_name, relu)
 CONVS = {
@@ -76,8 +83,8 @@ def test_conv_template_matches_jax_and_ref(monkeypatch, name, form):
     want = np.asarray(jt.build(jt.check_args(op))(jx, wts, b), np.float32)
 
     pt = get_template(op.func_name)
-    assert issubclass(pt, jt)
-    rfs = pt.check_args(op)
+    rfs = pt.check_args(_port_op(op))
+    assert str(rfs) == str(jt.check_args(op))
     tx = torch.from_numpy(xs)
     out = pt.build(rfs)(tx.bfloat16() if bf16 else tx, torch.from_numpy(wts),
                         torch.from_numpy(b))
@@ -100,7 +107,7 @@ def test_conv_templates_without_bias(monkeypatch):
                       relu=relu, bias=False)
     x, wts, _ = _inputs("conv-3x3-s1")
     pt = get_template(fn)
-    rfs = pt.check_args(op)
+    rfs = pt.check_args(_port_op(op))
     got = pt.build(rfs)(torch.from_numpy(x), torch.from_numpy(wts)).numpy()
     np.testing.assert_allclose(got, pt.ref_impl(rfs, x, wts), rtol=2e-5,
                                atol=2e-5)
@@ -108,7 +115,7 @@ def test_conv_templates_without_bias(monkeypatch):
 
 @pytest.mark.parametrize("key", ["quant8", "in_q8", "out_q8", "grad_q8"])
 def test_xla_conv_refuses_the_int8_forms(key):
-    op = _op("xla_conv-3x3-s1", "nchw")
+    op = _port_op(_op("xla_conv-3x3-s1", "nchw"))
     op.set_u32(key, 1)
     pt = get_template("xla_conv")
     with pytest.raises(RtErr, match=f"int8 form \\({key}=1\\).*ROADMAP A6"):

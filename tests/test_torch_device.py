@@ -4,8 +4,8 @@ rule of the port (boda_tpu_torch/core/device.py, ops/cuda/util.py)."""
 import pytest
 import torch
 
-from boda_tpu.core.error import RtErr
-from boda_tpu.ops.op_base import OpBase
+from boda_tpu_torch.core.error import RtErr
+from boda_tpu_torch.ops.op_base import OpBase
 from boda_tpu_torch.core.device import get_device, is_feature_enabled, \
     plat_tag
 from boda_tpu_torch.ops.cuda.util import storage_io, use_kernel

@@ -19,17 +19,24 @@ import numpy as np
 import pytest
 import torch
 
-from boda_tpu.core.digest import nda_digest
-from boda_tpu.core.dims import NDA
-from boda_tpu.core.error import RtErr
-from boda_tpu.engine.iface import make_engine
-from boda_tpu.engine.lower import lower_pipe, resolve_plan_weights
-from boda_tpu.models.zoo import NetBuilder, build_model
-from boda_tpu.ops.cnn_variants import make_op_tune
-from boda_tpu.ops.pallas.gen_data import gen_test_nda
-from boda_tpu.testing.comp import comp_digests, read_digest_stream
+from boda_tpu.core import dims as jdims
+from boda_tpu.core import has_main as jhas_main
+from boda_tpu.engine import iface as jiface
+from boda_tpu.models import zoo as jzoo
+from boda_tpu.ops.pallas import gen_data as jgen_data
+from boda_tpu_torch.core.digest import nda_digest
+from boda_tpu_torch.core.dims import NDA
+from boda_tpu_torch.core.error import RtErr
+from boda_tpu_torch.core.has_main import create_and_run_has_main
+from boda_tpu_torch.engine.iface import make_engine
+from boda_tpu_torch.engine.lower import lower_pipe, resolve_plan_weights
 from boda_tpu_torch.engine.torch_fwd import build_forward, produced_nodes, \
     weights_to_torch
+from boda_tpu_torch.models import zoo
+from boda_tpu_torch.models.zoo import build_model
+from boda_tpu_torch.ops.cnn_variants import make_op_tune
+from boda_tpu_torch.ops.cuda.gen_data import gen_test_nda
+from boda_tpu_torch.testing.comp import comp_digests, read_digest_stream
 
 ARCHIVE = Path(__file__).parent / "data" / "tpu_digests"
 TUNES = {"f32": ("()", 5e-4), "bf16-nhwc": ("(prec=bf16,layout=nhwc)", 5e-3)}
@@ -40,14 +47,18 @@ FUSED_TUNES = {"f32": (f"({FUSED})", 5e-4),
                "bf16-nhwc": (f"(prec=bf16,layout=nhwc,{FUSED})", 5e-3)}
 FUSED_SLICE_STEPS = {"fused_stem": 1, "resblock": 1, "pool": 1, "ipconv": 1,
                      "softmax": 1}
+# each package's zoo, engine factory, NDA and test pattern: a net is built,
+# and run, in one package; both builds draw the same seeded weights
+PORT = (zoo, make_engine, NDA, gen_test_nda)
+JAX = (jzoo, jiface.make_engine, jdims.NDA, jgen_data.gen_test_nda)
 
 
-def build_slice_net(batch=2):
+def build_slice_net(batch=2, pkg=PORT):
     """A small net that reaches every template of the ResNet-50 path:
     s2d_conv (7x7/s2, C=3), a ceil-mode max pool, k1conv at stride 1 and
     2, conv (3x3, C=16), tconv (3x3, C=128), eltwise + relu, a global
     average pool, ipconv (fc) and softmax."""
-    b = NetBuilder("slice", batch, 3, 32, 32)
+    b = pkg[0].NetBuilder("slice", batch, 3, 32, 32)
     b.conv("conv1", 16, 7, 2, 3).pool("pool1", 3, 2)
     b.conv("c1x1", 16, 1).conv("c3x3", 16, 3, 1, 1)
     b.conv("proj", 128, 1, 2, relu=False)
@@ -59,11 +70,11 @@ def build_slice_net(batch=2):
     return b.done(seed=7)
 
 
-def build_fused_slice_net(batch=2):
+def build_fused_slice_net(batch=2, pkg=PORT):
     """A small net for the fused tunes: a 7x7/s2 stem with a ceil-mode max
     pool (fused_stem), one identity bottleneck with C=16, Cm=8 (resblock),
     a global average pool, an fc and softmax."""
-    b = NetBuilder("fused_slice", batch, 3, 32, 32)
+    b = pkg[0].NetBuilder("fused_slice", batch, 3, 32, 32)
     b.conv("conv1", 16, 7, 2, 3).pool("pool1", 3, 2)
     shortcut = b.cur
     b.conv("res_a", 8, 1).conv("res_b", 8, 3, 1, 1)
@@ -91,14 +102,24 @@ def _all_nodes(pipe):
             if nd.dims is not None and nd.top_for]
 
 
-def _run(pipe, spec):
-    """Run engine `spec` on a seeded input; fetch every node of the pipe
-    that its plan produces (a fused plan drops its fused ops' interiors)."""
-    eng = make_engine(spec)
+def _kg(jouts, pipe):
+    """Digests of the JAX engine's outputs, as the port's digests of the
+    same arrays under the port pipe's dims of each node."""
+    return {n: nda_digest(NDA(pipe.nodes[n].dims, np.asarray(v.v)))
+            for n, v in jouts.items()}
+
+
+def _run(pipe, spec, pkg=PORT, produced=None):
+    """Run engine `spec` of package `pkg` on a seeded input; fetch every
+    node of the pipe that its plan produces (a fused plan drops its fused
+    ops' interiors; `produced` gives that set for a JAX engine)."""
+    _zoo, make, nda, pattern = pkg
+    eng = make(spec)
     eng.init(pipe)
     d = pipe.get_data_img_dims()
-    blob = NDA(d, gen_test_nda(d, 0, 0.1))
-    produced = produced_nodes(eng.plan)
+    blob = nda(d, pattern(d, 0, 0.1))
+    if produced is None:
+        produced = produced_nodes(eng.plan)
     return eng, eng.run_fwd({pipe.data_img_node_names[0]: blob},
                             [n for n in _all_nodes(pipe) if n in produced])
 
@@ -107,20 +128,22 @@ def _run(pipe, spec):
 def test_slice_net_matches_jax_engine(monkeypatch, tune):
     monkeypatch.setenv("BODA_PALLAS_MODE", "fallback")
     op_tune, toler = TUNES[tune]
-    pipe = build_slice_net()
+    pipe, jpipe = build_slice_net(), build_slice_net(pkg=JAX)
     if tune == "bf16-nhwc":
         # bf16-exact weights: with a bf16 activation the JAX matmul keeps
         # an f32 weight as it is (sgemm.py:181-183) and the CPU multiplies
         # in f32, while a TPU at DEFAULT precision and the port round it
         # to bf16; exact weights compare the two engines on equal operands
         _bf16_exact(pipe)
-    jeng, jouts = _run(pipe, f"(engine=rtc,keep_all_nodes=1,op_tune={op_tune})")
+        _bf16_exact(jpipe)
     teng, touts = _run(pipe, f"(engine=torch,device=cpu,keep_all_nodes=1,"
                              f"op_tune={op_tune})")
+    jeng, jouts = _run(jpipe, f"(engine=rtc,keep_all_nodes=1,op_tune={op_tune})",
+                       JAX)
     assert _step_counts(teng.plan) == SLICE_STEPS
     assert teng.plan.storage_nhwc == (tune == "bf16-nhwc")
     assert sorted(touts) == sorted(jouts)
-    kg = {n: nda_digest(v) for n, v in jouts.items()}
+    kg = _kg(jouts, pipe)
     errs = comp_digests(touts, kg, toler)
     assert not errs, errs
 
@@ -129,22 +152,25 @@ def test_slice_net_matches_jax_engine(monkeypatch, tune):
 def test_fused_slice_net_matches_jax_engine(monkeypatch, tune):
     monkeypatch.setenv("BODA_PALLAS_MODE", "fallback")
     op_tune, toler = FUSED_TUNES[tune]
-    pipe = build_fused_slice_net()
+    pipe, jpipe = build_fused_slice_net(), build_fused_slice_net(pkg=JAX)
     if tune == "bf16-nhwc":
         # bf16-exact weights and biases: the JAX whole-net path runs the
         # resblock's fallback, which adds the bias unrounded
         # (resblock.py:61-64), while the port follows the Pallas kernel
         # body, which rounds it to bf16 like the weights (:171-177)
         _bf16_exact(pipe)
-    jeng, jouts = _run(pipe, f"(engine=rtc,keep_all_nodes=1,op_tune={op_tune})")
+        _bf16_exact(jpipe)
     teng, touts = _run(pipe, f"(engine=torch,device=cpu,keep_all_nodes=1,"
                              f"op_tune={op_tune})")
+    # the JAX engine asked for the nodes the port's plan produces
+    jeng, jouts = _run(jpipe, f"(engine=rtc,keep_all_nodes=1,op_tune={op_tune})",
+                       JAX, produced_nodes(teng.plan))
     assert _step_counts(teng.plan) == FUSED_SLICE_STEPS
     assert teng.plan.storage_nhwc == (tune == "bf16-nhwc")
     # the fused ops' interior nodes are produced by neither engine
     assert sorted(touts) == sorted(jouts)
     assert not {"conv1", "res_a", "res_b", "res_c"} & set(touts)
-    kg = {n: nda_digest(v) for n, v in jouts.items()}
+    kg = _kg(jouts, pipe)
     errs = comp_digests(touts, kg, toler)
     assert not errs, errs
 
@@ -155,15 +181,17 @@ def test_resnet50_culibs_fused_matches_jax_engine(monkeypatch):
     # unfused convs are the vendor xla_conv (cuDNN in the port)
     monkeypatch.setenv("BODA_PALLAS_MODE", "fallback")
     pipe = build_model("resnet-50", batch=1, ysz=64, xsz=64)
+    jpipe = jzoo.build_model("resnet-50", batch=1, ysz=64, xsz=64)
     tune = f"(use_culibs=1,{FUSED},s2d=0)"
-    _, jouts = _run(pipe, f"(engine=rtc,keep_all_nodes=1,op_tune={tune})")
     teng, touts = _run(pipe, f"(engine=torch,device=cpu,keep_all_nodes=1,"
                              f"op_tune={tune})")
+    _, jouts = _run(jpipe, f"(engine=rtc,keep_all_nodes=1,op_tune={tune})",
+                    JAX, produced_nodes(teng.plan))
     steps = _step_counts(teng.plan)
     assert (steps["resblock"], steps["fused_stem"], steps["xla_conv"]) \
         == (12, 1, 17)
     assert sorted(touts) == sorted(jouts)
-    kg = {n: nda_digest(v) for n, v in jouts.items()}
+    kg = _kg(jouts, pipe)
     errs = comp_digests(touts, kg, 5e-4)
     assert not errs, errs
 
@@ -246,6 +274,30 @@ def test_forward_checks_its_inputs():
         fwd({"data": x}, {})
 
 
+def test_forward_runs_each_step_inside_the_step_hook():
+    pipe = build_slice_net()
+    plan = lower_pipe(pipe, make_op_tune("()"), fuse_relu=True,
+                      fused_storage=True)
+    dev = torch.device("cpu")
+    fwd = build_forward(plan, dev)
+    w = weights_to_torch(plan, pipe.op_params, dev)
+    x = torch.from_numpy(np.random.RandomState(0).randn(2, 3, 32, 32)
+                         .astype(np.float32))
+    seen = []
+
+    @contextlib.contextmanager
+    def hook(step):
+        seen.append(("in", step.call_tag))
+        yield
+        seen.append(("out", step.call_tag))
+
+    got = fwd({"data": x}, w, step_hook=hook)["prob"]
+    tags = [s.call_tag for s in plan.steps]
+    assert seen == [(e, t) for t in tags for e in ("in", "out")]
+    torch.testing.assert_close(got, fwd({"data": x}, w)["prob"], rtol=0,
+                               atol=0)
+
+
 def test_engine_refuses_cuda_without_a_card_and_unported_options():
     eng = make_engine("(engine=torch)")
     assert eng.device == "cuda"
@@ -258,12 +310,10 @@ def test_engine_refuses_cuda_without_a_card_and_unported_options():
         make_engine("(engine=torch,device=cpu,nan_check=1)")
 
 
-def _run_cnet(conv_fwd):
-    from boda_tpu.core.has_main import create_and_run_has_main
+def _run_cnet(conv_fwd, run=create_and_run_has_main):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        create_and_run_has_main(f"(mode=run_cnet,model=mini,batch=2,"
-                                f"conv_fwd={conv_fwd})", {})
+        run(f"(mode=run_cnet,model=mini,batch=2,conv_fwd={conv_fwd})", {})
     return buf.getvalue()
 
 
@@ -275,4 +325,5 @@ def test_run_cnet_through_the_entry_point(monkeypatch):
     assert len(top) == 2
     # the same top-1 classes as the JAX engine
     assert top == re.findall(r"img (\d) top-5: (\d+):",
-                             _run_cnet("(engine=rtc)"))
+                             _run_cnet("(engine=rtc)",
+                                       jhas_main.create_and_run_has_main))

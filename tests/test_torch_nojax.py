@@ -1,13 +1,17 @@
-"""The port never imports jax: the machine with the card has none.
+"""The port stands alone: it never imports jax (the machine with the card
+has none), nor anything of the JAX package boda_tpu.
 
-In a fresh interpreter an import hook refuses jax and jaxlib; the port is
-imported, mini is built, lowered and run on the CPU through make_engine
-and through the CLI entry point (python -m boda_tpu_torch run_cnet),
-ResNet-50 runs under the fused tune (fused_stem, resblock), the per-op
-modes torch_rtc_test and torch_ops_prof (with sgemm_int8) run through the
-CLI, and chip_smoke.py's imports are exercised too.
+In a fresh interpreter an import hook refuses jax, jaxlib and boda_tpu;
+the port is imported, mini is built, lowered and run on the CPU through
+the port's make_engine and build_model and through the CLI entry point
+(python -m boda_tpu_torch run_cnet), ResNet-50 runs under the fused tune
+(fused_stem, resblock), the per-op modes torch_rtc_test and torch_ops_prof
+(with sgemm_int8) run through the CLI, `help` lists only the port's modes,
+and chip_smoke.py's imports are exercised too. A static check finds no
+import statement of boda_tpu in the port's sources or chip_smoke.py.
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -20,21 +24,24 @@ import sys
 
 class _NoJax:
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
+        if name.split(".")[0] in ("jax", "jaxlib", "boda_tpu"):
             raise ImportError(f"import of {name} refused: the port runs "
-                              "without jax")
+                              "without jax and without boda_tpu")
         return None
 
 sys.meta_path.insert(0, _NoJax())
 """
 
+# the port's modes: `help` lists these and no other
+PORT_MODES = {"run_cnet", "cnet_predict", "cls_agree", "torch_rtc_test",
+              "torch_ops_prof", "torch_cnn_op_info", "torch_cnn_prof"}
+
 RUN_MINI = BLOCK_JAX + """
 import runpy
-import boda_tpu_torch.engine.torch_fwd  # registers engine=torch
-from boda_tpu.core.dims import NDA
-from boda_tpu.engine.iface import make_engine
-from boda_tpu.models.zoo import build_model
-from boda_tpu.ops.pallas.gen_data import gen_test_nda
+from boda_tpu_torch.core.dims import NDA
+from boda_tpu_torch.engine.iface import make_engine
+from boda_tpu_torch.models.zoo import build_model
+from boda_tpu_torch.ops.cuda.gen_data import gen_test_nda
 import chip_smoke  # noqa: F401
 
 pipe = build_model("mini", batch=2)
@@ -53,7 +60,8 @@ assert (kinds.count("fused_stem"), kinds.count("resblock")) == (1, 12), kinds
 d = rn.get_data_img_dims()
 out = eng.run_fwd({"data": NDA(d, gen_test_nda(d, 0, 0.1))}, ["prob"])
 assert out["prob"].v.shape == (1, 1000, 1, 1)
-for argv in (["run_cnet", "--model=mini", "--conv_fwd=(engine=torch,device=cpu)"],
+for argv in (["help"],
+             ["run_cnet", "--model=mini", "--conv_fwd=(engine=torch,device=cpu)"],
              ["torch_rtc_test", "--rtc=(be=torch,device=cpu)"],
              ["torch_ops_prof", "--ops_fn=tests/data/ops/sgemm-tiny.txt",
               "--rtcs=(t=(be=torch,device=cpu),ref=(be=interp))",
@@ -64,7 +72,8 @@ for argv in (["run_cnet", "--model=mini", "--conv_fwd=(engine=torch,device=cpu)"
         runpy.run_module("boda_tpu_torch", run_name="__main__")
     except SystemExit as e:
         assert e.code in (0, None), (argv, e.code)
-assert not any(m.split(".")[0] in ("jax", "jaxlib") for m in sys.modules)
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "boda_tpu")
+               for m in sys.modules)
 print("NOJAX_OK")
 """
 
@@ -80,6 +89,12 @@ def test_port_runs_without_jax():
     for bad in ("COMP_FAIL", "ERROR"):
         assert bad not in r.stdout
     assert "NOJAX_OK" in r.stdout
+    listed = []
+    for ln in r.stdout.split("boda_tpu_torch modes:\n", 1)[1].splitlines():
+        if not ln.startswith("  "):
+            break  # the end of the list (the timers table follows)
+        listed.append(ln.split()[0])
+    assert set(listed) == PORT_MODES
 
 
 def test_import_hook_refuses_jax():
@@ -87,3 +102,34 @@ def test_import_hook_refuses_jax():
     r = subprocess.run([sys.executable, "-c", BLOCK_JAX + "import jax"],
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and "refused" in r.stderr
+
+
+def _boda_tpu_imports(path: Path) -> list[str]:
+    """`import boda_tpu...` / `from boda_tpu... import` statements of a
+    source file, at top level or inside a function, as 'line: module'."""
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [f"{node.lineno}: {n}" for n in names
+                if n.split(".")[0] == "boda_tpu"]
+    return bad
+
+
+def test_no_source_of_the_port_imports_boda_tpu():
+    files = sorted((ROOT / "boda_tpu_torch").rglob("*.py")) + \
+        [ROOT / "chip_smoke.py"]
+    assert len(files) > 40
+    assert [f"{f.relative_to(ROOT)}:{b}" for f in files
+            for b in _boda_tpu_imports(f)] == []
+
+
+def test_the_static_check_finds_a_nested_import(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import os\n\ndef g():\n    from boda_tpu.core import dims\n"
+                 "    import boda_tpu_torch, boda_tpu\n")
+    assert _boda_tpu_imports(f) == ["4: boda_tpu.core", "5: boda_tpu"]

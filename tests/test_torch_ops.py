@@ -15,7 +15,14 @@ from boda_tpu.graph.support import Pt, pool_in_sz_to_out_sz
 from boda_tpu.ops.op_base import OpBase
 from boda_tpu.ops.registry import get_template as jax_template
 from boda_tpu.testing.comp import mrd
+from boda_tpu_torch.ops.op_base import OpBase as PortOpBase
 from boda_tpu_torch.ops.registry import get_template
+
+
+def _port_op(op):
+    """The port's copy of a JAX op sig, through its lexp text."""
+    return PortOpBase.from_lexp(str(op.to_lexp()))
+
 
 N, C, H, W = 2, 6, 10, 10
 # storage form -> (io_layout, edge dtype)
@@ -44,10 +51,11 @@ def _run_both(op, form, *xs, args_nchw=None):
         op.str_vals["io_layout"] = io_layout
         xs = [x.transpose(0, 2, 3, 1).copy() for x in xs]
     jt, pt = jax_template(op.func_name), get_template(op.func_name)
-    assert issubclass(pt, jt)
+    rfs = pt.check_args(_port_op(op))
+    assert str(rfs) == str(jt.check_args(op))
     want = jt.build(jt.check_args(op))(
         *[jnp.asarray(x).astype(getattr(jnp, edt)) for x in xs])
-    got = pt.build(pt.check_args(op))(
+    got = pt.build(rfs)(
         *[torch.from_numpy(x).to(getattr(torch, edt)) for x in xs])
     assert str(got.dtype) == f"torch.{edt}"
     return got.float().numpy(), np.asarray(want, np.float32)
@@ -83,7 +91,7 @@ def test_pool_matches_jax(name, form):
     _close(got, want, form)
     if form == "nchw":
         pt = get_template("pool")
-        np.testing.assert_allclose(got, pt.ref_impl(pt.check_args(op), x),
+        np.testing.assert_allclose(got, pt.ref_impl(pt.check_args(_port_op(op)), x),
                                    rtol=2e-5, atol=2e-5)
 
 
@@ -96,7 +104,7 @@ def test_pool_ceil_mode_keeps_the_clipped_last_window():
     assert op.get_dims("out")["y"] == 5
     x = _x()
     pt = get_template("pool")
-    got = pt.build(pt.check_args(op))(torch.from_numpy(x)).numpy()
+    got = pt.build(pt.check_args(_port_op(op)))(torch.from_numpy(x)).numpy()
     np.testing.assert_array_equal(got[:, :, -1, -1], x[:, :, 8:, 8:].max(
         axis=(2, 3)))
 

@@ -13,21 +13,24 @@ from pathlib import Path
 
 import pytest
 
-from boda_tpu.backend.iface import make_backend
-from boda_tpu.core.config import Config
-from boda_tpu.core.dims import Dims
-from boda_tpu.core.error import RtErr
-from boda_tpu.core.has_main import HasMain, create_and_run_has_main
-from boda_tpu.ops.cnn_variants import add_codegen_annotations, make_op_tune
-from boda_tpu.ops.op_base import read_op_sigs
-from boda_tpu.testing.comp import comp_vars
-from boda_tpu.tune.wisdom import read_wisdom_file
+from boda_tpu.core import config as jconfig
+from boda_tpu.core import has_main as jhas_main
 from boda_tpu_torch import modes  # noqa: F401  (the torch_* modes)
+from boda_tpu_torch.backend.iface import make_backend
 from boda_tpu_torch.backend.torch_be import TorchBackend
+from boda_tpu_torch.core.config import Config
+from boda_tpu_torch.core.dims import Dims
+from boda_tpu_torch.core.error import RtErr
+from boda_tpu_torch.core.has_main import HasMain, create_and_run_has_main
 from boda_tpu_torch.core.machine import H100_PCIE, H100_SXM, card_peaks
+from boda_tpu_torch.ops.cnn_variants import add_codegen_annotations, \
+    make_op_tune
+from boda_tpu_torch.ops.op_base import read_op_sigs
 from boda_tpu_torch.ops.registry import Codegen
+from boda_tpu_torch.testing.comp import comp_vars
 from boda_tpu_torch.tune.opinfo import op_prec
 from boda_tpu_torch.tune.prof import profile_rcg_call
+from boda_tpu_torch.tune.wisdom import read_wisdom_file
 
 OPS = Path(__file__).parent / "data" / "ops"
 CPU = "t=(be=torch,device=cpu)"
@@ -79,7 +82,7 @@ def test_ops_prof_sgemm_on_cpu_and_interp(tmp_path, capsys):
 def test_ops_prof_takes_the_jax_packages_kg_digests(tmp_path, capsys, ops_fn,
                                                     tunes, n_runs):
     # the JAX package's ops_prof writes the known-good digests ...
-    create_and_run_has_main(
+    jhas_main.create_and_run_has_main(
         f"(mode=ops_prof,ops_fn={OPS / ops_fn},rtcs=(xla=(be=xla)),"
         f"op_tunes=(kg=(use_culibs=1)),run_iter=1,boda_output_dir={tmp_path},"
         f"wisdom_out_fn=jax.wis)", {})
@@ -216,19 +219,26 @@ def test_machine_model_knows_the_h100_by_name():
 
 
 def test_the_jax_modes_keep_their_names():
+    # the two packages register their modes in registries of their own
+    from boda_tpu import modes as jmodes  # noqa: F401  (the JAX modes)
     from boda_tpu.backend.modes import RtcTest
     from boda_tpu.tune.opinfo import CnnOpInfo, CnnProf
     from boda_tpu.tune.prof import OpsProf
+    jreg = jconfig.Config.registered(jhas_main.HasMain)
+    assert jreg["ops_prof"] is OpsProf
+    assert jreg["cnn_op_info"] is CnnOpInfo
+    assert jreg["cnn_prof"] is CnnProf
+    assert jreg["rtc_test"] is RtcTest
     reg = Config.registered(HasMain)
-    assert reg["ops_prof"] is OpsProf
-    assert reg["cnn_op_info"] is CnnOpInfo
-    assert reg["cnn_prof"] is CnnProf
-    assert reg["rtc_test"] is RtcTest
-    for name in ("torch_ops_prof", "torch_cnn_op_info", "torch_cnn_prof",
-                 "torch_rtc_test"):
+    ports = ("torch_ops_prof", "torch_cnn_op_info", "torch_cnn_prof",
+             "torch_rtc_test")
+    for name in ports:
         assert reg[name].__module__.startswith("boda_tpu_torch.")
+        assert name not in jreg
+    assert not {"ops_prof", "cnn_op_info", "cnn_prof", "rtc_test"} & set(reg)
 
 
 def test_ops_prof_refuses_the_jax_backend():
-    with pytest.raises(RtErr, match="be=xla is not the port's"):
+    # the port registers no be=xla: its config refuses the name
+    with pytest.raises(RtErr, match="unknown be 'xla' for Backend"):
         _ops_prof(OPS / "sgemm-tiny.txt", "x=(be=xla)", "(kg=(use_culibs=1))")

@@ -15,14 +15,21 @@ import pytest
 import torch
 
 from boda_tpu.core.dims import Dims
-from boda_tpu.core.error import RtErr
 from boda_tpu.ops.cnn_variants import add_codegen_annotations, make_op_tune
 from boda_tpu.ops.op_base import OpBase
 from boda_tpu.ops.pallas import qsgemm as jqsgemm
 from boda_tpu.ops.registry import get_template as jax_template
+from boda_tpu_torch.core.error import RtErr
+from boda_tpu_torch.ops.op_base import OpBase as PortOpBase
 from boda_tpu_torch.ops.cuda.qsgemm import K_MAX, int8_product, quantize, \
     quantize_operands, sgemm_int8, sgemm_int8_plain
 from boda_tpu_torch.ops.registry import get_template
+
+
+def _port_op(op):
+    """The port's copy of a JAX op sig, through its lexp text."""
+    return PortOpBase.from_lexp(str(op.to_lexp()))
+
 
 SHAPES = {  # M, K, N, A all zero
     "64x32x48": (64, 32, 48, False),
@@ -67,8 +74,8 @@ def test_sgemm_int8_bit_equal_to_pallas(monkeypatch, pallas_mode, shape):
     jt = jax_template("sgemm_int8")
     want = np.asarray(jt.build(jt.check_args(op))(a, b))
     pt = get_template("sgemm_int8")
-    got = pt.build(pt.check_args(op))(torch.from_numpy(a),
-                                      torch.from_numpy(b)).numpy()
+    got = pt.build(pt.check_args(_port_op(op)))(torch.from_numpy(a),
+                                                torch.from_numpy(b)).numpy()
     assert got.dtype == np.float32 and got.shape == (M, N)
     np.testing.assert_array_equal(got, want)
     if zero_a:
@@ -80,7 +87,7 @@ def test_sgemm_int8_within_1e6_of_ref_impl(shape):
     M, K, N, zero_a = SHAPES[shape]
     a, b = _inputs(M, K, N, zero_a, seed=1)
     pt = get_template("sgemm_int8")
-    ref = pt.ref_impl(pt.check_args(_op(M, K, N)), a, b)
+    ref = pt.ref_impl(pt.check_args(_port_op(_op(M, K, N))), a, b)
     got = sgemm_int8(torch.from_numpy(a), torch.from_numpy(b)).numpy()
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0)
 
@@ -112,8 +119,10 @@ def test_prec_int8_selects_the_port_template():
     op = _op(8, 8, 8)
     pt = get_template(op.func_name)
     assert op.func_name == "sgemm_int8"
-    assert pt is not jqsgemm.SgemmInt8 and issubclass(pt, jqsgemm.SgemmInt8)
-    assert pt.flops(pt.check_args(op)) == 2 * 8 * 8 * 8
+    assert pt is not jqsgemm.SgemmInt8 and pt.name == jqsgemm.SgemmInt8.name
+    rfs = pt.check_args(_port_op(op))
+    assert str(rfs) == str(jqsgemm.SgemmInt8.check_args(op))
+    assert pt.flops(rfs) == 2 * 8 * 8 * 8
 
 
 def test_sgemm_int8_refuses_k_over_the_int32_bound():
@@ -143,7 +152,8 @@ def test_sgemm_int8_plain_sums_exactly_at_ragged_k():
     want = torch.tensor([[K, -K, K]] * 2, dtype=torch.float64) * 127 * 127
     assert torch.equal(got, want.float() * s)
     pt = get_template("sgemm_int8")
-    ref = pt.ref_impl(pt.check_args(_op(2, K, 3)), a.numpy(), b.numpy())
+    ref = pt.ref_impl(pt.check_args(_port_op(_op(2, K, 3))), a.numpy(),
+                      b.numpy())
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=0)
 
 

@@ -20,11 +20,11 @@ import pytest
 import torch
 
 from boda_tpu.core.dims import Dims
-from boda_tpu.core.error import RtErr
 from boda_tpu.ops.op_base import OpBase
-from boda_tpu.ops.pallas import resblock as jresblock
 from boda_tpu.ops.registry import get_template as jax_template
 from boda_tpu.testing.comp import mrd
+from boda_tpu_torch.core.error import RtErr
+from boda_tpu_torch.ops.op_base import OpBase as PortOpBase
 from boda_tpu_torch.ops.cuda.resblock import SMEM_PER_SM, SMEM_RESERVED, \
     _tile_smem, resblock, resblock_plain, resblock_plan
 from boda_tpu_torch.ops.registry import get_template
@@ -72,6 +72,11 @@ def _args(n, C, H, W, Cm, seed=0):
             rng.randn(C).astype(np.float32) * s]
 
 
+def _port_op(op):
+    """The port's copy of a JAX op sig, through its lexp text."""
+    return PortOpBase.from_lexp(str(op.to_lexp()))
+
+
 @pytest.mark.parametrize("form", list(FORMS))
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_resblock_template_matches_pallas_interpret(monkeypatch, shape, form):
@@ -88,8 +93,8 @@ def test_resblock_template_matches_pallas_interpret(monkeypatch, shape, form):
     want = np.asarray(jt.build(jt.check_args(op))(*jargs), np.float32)
 
     pt = get_template("resblock")
-    assert issubclass(pt, jresblock.ResBlock)
-    rfs = pt.check_args(op)
+    rfs = pt.check_args(_port_op(op))
+    assert str(rfs) == str(jt.check_args(op))
     targs = [torch.from_numpy(a) for a in args]
     if storage:
         targs[0] = targs[0].bfloat16()

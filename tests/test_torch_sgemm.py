@@ -10,14 +10,20 @@ import numpy as np
 import pytest
 import torch
 
-from boda_tpu.core.error import RtErr
-from boda_tpu.ops.pallas import sgemm as jsgemm
 from boda_tpu.ops.pallas.sgemm import build_matmul_ext, make_sgemm_op
 from boda_tpu.ops.registry import get_template as jax_template
 from boda_tpu.ops.tile import solve_matmul_tiles
 from boda_tpu.testing.comp import mrd
+from boda_tpu_torch.core.error import RtErr
+from boda_tpu_torch.ops.op_base import OpBase as PortOpBase
 from boda_tpu_torch.ops.cuda.sgemm import matmul_ext
 from boda_tpu_torch.ops.registry import get_template
+
+
+def _port_op(op):
+    """The port's copy of a JAX op sig, through its lexp text."""
+    return PortOpBase.from_lexp(str(op.to_lexp()))
+
 
 CASES = [
     # M, K, N, bias, relu, in dtype, out dtype: ragged M/N/K, M=1
@@ -79,8 +85,8 @@ def test_sgemm_template_matches_jax_and_ref(monkeypatch, prec):
     jt = jax_template("sgemm")
     want = np.asarray(jt.build(jt.check_args(op))(a, b), np.float32)
     pt = get_template("sgemm")
-    assert issubclass(pt, jsgemm.Sgemm)
-    rfs = pt.check_args(op)
+    rfs = pt.check_args(_port_op(op))
+    assert str(rfs) == str(jt.check_args(op))
     got = pt.build(rfs)(torch.from_numpy(a), torch.from_numpy(b)).numpy()
     _close(got, want, "bfloat16" if prec else "float32")
     if not prec:
@@ -100,8 +106,9 @@ def test_xla_sgemm_matches_jax(prec):
     jt = jax_template("xla_sgemm")
     want = np.asarray(jt.build(jt.check_args(op))(a, b), np.float32)
     pt = get_template("xla_sgemm")
-    assert issubclass(pt, jsgemm.XlaSgemm)
-    got = pt.build(pt.check_args(op))(torch.from_numpy(a), torch.from_numpy(b))
+    rfs = pt.check_args(_port_op(op))
+    assert str(rfs) == str(jt.check_args(op))
+    got = pt.build(rfs)(torch.from_numpy(a), torch.from_numpy(b))
     assert got.dtype == torch.float32
     _close(got.numpy(), want, "bfloat16" if prec else "float32")
 

@@ -17,11 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from boda_tpu.core.error import RtErr
-from boda_tpu.ops.pallas import stem as jstem
 from boda_tpu.ops.pallas.stem import make_stem_op
 from boda_tpu.ops.registry import get_template as jax_template
 from boda_tpu.testing.comp import mrd
+from boda_tpu_torch.core.error import RtErr
+from boda_tpu_torch.ops.op_base import OpBase as PortOpBase
 from boda_tpu_torch.ops.cuda.stem import fused_stem, fused_stem_plain, \
     stem_tile
 from boda_tpu_torch.ops.registry import get_template
@@ -55,6 +55,11 @@ def _case(n=1, cin=3, h=56, w=56, cout=16, k=7, io_layout="", prec="",
     return op, args
 
 
+def _port_op(op):
+    """The port's copy of a JAX op sig, through its lexp text."""
+    return PortOpBase.from_lexp(str(op.to_lexp()))
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_stem_template_matches_pallas_interpret(monkeypatch, name):
     monkeypatch.setenv("BODA_PALLAS_MODE", "interpret")
@@ -71,8 +76,8 @@ def test_stem_template_matches_pallas_interpret(monkeypatch, name):
     want = np.asarray(jt.build(jrfs)(*jargs), np.float32)
 
     pt = get_template("fused_stem")
-    assert issubclass(pt, jstem.FusedStem)
-    rfs = pt.check_args(op)
+    rfs = pt.check_args(_port_op(op))
+    assert str(rfs) == str(jrfs)
     targs = [torch.from_numpy(a) for a in args]
     if edge:
         targs[0] = targs[0].bfloat16()
@@ -147,4 +152,4 @@ def test_stem_template_refuses_an_unfused_relu():
     op.set_u32("conv_has_relu", 0)
     pt = get_template("fused_stem")
     with pytest.raises(RtErr, match="conv_has_relu"):
-        pt.build(pt.check_args(op))
+        pt.build(pt.check_args(_port_op(op)))
