@@ -1,5 +1,6 @@
-// Shared block-tile GEMM core of the hand-written Hopper kernels
-// (sgemm.cu: matmul_ext, tconv.cu: tconv, resblock.cu: resblock).
+// The FFMA block-tile GEMM core of the fused kernels (resblock.cu:
+// resblock; stem.cu and the Hopper GEMM core hopper_gemm.cuh take its
+// to_f32 / from_f32 conversions).
 //
 // tile_product: the 256 threads of a block compute a BM x BN tile of
 // sum_k A[m,k] * B[n,k], each thread owning a TM x TN register micro-tile whose
@@ -7,9 +8,7 @@
 // reads are broadcasts for A and consecutive words for B). K advances in BK chunks staged
 // through shared memory in f32; the products are plain FFMA in full FP32 (no
 // tensor cores, hence no TF32), accumulated in registers in f32.
-// The tile is 64 x 64, or 16 x 256 for products with few rows. gemm_tile: one
-// 64 x 64 tile per block of a grid over C[M,N], with the epilogue of
-// matmul_ext and tconv.
+// The tile is 64 x 64, or 16 x 256 for products with few rows.
 //
 // The caller supplies two loaders, load_a(m, k, v) and load_b(n, k, v), that
 // each fill v[0..3] with the operand values at (row, k .. k+3) converted to
@@ -182,27 +181,6 @@ __device__ __forceinline__ void for_tile(int m0, int n0, const float (&acc)[kTM]
 #pragma unroll
     for (int j = 0; j < kTN; ++j)
       f(m0 + ty + T::kThrRows * i, n0 + tx + T::kThrCols * j, acc[i][j]);
-}
-
-// The 64 x 64 tile of C[M,N] at (blockIdx.x, blockIdx.y), then the epilogue:
-// + bias[n] in f32 (bias may be null), ReLU if relu != 0, one rounding to TOut
-// at the store. C is row-major [M, N].
-template <typename TOut, typename LoadA, typename LoadB>
-__device__ __forceinline__ void gemm_tile(const LoadA& load_a, const LoadB& load_b,
-                                          const float* __restrict__ bias,
-                                          TOut* __restrict__ C, int M, int N, int K,
-                                          int relu) {
-  __shared__ Tile<kBM>::Smem sm;
-  const int m0 = blockIdx.x * kBM;
-  const int n0 = blockIdx.y * kBN;
-  float acc[kTM][kTN];
-  tile_product<kBM>(load_a, load_b, m0, n0, K, sm, acc);
-  for_tile<kBM>(m0, n0, acc, [&](int m, int n, float v) {
-    if (m >= M || n >= N) return;
-    if (bias != nullptr) v += bias[n];
-    if (relu && v < 0.f) v = 0.f;
-    C[(size_t)m * N + n] = from_f32<TOut>(v);
-  });
 }
 
 }  // namespace boda

@@ -10,7 +10,10 @@
 // and conv padding and the ragged M edge are zero-filled loads. B is the filter
 // in OHWI order, [oc, ky, kx, C], which is exactly row-major [N, K]. The epilogue
 // adds bias[oc] in f32, applies ReLU and rounds once; the output is NHWC
-// [n, oy, ox, oc], which is row-major C[M, N].
+// [n, oy, ox, oc], which is row-major C[M, N]. The ring, the wgmma and FFMA
+// products, the epilogue, the split-K reduce and their helpers are the GEMM
+// core of hopper_gemm.cuh, shared with matmul_ext (sgemm.cu) and sgemm_int8
+// (qsgemm.cu); this file holds the conv window loader.
 //
 // What bounds it on an H100 SXM (989 TF/s bf16 dense, 67 TF/s FP32, 3.35 TB/s):
 // each ResNet-50 3x3 layer that reaches tconv does 7.40 GFLOP at batch 32. At
@@ -53,19 +56,14 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include "gemm_tile.cuh"  // boda::to_f32, boda::from_f32
+#include "hopper_gemm.cuh"
 
 namespace {
 
-constexpr int kTile = 128;     // block tile: 128 pixels x 128 output channels
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kBK16 = 64;      // bf16 K chunk: one 128-byte row of a stage
-constexpr int kStages = 3;     // bf16 shared-memory ring
-constexpr int kTileBytes16 = kTile * kBK16 * 2;       // one operand's stage, 16 KB
-// 96 KB of stages and up to 1 KB to align them
-constexpr int kSmem16 = kStages * 2 * kTileBytes16 + 1024;
-constexpr int kBK32 = 8;       // f32 K chunk
-constexpr int kPad32 = 4;      // f32 shared rows: 132 floats keep stores off one bank
+using namespace boda::hopper;
+
+constexpr int kTile = 128;  // block tile: 128 pixels x 128 output channels
+constexpr int kBK16 = kRowBytes / 2;  // bf16 K chunk: one 128-byte row of a stage
 
 struct ConvShape {
   int M, N, K;         // GEMM rows (n*oy*ox), cols (oc), depth (ky*kx*C)
@@ -119,122 +117,7 @@ __device__ __forceinline__ int offset(const ConvShape& s, const Pixel& p, const 
   return p.base + (t.yy * s.W + t.xx) * s.C + t.c;
 }
 
-// The K chunks of this block's split: [kc0, kc1)
-__device__ __forceinline__ void split_range(const ConvShape& s, int bk, int& kc0, int& kc1) {
-  const int chunks = (s.K + bk - 1) / bk;
-  kc0 = blockIdx.z * s.chunks_per_split;
-  kc1 = min(chunks, kc0 + s.chunks_per_split);
-}
-
-// Epilogue of one output element: unsplit, + bias, ReLU, one rounding into out;
-// split, the f32 partial sum into this split's slice of the workspace.
-template <typename TOut>
-__device__ __forceinline__ void put(const ConvShape& s, int m, int n, float v,
-                                    const float* __restrict__ bias, TOut* __restrict__ out,
-                                    float* __restrict__ ws, int relu) {
-  if (m >= s.M || n >= s.N) return;
-  if (ws != nullptr) {
-    ws[((size_t)blockIdx.z * s.M + m) * s.N + n] = v;
-    return;
-  }
-  if (bias != nullptr) v += bias[n];
-  if (relu && v < 0.f) v = 0.f;
-  out[(size_t)m * s.N + n] = boda::from_f32<TOut>(v);
-}
-
 // ---------------------------------------------------------------- bf16: tensor cores
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared, or 16 zero bytes where !valid (src-size 0
-// reads nothing; src must still be a global address)
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Byte offset of 16-byte chunk j (8 k) of row r in a [128][64] bf16 stage:
-// rows of 128 bytes with the 16-byte chunks XOR-swizzled by row % 8, which is
-// the layout wgmma reads as "K-major, 128-byte swizzle" (8-row groups 1024
-// bytes apart). Stage buffers start on 1024-byte boundaries.
-__device__ __forceinline__ uint32_t swz(int r, int j) {
-  return (uint32_t)(r * (kBK16 * 2) + ((j ^ (r & 7)) << 4));
-}
-
-// wgmma shared-memory matrix descriptor of a K-major, 128-byte-swizzled
-// operand at shared address addr: start address >> 4 (bits 0-13), leading
-// byte offset 1 (unused by this layout), stride byte offset 1024 >> 4
-// (bits 32-45), layout type 1 = 128-byte swizzle (bits 62-63). The k16 step
-// ks of a 64-wide chunk starts 32 * ks bytes further; the hardware applies
-// the swizzle to the computed addresses.
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// d[64 x 128 tile of this warpgroup] += A[64 x 16] . B[128 x 16]^T, both
-// bf16 K-major in shared memory, f32 accumulators in registers.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      :
-        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// Keeps the compiler from moving accumulator reads or writes across the
-// asynchronous wgmma (they are the operands it works on).
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// Wait until at most N of this warpgroup's committed wgmma groups are pending.
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Makes this thread's writes to shared memory (cp.async or plain stores)
-// visible to the asynchronous proxy that wgmma reads operands through.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -300,75 +183,28 @@ __global__ void __launch_bounds__(kThreads, 2)
                       const float* __restrict__ bias, TOut* __restrict__ out,
                       float* __restrict__ ws, ConvShape s, int relu) {
   extern __shared__ uint8_t smem_raw[];
-  // stage buffers on 1024-byte boundaries (the swizzle's repeat)
-  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* smem = align_1024(smem_raw);
   const int m0 = blockIdx.x * kTile;
   const int n0 = blockIdx.y * kTile;
-  const int lane = threadIdx.x & 31;
-  const int wg = threadIdx.x >> 7;        // warpgroup: rows wg*64 .. +63
-  const int wq = (threadIdx.x >> 5) & 3;  // warp within it: 16 of those rows
 
   Pixel px[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) px[i] = pixel_of(s, m0 + (threadIdx.x >> 3) + 32 * i);
 
   int kc0, kc1;
-  split_range(s, kBK16, kc0, kc1);
-  const int nloc = kc1 - kc0;
-
-  auto stage_a = [&](int st) { return smem + st * 2 * kTileBytes16; };
-  auto stage_b = [&](int st) { return smem + st * 2 * kTileBytes16 + kTileBytes16; };
-  auto load = [&](int st, int kc) {
-    stage_bf16<kVec>(s, x, w, px, n0, kc, smem_addr(stage_a(st)), smem_addr(stage_b(st)),
-                     stage_a(st), stage_b(st));
-  };
-
+  split_range((s.K + kBK16 - 1) / kBK16, s.chunks_per_split, kc0, kc1);
+  using R = Ring<kTile>;
   float acc[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < nloc) load(st, kc0 + st);
-    cp_async_commit();
-  }
-  // The products of chunk it run while the copies of chunk it + 2 are
-  // issued: that stage held chunk it - 1, whose products every warpgroup
-  // has finished by the second barrier.
-  for (int it = 0; it < nloc; ++it) {
-    cp_async_wait<kStages - 2>();
-    fence_proxy_async();
-    __syncthreads();  // chunk it is in shared memory
-    const uint64_t da = smem_desc(smem_addr(stage_a(it % kStages)) + wg * 64 * kBK16 * 2);
-    const uint64_t db = smem_desc(smem_addr(stage_b(it % kStages)));
-    fence_acc(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < kBK16 / 16; ++ks)
-      wgmma_m64n128k16(acc, da + 2 * ks, db + 2 * ks);  // + 32 bytes a step
-    wgmma_commit();
-    wgmma_wait<1>();  // chunk it - 1's products are done
-    fence_acc(acc);
-    __syncthreads();  // in both warpgroups
-    const int nxt = it + kStages - 1;
-    if (nxt < nloc) load(nxt % kStages, kc0 + nxt);
-    cp_async_commit();
-  }
-  wgmma_wait<0>();
-  fence_acc(acc);
-  cp_async_wait<0>();
-
-  // accumulator i*4 + {0,1,2,3}: rows r, r, r+8, r+8 and columns c, c+1,
-  // c, c+1 of 8-column group i, r = 16 wq + lane / 4, c = 8 i + 2 (lane % 4)
-  const int m = m0 + wg * 64 + wq * 16 + (lane >> 2);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int n = n0 + i * 8 + (lane & 3) * 2;
-    put(s, m, n, acc[i * 4 + 0], bias, out, ws, relu);
-    put(s, m, n + 1, acc[i * 4 + 1], bias, out, ws, relu);
-    put(s, m + 8, n, acc[i * 4 + 2], bias, out, ws, relu);
-    put(s, m + 8, n + 1, acc[i * 4 + 3], bias, out, ws, relu);
-  }
+  ring_product<kTile>(
+      smem, kc0, kc1 - kc0,
+      [&](int st, int kc) {
+        stage_bf16<kVec>(s, x, w, px, n0, kc, smem_addr(R::a(smem, st)),
+                         smem_addr(R::b(smem, st)), R::a(smem, st), R::b(smem, st));
+      },
+      acc);
+  for_pairs(acc, [&](int r, int c, float v0, float v1) {
+    store_pair(s.M, s.N, m0 + r, n0 + c, v0, v1, bias, out, ws, relu);
+  });
 }
 
 // ---------------------------------------------------------------- f32: FFMA
@@ -406,90 +242,33 @@ __global__ void __launch_bounds__(kThreads)
     tconv_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      const float* __restrict__ bias, TOut* __restrict__ out,
                      float* __restrict__ ws, ConvShape s, int relu) {
-  __shared__ __align__(16) float As[2][kBK32][kTile + kPad32];
-  __shared__ __align__(16) float Bs[2][kBK32][kTile + kPad32];
   const int m0 = blockIdx.x * kTile;
   const int n0 = blockIdx.y * kTile;
   // staging: thread t loads quad t % 2 of A row t / 2 and of B row t / 2
-  const int lr = threadIdx.x >> 1;
-  const int kq = (threadIdx.x & 1) * 4;
-  const Pixel p = pixel_of(s, m0 + lr);
-  // products: thread (tx, ty) owns rows ty*4 + {0..3} and 64 + ty*4 + {0..3},
-  // columns tx*4 + {0..3} and 64 + tx*4 + {0..3} of the tile
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-
+  const Pixel p = pixel_of(s, m0 + (threadIdx.x >> 1));
   int kc0, kc1;
-  split_range(s, kBK32, kc0, kc1);
-  const int nloc = kc1 - kc0;
-
-  float acc[8][8];
+  split_range((s.K + kBK32 - 1) / kBK32, s.chunks_per_split, kc0, kc1);
+  float acc[8][kTile / 16];
+  ffma_product<kTile, false>(
+      kc0, kc1 - kc0, s.M - m0,
+      [&](int r, int k, float (&a)[4], float (&b)[4], bool) {
+        quads_f32<kVec>(s, x, w, p, n0 + r, k, a, b);
+      },
+      acc);
+  // one store per element: the core's pair stores made this kernel slower
+  // at res4b b32 in 4 splits (the kernel alone by split count, PERF.md)
+  for_quads<kTile>(acc, [&](int r, int c, const float (&v)[4]) {
+    const int m = m0 + r;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  float av[4], bv[4];
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      As[buf][kq + e][lr] = av[e];
-      Bs[buf][kq + e][lr] = bv[e];
+    for (int j = 0; j < 4; ++j) {
+      const int n = n0 + c + j;
+      if (m >= s.M || n >= s.N) continue;
+      if (ws != nullptr)
+        ws[((size_t)blockIdx.z * s.M + m) * s.N + n] = v[j];
+      else
+        out[(size_t)m * s.N + n] = finish<TOut>(v[j], bias, n, relu);
     }
-  };
-  if (nloc > 0) {
-    quads_f32<kVec>(s, x, w, p, n0 + lr, kc0 * kBK32 + kq, av, bv);
-    store(0);
-  }
-  __syncthreads();
-  for (int it = 0; it < nloc; ++it) {
-    const int cur = it & 1;
-    const bool more = it + 1 < nloc;
-    if (more) quads_f32<kVec>(s, x, w, p, n0 + lr, (kc0 + it + 1) * kBK32 + kq, av, bv);
-#pragma unroll
-    for (int kk = 0; kk < kBK32; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][kk][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][kk][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (more) store(cur ^ 1);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      put(s, m, n, acc[i][j], bias, out, ws, relu);
-    }
-  }
-}
-
-// ---------------------------------------------------------------- split-K reduce
-
-// out[m, n] = round(relu(sum over splits of ws[split, m, n] + bias[n])), the
-// splits added in order.
-template <typename TOut>
-__global__ void __launch_bounds__(kThreads)
-    tconv_reduce(const float* __restrict__ ws, const float* __restrict__ bias,
-                 TOut* __restrict__ out, size_t MN, int N, int splits, int relu) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < MN;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float v = 0.f;
-    for (int z = 0; z < splits; ++z) v += ws[(size_t)z * MN + i];
-    if (bias != nullptr) v += bias[i % N];
-    if (relu && v < 0.f) v = 0.f;
-    out[i] = boda::from_f32<TOut>(v);
-  }
+  });
 }
 
 template <typename TIn, typename TOut, bool kVec>
@@ -500,29 +279,21 @@ int launch(const void* x, const void* w, const void* bias, void* out, void* ws,
   const float* b = static_cast<const float*>(bias);
   TOut* o = static_cast<TOut*>(out);
   if constexpr (sizeof(TIn) == 2) {
-    static bool attr_set = false;  // per instantiation
-    if (!attr_set) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          tconv_bf16_kernel<TOut, kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem16);
-      if (e != cudaSuccess) return static_cast<int>(e);
-      attr_set = true;
-    }
-    tconv_bf16_kernel<TOut, kVec><<<grid, kThreads, kSmem16, stream>>>(
+    static bool smem_set = false;  // per instantiation
+    const cudaError_t e =
+        allow_smem(tconv_bf16_kernel<TOut, kVec>, Ring<kTile>::kSmem, smem_set);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    tconv_bf16_kernel<TOut, kVec><<<grid, kThreads, Ring<kTile>::kSmem, stream>>>(
         static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), b, o, wsf,
         s, relu);
   } else {
     tconv_f32_kernel<TOut, kVec><<<grid, kThreads, 0, stream>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), b, o, wsf, s, relu);
   }
-  if (splits > 1) {
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const size_t MN = (size_t)s.M * s.N;
-    const size_t need = (MN + kThreads - 1) / kThreads;
-    const int blocks = need < 8192 ? (int)need : 8192;
-    tconv_reduce<TOut><<<blocks, kThreads, 0, stream>>>(wsf, b, o, MN, s.N, splits, relu);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess && splits > 1)
+    e = launch_split_reduce<TOut>(wsf, b, o, (size_t)s.M * s.N, s.N, splits, relu, stream);
+  return static_cast<int>(e);
 }
 
 template <typename TIn, typename TOut>

@@ -33,10 +33,11 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry point -> argtypes (all return the launch's cudaGetLastError())
+# C entry point -> argtypes (each launcher returns its cudaGetLastError())
 ENTRY_POINTS = {
-    # A, B, bias, C, M, N, K, in_bf16, out_bf16, relu, stream
-    "boda_matmul_ext": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # A, B, bias, C, M, N, K, in_bf16, out_bf16, relu, ws, tile_n, splits,
+    # vec, stream
+    "boda_matmul_ext": [_P] * 4 + [_I] * 6 + [_P] + [_I] * 3 + [_P],
     # x, w, bias, out, ws, n, H, W, C, oc, ky, kx, py, px, in_bf16,
     # out_bf16, relu, splits, vec, stream
     "boda_tconv": [_P] * 5 + [_I] * 14 + [_P],
@@ -48,6 +49,10 @@ ENTRY_POINTS = {
     "boda_resblock": [_P] * 8 + [_I] * 10 + [_P],
     # A, B, scale, C, M, N, K, stream
     "boda_sgemm_int8": [_P] * 4 + [_I] * 3 + [_P],
+    # a, b, qa, qb, ws, M, K, N, stream
+    "boda_quantize_int8": [_P] * 5 + [_I] * 3 + [_P],
+    # () -> floats of boda_quantize_int8's workspace
+    "boda_quantize_ws_floats": [],
 }
 
 

@@ -2,16 +2,21 @@
 
 Port of boda_tpu/ops/pallas/qsgemm.py. `sgemm_int8(a, b)` quantizes both
 f32 operands symmetrically per tensor, exactly as the Pallas template's
-`qsym` does (qsgemm.py:55-59), then multiplies the int8 values with the
-hand-written CUDA kernel in csrc/qsgemm.cu (int32 sums, one f32 multiply by
-sa * sb). The quantize pass is plain torch on the device, as the JAX package
-computes it outside its Pallas kernel too; it also writes B transposed, so
-that both operands reach the kernel with K contiguous. `sgemm_int8_plain`
-is the same function with the integer product in plain PyTorch.
+`qsym` does (qsgemm.py:55-59), then multiplies the int8 values (int32 sums,
+one f32 multiply by sa * sb). Both halves are hand-written CUDA kernels in
+csrc/qsgemm.cu: `quantize_operands` (two launches: the amax of both
+operands, then the scales and the int8 copies, B written transposed so that
+both operands reach the product with K contiguous) and `int8_product`
+(int8 wgmma on the GEMM core of csrc/hopper_gemm.cuh). The JAX package
+computes `qsym` outside its Pallas kernel, as plain work; the port writes
+it as a kernel because the call's time is what its users pay.
+`quantize_operands_plain` and `sgemm_int8_plain` are the same functions in
+plain PyTorch.
 
-The integer sum is exact and the roundings are the same, so the kernel, its
-plain version and the Pallas body give bit-equal results. The wrapper runs
-the plain version for CPU tensors and the kernel for CUDA tensors.
+The integer sum is exact and the roundings are the same, so the kernels,
+their plain versions and the Pallas body give bit-equal results. Each
+wrapper runs the plain version for CPU tensors and the kernel for CUDA
+tensors.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from ..op_base import OpBase
 from ..registry import IN, OUT, KernelTemplate, adecl, template
 from .build import check_launch, load_kernels
 from .sgemm import _mnk
-from .util import check_operand, use_kernel
+from .util import check_operand, cuda_stream, use_kernel
 
 # the largest K for which no sum of K products of two values in [-127, 127]
 # overflows the int32 accumulator
@@ -45,12 +50,42 @@ def quantize(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
-def quantize_operands(a: torch.Tensor, b: torch.Tensor):
-    """The quantize pass of sgemm_int8(a[M,K], b[K,N]): (qa int8 [M,K],
-    qb int8 [N,K] (B transposed), sa * sb as an f32 [1] tensor)."""
+def quantize_operands_plain(a: torch.Tensor, b: torch.Tensor):
+    """The quantize pass of sgemm_int8(a[M,K], b[K,N]) in plain PyTorch:
+    (qa int8 [M,K], qb int8 [N,K] (B transposed), sa * sb as an f32 [1]
+    tensor)."""
     qa, sa = quantize(a)
     qb, sb = quantize(b)
     return qa, qb.t().contiguous(), (sa * sb).reshape(1)
+
+
+def quantize_operands(a: torch.Tensor, b: torch.Tensor):
+    """The quantize pass of sgemm_int8(a[M,K], b[K,N]), as
+    quantize_operands_plain returns it: the plain version on CPU tensors,
+    the two-launch kernel on CUDA tensors (counted once a call in
+    quantize_operands.launches). a, b: contiguous f32."""
+    check_operand(a, "sgemm_int8 a", 2, (torch.float32,))
+    check_operand(b, "sgemm_int8 b", 2, (torch.float32,))
+    (M, K), (Kb, N) = a.shape, b.shape
+    if Kb != K:
+        raise RtErr(f"sgemm_int8: a {tuple(a.shape)} and b (K,N) "
+                    f"{tuple(b.shape)} disagree on K")
+    if not use_kernel(a, b):
+        return quantize_operands_plain(a, b)
+    lib = load_kernels()
+    qa = torch.empty((M, K), dtype=torch.int8, device=a.device)
+    qb = torch.empty((N, K), dtype=torch.int8, device=a.device)
+    ws = torch.empty(lib.boda_quantize_ws_floats(), dtype=torch.float32,
+                     device=a.device)
+    rc = lib.boda_quantize_int8(
+        a.data_ptr(), b.data_ptr(), qa.data_ptr(), qb.data_ptr(),
+        ws.data_ptr(), M, K, N, cuda_stream(a.device))
+    check_launch(rc, "sgemm_int8 quantize")
+    quantize_operands.launches += 1
+    return qa, qb, ws[:1]
+
+
+quantize_operands.launches = 0
 
 
 def _check(a, b):
@@ -82,7 +117,7 @@ def sgemm_int8_plain(a, b):
     """Plain PyTorch sgemm_int8: the same quantize pass, the exact integer
     product and the same f32 dequant."""
     _check(a, b)
-    return _product_plain(*quantize_operands(a, b))
+    return _product_plain(*quantize_operands_plain(a, b))
 
 
 def int8_product(qa, qb, s):
@@ -103,7 +138,7 @@ def int8_product(qa, qb, s):
     c = torch.empty((M, N), dtype=torch.float32, device=qa.device)
     rc = load_kernels().boda_sgemm_int8(
         qa.data_ptr(), qb.data_ptr(), s.data_ptr(), c.data_ptr(), M, N, K,
-        torch.cuda.current_stream(qa.device).cuda_stream)
+        cuda_stream(qa.device))
     check_launch(rc, "sgemm_int8")
     sgemm_int8.launches += 1
     return c
@@ -113,11 +148,12 @@ def sgemm_int8(a, b):
     """C[M,N] = f32(quant8(a)[M,K] . quant8(b)[K,N]) * (sa * sb).
 
     a, b: contiguous f32. Returns a new f32 [M,N] tensor. Raises for K over
-    K_MAX, where the int32 sum could overflow. The kernel launches are
-    counted in sgemm_int8.launches.
+    K_MAX, where the int32 sum could overflow. The product's launches are
+    counted in sgemm_int8.launches, the quantize pass's in
+    quantize_operands.launches.
 
-    On CUDA tensors the quantize pass and the launch are asynchronous on the
-    current stream: the kernel reads sa * sb from device memory."""
+    On CUDA tensors the quantize pass and the product are asynchronous on
+    the current stream: the product reads sa * sb from device memory."""
     _check(a, b)
     use_kernel(a, b)  # raises for mixed or unsupported devices
     return int8_product(*quantize_operands(a, b))

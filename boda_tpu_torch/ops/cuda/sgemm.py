@@ -3,7 +3,9 @@
 
 Port of boda_tpu/ops/pallas/sgemm.py. `matmul_ext` wraps the hand-written
 CUDA kernel in csrc/sgemm.cu (see its header for what bounds it and how it
-is built); `matmul_ext_plain` is the same function in plain PyTorch. The
+is built): bf16 on the tensor cores, f32 in full FP32 on FFMA, both on the
+GEMM core of csrc/hopper_gemm.cuh. `matmul_plan` picks its tile width and
+its K split; `matmul_ext_plain` is the same function in plain PyTorch. The
 wrapper checks its operands, then runs the plain version for CPU tensors
 and the kernel for CUDA tensors.
 
@@ -14,6 +16,9 @@ instead of padding A, B and bias in device memory (sgemm.py:184-197).
 
 from __future__ import annotations
 
+import functools
+import math
+
 import numpy as np
 import torch
 
@@ -21,7 +26,37 @@ from ...core.error import RtErr
 from ..op_base import OpBase
 from ..registry import IN, OUT, KernelTemplate, adecl, template
 from .build import check_launch, load_kernels
-from .util import check_operand, full_fp32, torch_dtype, use_kernel
+from .util import GemmPlan, check_operand, cuda_stream, full_fp32, \
+    gemm_plan, sm_count, torch_dtype, use_kernel
+
+
+GRID_Y = 65535               # CUDA's limit on grid.y (the N tiles)
+# Split-K, by route, as util.gemm_plan reads it: (split grids of fewer than
+# this many output tiles per SM, least split count, blocks per SM a split
+# grid reaches, least K chunks a split sums). From the kernel timed alone by
+# split count at the fc1000 and res4/res5 1x1 shapes of ResNet-50 (the
+# `matmul splits` lines of chip_smoke.py; PERF.md). f32 (FFMA): fastest in
+# 32 splits on the fc at
+# M=1 and 32 (0.014-0.018 ms, 0.15-0.17 unsplit) and at res5a_branch2a at
+# b1 (0.012-0.015 ms; 0.014-0.020 in 64 splits of 2 chunks), in 4 at
+# res5a_branch2a at b32 (52 tiles: 0.070 ms, 0.132 unsplit); no faster
+# split at res4b_branch2a b32 (98 tiles: 0.130-0.138 ms in 1-8) and slower
+# at res5b_branch2c b32 (208 tiles: 0.122 unsplit, 0.152 in 4). bf16
+# (wgmma) is short, and splits past half the SMs add only the workspace's
+# round trip (res5a_branch2a b32: 0.0145-0.0158 ms in 2 splits, 0.016 in 1
+# and in 4).
+SPLIT = {torch.bfloat16: (0.5, 1, 0.5, 2), torch.float32: (0.5, 4, 1.5, 4)}
+
+
+@functools.lru_cache(maxsize=4096)
+def matmul_plan(M: int, N: int, K: int, dtype: torch.dtype,
+                sms: int) -> GemmPlan:
+    """The kernel's plan for a[M, K] . b[N, K]^T in dtype on a card with
+    `sms` SMs. The block tile is 128 rows by 64 or 128 columns, whichever
+    covers N with fewer columns (128 on a tie); K splits as the route's
+    SPLIT rule says (util.gemm_plan)."""
+    tile_n = 64 if math.ceil(N / 64) * 64 < math.ceil(N / 128) * 128 else 128
+    return gemm_plan("matmul_plan", M, N, K, K, tile_n, dtype, sms, SPLIT)
 
 
 def _check(a, b, bias, out_dtype):
@@ -35,8 +70,11 @@ def _check(a, b, bias, out_dtype):
                     f"{tuple(b.shape)} disagree on K")
     if min(M, N, K) < 1:
         raise RtErr(f"matmul_ext: empty product M={M} N={N} K={K}")
-    if max(M, N, K) >= 2 ** 31:
-        raise RtErr(f"matmul_ext: extent over int32 (M={M} N={N} K={K})")
+    # the kernel indexes in 64 bits: only each extent must fit an int, and
+    # the N tiles of even the 64-wide tile grid.y
+    if max(M, N, K) >= 2 ** 31 or N > GRID_Y * 64:
+        raise RtErr(f"matmul_ext: extent over int32 or N over "
+                    f"{GRID_Y * 64} (M={M} N={N} K={K})")
     if bias is not None:
         check_operand(bias, "matmul_ext bias", 1, (torch.float32,))
         if bias.shape[0] != N:
@@ -63,20 +101,31 @@ def matmul_ext(a, b, bias=None, relu=False, out_dtype=torch.float32):
     a and b: contiguous, both f32 or both bf16. bias: contiguous f32 [N] or
     None. Returns a new [M,N] tensor of out_dtype (f32 or bf16).
 
-    On CUDA tensors the launch is asynchronous on the current stream; an
-    input freed after the call is reused only in that stream's order by
-    torch's caching allocator, so no synchronisation is needed."""
+    A split-K plan (matmul_plan) adds an f32 workspace of splits x M x N
+    for the partial sums and a second kernel that adds them; the call still
+    counts one launch in matmul_ext.launches.
+
+    On CUDA tensors the launches are asynchronous on the current stream; an
+    input (or the workspace) freed after the call is reused only in that
+    stream's order by torch's caching allocator, so no synchronisation is
+    needed."""
     _check(a, b, bias, out_dtype)
     if not use_kernel(a, b, bias):
         return matmul_ext_plain(a, b, bias, relu, out_dtype)
     (M, K), N = a.shape, b.shape[0]
+    plan = matmul_plan(M, N, K, a.dtype, sm_count(a.device.index))
+    # torch allocations are 256-byte aligned; a view into one may not be
+    vec = plan.vec and a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
     c = torch.empty((M, N), dtype=out_dtype, device=a.device)
+    ws = torch.empty((plan.splits, M, N), dtype=torch.float32,
+                     device=a.device) if plan.splits > 1 else None
     rc = load_kernels().boda_matmul_ext(
         a.data_ptr(), b.data_ptr(),
         bias.data_ptr() if bias is not None else None, c.data_ptr(),
         M, N, K, int(a.dtype == torch.bfloat16),
         int(out_dtype == torch.bfloat16), int(bool(relu)),
-        torch.cuda.current_stream(a.device).cuda_stream)
+        ws.data_ptr() if ws is not None else None, plan.tile_n, plan.splits,
+        int(vec), cuda_stream(a.device))
     check_launch(rc, "matmul_ext")
     matmul_ext.launches += 1
     return c

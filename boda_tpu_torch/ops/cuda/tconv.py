@@ -14,8 +14,7 @@ no padded copy of x (tconv.py:193-196) and no channel padding to 128.
 
 from __future__ import annotations
 
-import math
-from dataclasses import dataclass
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -25,67 +24,36 @@ from ..op_base import OpBase
 from ..registry import template
 from .build import check_launch, load_kernels
 from .conv import _ConvBase, conv_params
-from .util import check_operand, compute_dtype, full_fp32, \
-    storage_io, store_dtype, use_kernel
+from .util import GemmPlan, check_operand, compute_dtype, cuda_stream, \
+    full_fp32, gemm_plan, sm_count, storage_io, store_dtype, use_kernel
 
-TILE = 128                   # block tile: 128 pixels x 128 output channels
-BK = {torch.bfloat16: 64, torch.float32: 8}   # K chunk of each route
-VEC = {torch.bfloat16: 8, torch.float32: 4}   # channels of one 16-byte load
-MIN_CHUNKS_PER_SPLIT = 2
-# Split-K, by route: (split grids of fewer than this many output tiles per
-# SM, least split count). A split grid takes the smallest power of two of
-# splits, from the least, that puts 1.5 blocks per SM on the card. From
-# the kernel timed alone by split count at the ResNet-50 3x3 shapes (the
-# `tconv splits` lines of chip_smoke.py; PERF.md), where this rule picks
-# the fastest count timed or one within noise of it: the bf16 kernel is short
+TILE_N = 128                 # block tile: 128 pixels x 128 output channels
+# Split-K, by route, as util.gemm_plan reads it: (split grids of fewer than
+# this many output tiles per SM, least split count, blocks per SM a split
+# grid reaches, least K chunks a split sums). From the kernel timed alone
+# by split count at the ResNet-50 3x3 shapes (the `tconv splits` lines of
+# chip_smoke.py; PERF.md), where this rule picks the fastest count timed
+# or one within noise of it: the bf16 kernel is short
 # enough that the partial sums' round trip through the workspace costs
 # more than an idle quarter of the card (res4b b32, 98 tiles: 0.038 ms
 # unsplit, 0.042 in 2 splits), so it splits only grids under half the
 # SMs; the f32 kernel is fastest in 4 splits at res3, res4b and res5 at
 # batch 32 (res4b: 0.298 unsplit, 0.268 in 2, 0.241 in 4, 0.251 in 8).
-SPLIT = {torch.bfloat16: (0.5, 1), torch.float32: (2, 4)}
-SPLIT_FILL = 1.5
+SPLIT = {torch.bfloat16: (0.5, 1, 1.5, 2), torch.float32: (2, 4, 1.5, 2)}
 
 
-@dataclass(frozen=True)
-class TConvPlan:
-    """How csrc/tconv.cu runs one conv: its route ("mma": bf16 on the tensor
-    cores, "ffma": f32 on the CUDA cores), whether operands move in 16-byte
-    loads (vec: C a multiple of 8 channels in bf16, 4 in f32), the block
-    tile, the K chunk, and the number of K splits (1: no split-K)."""
-    route: str
-    vec: bool
-    tile_m: int
-    tile_n: int
-    bk: int
-    splits: int
-    blocks: int              # tiles of the output, before the split
-
-
+@functools.lru_cache(maxsize=4096)
 def tconv_plan(n: int, H: int, W: int, C: int, oc: int, ky: int, kx: int,
                dtype: torch.dtype, pad: tuple[int, int],
-               sms: int) -> TConvPlan:
+               sms: int) -> GemmPlan:
     """The kernel's plan for x [n, H, W, C] (dtype) and an [oc, ky, kx, C]
-    filter at padding `pad`, on a card with `sms` SMs. The output tiles
-    are 128 x 128; where they are fewer than the route's SPLIT threshold,
-    the K chunks are split as SPLIT says, each split summing at least
-    MIN_CHUNKS_PER_SPLIT chunks."""
-    if dtype not in BK:
-        raise RtErr(f"tconv_plan: dtype {dtype} not f32/bf16")
+    filter at padding `pad`, on a card with `sms` SMs: the implicit GEMM
+    of n*oy*ox pixels by oc channels over ky*kx*C, on 128 x 128 tiles,
+    with operands in 16-byte loads where C allows, and K split as the
+    route's SPLIT rule says (util.gemm_plan)."""
     M = n * (H + 2 * pad[0] - ky + 1) * (W + 2 * pad[1] - kx + 1)
-    blocks = math.ceil(M / TILE) * math.ceil(oc / TILE)
-    chunks = math.ceil(ky * kx * C / BK[dtype])
-    below, least = SPLIT[dtype]
-    splits = 1
-    if blocks < below * sms:
-        splits = least
-        while blocks * splits < SPLIT_FILL * sms:
-            splits *= 2
-        per = max(MIN_CHUNKS_PER_SPLIT, math.ceil(chunks / splits))
-        splits = math.ceil(chunks / per)
-    return TConvPlan("mma" if dtype == torch.bfloat16 else "ffma",
-                     C % VEC[dtype] == 0, TILE, TILE, BK[dtype], splits,
-                     blocks)
+    return gemm_plan("tconv_plan", M, oc, ky * kx * C, C, TILE_N, dtype,
+                     sms, SPLIT)
 
 
 def _check(x, w, bias, pad, out_dtype):
@@ -145,8 +113,7 @@ def tconv(x, w, bias=None, pad=(0, 0), relu=False, out_dtype=torch.float32):
     if not use_kernel(x, w, bias):
         return tconv_plain(x, w, bias, pad, relu, out_dtype)
     plan = tconv_plan(n, H, W, C, oc, ky, kx, x.dtype, pad,
-                      torch.cuda.get_device_properties(x.device)
-                      .multi_processor_count)
+                      sm_count(x.device.index))
     # torch allocations are 256-byte aligned; a view into one may not be
     vec = plan.vec and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     out = torch.empty((n, oy, ox, oc), dtype=out_dtype, device=x.device)
@@ -159,7 +126,7 @@ def tconv(x, w, bias=None, pad=(0, 0), relu=False, out_dtype=torch.float32):
         n, H, W, C, oc, ky, kx, pad[0], pad[1],
         int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
         int(bool(relu)), plan.splits, int(vec),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        cuda_stream(x.device))
     check_launch(rc, "tconv")
     tconv.launches += 1
     return out

@@ -1,5 +1,6 @@
 """Shared helpers of the port's templates: the kernel dispatch rule, the
-storage form of a step, and full-FP32 settings for plain references.
+planner of the GEMM core's kernels, the storage form of a step, and
+full-FP32 settings for plain references.
 
 Counterpart of boda_tpu/ops/pallas/util.py. The JAX package picks a Pallas
 mode (real / interpret / fallback) from the platform or an environment
@@ -11,6 +12,9 @@ tensors launches the kernel or raises.
 from __future__ import annotations
 
 import contextlib
+import functools
+import math
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -57,6 +61,68 @@ def use_kernel(*tensors) -> bool:
                         f"torch.cuda.device({dev.index}))")
         return True
     raise RtErr(f"no kernel for device '{dev}' (cuda or cpu)")
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device `index`, read once per process (the
+    planners size their grids by it on every call)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+GEMM_TILE_M = 128            # block tile rows of the GEMM core
+GEMM_BK = {torch.bfloat16: 64, torch.float32: 8}   # K chunk of each route
+GEMM_VEC = {torch.bfloat16: 8, torch.float32: 4}   # elements of a 16-byte load
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """How a kernel on the GEMM core of csrc/hopper_gemm.cuh runs one
+    product: its route ("mma": bf16 on the tensor cores, "ffma": f32 on the
+    CUDA cores), whether operands move in 16-byte loads, the block tile,
+    the K chunk, and the number of K splits (1: no split-K)."""
+    route: str
+    vec: bool
+    tile_m: int
+    tile_n: int
+    bk: int
+    splits: int
+    blocks: int              # tiles of the output, before the split
+
+
+def gemm_plan(name: str, M: int, N: int, K: int, vec_extent: int,
+              tile_n: int, dtype: torch.dtype, sms: int,
+              rules: dict) -> GemmPlan:
+    """The plan of an [M, N] output summed over K on the core, with
+    128 x tile_n block tiles, on a card with `sms` SMs. Operands move in
+    16-byte loads where `vec_extent` (the contiguous run the loader reads)
+    is a whole number of them. `rules[dtype]` is the kernel's split-K rule
+    (below, least, fill, min_chunks): a grid of fewer than `below` tiles
+    per SM splits K into the smallest power of two of splits, from `least`,
+    that puts `fill` blocks per SM on the card, then into as many splits as
+    keep `min_chunks` K chunks each. `name` names the caller in errors."""
+    if dtype not in GEMM_BK:
+        raise RtErr(f"{name}: dtype {dtype} not f32/bf16")
+    blocks = math.ceil(M / GEMM_TILE_M) * math.ceil(N / tile_n)
+    chunks = math.ceil(K / GEMM_BK[dtype])
+    below, least, fill, min_chunks = rules[dtype]
+    splits = 1
+    if blocks < below * sms:
+        splits = least
+        while blocks * splits < fill * sms:
+            splits *= 2
+        per = max(min_chunks, math.ceil(chunks / splits))
+        splits = math.ceil(chunks / per)
+    return GemmPlan("mma" if dtype == torch.bfloat16 else "ffma",
+                    vec_extent % GEMM_VEC[dtype] == 0, GEMM_TILE_M, tile_n,
+                    GEMM_BK[dtype], splits, blocks)
+
+
+def cuda_stream(dev: torch.device) -> int:
+    """The raw handle of dev's current CUDA stream, as
+    torch.cuda.current_stream(dev).cuda_stream gives it, without making a
+    Stream object on every launch."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def storage_io(rfs: OpBase) -> tuple[bool, torch.dtype | None]:

@@ -10,10 +10,14 @@ Phases, run in order, each fatal on failure (all of them by default):
            shapes of its path (timed with CUDA events) and at ragged edge
            shapes (tconv: C not a multiple of 8, M and oc not multiples of
            its 128 tile, split K), f32 (mrd <= 1e-4) and bf16 (mrd <=
-           5e-3); the fused_stem template's NCHW f32 and NHWC-storage bf16
-           forms against the bare kernel; sgemm_int8 bit-equal to its plain
-           version at 1024^3 and 4096^3 (timed, with its quantize pass
-           alone) and at ragged shapes (K=50, K=3, K=4099, an all-zero A).
+           5e-3); matmul_ext's plan (route, tile, K splits) for each case,
+           with edges for split-K at M=1, K not a multiple of 8 (the
+           element-staging variant) and offsets past 2^31; the fused_stem
+           template's NCHW f32 and NHWC-storage bf16 forms against the bare
+           kernel; sgemm_int8 and its quantize kernel alone bit-equal to
+           their plain versions at 1024^3 and 4096^3 (timed, with the
+           quantize pass and the product alone) and at ragged shapes (K=50,
+           K=3, K=4099, N=129, an all-zero A).
            Each timed case also prints its bound (the larger of its FLOPs
            over the card's peak in its precision and its bytes, each input
            read and each output written once, over HBM bandwidth;
@@ -23,7 +27,9 @@ Phases, run in order, each fatal on failure (all of them by default):
            of calls where no single one does (fused_stem: conv, ReLU,
            max-pool; resblock: three convs, add, ReLU). Then the tconv
            kernel alone, timed by K split count at the ResNet-50 3x3
-           shapes (what tconv_plan's split rule rests on)
+           shapes (what tconv_plan's split rule rests on), and the
+           matmul_ext kernel alone by K split count at the fc1000 and
+           res4/res5 1x1 shapes (what matmul_plan's split rule rests on)
   digests  TorchFwd at batch 1 under the f32 tune and the fused f32 tune
            against the per-node digest archives recorded on a TPU
            (tests/data/tpu_digests): resnet-50@shapes40 (trained weights,
@@ -37,15 +43,17 @@ Phases, run in order, each fatal on failure (all of them by default):
            tunes: kernel launch counts per forward (unfused: 40 matmul_ext,
            13 tconv; fused: 14 matmul_ext, 3 tconv, 1 fused_stem, 12
            resblock; no sgemm_int8), finite softmax rows, ms per forward and
-           imgs/s, and each template's summed step time over one more
-           forward (CUDA events around each step)
+           imgs/s, the card's busy time in one more forward (torch.profiler)
+           and so its idle share, and each template's summed step time over
+           one more forward (CUDA events around each step)
   ops_prof the per-op path (mode torch_ops_prof, be=torch): the six square
            SGEMMs of tests/data/ops/sgemm-baseline.txt (128^3-4096^3) under
            the tunes kg (cuBLAS FP32), hand (B1) and int8 (B3, mrd 5e-2 vs
            kg), then kg and bf16 at mrd 5e-3; the 21 ResNet-50 b32 conv sigs
            of resnet50-convs.txt under kg (cuDNN FP32) and hand (B1, B2),
            then kg and bf16; no COMP_FAIL, KG_DIGEST_FAIL or ERROR, exactly
-           6 x run_iter sgemm_int8 launches in the int8 sweep, wisdom under
+           6 x run_iter sgemm_int8 launches (and as many quantize kernel
+           launches) in the int8 sweep, wisdom under
            build/ops_prof/, a table of ms, TF/s (TOPS) and % of the card's
            own-precision peak per op and tune; then torch_rtc_test
 
@@ -53,16 +61,19 @@ A run of every phase that passes ends with three lines: the nvidia-smi name
 and power limit; a JSON object with one entry per kernel ("launches":
 launches in one run of that kernel's own main path, the f32 tune's forward
 for matmul_ext and tconv, the fused f32 tune's for fused_stem and resblock,
-and the int8 SGEMM sweep of ops_prof for sgemm_int8; "launches_by_tune": in
-each of those runs; "ms", "plain_ms", "bound_ms" and "library_ms":
-summed over the timed shapes, "bound_by" that of the case with the
-largest bound; "library_ms" is null for fused_stem and resblock, which
-no single PyTorch call computes, and "library_sequence_ms" holds the
-time of the sequence of calls that does; "max_abs_err": over every
-checked shape; "cases": each timed case), the b32 forward times and the
-per-template step times; and {"ok": true, "device": {...}}. Without a
-CUDA device, or outside a checkout of the repo, it exits non-zero and
-prints no result. It imports neither jax nor the JAX package boda_tpu.
+and the int8 SGEMM sweep of ops_prof for sgemm_int8, whose entry also holds
+its quantize kernel's launches there ("quantize_launches");
+"launches_by_tune": in each of those runs; "ms", "plain_ms", "bound_ms"
+and "library_ms": summed over the timed shapes, "bound_by" that of the
+case with the largest bound; "library_ms" is null for fused_stem and
+resblock, which no single PyTorch call computes, and
+"library_sequence_ms" holds the time of the sequence of calls that does;
+"max_abs_err": over every checked shape; "cases": each timed case), the
+b32 forward times, the card's busy time in a forward, and the
+per-template step times; and {"ok": true,
+"device": {...}}. Without a CUDA device, or outside a checkout of the
+repo, it exits non-zero and prints no result. It imports neither jax nor
+the JAX package boda_tpu.
 """
 
 from __future__ import annotations
@@ -89,9 +100,9 @@ TUNES = {"f32": "()", "bf16_nhwc": "(prec=bf16,layout=nhwc)",
          "fused_bf16_nhwc": f"(prec=bf16,layout=nhwc,{FUSED})"}
 # exact kernel launches per ResNet-50 forward under each tune
 UNFUSED_LAUNCHES = {"matmul_ext": 40, "tconv": 13, "fused_stem": 0,
-                    "resblock": 0, "sgemm_int8": 0}
+                    "resblock": 0, "sgemm_int8": 0, "quantize": 0}
 FUSED_LAUNCHES = {"matmul_ext": 14, "tconv": 3, "fused_stem": 1,
-                  "resblock": 12, "sgemm_int8": 0}
+                  "resblock": 12, "sgemm_int8": 0, "quantize": 0}
 LAUNCHES = {"f32": UNFUSED_LAUNCHES, "bf16_nhwc": UNFUSED_LAUNCHES,
             "fused_f32": FUSED_LAUNCHES, "fused_bf16_nhwc": FUSED_LAUNCHES}
 # each kernel's own main path: the tune whose forward runs it, or the
@@ -125,8 +136,9 @@ OPS_PROF = [
     ("rn50_convs_bf16", "resnet50-convs.txt",
      "(kg=(use_culibs=1),bf16=(prec=bf16))", "mrd_toler=5e-3"),
 ]
-# exact sgemm_int8 launches of the int8 sweep: 6 ops x run_iter timed calls
-# (profile_rcg_call makes no launch outside its timed loop)
+# exact sgemm_int8 launches of the int8 sweep, and of its quantize kernel: 6
+# ops x run_iter timed calls (profile_rcg_call makes no launch outside its
+# timed loop)
 OPS_INT8_LAUNCHES = 6 * OPS_RUN_ITER
 
 
@@ -149,19 +161,32 @@ def smi_line() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of fn() on the card: CUDA events around `reps`
-    back-to-back calls, after one warm-up call."""
+    """Milliseconds of fn() on the card: the median over three windows of
+    the mean of `reps` back-to-back calls between two CUDA events, after
+    one warm-up call. A call short enough that the host sets its pace
+    varies with the host's load; the median drops the windows it slowed."""
+    import statistics
+
     import torch
     fn()
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(reps):
-        fn()
-    t1.record()
-    t1.synchronize()
-    return t0.elapsed_time(t1) / reps
+    per = []
+    for _ in range(3):
+        t0.record()
+        for _ in range(reps):
+            fn()
+        t1.record()
+        t1.synchronize()
+        per.append(t0.elapsed_time(t1) / reps)
+    return statistics.median(per)
+
+
+def bit_equal(got, want) -> bool:
+    """got and want hold the same values, NaN where the other holds NaN."""
+    return got.shape == want.shape and got.dtype == want.dtype and bool(
+        ((got == want) | (got.isnan() & want.isnan())).all())
 
 
 def mrd(got, want) -> float:
@@ -238,6 +263,15 @@ def _edge_cases():
     return [
         ("edge M=77 K=50 N=33", "matmul_ext", dict(M=77, K=50, N=33, relu=True)),
         ("edge M=1 K=3 N=1", "matmul_ext", dict(M=1, K=3, N=1, relu=False)),
+        # K % 8 != 0 over two row tiles: bf16 stages element by element
+        ("edge M=300 K=50 N=200", "matmul_ext",
+         dict(M=300, K=50, N=200, relu=True)),
+        # the fc at M=1 split over K, with ragged K and an odd N
+        ("edge split-K M=1 K=2050 N=1001", "matmul_ext",
+         dict(M=1, K=2050, N=1001, relu=False)),
+        # M*K past 2^31: 64-bit offsets into A and C
+        ("edge 64-bit M=2097153 K=1024 N=64", "matmul_ext",
+         dict(M=2 ** 21 + 1, K=1024, N=64, relu=False)),
         ("edge 5x5 pad 2 n=2 5x9 C=13 oc=70", "tconv",
          dict(n=2, H=5, W=9, C=13, oc=70, k=5, pad=2, relu=False)),
         ("edge 1x1 n=1 3x3 C=6 oc=5", "tconv",
@@ -434,43 +468,65 @@ def _check_stem_template(args, dt, got) -> str:
 
 
 def _qsgemm_cases():
-    """(label, M, K, N, A all zero, timed) of sgemm_int8: the square sizes
+    """(label, M, K, N, operands, timed) of sgemm_int8: the square sizes
     of the per-op sweep (tests/data/ops/sgemm-baseline.txt), timed; ragged
-    shapes (K not a multiple of 4 or 16), a single element and an all-zero
-    A, checked."""
-    return [("1024^3", 1024, 1024, 1024, False, True),
-            ("4096^3", 4096, 4096, 4096, False, True),
-            ("edge M=77 K=50 N=33", 77, 50, 33, False, False),
-            ("edge M=1 K=3 N=1", 1, 3, 1, False, False),
-            ("edge zero A M=130 K=96 N=70", 130, 96, 70, True, False),
-            ("edge M=200 K=4099 N=129", 200, 4099, 129, False, False)]
+    shapes (K not a multiple of 4 or 16), a single element, an all-zero A,
+    and a NaN in A with an inf in B (a NaN scale, so NaN throughout),
+    checked. operands: "randn", "zero" (A all zero) or "nan"."""
+    return [("1024^3", 1024, 1024, 1024, "randn", True),
+            ("4096^3", 4096, 4096, 4096, "randn", True),
+            ("edge M=77 K=50 N=33", 77, 50, 33, "randn", False),
+            ("edge M=1 K=3 N=1", 1, 3, 1, "randn", False),
+            ("edge zero A M=130 K=96 N=70", 130, 96, 70, "zero", False),
+            ("edge NaN in A, inf in B M=130 K=96 N=70", 130, 96, 70, "nan",
+             False),
+            ("edge M=200 K=4099 N=129", 200, 4099, 129, "randn", False),
+            # ragged N on the 16-byte copies (K % 16 == 0)
+            ("edge M=130 K=256 N=129", 130, 256, 129, "randn", False)]
 
 
 def _check_qsgemm(stats: dict, dev, gen, peaks) -> None:
     """sgemm_int8 against its plain version on the card: bit-equal (the
-    int32 sums are exact and both round the same), and its time, the plain
+    int32 sums are exact and both round the same), and so its quantize
+    kernel alone against quantize_operands_plain; and its time, the plain
     version's, and those of its two parts alone: the quantize pass and the
     kernel's product."""
     import torch
     from boda_tpu_torch.ops.cuda.qsgemm import int8_product, \
-        quantize_operands, sgemm_int8, sgemm_int8_plain
+        quantize_operands, quantize_operands_plain, sgemm_int8, \
+        sgemm_int8_plain
     s = stats["sgemm_int8"] = _stats("sgemm_int8")
-    for label, M, K, N, zero_a, timed in _qsgemm_cases():
+    for label, M, K, N, operands, timed in _qsgemm_cases():
         a = torch.randn(M, K, device=dev, generator=gen)
-        if zero_a:
-            a.zero_()
         b = torch.randn(K, N, device=dev, generator=gen)
+        if operands == "zero":
+            a.zero_()
+        if operands == "nan":
+            a[M // 2, K // 3] = float("nan")
+            b[K // 2, N // 3] = float("inf")
+        q_got, q_want = quantize_operands(a, b), quantize_operands_plain(a, b)
+        torch.cuda.synchronize()
+        check(all(bit_equal(g, w) for g, w in zip(q_got, q_want)),
+              f"sgemm_int8 {label}: the quantize kernel differs from "
+              f"quantize_operands_plain")
         got = sgemm_int8(a, b)
         torch.cuda.synchronize()
         want = sgemm_int8_plain(a, b)
-        abs_err = float((got.double() - want.double()).abs().max())
+        # NaN where both are NaN (bit_equal holds them to that) counts 0
+        abs_err = float((got.double() - want.double()).abs().nan_to_num(0.0)
+                        .max())
         s["max_abs_err"] = max(s["max_abs_err"], abs_err)
         print(f"kernel sgemm_int8 f32->f32 {label:36s} bit-equal="
-              f"{bool(torch.equal(got, want))} max_abs={abs_err:.3e}", end="")
-        check(torch.equal(got, want), f"sgemm_int8 {label}: differs from its "
-                                      f"plain version (max abs {abs_err:.3e})")
-        check(bool(torch.isfinite(got).all()), f"sgemm_int8 {label}: "
-                                               f"non-finite output")
+              f"{bit_equal(got, want)} (quantize bit-equal) "
+              f"max_abs={abs_err:.3e}", end="")
+        check(bit_equal(got, want), f"sgemm_int8 {label}: differs from its "
+                                    f"plain version (max abs {abs_err:.3e})")
+        if operands == "nan":
+            check(bool(got.isnan().all()), f"sgemm_int8 {label}: a NaN "
+                                           f"operand left finite outputs")
+        else:
+            check(bool(torch.isfinite(got).all()), f"sgemm_int8 {label}: "
+                                                   f"non-finite output")
         if not timed:
             print()
             continue
@@ -509,6 +565,7 @@ def phase_kernels(ctx: dict) -> None:
     from boda_tpu_torch.core.machine import card_peaks
     peaks = card_peaks(torch.cuda.get_device_name(0))
     dev = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)
     stats: dict[str, dict] = {}
     _check_qsgemm(stats, dev, gen, peaks)
@@ -532,11 +589,15 @@ def phase_kernels(ctx: dict) -> None:
             if kname == "fused_stem":
                 print(f" template {_check_stem_template(args, dt, got)} "
                       f"exact", end="")
+            if kname == "matmul_ext":
+                print(f" {_matmul_plan_str(args, sms)}", end="")
             s = stats.setdefault(kname, _stats(kname))
             s["max_abs_err"] = max(s["max_abs_err"], abs_err)
             s["max_mrd"] = max(s["max_mrd"], err)
             if label not in timed:
                 print()
+                # the 64-bit edge holds gigabytes (the calls hold args)
+                del args, got, want, run_k, run_p, ref
                 continue
             ms = cuda_ms(run_k, 20)
             plain_ms = cuda_ms(run_p, 20)
@@ -548,13 +609,28 @@ def phase_kernels(ctx: dict) -> None:
             print(f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
                   f"{bound_ms:.4f} ms ({bound_by}) library {lib_kind} "
                   f"{lib_ms:.4f} ms")
-            _add_case(s, {"case": label, "dtype": str(dt)[6:], "mrd": err,
-                          "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bound_ms, "bound_by": bound_by,
-                          "library_ms": lib_ms, "library": lib_kind})
-            del args, got, want, lib
+            case = {"case": label, "dtype": str(dt)[6:], "mrd": err,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib_ms,
+                    "library": lib_kind}
+            if kname == "matmul_ext":
+                case["plan"] = _matmul_plan_str(args, sms)
+            _add_case(s, case)
+            del args, got, want, lib, run_k, run_p, ref
     ctx["kernels"] = stats
     _tconv_splits(dev)
+    _matmul_splits(dev)
+
+
+def _matmul_plan_str(args, sms: int) -> str:
+    """matmul_ext's plan for a case: its route, block tile, K splits and
+    whether its operands move in 16-byte copies."""
+    from boda_tpu_torch.ops.cuda.sgemm import matmul_plan
+    a, b = args[:2]
+    (M, K), N = a.shape, b.shape[0]
+    p = matmul_plan(M, N, K, a.dtype, sms)
+    return (f"plan {p.route} tile {p.tile_m}x{p.tile_n} splits {p.splits}"
+            f"{'' if p.vec else ' element-staged'}")
 
 
 # (n, H = W, C = oc): the ResNet-50 3x3 convs that reach tconv
@@ -594,6 +670,55 @@ def _tconv_splits(dev) -> None:
             print(f"tconv splits n={n} {H}^2 C={C} {str(dt)[6:]}: planned "
                   f"{plan.splits} on {sms} SMs; ms by splits "
                   + " ".join(row), flush=True)
+
+
+# (M, K, N): the fc1000 at batch 1 and 32, res5a_branch2a at batch 1 and 32,
+# and at batch 32 res4b_branch2a (98 tiles) and res5b_branch2c (208 tiles)
+MATMUL_SPLIT_SHAPES = [(1, 2048, 1000), (32, 2048, 1000), (49, 1024, 512),
+                       (1568, 1024, 512), (6272, 1024, 256),
+                       (1568, 512, 2048)]
+
+
+def _matmul_splits(dev) -> None:
+    """The matmul_ext kernel alone, timed by K split count at small-grid
+    shapes of ResNet-50, for the planner's split rule: the planned count,
+    powers of two up to 64 and twice the planned count (each at most the
+    chunk count), through the C entry point with its buffers allocated
+    once."""
+    import math
+
+    import torch
+    from boda_tpu_torch.ops.cuda.build import load_kernels
+    from boda_tpu_torch.ops.cuda.sgemm import matmul_plan
+    lib = load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for M, K, N in MATMUL_SPLIT_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            a = torch.randn(M, K, device=dev).to(dt)
+            b = (torch.randn(N, K, device=dev) * K ** -0.5).to(dt)
+            bias = torch.randn(N, device=dev)
+            c = torch.empty(M, N, device=dev, dtype=dt)
+            plan = matmul_plan(M, N, K, dt, sms)
+            chunks = math.ceil(K / plan.bk)
+            bf = int(dt == torch.bfloat16)
+            row = []
+            for sp in sorted({1, 2, 4, 8, 16, 32, 64, plan.splits,
+                              2 * plan.splits}):
+                if sp > chunks:
+                    continue
+                ws = torch.empty(sp, M, N, device=dev)
+
+                def run():
+                    check(lib.boda_matmul_ext(
+                        a.data_ptr(), b.data_ptr(), bias.data_ptr(),
+                        c.data_ptr(), M, N, K, bf, bf, 0, ws.data_ptr(),
+                        plan.tile_n, sp, int(plan.vec), stream) == 0,
+                        f"matmul_ext splits={sp}: launch failed")
+                row.append(f"{sp}: {cuda_ms(run, 50):.4f}")
+            print(f"matmul splits M={M} K={K} N={N} {str(dt)[6:]}: tile "
+                  f"{plan.tile_m}x{plan.tile_n}, planned {plan.splits} on "
+                  f"{sms} SMs; ms by splits " + " ".join(row), flush=True)
 
 
 def _nodes_to_get(pipe):
@@ -680,15 +805,16 @@ def phase_agree(ctx: dict) -> None:
 
 
 def _wrappers() -> dict:
-    """Each kernel's wrapper, whose `launches` counts its launches."""
-    from boda_tpu_torch.ops.cuda.qsgemm import sgemm_int8
+    """Each kernel's wrapper, whose `launches` counts its launches
+    ("quantize": sgemm_int8's quantize kernel)."""
+    from boda_tpu_torch.ops.cuda.qsgemm import quantize_operands, sgemm_int8
     from boda_tpu_torch.ops.cuda.resblock import resblock
     from boda_tpu_torch.ops.cuda.sgemm import matmul_ext
     from boda_tpu_torch.ops.cuda.stem import fused_stem
     from boda_tpu_torch.ops.cuda.tconv import tconv
     return {"matmul_ext": matmul_ext, "tconv": tconv,
             "fused_stem": fused_stem, "resblock": resblock,
-            "sgemm_int8": sgemm_int8}
+            "sgemm_int8": sgemm_int8, "quantize": quantize_operands}
 
 
 def _op_label(op) -> str:
@@ -777,9 +903,10 @@ def phase_ops_prof(ctx: dict) -> None:
         check(plats == {f"torch:cuda:{torch.cuda.get_device_name(0)}"},
               f"torch_ops_prof {name}: wisdom plat tags {plats}")
         if name == "sgemm":
-            check(counts["sgemm_int8"] == OPS_INT8_LAUNCHES,
-                  f"torch_ops_prof {name}: {counts['sgemm_int8']} sgemm_int8 "
-                  f"launches != {OPS_INT8_LAUNCHES}")
+            for k in ("sgemm_int8", "quantize"):
+                check(counts[k] == OPS_INT8_LAUNCHES,
+                      f"torch_ops_prof {name}: {counts[k]} {k} launches != "
+                      f"{OPS_INT8_LAUNCHES}")
             ctx.setdefault("launches", {})["ops_prof"] = counts
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -814,6 +941,21 @@ def _template_ms(eng, inputs: dict, top: str) -> dict:
         n, t = per.get(f, (0, 0.0))
         per[f] = (n + 1, t + t0.elapsed_time(t1))
     return per
+
+
+def _device_busy_ms(fn) -> float:
+    """Milliseconds the card spends in kernels and copies during one call of
+    fn: the sum of the device events of torch.profiler's trace (one stream,
+    so they do not overlap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    check(busy > 0, "torch.profiler recorded no device time")
+    return busy
 
 
 def phase_full(ctx: dict) -> None:
@@ -866,6 +1008,12 @@ def phase_full(ctx: dict) -> None:
               f"{ms:.3f} ms = {batch / ms * 1e3:.1f} imgs/s on "
               f"[{ctx['smi']}]")
         ctx.setdefault("fwd_ms", {})[tune_name] = ms
+        with torch.inference_mode():
+            busy = _device_busy_ms(fwd)
+        print(f"  device busy {busy:.3f} ms of the forward's {ms:.3f} ms "
+              f"({100 * (1 - busy / ms):.1f}% idle; the kernels and copies "
+              f"of one more forward in torch.profiler's device trace)")
+        ctx.setdefault("busy_ms", {})[tune_name] = busy
         per = _template_ms(eng, {data: x}, top)
         print("  per template, one more forward (CUDA events per step): "
               + ", ".join(f"{f} x{n} {t:.3f} ms" for f, (n, t) in
@@ -928,9 +1076,13 @@ def main() -> int:
         by_tune = {t: c[name] for t, c in ctx["launches"].items()}
         kernels.append({**s, "launches": by_tune[KERNEL_PATH[name]],
                         "launches_by_tune": by_tune})
+        if name == "sgemm_int8":
+            kernels[-1]["quantize_launches"] = \
+                ctx["launches"]["ops_prof"]["quantize"]
     print(smi_line())
     print(json.dumps({"kernels": kernels,
                       "forward_ms_b32": ctx["fwd_ms"],
+                      "device_busy_ms_b32": ctx["busy_ms"],
                       "template_ms_b32": ctx["template_ms"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -22,7 +22,7 @@ from boda_tpu.ops.registry import get_template as jax_template
 from boda_tpu_torch.core.error import RtErr
 from boda_tpu_torch.ops.op_base import OpBase as PortOpBase
 from boda_tpu_torch.ops.cuda.qsgemm import K_MAX, int8_product, quantize, \
-    quantize_operands, sgemm_int8, sgemm_int8_plain
+    quantize_operands, quantize_operands_plain, sgemm_int8, sgemm_int8_plain
 from boda_tpu_torch.ops.registry import get_template
 
 
@@ -102,6 +102,60 @@ def test_quantize_is_qsym_exactly(scale):
     assert q.dtype == torch.int8 and s.dtype == torch.float32 and s.dim() == 0
     np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
     assert s.item() == float(js)
+
+
+def _qsym_inputs(case):
+    """a [9, 13], b [13, 6] for the quantize pass: all zero (amax clamped to
+    1e-30), tiny (every |v| under 1e-30, so the clamp sets the scale),
+    saturating (many values at +-amax, quantized to +-127, and values on a
+    rounding tie just under them), or non-finite (a NaN in a, whose scale is
+    then NaN, and an inf in b, whose scale is then inf)."""
+    rng = np.random.RandomState(5)
+    a = rng.randn(9, 13).astype(np.float32)
+    b = rng.randn(13, 6).astype(np.float32)
+    if case == "all-zero":
+        a[:], b[:] = 0, 0
+    elif case == "tiny":
+        a *= np.float32(1e-31)
+        b *= np.float32(3e-32)
+    elif case == "non-finite":
+        a[4, 6] = np.nan
+        b[7, 2] = np.inf
+    else:
+        for v in (a, b):
+            amax = np.abs(v).max()
+            v[::3, ::2] = amax
+            v[1::3, ::2] = -amax
+            v[2::3, 1::2] = np.float32(amax * np.float32(126.5 / 127))
+    return a, b
+
+
+@pytest.mark.parametrize("case", ["all-zero", "tiny", "saturating",
+                                  "non-finite"])
+def test_quantize_operands_plain_is_pallas_qsym(case):
+    """quantize_operands_plain (the card's yardstick for the quantize kernel)
+    is bit-equal to the Pallas template's qsym, NaN for NaN, and the
+    wrapper's CPU path returns it."""
+    a, b = _qsym_inputs(case)
+    ja, jsa = _qsym(a)
+    jb, jsb = _qsym(b)
+    qa, qb, s = quantize_operands_plain(torch.from_numpy(a),
+                                        torch.from_numpy(b))
+    np.testing.assert_array_equal(qa.numpy(), np.asarray(ja))
+    np.testing.assert_array_equal(qb.numpy(), np.asarray(jb).T)
+    assert s.shape == (1,) and s.dtype == torch.float32
+    np.testing.assert_array_equal(s.numpy(),
+                                  [np.float32(jsa) * np.float32(jsb)])
+    if case == "saturating":
+        assert np.abs(qa.numpy()).max() == 127 and (qa.numpy() == -127).any()
+    if case == "all-zero":  # sa = sb = 1e-30 / 127, whose product is 0 in f32
+        assert not qa.any() and quantize(torch.from_numpy(a))[1].item() > 0
+    if case == "non-finite":  # NaN scales; NaN and inf / inf quantize to 0
+        assert np.isnan(jsa) and np.isinf(jsb) and s.isnan().all()
+        assert not qb.any() and qa[4, 6] == 0
+    got = quantize_operands(torch.from_numpy(a), torch.from_numpy(b))
+    for g, w in zip(got, (qa, qb, s)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
 
 
 def test_quantize_operands_transpose_b():

@@ -16,7 +16,8 @@ from boda_tpu.ops.tile import solve_matmul_tiles
 from boda_tpu.testing.comp import mrd
 from boda_tpu_torch.core.error import RtErr
 from boda_tpu_torch.ops.op_base import OpBase as PortOpBase
-from boda_tpu_torch.ops.cuda.sgemm import matmul_ext
+from boda_tpu_torch.ops.cuda.sgemm import matmul_ext, matmul_plan
+from boda_tpu_torch.ops.cuda.util import GemmPlan
 from boda_tpu_torch.ops.registry import get_template
 
 
@@ -33,6 +34,12 @@ CASES = [
     (45, 200, 130, True, False, "bfloat16", "float32"),
     (1, 64, 100, True, True, "bfloat16", "bfloat16"),
     (96, 72, 40, False, True, "bfloat16", "bfloat16"),
+    # the planner's forms: the 64-wide tile (N=64, the im2col K=576), the
+    # split fc (M=1, K=2048, N=1000), and bf16 K=50, which the kernel stages
+    # element by element
+    (200, 576, 64, True, True, "float32", "float32"),
+    (1, 2048, 1000, True, False, "float32", "float32"),
+    (70, 50, 40, True, True, "bfloat16", "float32"),
 ]
 
 
@@ -138,6 +145,68 @@ def test_plain_version_does_not_count_a_launch():
     n0 = matmul_ext.launches
     matmul_ext(torch.ones(2, 3), torch.ones(4, 3))
     assert matmul_ext.launches == n0
+
+
+# ResNet-50's B1 products (k1conv, the res2 3x3 im2col conv, the fc) at
+# batch 32 and 1: (M, K, N) -> (tile_n, output tiles, splits in bf16 and
+# f32 on 132 SMs, then on 114 SMs)
+MATMUL_PLANS = {
+    ("res2a_branch2a", 32): ((100352, 64, 64), (64, 784, 1, 1, 1, 1)),
+    ("res2a_branch2a", 1): ((3136, 64, 64), (64, 25, 1, 2, 1, 2)),
+    ("res2a_branch1", 32): ((100352, 64, 256), (128, 1568, 1, 1, 1, 1)),
+    ("res2a_branch1", 1): ((3136, 64, 256), (128, 50, 1, 2, 1, 2)),
+    ("res2b_branch2a", 1): ((3136, 256, 64), (64, 25, 2, 8, 2, 8)),
+    ("res3a_branch2a", 32): ((25088, 256, 128), (128, 196, 1, 1, 1, 1)),
+    ("res3a_branch2a", 1): ((784, 256, 128), (128, 7, 2, 8, 2, 8)),
+    ("res4b_branch2a", 32): ((6272, 1024, 256), (128, 98, 1, 1, 1, 1)),
+    ("res4b_branch2a", 1): ((196, 1024, 256), (128, 4, 8, 32, 8, 32)),
+    ("res5a_branch2a", 32): ((1568, 1024, 512), (128, 52, 2, 4, 2, 4)),
+    ("res5a_branch2a", 1): ((49, 1024, 512), (128, 4, 8, 32, 8, 32)),
+    ("res5a_branch1", 1): ((49, 1024, 2048), (128, 16, 8, 16, 4, 16)),
+    ("res5b_branch2c", 32): ((1568, 512, 2048), (128, 208, 1, 1, 1, 1)),
+    ("res2 3x3 im2col", 32): ((100352, 576, 64), (64, 784, 1, 1, 1, 1)),
+    ("res2 3x3 im2col", 1): ((3136, 576, 64), (64, 25, 3, 8, 3, 8)),
+    ("fc1000", 32): ((32, 2048, 1000), (128, 8, 16, 32, 8, 32)),
+    ("fc1000", 1): ((1, 2048, 1000), (128, 8, 16, 32, 8, 32)),
+}
+
+
+@pytest.mark.parametrize("name", list(MATMUL_PLANS),
+                         ids=[f"{n}-b{b}" for n, b in MATMUL_PLANS])
+def test_matmul_plan(name):
+    (M, K, N), (tile_n, blocks, s16, s32, s16_114, s32_114) = \
+        MATMUL_PLANS[name]
+    p16 = matmul_plan(M, N, K, torch.bfloat16, 132)
+    p32 = matmul_plan(M, N, K, torch.float32, 132)
+    assert p16 == GemmPlan("mma", K % 8 == 0, 128, tile_n, 64, s16, blocks)
+    assert p32 == GemmPlan("ffma", K % 4 == 0, 128, tile_n, 8, s32, blocks)
+    # the 64-wide form exactly where it covers N with fewer columns
+    assert (tile_n == 64) == (N % 128 in range(1, 65))
+    # the split rule follows the card's SM count
+    assert matmul_plan(M, N, K, torch.bfloat16, 114).splits == s16_114
+    assert matmul_plan(M, N, K, torch.float32, 114).splits == s32_114
+    for plan, least in ((p16, 2), (p32, 4)):
+        chunks = -(-K // plan.bk)
+        per = -(-chunks // plan.splits)
+        # every split sums at least `least` chunks (or all there are) and
+        # none is empty; only grids under half a tile per SM split
+        assert per >= min(least, chunks) and (plan.splits - 1) * per < chunks
+        assert plan.splits == 1 or blocks < 66
+
+
+def test_matmul_ext_admits_offsets_past_int32():
+    """The kernel indexes in 64 bits: M*K past 2^31 passes the checks (and
+    the meta device then refuses to run it), an extent past int32 or more
+    N tiles than the grid holds does not."""
+    big = torch.empty(2 ** 21 + 1, 1024, device="meta")
+    with pytest.raises(RtErr, match="no kernel for device 'meta'"):
+        matmul_ext(big, torch.empty(64, 1024, device="meta"))
+    with pytest.raises(RtErr, match="extent over int32"):
+        matmul_ext(torch.empty(1, 2 ** 31, device="meta"),
+                   torch.empty(1, 2 ** 31, device="meta"))
+    with pytest.raises(RtErr, match="N over 4194240"):
+        matmul_ext(torch.empty(1, 1, device="meta"),
+                   torch.empty(65535 * 64 + 1, 1, device="meta"))
 
 
 def test_registry_names_unknown_templates():

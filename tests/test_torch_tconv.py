@@ -26,8 +26,8 @@ from boda_tpu.ops.registry import get_template as jax_template
 from boda_tpu.testing.comp import mrd
 from boda_tpu_torch.core.error import RtErr
 from boda_tpu_torch.ops.op_base import OpBase as PortOpBase
-from boda_tpu_torch.ops.cuda.tconv import TConvPlan, tconv, tconv_plain, \
-    tconv_plan
+from boda_tpu_torch.ops.cuda.tconv import tconv, tconv_plain, tconv_plan
+from boda_tpu_torch.ops.cuda.util import GemmPlan
 from boda_tpu_torch.ops.registry import get_template
 
 CASES = {
@@ -193,8 +193,8 @@ def test_tconv_plan(name):
     (n, H, W, C, oc, k, p), (s16, s32, blocks, v16, v32) = PLANS[name]
     p16 = tconv_plan(n, H, W, C, oc, k, k, torch.bfloat16, (p, p), 132)
     p32 = tconv_plan(n, H, W, C, oc, k, k, torch.float32, (p, p), 132)
-    assert p16 == TConvPlan("mma", v16, 128, 128, 64, s16, blocks)
-    assert p32 == TConvPlan("ffma", v32, 128, 128, 8, s32, blocks)
+    assert p16 == GemmPlan("mma", v16, 128, 128, 64, s16, blocks)
+    assert p32 == GemmPlan("ffma", v32, 128, 128, 8, s32, blocks)
     for plan in (p16, p32):
         chunks = -(-k * k * C // plan.bk)
         per = -(-chunks // plan.splits)
