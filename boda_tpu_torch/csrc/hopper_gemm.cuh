@@ -1,13 +1,16 @@
 // The Hopper GEMM core shared by tconv (B2, tconv.cu), matmul_ext (B1,
-// sgemm.cu) and sgemm_int8 (B3, qsgemm.cu): C[M, N] = A[M, K] . B[N, K]^T
-// with both operands K-contiguous. Each kernel brings its own operand
-// loader (B2: the implicit-im2col window of a conv; B1, B3: a row-major
-// matrix, stage_rows below) and its own epilogue; the core holds what they
-// share.
+// sgemm.cu), sgemm_int8 (B3, qsgemm.cu) and resblock (B5, resblock.cu):
+// C[M, N] = A[M, K] . B[N, K]^T with both operands K-contiguous. Each kernel
+// brings its own operand loader (B2: the implicit-im2col window of a conv;
+// B1, B3: a row-major matrix, stage_rows below; B5: an image band, then its
+// own intermediate results in shared memory) and its own epilogue; the core
+// holds what they share.
 //
 // Tensor-core route (bf16 and int8). A block tile is 128 rows of A by BN
-// (128 or 64) rows of B. K advances in chunks of 128 bytes of each row (64
-// bf16 or 128 int8 values), staged by cp.async through a ring of 3
+// (128 or 64) rows of B (or, for products with few rows, 64 rows of A that
+// both warpgroups share, each taking half of B's rows: resblock.cu). K
+// advances in chunks of 128 bytes of each row (64 bf16 or 128 int8
+// values), staged by cp.async through a ring of 3
 // shared-memory stages: rows of 128 bytes in 16-byte chunks XOR-swizzled by
 // row % 8, which is the layout wgmma reads as "K-major, 128-byte swizzle".
 // Two warpgroups each multiply their 64 rows of A by the whole B tile with
@@ -16,7 +19,8 @@
 // step 32 bytes along K, so a chunk is 4 steps in either type and the ring,
 // the descriptors and the fragment layout of the accumulators are the same
 // code for both. One wgmma group stays in flight while the next chunk's
-// copies issue (ring_product).
+// copies issue, and a kernel that runs several products in a row keeps the
+// ring going across them (ring_passes; ring_product is the single product).
 //
 // FFMA route (f32). A block tile is 128 rows by BN (128 or 64) columns, K in
 // chunks of 8, double-buffered through registers into shared memory; each
@@ -58,13 +62,15 @@ constexpr int kTileM = 128;     // rows of A per block tile, 64 per warpgroup
 constexpr int kRowBytes = 128;  // bytes of one row in one K chunk of a stage
 constexpr int kStages = 3;      // shared-memory ring of the tensor-core route
 
-// The stage buffers of a 128 x BN tensor-core tile: A then B in each stage,
+// The stage buffers of an AM x BN tensor-core tile (AM = 128 rows of A, or
+// 64 where both warpgroups share the same rows): A then B in each stage,
 // every buffer on a 1024-byte boundary (the swizzle's repeat).
-template <int BN>
+template <int BN, int AM = kTileM>
 struct Ring {
   static_assert(BN == 64 || BN == 128, "tile width");
-  static constexpr int kBytesA = kTileM * kRowBytes;  // 16 KB
-  static constexpr int kBytesB = BN * kRowBytes;      // 16 or 8 KB
+  static_assert(AM == 64 || AM == 128, "tile rows");
+  static constexpr int kBytesA = AM * kRowBytes;  // 16 or 8 KB
+  static constexpr int kBytesB = BN * kRowBytes;  // 16 or 8 KB
   static constexpr int kStageBytes = kBytesA + kBytesB;
   // the ring and up to 1 KB to align it
   static constexpr int kSmem = kStages * kStageBytes + 1024;
@@ -222,49 +228,89 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// The tensor-core product of one block over the K chunks kc0 .. kc0 + nloc - 1:
-// load(st, kc) stages chunk kc into ring stage st (Ring<BN>::a / ::b; the
-// core commits the copies), then each warpgroup issues the chunk's four
-// 32-byte wgmma steps on its 64 rows of A and all BN rows of B. acc: the
-// warpgroup's 64 x BN accumulators (float[BN / 2] for bf16, int[64] for
-// int8), zeroed here. Every thread of the block must call it.
+// The tensor-core products of one block as one pipeline: `npass` products
+// ("passes") of nk K chunks each, kc0 .. kc0 + nk - 1, run back to back
+// through the ring, so that a pass's first copies are in flight while the
+// pass before it finishes and runs its epilogue. load(st, p, kc) stages chunk
+// kc of pass p into ring stage st (the core commits the copies), then each
+// warpgroup issues the chunk's four 32-byte wgmma steps. a_addr(st, p, kc) is
+// the shared address of the pass's A rows for that chunk: the ring's stage,
+// or an operand that already lies in shared memory in the stage layout (then
+// load stages B alone). After a pass's last chunk, epi(p) runs with the
+// pass's sums in acc; acc is zeroed before each pass. kSplitN false: a 128 x
+// BN tile, each warpgroup its 64 rows of A by all BN rows of B (acc: 64 x BN,
+// float[BN / 2] for bf16, int[64] for int8). kSplitN true: a 64 x BN tile,
+// both warpgroups the same 64 rows of A, each by its BN / 2 rows of B (acc:
+// 64 x BN / 2), for products with few rows; the ring is then Ring<BN, 64>.
+// Every thread of the block must call it, and must pass a block barrier
+// before the ring is written again.
+template <int BN, bool kSplitN, typename Acc, int NA, typename Load, typename AAddr,
+          typename Epi>
+__device__ __forceinline__ void ring_passes(uint8_t* smem, int npass, int kc0, int nk,
+                                            const Load& load, const AAddr& a_addr,
+                                            const Epi& epi, Acc (&acc)[NA]) {
+  using R = Ring<BN, kSplitN ? 64 : kTileM>;
+  static_assert(NA == (kSplitN ? BN / 4 : BN / 2), "accumulators of the warpgroup's tile");
+  const int wg = threadIdx.x >> 7;  // warpgroup
+  const uint32_t a_off = kSplitN ? 0 : wg * 64 * kRowBytes;
+  const uint32_t b_off = kSplitN ? wg * (BN / 2) * kRowBytes : 0;
+  const int steps = npass * nk;
+  int lp = 0, lk = 0;  // pass and chunk of the next copy
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < steps) {
+      load(st, lp, kc0 + lk);
+      if (++lk == nk) lk = 0, ++lp;
+    }
+    cp_async_commit();
+  }
+  // The products of step g (chunk kc of pass p) run while the copies of step
+  // g + 2 are issued, be they of this pass or the next: that stage held step
+  // g - 1, whose products every warpgroup has finished by the second
+  // barrier. The accumulators are read only after a pass's own wait, outside
+  // the chunk loop: read inside it, they make the compiler serialize the
+  // wgmma groups.
+  int g = 0;
+  for (int p = 0; p < npass; ++p) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[i] = 0;
+    for (int kc = 0; kc < nk; ++kc, ++g) {
+      const int st = g % kStages;
+      cp_async_wait<kStages - 2>();
+      fence_proxy_async();
+      __syncthreads();  // step g is in shared memory
+      const uint64_t da = smem_desc(a_addr(st, p, kc0 + kc) + a_off);
+      const uint64_t db = smem_desc(smem_addr(R::b(smem, st)) + b_off);
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < kRowBytes / 32; ++ks) wgmma(acc, da + 2 * ks, db + 2 * ks);
+      wgmma_commit();
+      wgmma_wait<1>();  // step g - 1's products are done
+      fence_acc(acc);
+      __syncthreads();  // in both warpgroups
+      if (g + kStages - 1 < steps) {
+        load((g + kStages - 1) % kStages, lp, kc0 + lk);
+        if (++lk == nk) lk = 0, ++lp;
+      }
+      cp_async_commit();
+    }
+    wgmma_wait<0>();  // the pass's sums are complete
+    fence_acc(acc);
+    epi(p);
+  }
+  cp_async_wait<0>();
+}
+
+// One product of a 128 x BN tile over the K chunks kc0 .. kc0 + nloc - 1,
+// A and B both through the ring (Ring<BN>::a / ::b): load(st, kc) stages a
+// chunk; the sums are left in acc.
 template <int BN, typename Acc, int NA, typename Load>
 __device__ __forceinline__ void ring_product(uint8_t* smem, int kc0, int nloc, const Load& load,
                                              Acc (&acc)[NA]) {
-  using R = Ring<BN>;
-  const int wg = threadIdx.x >> 7;  // warpgroup: rows wg*64 .. +63
-#pragma unroll
-  for (int i = 0; i < NA; ++i) acc[i] = 0;
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < nloc) load(st, kc0 + st);
-    cp_async_commit();
-  }
-  // The products of chunk it run while the copies of chunk it + 2 are
-  // issued: that stage held chunk it - 1, whose products every warpgroup
-  // has finished by the second barrier.
-  for (int it = 0; it < nloc; ++it) {
-    const int st = it % kStages;
-    cp_async_wait<kStages - 2>();
-    fence_proxy_async();
-    __syncthreads();  // chunk it is in shared memory
-    const uint64_t da = smem_desc(smem_addr(R::a(smem, st)) + wg * 64 * kRowBytes);
-    const uint64_t db = smem_desc(smem_addr(R::b(smem, st)));
-    fence_acc(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < kRowBytes / 32; ++ks) wgmma(acc, da + 2 * ks, db + 2 * ks);
-    wgmma_commit();
-    wgmma_wait<1>();  // chunk it - 1's products are done
-    fence_acc(acc);
-    __syncthreads();  // in both warpgroups
-    const int nxt = it + kStages - 1;
-    if (nxt < nloc) load(nxt % kStages, kc0 + nxt);
-    cp_async_commit();
-  }
-  wgmma_wait<0>();
-  fence_acc(acc);
-  cp_async_wait<0>();
+  ring_passes<BN, false>(
+      smem, 1, kc0, nloc, [&](int st, int, int kc) { load(st, kc); },
+      [&](int st, int, int) { return smem_addr(Ring<BN>::a(smem, st)); }, [](int) {}, acc);
 }
 
 // Calls f(r, c, v0, v1) for each pair of accumulators of this thread: rows

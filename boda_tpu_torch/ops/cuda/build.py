@@ -44,9 +44,12 @@ ENTRY_POINTS = {
     # x, w, bias, out, n, H, W, C, oc, ky, kx, sy, sx, py, px, pky, pkx, psy,
     # psx, oy, ox, ty, tx, in_bf16, out_bf16, relu, stream
     "boda_fused_stem": [_P, _P, _P, _P] + [_I] * 22 + [_P],
-    # x, w1, b1, w2, b2, w3, b3, out, n, H, W, C, Cm, ty, bm, in_bf16,
-    # out_bf16, relu_out, stream
-    "boda_resblock": [_P] * 8 + [_I] * 10 + [_P],
+    # x, w1, b1, w2, b2, w3, b3, out, n, H, W, C, Cm, ty, cluster, mma,
+    # tile_m, tile_n, vec, in_bf16, out_bf16, relu_out, stream
+    "boda_resblock": [_P] * 8 + [_I] * 14 + [_P],
+    # H, W, C, Cm, ty, cluster, mma, tile_m, tile_n, vec, in_bf16, out_bf16
+    # -> clusters of that plan resident on the card at once
+    "boda_resblock_max_clusters": [_I] * 12,
     # A, B, scale, C, M, N, K, stream
     "boda_sgemm_int8": [_P] * 4 + [_I] * 3 + [_P],
     # a, b, qa, qb, ws, M, K, N, stream

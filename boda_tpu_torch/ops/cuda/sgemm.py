@@ -181,19 +181,28 @@ class Sgemm(_SgemmBase):
 class XlaSgemm(_SgemmBase):
     """The vendor sgemm (cuBLAS's role; jnp.dot on XLA in the JAX package,
     sgemm.py:236-267), which ops_prof's kg tune (use_culibs=1) runs and
-    checks every other tune against: torch.matmul in full FP32, or on bf16
-    operands under prec=bf16, summed in f32. A bf16 product comes out of
-    cuBLAS rounded once to bf16, where XLA keeps it in f32."""
+    checks every other tune against: torch.matmul in full FP32, or, under
+    prec=bf16, the f32 product of the bf16-rounded operands, summed in f32
+    and not rounded again (as jnp.dot with preferred_element_type=f32,
+    sgemm.py:260). On the card that is cuBLAS's bf16 GEMM with an f32
+    output (torch.mm's out_dtype); a torch without it raises."""
 
     name = "xla_sgemm"
 
     @classmethod
     def build(cls, rfs: OpBase):
-        in_dt = torch.bfloat16 if rfs.str_vals.get("prec") == "bf16" \
-            else torch.float32
+        bf16 = rfs.str_vals.get("prec") == "bf16"
         out_dt = torch_dtype(rfs.get_dims("c").dtype)
 
         def fn(a, b):
             with full_fp32():
-                return torch.matmul(a.to(in_dt), b.to(in_dt)).to(out_dt)
+                if not bf16:
+                    c = torch.matmul(a.float(), b.float())
+                elif a.is_cuda:
+                    c = torch.mm(a.bfloat16(), b.bfloat16(),
+                                 out_dtype=torch.float32)
+                else:
+                    c = torch.matmul(a.bfloat16().float(),
+                                     b.bfloat16().float())
+                return c.to(out_dt)
         return fn

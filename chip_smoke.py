@@ -14,7 +14,11 @@ Phases, run in order, each fatal on failure (all of them by default):
            with edges for split-K at M=1, K not a multiple of 8 (the
            element-staging variant) and offsets past 2^31; the fused_stem
            template's NCHW f32 and NHWC-storage bf16 forms against the bare
-           kernel; sgemm_int8 and its quantize kernel alone bit-equal to
+           kernel; resblock's plan (route, band rows, cluster, tile) for
+           each case, with edges on the tensor-core route (bands that do
+           not divide H, no output ReLU, f32 out of bf16, a cluster with a
+           ragged last band) and on the FFMA route (ragged channels);
+           sgemm_int8 and its quantize kernel alone bit-equal to
            their plain versions at 1024^3 and 4096^3 (timed, with the
            quantize pass and the product alone) and at ragged shapes (K=50,
            K=3, K=4099, N=129, an all-zero A).
@@ -29,7 +33,10 @@ Phases, run in order, each fatal on failure (all of them by default):
            kernel alone, timed by K split count at the ResNet-50 3x3
            shapes (what tconv_plan's split rule rests on), and the
            matmul_ext kernel alone by K split count at the fc1000 and
-           res4/res5 1x1 shapes (what matmul_plan's split rule rests on)
+           res4/res5 1x1 shapes (what matmul_plan's split rule rests on),
+           and the resblock kernel alone by cluster size, tile and band
+           rows at the four ResNet-50 stages, each result checked against
+           the plain version (what resblock_plan's estimate rests on)
   digests  TorchFwd at batch 1 under the f32 tune and the fused f32 tune
            against the per-node digest archives recorded on a TPU
            (tests/data/tpu_digests): resnet-50@shapes40 (trained weights,
@@ -46,8 +53,9 @@ Phases, run in order, each fatal on failure (all of them by default):
            imgs/s, the card's busy time in one more forward (torch.profiler)
            and so its idle share, and each template's summed step time over
            one more forward (CUDA events around each step)
-  ops_prof the per-op path (mode torch_ops_prof, be=torch): the six square
-           SGEMMs of tests/data/ops/sgemm-baseline.txt (128^3-4096^3) under
+  ops_prof the per-op path (mode torch_ops_prof, be=torch): the vendor
+           sgemm under prec=bf16 returns the unrounded f32 product; the six
+           square SGEMMs of tests/data/ops/sgemm-baseline.txt (128^3-4096^3) under
            the tunes kg (cuBLAS FP32), hand (B1) and int8 (B3, mrd 5e-2 vs
            kg), then kg and bf16 at mrd 5e-3; the 21 ResNet-50 b32 conv sigs
            of resnet50-convs.txt under kg (cuDNN FP32) and hand (B1, B2),
@@ -246,6 +254,8 @@ def _kernel_cases():
         # the fused identity bottlenecks at b32, and res5 at batch 1
         ("res2b n=32 56^2 C=256 Cm=64", "resblock",
          dict(n=32, H=56, W=56, C=256, Cm=64)),
+        ("res3b n=32 28^2 C=512 Cm=128", "resblock",
+         dict(n=32, H=28, W=28, C=512, Cm=128)),
         ("res4b n=32 14^2 C=1024 Cm=256", "resblock",
          dict(n=32, H=14, W=14, C=1024, Cm=256)),
         ("res5b n=32 7^2 C=2048 Cm=512", "resblock",
@@ -294,6 +304,22 @@ def _edge_cases():
          dict(n=2, H=9, W=7, C=32, Cm=8)),
         ("edge resblock relu_out=0 n=2 5x6 C=12 Cm=5", "resblock",
          dict(n=2, H=5, W=6, C=12, Cm=5, relu_out=False)),
+        # channels in whole 64-value chunks: bf16 on the tensor-core route.
+        # Bands that do not divide H; no output ReLU; f32 out of bf16 in; a
+        # forced plan (ty, cluster, tile_m, tile_n): a cluster of 4 over
+        # bands of 5 rows of 13, on both tiles
+        ("edge resblock n=2 13x11 C=256 Cm=64", "resblock",
+         dict(n=2, H=13, W=11, C=256, Cm=64)),
+        ("edge resblock relu_out=0 n=1 9^2 C=128 Cm=64", "resblock",
+         dict(n=1, H=9, W=9, C=128, Cm=64, relu_out=False)),
+        ("edge resblock f32 out n=3 7^2 C=512 Cm=128", "resblock",
+         dict(n=3, H=7, W=7, C=512, Cm=128, out_f32=True)),
+        ("edge resblock cluster 4 ty 5 n=2 13x11 C=512 Cm=128", "resblock",
+         dict(n=2, H=13, W=11, C=512, Cm=128, force=(5, 4, 64, 128))),
+        ("edge resblock cluster 2 ty 5 n=2 13x11 C=512 Cm=128", "resblock",
+         dict(n=2, H=13, W=11, C=512, Cm=128, force=(5, 2, 128, 128))),
+        ("edge resblock cluster 8 ty 4 n=1 7x9 C=64 Cm=64", "resblock",
+         dict(n=1, H=7, W=9, C=64, Cm=64, force=(4, 8, 128, 64))),
     ]
 
 
@@ -334,13 +360,45 @@ def _kernel_args(kname, kw, dt, dev, gen):
     else:
         n, H, W, C, Cm = kw["n"], kw["H"], kw["W"], kw["C"], kw["Cm"]
         args = (randn(n, H, W, C), randn(Cm, C, scale=C ** -0.5),
-                randn(Cm, scale=0.1), randn(Cm, Cm, 3, 3, scale=(9 * Cm) ** -0.5),
+                # the filter in OHWI order, as the template hands it over
+                randn(Cm, scale=0.1), randn(Cm, 3, 3, Cm, scale=(9 * Cm) ** -0.5),
                 randn(Cm, scale=0.1), randn(C, Cm, scale=Cm ** -0.5),
                 randn(C, scale=0.1), kw.get("relu_out", True))
         fns, plain = resblock, resblock_plain
-    return (lambda: fns(*args, out_dtype=dt),
-            lambda: plain(*args, out_dtype=dt),
+        if "force" in kw:
+            def fns(*a, out_dtype):
+                return _resblock_forced(a, out_dtype, kw["force"])
+    odt = torch.float32 if kw.get("out_f32") else dt
+    return (lambda: fns(*args, out_dtype=odt),
+            lambda: plain(*args, out_dtype=odt),
             lambda: plain(*args)), args
+
+
+def _resblock_forced(args, out_dtype, force, out=None):
+    """The resblock kernel through its C entry point under a given (ty,
+    cluster, tile_m, tile_n) instead of resblock_plan's choice; the route
+    and the load width follow the operands as in the plan."""
+    import torch
+    from boda_tpu_torch.ops.cuda.build import load_kernels
+    from boda_tpu_torch.ops.cuda.resblock import plan_route
+    x, w1, b1, w2, b2, w3, b3, relu_out = args
+    n, H, W, C = x.shape
+    Cm = w1.shape[0]
+    ty, cluster, tile_m, tile_n = force
+    bf = x.dtype == torch.bfloat16
+    route, vec = plan_route(C, Cm, x.element_size())
+    if out is None:
+        out = torch.empty_like(x, dtype=out_dtype)
+    rc = load_kernels().boda_resblock(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+        b2.data_ptr(), w3.data_ptr(), b3.data_ptr(), out.data_ptr(),
+        n, H, W, C, Cm, ty, cluster, int(route == "mma"), tile_m, tile_n,
+        int(vec),
+        int(bf), int(out_dtype == torch.bfloat16), int(bool(relu_out)),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(rc == 0, f"resblock forced plan {force}: launch failed with "
+                   f"cudaError {rc}")
+    return out
 
 
 def _nbytes(*tensors) -> int:
@@ -405,7 +463,7 @@ def _library(kname, args, dt):
     C, Cm = x.shape[3], w1.shape[0]
     xc = x.permute(0, 3, 1, 2)
     w1c = w1.reshape(Cm, C, 1, 1).contiguous(memory_format=cl)
-    w2c = w2.contiguous(memory_format=cl)
+    w2c = w2.permute(0, 3, 1, 2)     # OHWI is channels_last OIHW
     w3c = w3.reshape(C, Cm, 1, 1).contiguous(memory_format=cl)
 
     def seq():
@@ -591,6 +649,9 @@ def phase_kernels(ctx: dict) -> None:
                       f"exact", end="")
             if kname == "matmul_ext":
                 print(f" {_matmul_plan_str(args, sms)}", end="")
+            if kname == "resblock":
+                print(f" {_resblock_plan_str(args, sms, kw.get('force'))}",
+                      end="")
             s = stats.setdefault(kname, _stats(kname))
             s["max_abs_err"] = max(s["max_abs_err"], abs_err)
             s["max_mrd"] = max(s["max_mrd"], err)
@@ -615,11 +676,30 @@ def phase_kernels(ctx: dict) -> None:
                     "library": lib_kind}
             if kname == "matmul_ext":
                 case["plan"] = _matmul_plan_str(args, sms)
+            if kname == "resblock":
+                case["plan"] = _resblock_plan_str(args, sms)
             _add_case(s, case)
             del args, got, want, lib, run_k, run_p, ref
     ctx["kernels"] = stats
     _tconv_splits(dev)
     _matmul_splits(dev)
+    _resblock_plans(dev, gen)
+
+
+def _resblock_plan_str(args, sms: int, force=None) -> str:
+    """resblock's plan for a case: its route, the output rows of a band,
+    the cluster that shares a band, the block tile and the grid."""
+    from boda_tpu_torch.ops.cuda.resblock import resblock_plan
+    x, w1 = args[:2]
+    n, H, W, C = x.shape
+    p = resblock_plan(n, H, W, C, w1.shape[0], x.element_size(), sms)
+    if force is not None:
+        ty, cluster, tile_m, tile_n = force
+        return (f"forced {p.route} ty {ty} cluster {cluster} tile "
+                f"{tile_m}x{tile_n}")
+    return (f"plan {p.route} ty {p.ty} cluster {p.cluster} tile "
+            f"{p.tile_m}x{p.tile_n} blocks {p.blocks}"
+            f"{'' if p.vec or p.route == 'mma' else ' element-staged'}")
 
 
 def _matmul_plan_str(args, sms: int) -> str:
@@ -719,6 +799,80 @@ def _matmul_splits(dev) -> None:
             print(f"matmul splits M={M} K={K} N={N} {str(dt)[6:]}: tile "
                   f"{plan.tile_m}x{plan.tile_n}, planned {plan.splits} on "
                   f"{sms} SMs; ms by splits " + " ".join(row), flush=True)
+
+
+# (n, H = W, C, Cm): the identity bottlenecks of ResNet-50's four stages at
+# batch 32, and res5 at batch 1
+RESBLOCK_PLAN_SHAPES = [(32, 56, 256, 64), (32, 28, 512, 128),
+                        (32, 14, 1024, 256), (32, 7, 2048, 512),
+                        (1, 7, 2048, 512)]
+RESBLOCK_PLAN_TYS = (1, 2, 3, 4, 5, 6, 7, 8, 10, 14)
+
+
+def _resblock_plans(dev, gen) -> None:
+    """The resblock kernel alone by cluster size, tile and band rows at the
+    ResNet-50 stages, for the planner's estimate: each (cluster, tile, ty)
+    that fits runs through the C entry point, is held against the plain
+    version (f32 mrd 1e-4, bf16 5e-3), and is timed beside the plan's
+    estimate in microseconds and the clusters of that launch the card
+    holds at once (cudaOccupancyMaxActiveClusters)."""
+    import torch
+    from boda_tpu_torch.ops.cuda.build import load_kernels
+    from boda_tpu_torch.ops.cuda.resblock import CLUSTERS, plan_candidate, \
+        plan_tiles, resblock_plain, resblock_plan
+    lib = load_kernels()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n, H, C, Cm in RESBLOCK_PLAN_SHAPES:
+        for dt in (torch.float32, torch.bfloat16):
+            kw = dict(n=n, H=H, W=H, C=C, Cm=Cm)
+            _, args = _kernel_args("resblock", kw, dt, dev, gen)
+            want = resblock_plain(*args)
+            out = torch.empty_like(args[0])
+            es = args[0].element_size()
+            plan = resblock_plan(n, H, H, C, Cm, es, sms)
+            toler = F32_MRD if dt == torch.float32 else BF16_MRD
+            best = None
+            for cluster in CLUSTERS:
+                for tile_m, tile_n in plan_tiles(C, Cm, es, cluster):
+                    row = []
+                    for ty in sorted({t for t in RESBLOCK_PLAN_TYS + (H,)
+                                      if t <= H} | {plan.ty}):
+                        cand = plan_candidate(n, H, H, C, Cm, es, sms, ty,
+                                              cluster, tile_m, tile_n)
+                        if cand is None:
+                            continue
+                        force = (ty, cluster, tile_m, tile_n)
+                        out.zero_()
+                        _resblock_forced(args, dt, force, out)
+                        torch.cuda.synchronize()
+                        err = mrd(out, want)
+                        check(err <= toler, f"resblock {kw} {dt} under "
+                                            f"{force}: mrd {err:.3e} > "
+                                            f"{toler:g}")
+                        ms = cuda_ms(lambda: _resblock_forced(
+                            args, dt, force, out), 10)
+                        bf = int(dt == torch.bfloat16)
+                        held = lib.boda_resblock_max_clusters(
+                            H, H, C, Cm, ty, cluster,
+                            int(plan.route == "mma"), tile_m, tile_n,
+                            int(plan.vec), bf, bf)
+                        check(held > 0, f"resblock {kw} {dt} under {force}: "
+                                        f"no resident cluster ({held})")
+                        row.append(f"{ty}: {ms:.4f} ({cand[0]:.0f}; {held})")
+                        if best is None or ms < best[0]:
+                            best = (ms, force)
+                    if row:
+                        print(f"resblock plan n={n} {H}^2 C={C} Cm={Cm} "
+                              f"{str(dt)[6:]} {plan.route} cluster {cluster} "
+                              f"tile {tile_m}x{tile_n}: ms (estimated us; "
+                              f"clusters held at once) by ty "
+                              + " ".join(row), flush=True)
+            print(f"resblock plan n={n} {H}^2 C={C} Cm={Cm} {str(dt)[6:]}: "
+                  f"planned ty {plan.ty} cluster {plan.cluster} tile "
+                  f"{plan.tile_m}x{plan.tile_n} on {sms} SMs; fastest "
+                  f"{best[0]:.4f} ms at ty {best[1][0]} cluster {best[1][1]} "
+                  f"tile {best[1][2]}x{best[1][3]}", flush=True)
+            del args, want, out
 
 
 def _nodes_to_get(pipe):
@@ -858,6 +1012,33 @@ def _ops_prof_table(text: str, tunes: str, peaks) -> list[str]:
     return rows
 
 
+def _check_vendor_sgemm_bf16(dev) -> None:
+    """The vendor sgemm template (xla_sgemm, the kg tune's) under prec=bf16
+    on the card: an f32 product of the bf16-rounded operands, not rounded
+    again (within 1e-5 of the f64 product of the rounded operands, and not
+    a bf16 value)."""
+    import torch
+    from boda_tpu_torch.ops.op_base import OpBase
+    from boda_tpu_torch.ops.registry import get_template
+    M, K, N = 256, 1024, 192
+    op = OpBase.from_lexp(f"(type=sgemm,str_vals=(prec=bf16),dims_vals=("
+                          f"a=(M={M},K={K}),b=(K={K},N={N}),c=(M={M},N={N})))")
+    t = get_template("xla_sgemm")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    a = torch.randn(M, K, device=dev, generator=gen)
+    b = torch.randn(K, N, device=dev, generator=gen) * K ** -0.5
+    got = t.build(t.check_args(op))(a, b)
+    want = a.bfloat16().double() @ b.bfloat16().double()
+    err = mrd(got, want)
+    rounded = bool(torch.equal(got, got.bfloat16().float()))
+    print(f"xla_sgemm prec=bf16 M={M} K={K} N={N}: {got.dtype}, mrd {err:.3e} "
+          f"(<= 1e-5) against the f64 product of the bf16 operands; a bf16 "
+          f"value: {rounded}")
+    check(got.dtype == torch.float32 and err <= 1e-5 and not rounded,
+          "xla_sgemm under prec=bf16 does not return the unrounded f32 "
+          "product")
+
+
 def phase_ops_prof(ctx: dict) -> None:
     """The per-op path: torch_ops_prof on be=torch over the SGEMM sizes and
     the ResNet-50 b32 conv sigs, then torch_rtc_test, each in-process
@@ -869,6 +1050,7 @@ def phase_ops_prof(ctx: dict) -> None:
     peaks = card_peaks(torch.cuda.get_device_name(0))
     out_dir = ROOT / "build" / "ops_prof"
     wrappers = _wrappers()
+    _check_vendor_sgemm_bf16(torch.device("cuda", 0))
     for name, ops_fn, tunes, tol in OPS_PROF:
         for w in wrappers.values():
             w.launches = 0

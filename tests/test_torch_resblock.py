@@ -2,8 +2,8 @@
 package's Pallas build_resblock body in interpret mode, on the same seeded
 inputs: the shapes of tests/test_resblock.py, in f32 and bf16, in the NCHW
 form and the NHWC bf16-edge storage form, with and without the output
-ReLU; plus the wrapper's own interface, its band and tile choice, and the
-operands it refuses.
+ReLU; plus the wrapper's own interface, its plan (route, band, cluster and
+tile) at the ResNet-50 shapes, and the operands it refuses.
 
 Both follow the Pallas kernel body's roundings (resblock.py:98-135): under
 prec=bf16 the weights and biases are rounded to bf16, and h1 and h2 are
@@ -25,8 +25,8 @@ from boda_tpu.ops.registry import get_template as jax_template
 from boda_tpu.testing.comp import mrd
 from boda_tpu_torch.core.error import RtErr
 from boda_tpu_torch.ops.op_base import OpBase as PortOpBase
-from boda_tpu_torch.ops.cuda.resblock import SMEM_PER_SM, SMEM_RESERVED, \
-    _tile_smem, resblock, resblock_plain, resblock_plan
+from boda_tpu_torch.ops.cuda.resblock import CLUSTERS, SMEM_MAX, \
+    ResblockPlan, ffma_static_smem, resblock, resblock_plain, resblock_plan
 from boda_tpu_torch.ops.registry import get_template
 
 SHAPES = [(1, 16, 10, 10, 8), (2, 32, 9, 7, 8)]   # tests/test_resblock.py:149-152
@@ -117,8 +117,9 @@ def test_resblock_wrapper_takes_2d_and_4d_1x1_weights():
     x, w1, b1, w2, b2, w3, b3 = [torch.from_numpy(a)
                                  for a in _args(n, C, H, W, Cm, seed=1)]
     xh = x.permute(0, 2, 3, 1).contiguous()
-    got = resblock(xh, w1, b1, w2, b2, w3, b3)
-    got2 = resblock(xh, w1.view(Cm, C), b1, w2, b2, w3.view(C, Cm), b3)
+    w2h = w2.permute(0, 2, 3, 1).contiguous()     # OIHW -> OHWI
+    got = resblock(xh, w1, b1, w2h, b2, w3, b3)
+    got2 = resblock(xh, w1.view(Cm, C), b1, w2h, b2, w3.view(C, Cm), b3)
     np.testing.assert_array_equal(got.numpy(), got2.numpy())
     op = _make_op(n, C, H, W, Cm)
     ref = jax_template("resblock").ref_impl(op, *[t.numpy() for t in
@@ -126,7 +127,7 @@ def test_resblock_wrapper_takes_2d_and_4d_1x1_weights():
     np.testing.assert_allclose(got.numpy().transpose(0, 3, 1, 2), ref,
                                rtol=3e-5, atol=3e-5)
     # bf16 operands: h1 and h2 are stored in bf16, the output rounded once
-    ops16 = [t.bfloat16() for t in (xh, w1, b1, w2, b2, w3, b3)]
+    ops16 = [t.bfloat16() for t in (xh, w1, b1, w2h, b2, w3, b3)]
     y16 = resblock(*ops16, out_dtype=torch.bfloat16)
     assert y16.dtype == torch.bfloat16
     np.testing.assert_array_equal(
@@ -139,29 +140,108 @@ RESNET50 = {"res2": (56, 256, 64), "res3": (28, 512, 128),
             "res4": (14, 1024, 256), "res5": (7, 2048, 512)}
 
 
+def _mma_smem(p, W, Cm):
+    """Dynamic shared memory of the tensor-core route (csrc/resblock.cu
+    configure): 1 KB to align, the 3-stage ring, h2 padded to whole tiles
+    and h1, in 128-byte rows per 64 channels."""
+    rows1, rows2 = (p.ty + 2) * (W + 2), p.ty * W
+    rows2p = -(-rows2 // p.tile_m) * p.tile_m
+    return 1024 + 3 * (p.tile_m + p.tile_n) * 128 \
+        + (Cm // 64) * (rows1 + rows2p) * 128
+
+
+# (stage, elem bytes, SMs, n) -> (ty, cluster, tile_m, tile_n): the plan's
+# choices, pinned; those at 132 SMs and batch 32, and res5 at batch 1, are
+# within 2% of the fastest of the smoke's `resblock plan` sweep on an H100
+PLANS = {
+    ("res2", 4, 132, 32): (2, 1, 128, 64),
+    ("res2", 4, 132, 1): (1, 4, 128, 64),
+    ("res2", 4, 114, 32): (2, 1, 128, 64),
+    ("res2", 4, 114, 1): (1, 2, 128, 64),
+    ("res2", 2, 132, 32): (7, 1, 128, 64),
+    ("res2", 2, 132, 1): (2, 4, 128, 64),
+    ("res2", 2, 114, 32): (8, 1, 128, 64),
+    ("res2", 2, 114, 1): (1, 2, 128, 64),
+    ("res3", 4, 132, 32): (4, 1, 128, 128),
+    ("res3", 4, 132, 1): (1, 8, 128, 64),
+    ("res3", 4, 114, 32): (4, 1, 128, 128),
+    ("res3", 4, 114, 1): (1, 4, 128, 64),
+    ("res3", 2, 132, 32): (4, 1, 128, 128),
+    ("res3", 2, 132, 1): (1, 4, 128, 128),
+    ("res3", 2, 114, 32): (4, 1, 128, 128),
+    ("res3", 2, 114, 1): (2, 4, 128, 128),
+    ("res4", 4, 132, 32): (4, 1, 128, 128),
+    ("res4", 4, 132, 1): (1, 8, 128, 64),
+    ("res4", 4, 114, 32): (2, 1, 128, 128),
+    ("res4", 4, 114, 1): (1, 8, 128, 64),
+    ("res4", 2, 132, 32): (7, 2, 64, 128),
+    ("res4", 2, 132, 1): (1, 8, 64, 128),
+    ("res4", 2, 114, 32): (5, 1, 128, 128),
+    ("res4", 2, 114, 1): (2, 8, 64, 128),
+    ("res5", 4, 132, 32): (4, 2, 128, 128),
+    ("res5", 4, 132, 1): (1, 8, 128, 64),
+    ("res5", 4, 114, 32): (1, 1, 128, 128),
+    ("res5", 4, 114, 1): (1, 8, 128, 64),
+    ("res5", 2, 132, 32): (4, 2, 64, 128),
+    ("res5", 2, 132, 1): (1, 8, 64, 128),
+    ("res5", 2, 114, 32): (7, 2, 64, 128),
+    ("res5", 2, 114, 1): (1, 8, 64, 128),
+}
+
+
+@pytest.mark.parametrize("n", [32, 1])
+@pytest.mark.parametrize("sms", [132, 114])
 @pytest.mark.parametrize("elem", [4, 2], ids=["f32", "bf16"])
 @pytest.mark.parametrize("stage", list(RESNET50))
-def test_resblock_plan_at_resnet50_shapes(stage, elem):
+def test_resblock_plan_at_resnet50_shapes(stage, elem, sms, n):
     H, C, Cm = RESNET50[stage]
-    p = resblock_plan(32, H, H, C, Cm, elem)
-    ty, bm = p["ty"], p["bm"]
-    assert 1 <= ty <= H and bm in (16, 64)
-    assert p["smem"] == ((ty + 2) * (H + 2) + ty * H) * Cm * elem
-    # two blocks fit in one SM, and the grid covers the card at batch 32
-    assert 2 * (p["smem"] + _tile_smem(bm) + SMEM_RESERVED) <= SMEM_PER_SM
-    assert p["blocks"] == 32 * -(-H // ty) >= 132
-    # the few-pixel bands of res4 and res5 take the 16 x 256 tile
-    assert bm == (16 if stage in ("res4", "res5") else 64)
+    p = resblock_plan(n, H, H, C, Cm, elem, sms)
+    assert isinstance(p, ResblockPlan)
+    # bf16 at ResNet's channel counts runs on the tensor cores, f32 on FFMA
+    # with 16-byte loads
+    assert p.route == ("mma" if elem == 2 else "ffma")
+    assert p.vec == (elem == 4)
+    assert 1 <= p.ty <= H and p.cluster in CLUSTERS
+    assert Cm % p.cluster == 0 and C % p.cluster == 0
+    assert p.blocks == n * -(-H // p.ty) * p.cluster
+    if p.route == "mma":
+        assert (p.tile_m, p.tile_n) in ((128, 128), (128, 64), (64, 128))
+        assert p.tile_n <= Cm
+        assert p.smem == _mma_smem(p, H, Cm) <= SMEM_MAX
+    else:
+        assert p.tile_m == 128 and p.tile_n in (64, 128)
+        assert p.smem == ((p.ty + 2) * (H + 2) + p.ty * H) * Cm * elem
+        assert p.smem + ffma_static_smem(p.tile_n) <= SMEM_MAX
+    # the grid covers at least two fifths of the card wherever the shape
+    # has that many (image row, channel split) pairs
+    assert p.blocks >= min(sms, n * H * max(CLUSTERS)) * 2 // 5
+    assert (p.ty, p.cluster, p.tile_m, p.tile_n) == PLANS[stage, elem, sms, n]
 
 
-def test_resblock_plan_edge_cases():
-    # batch 1 at res5: seven one-row bands
-    assert resblock_plan(1, 7, 7, 2048, 512, 4)["blocks"] == 7
-    # a band row too wide for two blocks per SM still runs, one per SM
-    p = resblock_plan(1, 4, 150, 64, 64, 4)
-    assert p["ty"] == 1 and p["smem"] + _tile_smem(p["bm"]) > SMEM_PER_SM // 2
-    with pytest.raises(RtErr, match="do not fit"):
-        resblock_plan(1, 4, 300, 64, 64, 4)
+@pytest.mark.parametrize("case", ["ragged-bf16", "ragged-f32", "vec-f32",
+                                  "wide-row", "too-wide", "cached"])
+def test_resblock_plan_edge_cases(case):
+    if case == "ragged-bf16":
+        # channels off the 64-value K chunk: bf16 on the FFMA route, staged
+        # element by element
+        p = resblock_plan(2, 9, 7, 32, 8, 2, 132)
+        assert (p.route, p.vec) == ("ffma", False)
+    elif case == "ragged-f32":
+        p = resblock_plan(2, 5, 6, 12, 5, 4, 132)
+        assert (p.route, p.vec, p.cluster) == ("ffma", False, 1)
+    elif case == "vec-f32":
+        p = resblock_plan(1, 10, 10, 16, 8, 4, 132)
+        assert (p.route, p.vec) == ("ffma", True)
+    elif case == "wide-row":
+        # one band row of 150 pixels x 64 channels in f32 fits only at ty=1
+        p = resblock_plan(1, 4, 150, 64, 64, 4, 132)
+        assert p.ty == 1 and p.smem == (3 * 152 + 150) * 64 * 4
+    elif case == "too-wide":
+        with pytest.raises(RtErr, match="do not fit"):
+            resblock_plan(1, 4, 300, 64, 64, 4, 132)
+    else:
+        assert resblock_plan(32, 7, 7, 2048, 512, 2, 132) is \
+            resblock_plan(32, 7, 7, 2048, 512, 2, 132)
 
 
 def test_resblock_refuses_what_the_kernel_does_not_take():
@@ -169,6 +249,7 @@ def test_resblock_refuses_what_the_kernel_does_not_take():
     x, w1, b1, w2, b2, w3, b3 = [torch.from_numpy(a)
                                  for a in _args(n, C, H, W, Cm)]
     xh = x.permute(0, 2, 3, 1).contiguous()
+    w2 = w2.permute(0, 2, 3, 1).contiguous()      # OIHW -> OHWI
     ok = (w1, b1, w2, b2, w3, b3)
     assert resblock(xh, *ok).shape == (n, H, W, C)
     with pytest.raises(RtErr, match="contiguous"):
@@ -181,6 +262,9 @@ def test_resblock_refuses_what_the_kernel_does_not_take():
         resblock(xh, w1, b1, w2, b2, torch.zeros(C, Cm, 3, 3), b3)
     with pytest.raises(RtErr, match="w2 is"):
         resblock(xh, w1, b1, torch.zeros(Cm, Cm, 1, 1), b2, w3, b3)
+    # the 3x3 filter comes in OHWI order, [Cm, 3, 3, Cm]: OIHW is refused
+    with pytest.raises(RtErr, match=r"w2 is \(4, 4, 3, 3\), expected OHWI"):
+        resblock(xh, w1, b1, torch.zeros(Cm, Cm, 3, 3), b2, w3, b3)
     with pytest.raises(RtErr, match="b3 length"):
         resblock(xh, w1, b1, w2, b2, w3, b1)
     with pytest.raises(RtErr, match="but b2 is"):

@@ -120,6 +120,31 @@ def test_xla_sgemm_matches_jax(prec):
     _close(got.numpy(), want, "bfloat16" if prec else "float32")
 
 
+def test_xla_sgemm_bf16_keeps_the_f32_product():
+    """Under prec=bf16 the vendor sgemm rounds its operands to bf16 and
+    returns their product summed in f32, unrounded, as the JAX package's
+    jnp.dot(preferred_element_type=f32) does: equal to the f32 product of
+    the rounded operands to 1e-6 relative (summation order), and not a
+    bf16 value (K = 512 sums are not representable in 8 bits)."""
+    M, K, N = 24, 512, 20
+    op = make_sgemm_op(M, N, K, func_name="xla_sgemm")
+    op.str_vals["prec"] = "bf16"
+    a, b, _ = _inputs(M, K, N, seed=3)
+    pt = get_template("xla_sgemm")
+    got = pt.build(pt.check_args(_port_op(op)))(torch.from_numpy(a),
+                                                torch.from_numpy(b))
+    assert got.dtype == torch.float32
+    ar = torch.from_numpy(a).bfloat16().double().numpy()
+    br = torch.from_numpy(b).bfloat16().double().numpy()
+    want = ar @ br
+    scale = np.abs(want).max()
+    assert np.abs(got.double().numpy() - want).max() <= 1e-6 * scale
+    assert not torch.equal(got, got.bfloat16().float())
+    jt = jax_template("xla_sgemm")
+    jwant = np.asarray(jt.build(jt.check_args(op))(a, b), np.float64)
+    assert np.abs(got.double().numpy() - jwant).max() <= 1e-6 * scale
+
+
 def test_matmul_ext_refuses_what_the_kernel_does_not_take():
     a = torch.zeros(4, 8)
     b = torch.zeros(3, 8)
