@@ -1,10 +1,12 @@
 // The Hopper GEMM core shared by tconv (B2, tconv.cu), matmul_ext (B1,
-// sgemm.cu), sgemm_int8 (B3, qsgemm.cu) and resblock (B5, resblock.cu):
+// sgemm.cu), sgemm_int8 (B3, qsgemm.cu), resblock (B5, resblock.cu) and
+// fused_stem (B4, stem.cu):
 // C[M, N] = A[M, K] . B[N, K]^T with both operands K-contiguous. Each kernel
 // brings its own operand loader (B2: the implicit-im2col window of a conv;
 // B1, B3: a row-major matrix, stage_rows below; B5: an image band, then its
-// own intermediate results in shared memory) and its own epilogue; the core
-// holds what they share.
+// own intermediate results in shared memory; B4: an image patch, its A
+// fragments loaded from it into registers, wgmma_ra, its filter resident in
+// the stage layout) and its own epilogue; the core holds what they share.
 //
 // Tensor-core route (bf16 and int8). A block tile is 128 rows of A by BN
 // (128 or 64) rows of B (or, for products with few rows, 64 rows of A that
@@ -166,6 +168,30 @@ __device__ __forceinline__ void wgmma(float (&d)[32], uint64_t da, uint64_t db) 
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64 x 64] += A[64 x 16] . B[64 x 16]^T, bf16, with A from registers: warp
+// w of the warpgroup holds rows 16 w .. 16 w + 15 as the m16n8k16 fragment,
+// a[0], a[1]: K values 2 (lane % 4), + 1 of rows lane / 4 and lane / 4 + 8;
+// a[2], a[3]: the same rows at K + 8 (a kernel whose A is a gather that no
+// 128-byte row holds, fused_stem's im2col of a 3-channel patch). The
+// registers must stay as they are until the product has been waited for.
+__device__ __forceinline__ void wgmma_ra(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // d[64 x 128] += A[64 x 32] . B[128 x 32]^T, int8 K-major, s32

@@ -41,9 +41,15 @@ ENTRY_POINTS = {
     # x, w, bias, out, ws, n, H, W, C, oc, ky, kx, py, px, in_bf16,
     # out_bf16, relu, splits, vec, stream
     "boda_tconv": [_P] * 5 + [_I] * 14 + [_P],
-    # x, w, bias, out, n, H, W, C, oc, ky, kx, sy, sx, py, px, pky, pkx, psy,
-    # psx, oy, ox, ty, tx, in_bf16, out_bf16, relu, stream
-    "boda_fused_stem": [_P, _P, _P, _P] + [_I] * 22 + [_P],
+    # x, w, wk, bias, out, n, H, W, C, oc, ky, kx, sy, sx, py, px, pky, pkx,
+    # psy, psx, oy, ox, ty, tx, mma, vec, Kp, blocks, in_bf16, out_bf16, relu,
+    # stream
+    "boda_fused_stem": [_P] * 5 + [_I] * 26 + [_P],
+    # H, W, C, oc, ky, kx, sy, sx, py, px, pky, pkx, psy, psx, oy, ox, ty, tx,
+    # mma, vec, Kp, in_bf16, out_bf16 -> a block's shared memory under that
+    # plan, and the blocks of it one SM holds
+    "boda_fused_stem_smem": [_I] * 23,
+    "boda_fused_stem_blocks_per_sm": [_I] * 23,
     # x, w1, b1, w2, b2, w3, b3, out, n, H, W, C, Cm, ty, cluster, mma,
     # tile_m, tile_n, vec, in_bf16, out_bf16, relu_out, stream
     "boda_resblock": [_P] * 8 + [_I] * 14 + [_P],

@@ -9,10 +9,12 @@ template takes and returns NCHW tensors, or NHWC storage tensors in the
 edge dtype when the plan's fused-storage pass marked the step
 io_layout=nhwc.
 
-XlaConv and S2dConv are vendor roles in the JAX package (XLA convs, the
-latter over a 2x2 phase-stacked input). Here both are F.conv2d on cuDNN in
-full FP32; the phase stacking only re-indexes the same arithmetic, so it
-is dropped.
+XlaConv, XlaConv2 (conv2.py) and S2dConv are vendor roles in the JAX
+package (XLA convs, the last over a 2x2 phase-stacked input). Here all
+three are F.conv2d on cuDNN in full FP32 on the operands rounded to the
+compute dtype (vendor_conv says why not in bf16), channels_last under NHWC
+storage; the phase stacking only re-indexes the same arithmetic, so it is
+dropped.
 
 The conv family's metadata is the JAX package's (conv.py:35-126):
 `conv_params`, the shared `_ConvBase` (declared args, reduced-signature
@@ -232,29 +234,60 @@ class IpConv(_ConvBase):
         return fn
 
 
-def _cudnn_conv(rfs: OpBase):
-    """A vendor conv step as F.conv2d (cuDNN) in full FP32 on the
-    compute-dtype-rounded operands, + f32 bias, ReLU and one rounding to
-    the stored dtype: the f32-output XLA conv of the JAX package
-    (conv.py:281-296, :334-379). Takes and returns NCHW, or NHWC storage
-    tensors when the plan's fused-storage pass marked the step."""
-    ind, outd, fd, sy, sx, py, px, relu = conv_params(rfs)
-    io_nhwc, _ = storage_io(rfs)
-    cdt, odt = compute_dtype(rfs), store_dtype(rfs)
+def vendor_conv(stride, pad, cdt, io_nhwc):
+    """The vendor conv of a step (cuDNN's role; XLA's in the JAX package):
+    conv(x, w, b) -> the f32 conv of the operands rounded to the compute
+    dtype `cdt`, + the f32 bias, as a logical NCHW tensor. It runs F.conv2d
+    in full FP32 (never TF32) on the rounded operands, also under prec=bf16:
+    FP32 products of bf16 values are exact, so the sum is rounded nowhere
+    before the bias, as in the JAX templates (bf16 operands, f32
+    accumulation, f32 output: boda_tpu/ops/mxu_grad.py mxu_conv). A bf16
+    cuDNN conv would round that sum to bf16 before the bias, since torch's
+    conv has no f32 output for bf16 operands: one rounding more, which moves
+    14-34% of the stored values by one bf16 step and fails the 5e-3 gate
+    against the JAX template (PERF.md section 6), so it is not used.
 
-    def fn(x, w, b=None):
-        xc = x.to(cdt).float()
+    Under NHWC storage (io_nhwc) x arrives NHWC and is passed on as the
+    channels_last NCHW tensor it already is, with the filter in
+    channels_last too, so the result comes back channels_last and its NHWC
+    view is contiguous: no permute copy on either side."""
+    cl = torch.channels_last
+
+    def conv(x, w, b=None):
+        xc, wc = x.to(cdt).float(), w.to(cdt).float()
         if io_nhwc:
-            xc = xc.permute(0, 3, 1, 2)
+            xc, wc = xc.permute(0, 3, 1, 2), wc.contiguous(memory_format=cl)
         with full_fp32():
-            y = F.conv2d(xc, w.to(cdt).float(), stride=(sy, sx),
-                         padding=(py, px))
+            y = F.conv2d(xc, wc, stride=stride, padding=pad)
         if b is not None:
             y = y + b.float()[None, :, None, None]
-        if relu:
-            y = torch.relu(y)
-        y = y.to(odt)
-        return y.permute(0, 2, 3, 1).contiguous() if io_nhwc else y
+        return y
+    return conv
+
+
+def vendor_store(y, relu: bool, odt, io_nhwc):
+    """The epilogue of a vendor conv step: ReLU, one rounding to the stored
+    dtype, and the step's storage form (NCHW, or NHWC: a view of a
+    channels_last result, copied only where it is not)."""
+    if relu:
+        y = torch.relu(y)
+    y = y.to(odt)
+    # a member of a sibling group is a channel slice: the copy splits it off
+    return y.permute(0, 2, 3, 1).contiguous() if io_nhwc else y.contiguous()
+
+
+def _cudnn_conv(rfs: OpBase):
+    """A vendor conv step (vendor_conv, vendor_store) of a conv sig: the
+    f32-output XLA conv of the JAX package (conv.py:281-296, :334-379).
+    Takes and returns NCHW, or NHWC storage tensors when the plan's
+    fused-storage pass marked the step."""
+    ind, outd, fd, sy, sx, py, px, relu = conv_params(rfs)
+    io_nhwc, _ = storage_io(rfs)
+    odt = store_dtype(rfs)
+    conv = vendor_conv((sy, sx), (py, px), compute_dtype(rfs), io_nhwc)
+
+    def fn(x, w, b=None):
+        return vendor_store(conv(x, w, b), relu, odt, io_nhwc)
     return fn
 
 
@@ -271,7 +304,7 @@ class XlaConv(_ConvBase):
         for k in ("quant8", "in_q8", "out_q8", "grad_q8"):
             if rfs.get_u32_or(k, 0):
                 raise RtErr(f"xla_conv: the int8 form ({k}=1) is not ported "
-                            f"to torch yet (ROADMAP A6)")
+                            f"to torch yet (ROADMAP A3)")
         return _cudnn_conv(rfs)
 
 

@@ -149,8 +149,8 @@ def takes_device(fn):
 
 
 def _load_templates() -> None:
-    from .cuda import (conv, elementwise, gen_data, pool,  # noqa: F401
-                       qsgemm, resblock, sgemm, softmax, stem, tconv)
+    from .cuda import (conv, conv2, elementwise, gen_data,  # noqa: F401
+                       pool, qsgemm, resblock, sgemm, softmax, stem, tconv)
 
 
 def all_templates() -> dict[str, type[KernelTemplate]]:

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the boda_tpu_torch port on one CUDA card.
 
-    python3 chip_smoke.py [--phases env,build,kernels,...]
+    python3 chip_smoke.py [--phases env,build,kernels,...] [--kernels fused_stem,...]
 
 Phases, run in order, each fatal on failure (all of them by default):
   env      card name and power limit (nvidia-smi), torch / CUDA / nvcc versions
@@ -14,7 +14,13 @@ Phases, run in order, each fatal on failure (all of them by default):
            with edges for split-K at M=1, K not a multiple of 8 (the
            element-staging variant) and offsets past 2^31; the fused_stem
            template's NCHW f32 and NHWC-storage bf16 forms against the bare
-           kernel; resblock's plan (route, band rows, cluster, tile) for
+           kernel, fused_stem's plan (route, tile, blocks) for each case, a
+           bf16 output held bit-equal to the same kernel's f32 output rounded
+           after, and edges for what its routes mask (oc = 8 and 72, C = 3, 4
+           and 5, rows staged element by element, an image smaller than a
+           tile, pooled extents no tile divides, forced 7x8 and 4x16 tiles,
+           f32 out of bf16, stride 1 with bf16 on the FFMA route, a 5x5
+           filter under a 2x2 pool); resblock's plan (route, band rows, cluster, tile) for
            each case, with edges on the tensor-core route (bands that do
            not divide H, no output ReLU, f32 out of bf16, a cluster with a
            ragged last band) and on the FFMA route (ragged channels);
@@ -36,23 +42,39 @@ Phases, run in order, each fatal on failure (all of them by default):
            res4/res5 1x1 shapes (what matmul_plan's split rule rests on),
            and the resblock kernel alone by cluster size, tile and band
            rows at the four ResNet-50 stages, each result checked against
-           the plain version (what resblock_plan's estimate rests on)
-  digests  TorchFwd at batch 1 under the f32 tune and the fused f32 tune
-           against the per-node digest archives recorded on a TPU
+           the plain version (what resblock_plan's estimate rests on), and
+           the fused_stem kernel alone by tile at conv1 + pool1, batch 32
+           and 1 (what stem_plan's estimate rests on; its shared-memory sum
+           and blocks per SM must equal the kernel's own). --kernels cuts
+           the phase down to the named kernels
+  vendor   the vendor conv template under prec=bf16 with NHWC bf16 storage
+           at the 21 ResNet-50 b32 conv sigs: its result comes back
+           channels_last (no permute copy around the step) and agrees with
+           the f64 conv of the rounded operands (mrd 5e-3); beside it, timed
+           and used nowhere in the port, the bf16 cuDNN form that rounds the
+           sum before the bias: its mrd against the template, the share of
+           stored values it moves, its time
+  digests  TorchFwd at batch 1 under the f32 tune, the fused f32 tune and
+           the f32 twin of the headline tune (vendor convs, sibling convs
+           fused into xla_conv2) against the per-node digest archives recorded on a TPU
            (tests/data/tpu_digests): resnet-50@shapes40 (trained weights,
            mrd 3e-3) and resnet-50 (zoo weights, mrd 8e-3); a fused plan is
            compared on the nodes it produces
   agree    cls_agree on 64 held-out shapes-src images with the trained
-           40-class ResNet-50, against the f32 tune: the bf16+NHWC tune and
-           the fused bf16+NHWC tune, top-1 >= 0.90 each and top-1 agreement
+           40-class ResNet-50, against the f32 tune: the bf16+NHWC tune, the
+           fused bf16+NHWC tune and the headline tune (use_culibs=1, bf16,
+           NHWC, fuse_siblings=1), top-1 >= 0.90 each and top-1 agreement
            >= 0.97
-  full     run_cnet on the 1000-class ResNet-50 at batch 32 under the four
-           tunes: kernel launch counts per forward (unfused: 40 matmul_ext,
-           13 tconv; fused: 14 matmul_ext, 3 tconv, 1 fused_stem, 12
-           resblock; no sgemm_int8), finite softmax rows, ms per forward and
-           imgs/s, the card's busy time in one more forward (torch.profiler)
-           and so its idle share, and each template's summed step time over
-           one more forward (CUDA events around each step)
+  full     run_cnet on the 1000-class ResNet-50 at batch 32 under those three
+           tunes' forms and the two f32 ones (five tunes): kernel launch
+           counts per forward, exact and equal to what the plan's steps send
+           to each hand kernel (unfused: 40 matmul_ext, 13 tconv; fused: 14
+           matmul_ext, 3 tconv, 1 fused_stem, 12 resblock; headline: none,
+           with 4 xla_conv2 steps; no sgemm_int8), finite softmax rows, ms
+           per forward and imgs/s, the card's busy time in one more forward
+           (torch.profiler) and so its idle share, and each template's
+           summed step time over one more forward (CUDA events around each
+           step); then one forward time of the headline tune at batch 128
   ops_prof the per-op path (mode torch_ops_prof, be=torch): the vendor
            sgemm under prec=bf16 returns the unrounded f32 product; the six
            square SGEMMs of tests/data/ops/sgemm-baseline.txt (128^3-4096^3) under
@@ -77,8 +99,9 @@ case with the largest bound; "library_ms" is null for fused_stem and
 resblock, which no single PyTorch call computes, and
 "library_sequence_ms" holds the time of the sequence of calls that does;
 "max_abs_err": over every checked shape; "cases": each timed case), the
-b32 forward times, the card's busy time in a forward, and the
-per-template step times; and {"ok": true,
+b32 forward times (and the headline tune's at b128), the card's busy time in
+a forward, the per-template step times and the vendor phase's two sums;
+and {"ok": true,
 "device": {...}}. Without a CUDA device, or outside a checkout of the
 repo, it exits non-zero and prints no result. It imports neither jax nor
 the JAX package boda_tpu.
@@ -105,14 +128,29 @@ TRAINED = DATA / "resnet50-shapes40.boda"
 FUSED = "fuse_stem=1,fuse_resblock=1"
 TUNES = {"f32": "()", "bf16_nhwc": "(prec=bf16,layout=nhwc)",
          "fused_f32": f"({FUSED})",
-         "fused_bf16_nhwc": f"(prec=bf16,layout=nhwc,{FUSED})"}
+         "fused_bf16_nhwc": f"(prec=bf16,layout=nhwc,{FUSED})",
+         # the vendor tune the JAX bench times (bench.py's headline: every
+         # conv on the vendor library, sibling convs fused into xla_conv2),
+         # and its f32 twin, which the digest archives can be held to
+         "headline": "(use_culibs=1,prec=bf16,layout=nhwc,s2d=0,"
+                     "fuse_siblings=1)",
+         "sib_f32": "(use_culibs=1,fuse_siblings=1,s2d=0)"}
+# the tunes whose b32 forward the `full` phase runs and times
+FULL_TUNES = ("f32", "bf16_nhwc", "fused_f32", "fused_bf16_nhwc", "headline")
 # exact kernel launches per ResNet-50 forward under each tune
 UNFUSED_LAUNCHES = {"matmul_ext": 40, "tconv": 13, "fused_stem": 0,
                     "resblock": 0, "sgemm_int8": 0, "quantize": 0}
 FUSED_LAUNCHES = {"matmul_ext": 14, "tconv": 3, "fused_stem": 1,
                   "resblock": 12, "sgemm_int8": 0, "quantize": 0}
+VENDOR_LAUNCHES = dict.fromkeys(UNFUSED_LAUNCHES, 0)
 LAUNCHES = {"f32": UNFUSED_LAUNCHES, "bf16_nhwc": UNFUSED_LAUNCHES,
-            "fused_f32": FUSED_LAUNCHES, "fused_bf16_nhwc": FUSED_LAUNCHES}
+            "fused_f32": FUSED_LAUNCHES, "fused_bf16_nhwc": FUSED_LAUNCHES,
+            "headline": VENDOR_LAUNCHES}
+# the hand kernel each template launches once per step (the vendor
+# templates xla_conv, xla_conv2, s2d_conv and the plain-torch ones launch none)
+TEMPLATE_KERNEL = {"k1conv": "matmul_ext", "conv": "matmul_ext",
+                   "ipconv": "matmul_ext", "tconv": "tconv",
+                   "fused_stem": "fused_stem", "resblock": "resblock"}
 # each kernel's own main path: the tune whose forward runs it, or the
 # per-op sweep (ops_prof's int8 sgemm run) for sgemm_int8
 KERNEL_PATH = {"matmul_ext": "f32", "tconv": "f32",
@@ -223,7 +261,8 @@ def phase_build(ctx: dict) -> None:
     lib, secs, log = build.build_library()
     print(f"build: {lib.name} in {secs:.1f} s")
     for ln in log.splitlines():
-        if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+        if "registers" in ln or "spill" in ln or "Compiling entry" in ln \
+                or "warning" in ln.lower():
             print(f"  ptxas: {ln.strip()}")
     build.load_kernels()
 
@@ -297,6 +336,37 @@ def _edge_cases():
          dict(n=2, H=48, W=40, C=3, oc=8, bias=False)),
         ("edge stem n=1 58^2 oc=16", "fused_stem",
          dict(n=1, H=58, W=58, C=3, oc=16)),
+        # what the routes mask: two blocks of output channels, the second
+        # ragged; C = 5 (filter rows of 35 values, padded to 48 on the
+        # tensor cores); rows that are no 16-byte multiples (patches staged
+        # element by element); an image smaller than one tile; a pooled
+        # extent no tile divides; f32 out of bf16 in; stride 1, which in
+        # bf16 cannot take the tensor cores (the FFMA route on bf16); a 5x5
+        # filter under a 2x2 pool
+        ("edge stem n=2 40x36 oc=72", "fused_stem",
+         dict(n=2, H=40, W=36, C=3, oc=72)),
+        ("edge stem n=2 30x34 C=5 oc=24", "fused_stem",
+         dict(n=2, H=30, W=34, C=5, oc=24)),
+        ("edge stem n=1 21x19 oc=8", "fused_stem",
+         dict(n=1, H=21, W=19, C=3, oc=8)),
+        ("edge stem n=3 12^2 oc=64", "fused_stem",
+         dict(n=3, H=12, W=12, C=3, oc=64)),
+        ("edge stem n=2 70x94 oc=40", "fused_stem",
+         dict(n=2, H=70, W=94, C=3, oc=40)),
+        ("edge stem f32 out n=2 64^2 oc=64", "fused_stem",
+         dict(n=2, H=64, W=64, C=3, oc=64, out_f32=True)),
+        # a forced tile (ty, tx) instead of the plan's small ones
+        ("edge stem tile 7x8 n=2 70x94 oc=40", "fused_stem",
+         dict(n=2, H=70, W=94, C=3, oc=40, force=(7, 8))),
+        ("edge stem tile 7x8 n=3 12^2 oc=64", "fused_stem",
+         dict(n=3, H=12, W=12, C=3, oc=64, force=(7, 8))),
+        ("edge stem tile 4x16 n=2 40x36 oc=72", "fused_stem",
+         dict(n=2, H=40, W=36, C=3, oc=72, force=(4, 16))),
+        ("edge stem stride 1 n=2 20x24 oc=16", "fused_stem",
+         dict(n=2, H=20, W=24, C=3, oc=16, stride=1)),
+        ("edge stem 5x5 pad 2 pool 2x2 n=2 32^2 C=4 oc=32", "fused_stem",
+         dict(n=2, H=32, W=32, C=4, oc=32, k=5, pad=2,
+              pool=((2, 2), (2, 2)))),
         # tests/test_resblock.py:150-151, and one without the output ReLU
         ("edge resblock n=1 10^2 C=16 Cm=8", "resblock",
          dict(n=1, H=10, W=10, C=16, Cm=8)),
@@ -352,11 +422,20 @@ def _kernel_args(kname, kw, dt, dev, gen):
         fns, plain = tconv, tconv_plain
     elif kname == "fused_stem":
         n, H, W, C, oc = kw["n"], kw["H"], kw["W"], kw["C"], kw["oc"]
+        k, pad, st = kw.get("k", 7), kw.get("pad", 3), kw.get("stride", 2)
         bias = torch.randn(oc, device=dev, generator=gen) \
             if kw.get("bias", True) else None
-        args = (randn(n, H, W, C), randn(oc, C, 7, 7, scale=(49 * C) ** -0.5),
-                bias, (3, 3), ((3, 3), (2, 2)), True)
-        fns, plain = fused_stem, fused_stem_plain
+        args = (randn(n, H, W, C), randn(oc, C, k, k, scale=(k * k * C) ** -0.5),
+                bias, (pad, pad), kw.get("pool", ((3, 3), (2, 2))), True)
+
+        def fns(*a, **k2):
+            return fused_stem(*a, stride=(st, st), **k2)
+
+        def plain(*a, **k2):
+            return fused_stem_plain(*a, stride=(st, st), **k2)
+        if "force" in kw:
+            def fns(*a, out_dtype):
+                return _stem_forced_case(a, out_dtype, kw["force"])
     else:
         n, H, W, C, Cm = kw["n"], kw["H"], kw["W"], kw["C"], kw["Cm"]
         args = (randn(n, H, W, C), randn(Cm, C, scale=C ** -0.5),
@@ -415,6 +494,7 @@ def _work(kname, args, out) -> int:
         _oc, ky, kx, C = args[1].shape
         return 2 * out.numel() * ky * kx * C
     if kname == "fused_stem":
+        # of the timed case, ResNet's conv1: 7x7 at stride 2
         x, w = args[:2]
         n, H, W, C = x.shape
         (py, px), (sy, sx) = args[3], (2, 2)
@@ -500,7 +580,7 @@ def _add_case(s: dict, case: dict) -> None:
     s["cases"].append(case)
 
 
-def _check_stem_template(args, dt, got) -> str:
+def _check_stem_template(args, kw, dt, got) -> str:
     """The fused_stem template in the form each main path runs it (f32:
     NCHW in and out; bf16: NHWC bf16-edge storage) on the same operands
     must give the bare kernel's output exactly."""
@@ -509,7 +589,10 @@ def _check_stem_template(args, dt, got) -> str:
     from boda_tpu_torch.ops.registry import get_template
     x, w, bias = args[:3]
     n, H, W, C = x.shape
-    op = make_stem_op(n, C, H, W, w.shape[0], bias=bias is not None)
+    (pk, _), (ps, _) = kw.get("pool", ((3, 3), (2, 2)))
+    op = make_stem_op(n, C, H, W, w.shape[0], k=kw.get("k", 7),
+                      s=kw.get("stride", 2), p=kw.get("pad", 3), pool_k=pk,
+                      pool_s=ps, bias=bias is not None)
     if dt == torch.bfloat16:
         op.str_vals.update(prec="bf16", io_layout="nhwc", edge_prec="bf16")
     t = get_template("fused_stem")
@@ -626,9 +709,16 @@ def phase_kernels(ctx: dict) -> None:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)
     stats: dict[str, dict] = {}
-    _check_qsgemm(stats, dev, gen, peaks)
+    only = ctx.get("only_kernels")
+
+    def wanted(kname):
+        return not only or kname in only
+    if wanted("sgemm_int8"):
+        _check_qsgemm(stats, dev, gen, peaks)
     timed = {c[0] for c in _kernel_cases()}
     for label, kname, kw in _kernel_cases() + _edge_cases():
+        if not wanted(kname):
+            continue
         for dt in (torch.float32, torch.bfloat16):
             (run_k, run_p, ref), args = _kernel_args(kname, kw, dt, dev, gen)
             got = run_k()
@@ -645,8 +735,12 @@ def phase_kernels(ctx: dict) -> None:
             check(err <= toler, f"{kname} {label} {dt}: mrd {err:.3e} > "
                                 f"{toler:g}")
             if kname == "fused_stem":
-                print(f" template {_check_stem_template(args, dt, got)} "
-                      f"exact", end="")
+                if not kw.get("out_f32"):
+                    print(f" template "
+                          f"{_check_stem_template(args, kw, dt, got)} exact",
+                          end="")
+                print(f" {_check_stem_rounding(args, kw, dt, got, sms)}",
+                      end="")
             if kname == "matmul_ext":
                 print(f" {_matmul_plan_str(args, sms)}", end="")
             if kname == "resblock":
@@ -678,12 +772,56 @@ def phase_kernels(ctx: dict) -> None:
                 case["plan"] = _matmul_plan_str(args, sms)
             if kname == "resblock":
                 case["plan"] = _resblock_plan_str(args, sms)
+            if kname == "fused_stem":
+                case["plan"] = _stem_plan_str(args, kw, got.dtype, sms)
             _add_case(s, case)
             del args, got, want, lib, run_k, run_p, ref
     ctx["kernels"] = stats
-    _tconv_splits(dev)
-    _matmul_splits(dev)
-    _resblock_plans(dev, gen)
+    if wanted("tconv"):
+        _tconv_splits(dev)
+    if wanted("matmul_ext"):
+        _matmul_splits(dev)
+    if wanted("resblock"):
+        _resblock_plans(dev, gen)
+    if wanted("fused_stem"):
+        _stem_plans(dev, gen)
+
+
+def _stem_plan_of(args, kw, out_dtype, sms: int):
+    from boda_tpu_torch.ops.cuda.stem import stem_plan
+    x, w, _bias, pad, pool = args[:5]
+    n, H, W, C = x.shape
+    st = kw.get("stride", 2)
+    return stem_plan(n, H, W, C, w.shape[0], x.element_size(), sms,
+                     tuple(w.shape[2:]), (st, st), pad, pool,
+                     out_dtype.itemsize)
+
+
+def _stem_plan_str(args, kw, out_dtype, sms: int) -> str:
+    """fused_stem's plan for a case: its route (and why bf16 left the
+    tensor cores), tile, persistent blocks and blocks per SM."""
+    p = _stem_plan_of(args, kw, out_dtype, sms)
+    return (f"plan {p.route} tile {p.ty}x{p.tx} blocks {p.blocks} "
+            f"({p.per_sm} per SM)"
+            f"{'' if p.vec else ' element-staged'}"
+            f"{' [' + p.why + ']' if p.why else ''}")
+
+
+def _check_stem_rounding(args, kw, dt, got, sms: int) -> str:
+    """The plan of a fused_stem case; and, for a bf16 output, that pooling
+    the conv tile in bf16 is bit-equal to pooling it in f32 and rounding
+    after: the same kernel with an f32 output, rounded to bf16."""
+    import torch
+    from boda_tpu_torch.ops.cuda.stem import fused_stem
+    plan = _stem_plan_str(args, kw, got.dtype, sms)
+    if got.dtype != torch.bfloat16:
+        return plan
+    st = kw.get("stride", 2)
+    wide = fused_stem(*args, out_dtype=torch.float32, stride=(st, st))
+    check(torch.equal(wide.bfloat16(), got),
+          "fused_stem: a bf16 output pooled in bf16 differs from the f32 "
+          "output rounded to bf16")
+    return plan + " bf16 pool bit-equal to f32 pool + rounding"
 
 
 def _resblock_plan_str(args, sms: int, force=None) -> str:
@@ -875,6 +1013,208 @@ def _resblock_plans(dev, gen) -> None:
             del args, want, out
 
 
+# (ty, tx): tiles of pooled outputs the `stem plan` sweep times
+STEM_PLAN_TILES = [(7, 8), (4, 8), (3, 8), (2, 8), (7, 4), (4, 4), (4, 16),
+                   (3, 16), (2, 16), (6, 4), (8, 8)]
+
+
+def _stem_forced(args, out, plan, ty, tx, wk):
+    """The fused_stem kernel through its C entry point under a given tile
+    instead of stem_plan's choice, with wk as the room for the reordered
+    filter; the rest follows `plan`."""
+    import torch
+    from boda_tpu_torch.ops.cuda.build import load_kernels
+    x, w, bias, pad, pool = args[:5]
+    n, H, W, C = x.shape
+    oc, _, ky, kx = w.shape
+    rc = load_kernels().boda_fused_stem(
+        x.data_ptr(), w.data_ptr(), wk.data_ptr(), bias.data_ptr(),
+        out.data_ptr(),
+        n, H, W, C, oc, ky, kx, 2, 2, pad[0], pad[1], pool[0][0], pool[0][1],
+        pool[1][0], pool[1][1], out.shape[1], out.shape[2], ty, tx,
+        int(plan.route == "mma"), int(plan.vec), plan.Kp,
+        plan.blocks, int(x.dtype == torch.bfloat16),
+        int(out.dtype == torch.bfloat16), 1,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    check(rc == 0, f"fused_stem forced tile {ty}x{tx}: launch failed with "
+                   f"cudaError {rc}")
+    return out
+
+
+def _stem_forced_case(args, out_dtype, force):
+    """A fused_stem case (7x7/s2, 3x3/s2 pool) under a forced tile (ty,
+    tx); route, copies and filter layout as the plan has them."""
+    import torch
+    from boda_tpu_torch.ops.cuda.stem import fused_stem_plain, plan_candidate, \
+        stem_filter
+    x, w = args[:2]
+    n, H, W, C = x.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    cand = plan_candidate(n, H, W, C, w.shape[0], x.element_size(), sms,
+                          (7, 7), (2, 2), (3, 3), ((3, 3), (2, 2)),
+                          out_dtype.itemsize, *force)
+    check(cand is not None, f"fused_stem forced {force}: does not fit")
+    plan = cand[1]
+    shape = fused_stem_plain(*args).shape
+    out = torch.empty(shape, device=x.device, dtype=out_dtype)
+    wk = torch.empty_like(stem_filter(w, plan.lead, plan.KR, plan.Kp))
+    _stem_forced(args, out, plan, *force, wk)
+    check(torch.equal(wk, stem_filter(w, plan.lead, plan.KR, plan.Kp)),
+          f"fused_stem forced {force}: the kernel's filter reorder differs "
+          f"from stem_filter")
+    return out
+
+
+def _stem_plans(dev, gen) -> None:
+    """The fused_stem launches alone (the filter reorder and the stem
+    kernel, buffers allocated once) by tile at ResNet-50's conv1 + pool1,
+    batch 32 and 1,
+    for the planner's estimate: each candidate that fits runs through the C
+    entry point, is held against the plain version (f32 mrd 1e-4, bf16
+    5e-3) and is timed beside the plan's estimate in microseconds and the
+    blocks of it an SM holds (the card's occupancy query, which the plan's
+    own count must equal, as its shared-memory sum must the kernel's)."""
+    import torch
+    from boda_tpu_torch.ops.cuda.build import load_kernels
+    from boda_tpu_torch.ops.cuda.stem import fused_stem_plain, \
+        plan_candidate, stem_filter, stem_plan
+    lib = load_kernels()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n in (32, 1):
+        for dt in (torch.float32, torch.bfloat16):
+            kw = dict(n=n, H=224, W=224, C=3, oc=64)
+            _, args = _kernel_args("fused_stem", kw, dt, dev, gen)
+            x, w = args[:2]
+            es = x.element_size()
+            want = fused_stem_plain(*args)
+            geom = ((7, 7), (2, 2), (3, 3), ((3, 3), (2, 2)), es)
+            plan = stem_plan(n, 224, 224, 3, 64, es, sms)
+            wk_want = stem_filter(w, plan.lead, plan.KR, plan.Kp)
+            wk = torch.zeros_like(wk_want)
+            out = torch.empty(n, 56, 56, 64, device=dev, dtype=dt)
+            toler = F32_MRD if dt == torch.float32 else BF16_MRD
+            bf = int(dt == torch.bfloat16)
+            best, row = None, []
+            for ty, tx in sorted(set(STEM_PLAN_TILES) | {(plan.ty, plan.tx)}):
+                cand = plan_candidate(n, 224, 224, 3, 64, es, sms, *geom, ty,
+                                      tx)
+                if cand is None:
+                    continue
+                est, cp = cand
+                q = (224, 224, 3, 64, 7, 7, 2, 2, 3, 3, 3, 3, 2, 2, 56, 56,
+                     ty, tx, int(cp.route == "mma"), int(cp.vec), cp.Kp, bf,
+                     bf)
+                smem = lib.boda_fused_stem_smem(*q)
+                per_sm = lib.boda_fused_stem_blocks_per_sm(*q)
+                check((smem, per_sm) == (cp.smem, cp.per_sm),
+                      f"fused_stem {ty}x{tx} {dt}: the plan counts {cp.smem} "
+                      f"bytes and {cp.per_sm} blocks per SM, the kernel "
+                      f"{smem} and {per_sm}")
+                out.zero_()
+                _stem_forced(args, out, cp, ty, tx, wk)
+                torch.cuda.synchronize()
+                err = mrd(out, want)
+                check(err <= toler, f"fused_stem n={n} {dt} tile {ty}x{tx}: "
+                                    f"mrd {err:.3e} > {toler:g}")
+                check(torch.equal(wk, wk_want), "fused_stem: the kernel's "
+                      "filter reorder differs from stem_filter")
+                ms = cuda_ms(lambda: _stem_forced(args, out, cp, ty, tx, wk),
+                             20)
+                row.append(f"{ty}x{tx}: {ms:.4f} ({est:.0f}; {per_sm})")
+                if best is None or ms < best[0]:
+                    best = (ms, ty, tx)
+            print(f"stem plan n={n} 224^2 3->64 {str(dt)[6:]} {plan.route}: "
+                  f"ms (estimated us; blocks per SM) by tile "
+                  + " ".join(row), flush=True)
+            print(f"stem plan n={n} 224^2 3->64 {str(dt)[6:]}: planned "
+                  f"{plan.ty}x{plan.tx} blocks {plan.blocks} on {sms} SMs; "
+                  f"fastest {best[0]:.4f} ms at {best[1]}x{best[2]}",
+                  flush=True)
+            del args, want, out
+
+
+def phase_vendor(ctx: dict) -> None:
+    """The vendor conv under prec=bf16 with NHWC bf16 storage at the 21
+    ResNet-50 b32 conv sigs: the template's form (F.conv2d in FP32 on the
+    bf16-rounded operands, channels_last) must come back channels_last (no
+    permute copy around the step) and agree with the f64 conv of the rounded
+    operands after the one rounding of the store; beside it, timed here and
+    used nowhere in the port, the bf16 cuDNN form that rounds the sum before
+    the bias: its mrd against the template's result, the share of stored
+    values it moves, and its time."""
+    import torch
+    import torch.nn.functional as F
+    from boda_tpu_torch.ops.cuda.conv import conv_params, vendor_conv
+    from boda_tpu_torch.ops.op_base import read_op_sigs
+    from boda_tpu_torch.ops.registry import get_template
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cl = torch.channels_last
+    tot = {"fp32": 0.0, "bf16": 0.0}
+    worst = (0.0, 0.0)
+    ops = read_op_sigs(DATA / "ops" / "resnet50-convs.txt")
+    for op in ops:
+        ind, outd, fd, sy, sx, py, px, relu = conv_params(op)
+        n, C, H, W = ind.shape
+        oc, _, ky, kx = fd.shape
+        x = torch.randn(n, H, W, C, device=dev, generator=gen).bfloat16()
+        w = torch.randn(oc, C, ky, kx, device=dev, generator=gen) \
+            * (C * ky * kx) ** -0.5
+        b = torch.randn(oc, device=dev, generator=gen) * 0.5
+        top = op.copy()
+        top.set_func_name("xla_conv")
+        top.str_vals.update(prec="bf16", io_layout="nhwc", edge_prec="bf16")
+        t = get_template("xla_conv")
+        fn = t.build(t.check_args(top))
+        got = fn(x, w, b)
+        y = vendor_conv((sy, sx), (py, px), torch.bfloat16, True)(x, w, b)
+        check(y.is_contiguous(memory_format=cl) and got.is_contiguous()
+              and got.dtype == torch.bfloat16,
+              f"vendor {_op_label(op)}: the conv's result is not "
+              f"channels_last, or the step's output not contiguous NHWC")
+        xc = x.permute(0, 3, 1, 2)
+        want = F.conv2d(xc.double(), w.bfloat16().double(), b.double(),
+                        stride=(sy, sx), padding=(py, px))
+        want = (torch.relu(want) if relu else want).permute(0, 2, 3, 1)
+        err = mrd(got, want)
+        check(err <= BF16_MRD, f"vendor {_op_label(op)}: mrd {err:.3e}")
+        wb = w.bfloat16().contiguous(memory_format=cl)
+
+        def bf16_form():
+            z = F.conv2d(xc, wb, stride=(sy, sx), padding=(py, px)) \
+                + b[None, :, None, None]
+            z = torch.relu(z) if relu else z
+            return z.bfloat16().permute(0, 2, 3, 1).contiguous()
+        alt = bf16_form()
+        alt_err = mrd(alt, got)
+        moved = float((alt != got).float().mean())
+        ms = cuda_ms(lambda: fn(x, w, b), 5)
+        alt_ms = cuda_ms(bf16_form, 5)
+        if (ky, sy, C) == (3, 1, 256):
+            # the device kernels of one step (res4's 3x3), by name
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn(x, w, b)
+                torch.cuda.synchronize()
+            profiled = _op_label(op)
+        tot["fp32"] += ms
+        tot["bf16"] += alt_ms
+        worst = max(worst, (alt_err, moved))
+        print(f"vendor {_op_label(op):34s} template (FP32 on rounded "
+              f"operands, channels_last) mrd {err:.3e} vs f64, {ms:.4f} ms; "
+              f"bf16 cuDNN form mrd {alt_err:.3e} vs the template, moves "
+              f"{100 * moved:.1f}% of the stored values, {alt_ms:.4f} ms")
+    print(f"vendor: {len(ops)} sigs; template {tot['fp32']:.3f} ms, bf16 "
+          f"cuDNN form {tot['bf16']:.3f} ms; the bf16 form's largest mrd "
+          f"against the template {worst[0]:.3e} (gate 5e-3), moving "
+          f"{100 * worst[1]:.1f}% of the values there, on [{ctx['smi']}]")
+    print(f"vendor {profiled}: device kernels of one step: "
+          + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.4f} ms"
+                      for e in prof.key_averages()
+                      if e.self_device_time_total > 0))
+    ctx["vendor_ms"] = tot
+
+
 def _nodes_to_get(pipe):
     return [n for n, nd in pipe.nodes.items()
             if nd.dims is not None and nd.top_for]
@@ -893,7 +1233,7 @@ def phase_digests(ctx: dict) -> None:
             ("resnet-50", {}, None, 8e-3)):
         kg = read_digest_stream(DATA / "tpu_digests" / archive /
                                 "digest-rtc.boda")
-        for tune_name in ("f32", "fused_f32"):
+        for tune_name in ("f32", "fused_f32", "sib_f32"):
             t0 = time.perf_counter()
             pipe = build_model("resnet-50", batch=1, **kw)
             if wfn is not None:
@@ -954,7 +1294,7 @@ def _cls_agree(tune_a: str, tune_b: str) -> dict:
 
 
 def phase_agree(ctx: dict) -> None:
-    for tune_a in ("bf16_nhwc", "fused_bf16_nhwc"):
+    for tune_a in ("bf16_nhwc", "fused_bf16_nhwc", "headline"):
         _cls_agree(tune_a, "f32")
 
 
@@ -1146,7 +1486,8 @@ def phase_full(ctx: dict) -> None:
     wrappers = _wrappers()
     batch = 32
     launches = ctx.setdefault("launches", {})
-    for tune_name, tune in TUNES.items():
+    for tune_name in FULL_TUNES:
+        tune = TUNES[tune_name]
         buf = io.StringIO()
         for w in wrappers.values():
             w.launches = 0
@@ -1169,6 +1510,16 @@ def phase_full(ctx: dict) -> None:
         for s in eng.plan.steps:
             steps[s.func_name] = steps.get(s.func_name, 0) + 1
         print(f"  steps: {steps}")
+        # what the lowering sent where: one launch per step of a template
+        # that wraps a hand kernel
+        planned = dict.fromkeys(counts, 0)
+        for f, k in steps.items():
+            if f in TEMPLATE_KERNEL:
+                planned[TEMPLATE_KERNEL[f]] += k
+        check(counts == planned, f"run_cnet {tune_name}: launches {counts} "
+                                 f"!= the plan's steps {planned}")
+        check(("xla_conv2" in steps) == ("fuse_siblings" in tune),
+              f"run_cnet {tune_name}: xla_conv2 steps {steps}")
         pipe = hm.pipe
         d = pipe.get_data_img_dims()
         data = pipe.data_img_node_names[0]
@@ -1205,11 +1556,41 @@ def phase_full(ctx: dict) -> None:
             f: {"steps": n, "ms": t} for f, (n, t) in per.items()}
         del hm, eng
         torch.cuda.empty_cache()
+    _headline_b128(ctx)
+
+
+def _headline_b128(ctx: dict) -> None:
+    """One forward time of the headline tune at the JAX bench's batch, 128
+    (zoo weights from a seed; CUDA events, 5 reps)."""
+    import torch
+    from boda_tpu_torch.engine.iface import make_engine
+    from boda_tpu_torch.models.zoo import build_model
+    batch = 128
+    pipe = build_model("resnet-50", batch=batch)
+    eng = make_engine(f"(engine=torch,op_tune={TUNES['headline']})")
+    eng.init(pipe)
+    data = pipe.data_img_node_names[0]
+    top = pipe.get_single_top_node().name
+    gen = torch.Generator(device=eng.dev).manual_seed(1)
+    x = torch.randn(tuple(pipe.get_data_img_dims().shape), device=eng.dev,
+                    generator=gen)
+    with torch.inference_mode():
+        def fwd():
+            return eng.fwd({data: x}, eng.weights)[top]
+        p = fwd().float()
+        ms = cuda_ms(fwd, 5)
+    check(tuple(p.shape) == (batch, 1000, 1, 1) and
+          bool(torch.isfinite(p).all()), "headline b128: bad prob")
+    print(f"run_cnet resnet-50 b{batch} headline: forward {ms:.3f} ms = "
+          f"{batch / ms * 1e3:.1f} imgs/s on [{ctx['smi']}]")
+    ctx["fwd_ms_b128"] = {"headline": ms}
+    del eng
+    torch.cuda.empty_cache()
 
 
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
-          "digests": phase_digests, "agree": phase_agree, "full": phase_full,
-          "ops_prof": phase_ops_prof}
+          "vendor": phase_vendor, "digests": phase_digests,
+          "agree": phase_agree, "full": phase_full, "ops_prof": phase_ops_prof}
 
 
 def main() -> int:
@@ -1217,10 +1598,19 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma-separated phases to run, in order (default: "
                          "all; the result lines need all)")
-    phases = ap.parse_args().phases.split(",")
+    ap.add_argument("--kernels", default="",
+                    help="comma-separated kernels the kernels phase is cut "
+                         "down to (matmul_ext, tconv, fused_stem, resblock, "
+                         "sgemm_int8); no result lines then")
+    opts = ap.parse_args()
+    phases = opts.phases.split(",")
     unknown = [p for p in phases if p not in PHASES]
     if unknown:
         ap.error(f"unknown phases {unknown} (have: {','.join(PHASES)})")
+    only_kernels = [k for k in opts.kernels.split(",") if k]
+    unknown = [k for k in only_kernels if k not in SOURCES]
+    if unknown:
+        ap.error(f"unknown kernels {unknown} (have: {','.join(SOURCES)})")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: no card, "
@@ -1238,7 +1628,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    ctx: dict = {"smi": smi_line()}
+    ctx: dict = {"smi": smi_line(), "only_kernels": only_kernels}
     for name in phases:
         t0 = time.perf_counter()
         print(f"== phase {name}", flush=True)
@@ -1248,9 +1638,10 @@ def main() -> int:
     for pkg in ("jax", "boda_tpu"):
         if pkg in sys.modules:
             raise SmokeFailure(f"{pkg} was imported")
-    if phases != list(PHASES):
-        print(f"chip_smoke: phases {phases} passed; no result without all "
-              f"of them")
+    if phases != list(PHASES) or only_kernels:
+        print(f"chip_smoke: phases {phases} passed"
+              f"{' for kernels ' + str(only_kernels) if only_kernels else ''}"
+              f"; no result without all of them")
         return 0
 
     kernels = []
@@ -1264,8 +1655,10 @@ def main() -> int:
     print(smi_line())
     print(json.dumps({"kernels": kernels,
                       "forward_ms_b32": ctx["fwd_ms"],
+                      "forward_ms_b128": ctx["fwd_ms_b128"],
                       "device_busy_ms_b32": ctx["busy_ms"],
-                      "template_ms_b32": ctx["template_ms"]}))
+                      "template_ms_b32": ctx["template_ms"],
+                      "vendor_conv_ms_b32": ctx["vendor_ms"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -118,5 +118,5 @@ def test_xla_conv_refuses_the_int8_forms(key):
     op = _port_op(_op("xla_conv-3x3-s1", "nchw"))
     op.set_u32(key, 1)
     pt = get_template("xla_conv")
-    with pytest.raises(RtErr, match=f"int8 form \\({key}=1\\).*ROADMAP A6"):
+    with pytest.raises(RtErr, match=f"int8 form \\({key}=1\\).*ROADMAP A3"):
         pt.build(op)

@@ -1,7 +1,7 @@
 """The port's own copies of the op variants, lowering, template metadata
 and wisdom agree with the JAX package's, string for string: for every step
-of ResNet-50 lowered under the unfused f32 tune, the bf16 NHWC tune and
-the fused tune, and for every op sig of tests/data/ops/*.txt under the
+of ResNet-50 lowered under the unfused f32 tune, the bf16 NHWC tune, the
+fused tunes and the two fuse_siblings vendor tunes, and for every op sig of tests/data/ops/*.txt under the
 tunes the per-op sweeps use, both packages pick the same template, reduce
 the sig to the same signature, name the same instance and give the same
 wisdom key and wisdom record.
@@ -34,7 +34,11 @@ from boda_tpu_torch.tune import wisdom
 OPS = Path(__file__).parent / "data" / "ops"
 NET_TUNES = ["()", "(prec=bf16,layout=nhwc)",
              "(fuse_stem=1,fuse_resblock=1)",
-             "(prec=bf16,layout=nhwc,fuse_stem=1,fuse_resblock=1)"]
+             "(prec=bf16,layout=nhwc,fuse_stem=1,fuse_resblock=1)",
+             # the vendor tunes with sibling convs fused (xla_conv2): the
+             # f32 twin and the tune the JAX bench times
+             "(use_culibs=1,fuse_siblings=1,s2d=0)",
+             "(use_culibs=1,prec=bf16,layout=nhwc,s2d=0,fuse_siblings=1)"]
 SIG_TUNES = ["()", "(prec=bf16,layout=nhwc)", "(use_culibs=1)",
              "(prec=int8)"]
 # sig-file templates of the JAX package that no path of the port runs
@@ -97,7 +101,8 @@ def test_resnet50_plans_agree(tune, batch):
         assert (s.call_tag, s.arg_nodes) == (js.call_tag, js.arg_nodes)
         funcs.add(_same(s.sig, js.sig, cg, jcg))
     assert funcs <= set(all_templates())
-    assert "tconv" in funcs
+    assert ("tconv" in funcs) == ("use_culibs" not in tune)
+    assert ("xla_conv2" in funcs) == ("fuse_siblings" in tune)
     assert ("resblock" in funcs) == ("fuse_resblock" in tune)
 
 

@@ -2,7 +2,8 @@
 JAX package's Pallas build_fused_stem body in interpret mode, on the same
 seeded inputs: the cases of tests/test_stem.py, in f32 and bf16, in the
 NCHW form and the NHWC bf16-edge storage form; plus the wrapper's own
-interface, its tile choice and the operands it refuses.
+interface, its plan (route, tile, grid), its filter reorder and the
+operands it refuses.
 
 Both kernels add the bias in f32, unrounded (stem.py:174), and round once
 to the output dtype.
@@ -22,8 +23,8 @@ from boda_tpu.ops.registry import get_template as jax_template
 from boda_tpu.testing.comp import mrd
 from boda_tpu_torch.core.error import RtErr
 from boda_tpu_torch.ops.op_base import OpBase as PortOpBase
-from boda_tpu_torch.ops.cuda.stem import fused_stem, fused_stem_plain, \
-    stem_tile
+from boda_tpu_torch.ops.cuda.stem import SMEM_MAX, filter_layout, fused_stem, \
+    fused_stem_plain, stem_filter, stem_plan
 from boda_tpu_torch.ops.registry import get_template
 
 CASES = {
@@ -114,14 +115,94 @@ def test_stem_wrapper_nhwc_against_ref(relu):
                                       torch.from_numpy(b), relu=relu).numpy())
 
 
-def test_stem_tile():
-    # ResNet-50's 3x3/s2 pool: 4 x 8 pooled outputs from a 9 x 17 conv tile
-    assert stem_tile((3, 3), (2, 2)) == (4, 8)
-    assert stem_tile((2, 2), (2, 2)) == (4, 8)
-    # larger windows shrink the tile to fit 160 conv positions
-    assert stem_tile((9, 9), (1, 1)) == (4, 4)    # 12 x 12 conv positions
-    with pytest.raises(RtErr, match="more than 160"):
-        stem_tile((13, 13), (1, 1))
+# name -> (stem_plan arguments, route, tile (ty, tx) or None, blocks)
+PLANS = {
+    # ResNet-50's conv1 + pool1 on an H100 SXM (132 SMs) and PCIe (114)
+    "rn50-b32-bf16-132": (dict(n=32, es=2, sms=132), "mma", (8, 8), 264),
+    "rn50-b32-bf16-114": (dict(n=32, es=2, sms=114), "mma", (8, 8), 228),
+    "rn50-b32-f32-132": (dict(n=32, es=4, sms=132), "ffma", (3, 8), 264),
+    "rn50-b32-f32-114": (dict(n=32, es=4, sms=114), "ffma", (3, 8), 228),
+    # at batch 1 the grid is what is scarce: small tiles
+    "rn50-b1-bf16-132": (dict(n=1, es=2, sms=132), "mma", None, None),
+    "rn50-b1-f32-132": (dict(n=1, es=4, sms=132), "ffma", None, None),
+    # f32 out of bf16 in: a wider conv tile, still two blocks per SM
+    "rn50-b32-bf16-f32out": (dict(n=32, es=2, sms=132, out_bytes=4), "mma",
+                             None, None),
+    # two blocks of output channels, the second ragged
+    "oc72": (dict(n=2, H=40, W=36, oc=72, es=2, sms=132), "mma", None, None),
+    # C = 5: filter rows of 35 values, one lead zero, padded to 48
+    "c5-bf16": (dict(n=2, H=30, W=34, C=5, oc=24, es=2, sms=132), "mma",
+                None, None),
+    "c5-f32": (dict(n=2, H=30, W=34, C=5, oc=24, es=4, sms=132), "ffma",
+               None, None),
+    # stride 1 x 3 channels: bf16 leaves the tensor cores, and says why
+    "stride1-bf16": (dict(n=2, H=20, W=24, oc=16, es=2, sms=132,
+                          stride=(1, 1)), "ffma", None, None),
+    # a 9x9 pool window: a 1 x 4 tile is a 9 x 12 conv tile
+    "pool9": (dict(n=1, H=64, W=64, oc=8, es=4, sms=132,
+                   pool=((9, 9), (1, 1))), "ffma", None, None),
+}
+
+
+@pytest.mark.parametrize("name", list(PLANS))
+def test_stem_plan(name):
+    kw, route, tile, blocks = PLANS[name]
+    kw = dict(kw)
+    args = (kw.pop("n"), kw.pop("H", 224), kw.pop("W", 224), kw.pop("C", 3),
+            kw.pop("oc", 64), kw.pop("es"), kw.pop("sms"))
+    p = stem_plan(*args, **kw)
+    n, H, W, C, oc, es, sms = args
+    assert p is stem_plan(*args, **kw)            # cached
+    assert p.route == route
+    assert bool(p.why) == (es == 2 and route == "ffma")
+    if tile is not None:
+        assert (p.ty, p.tx, p.blocks) == (*tile, blocks)
+    (ky, kx), (_, px) = kw.get("kern", (7, 7)), kw.get("pad", (3, 3))
+    assert (p.lead, p.KR, p.Kp) == filter_layout(route, C, ky, kx, px)
+    if route == "mma":
+        assert p.lead == (px * C) % 2 and p.KR % 16 == 0 and p.Kp % 64 == 0
+        assert p.KR >= p.lead + kx * C
+    else:
+        assert (p.lead, p.KR) == (0, kx * C) and p.Kp % 8 == 0
+    assert p.Kp >= ky * p.KR
+    assert p.vec == ((W * C * es) % 16 == 0)
+    assert p.smem <= SMEM_MAX and p.per_sm in (1, 2)
+    assert p.per_sm * (p.smem + 1024) <= 228 * 1024
+    # a persistent grid: no more blocks than the card holds, or than tiles
+    sy, sx = kw.get("stride", (2, 2))
+    (pky, pkx), (psy, psx) = kw.get("pool", ((3, 3), (2, 2)))
+    cy, cx = (H + 6 - ky) // sy + 1, (W + 6 - kx) // sx + 1
+    oy, ox = -(-(cy - pky) // psy) + 1, -(-(cx - pkx) // psx) + 1
+    ntiles = n * -(-oy // p.ty) * -(-ox // p.tx)
+    assert 1 <= p.blocks <= min(ntiles, sms * p.per_sm)
+
+
+def test_stem_plan_refuses_a_window_no_block_holds():
+    with pytest.raises(RtErr, match="do not fit"):
+        stem_plan(1, 400, 400, 3, 8, 4, 132, pool=((40, 40), (1, 1)))
+
+
+@pytest.mark.parametrize("route,C,k,px", [("mma", 3, 7, 3), ("mma", 5, 7, 3),
+                                          ("mma", 4, 5, 2), ("ffma", 3, 7, 3),
+                                          ("ffma", 5, 3, 1)])
+def test_stem_filter_reorder(route, C, k, px):
+    # the kernel's layout against a numpy loop: w[o, c, yy, xx] at
+    # yy * KR + lead + xx * C + c, zeros elsewhere
+    oc = 6
+    rng = np.random.RandomState(1)
+    w = rng.randn(oc, C, k, k).astype(np.float32)
+    lead, KR, Kp = filter_layout(route, C, k, k, px)
+    want = np.zeros((oc, Kp), np.float32)
+    for yy in range(k):
+        for xx in range(k):
+            for c in range(C):
+                want[:, yy * KR + lead + xx * C + c] = w[:, c, yy, xx]
+    for dt in (torch.float32, torch.bfloat16):
+        got = stem_filter(torch.from_numpy(w).to(dt), lead, KR, Kp)
+        assert got.dtype == dt and got.is_contiguous()
+        np.testing.assert_array_equal(
+            got.float().numpy(),
+            torch.from_numpy(want).to(dt).float().numpy())
 
 
 def test_stem_refuses_what_the_kernel_does_not_take():
