@@ -48,13 +48,13 @@
 #include <stdint.h>
 
 #include "hopper_gemm.cuh"
+#include "quant.cuh"  // quant_amax, block_max, nan_max, q8
 
 namespace {
 
 using namespace boda::hopper;
 
 constexpr int kTile = 128;
-constexpr int kParts = kThreads;  // amax partial maxima per operand
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -91,64 +91,6 @@ __global__ void __launch_bounds__(kThreads, 2)
 }
 
 // ---------------------------------------------------------------- quantize
-
-// max(a, b), NaN where either is NaN, as torch.amax and jnp.max take it (fmaxf
-// drops a NaN operand, which would give a NaN-holding operand a finite scale)
-__device__ __forceinline__ float nan_max(float a, float b) { return (a > b || a != a) ? a : b; }
-
-__device__ __forceinline__ float abs_max4(float m, float4 v) {
-  return nan_max(nan_max(m, nan_max(fabsf(v.x), fabsf(v.y))), nan_max(fabsf(v.z), fabsf(v.w)));
-}
-
-// The max of v over the block, in every thread.
-__device__ __forceinline__ float block_max(float v) {
-  __shared__ float red[kThreads / 32];
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();  // red is free (a previous call's reads are done)
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  v = red[0];
-#pragma unroll
-  for (int w = 1; w < kThreads / 32; ++w) v = nan_max(v, red[w]);
-  return v;
-}
-
-// part[y * kParts + x] = max |.| over block x's share of operand y (0: a of
-// na elements, 1: b of nb). vec: the operand is 16-byte aligned.
-__global__ void __launch_bounds__(kThreads)
-    quant_amax(const float* __restrict__ a, size_t na, int vec_a, const float* __restrict__ b,
-               size_t nb, int vec_b, float* __restrict__ part) {
-  const float* x = blockIdx.y ? b : a;
-  const size_t n = blockIdx.y ? nb : na;
-  const bool vec = blockIdx.y ? vec_b : vec_a;
-  const size_t stride = (size_t)gridDim.x * kThreads;
-  const size_t t0 = (size_t)blockIdx.x * kThreads + threadIdx.x;
-  float m = 0.f;
-  size_t tail = 0;
-  if (vec) {
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    const size_t n4 = n / 4;
-    size_t i = t0;
-    for (; i + 3 * stride < n4; i += 4 * stride) {  // four loads in flight
-      const float4 v0 = __ldg(x4 + i), v1 = __ldg(x4 + i + stride);
-      const float4 v2 = __ldg(x4 + i + 2 * stride), v3 = __ldg(x4 + i + 3 * stride);
-      m = abs_max4(abs_max4(m, v0), v1);
-      m = abs_max4(abs_max4(m, v2), v3);
-    }
-    for (; i < n4; i += stride) m = abs_max4(m, __ldg(x4 + i));
-    tail = n4 * 4;
-  }
-  for (size_t i = tail + t0; i < n; i += stride) m = nan_max(m, fabsf(__ldg(x + i)));
-  m = block_max(m);
-  if (threadIdx.x == 0) part[blockIdx.y * kParts + blockIdx.x] = m;
-}
-
-// clamp(round_half_even(v / s), -127, 127); NaN (a NaN operand, or inf / inf)
-// becomes 0, as torch's and XLA's float-to-int8 conversions make it
-__device__ __forceinline__ int8_t q8(float v, float s) {
-  return (int8_t)max(-127, min(__float2int_rn(__fdiv_rn(v, s)), 127));
-}
 
 // scales[0..2] = sa * sb, sa, sb from part (quant_amax), then qa = q(a, sa)
 // [M, K] and qb = q(b, sb)^T [N, K] of b [K, N]. blockIdx.y 0 quantizes A in
@@ -267,7 +209,7 @@ extern "C" int boda_quantize_int8(const void* a, const void* b, void* qa, void* 
   float* part = scales + 4;
   const int vec_a = reinterpret_cast<size_t>(a) % 16 == 0;
   const int vec_b = reinterpret_cast<size_t>(b) % 16 == 0;
-  quant_amax<<<dim3(kParts, 2), kThreads, 0, s>>>(af, (size_t)M * K, vec_a, bf, (size_t)K * N,
+  quant_amax<float><<<dim3(kParts, 2), kThreads, 0, s>>>(af, (size_t)M * K, vec_a, bf, (size_t)K * N,
                                                   vec_b, part);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);

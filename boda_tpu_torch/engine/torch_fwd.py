@@ -6,9 +6,12 @@ variant pick, ReLU fusion and the NHWC/bf16 fused-storage pass), builds each ste
 from the port's templates, and puts the weights on the device once. A
 forward runs the steps eagerly in plan order on that device.
 
-Left out so far (the config refuses them as unused values): per-call
-mode and its timing, stats, quantize hooks, nan_check, the mesh, wisdom,
-op_tunes_pat, act_scales_fn and device-side input preprocessing.
+Per-op tunes by tag regex (op_tunes_pat) and calibrated static int8
+activation scales (act_scales_fn) run the selective-precision presets, as
+in the JAX engine (rtc_fwd.py:202-222). Left out so far (the config
+refuses them as unused values): per-call mode and its timing, stats,
+quantize hooks, nan_check, the mesh, wisdom and device-side input
+preprocessing.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from ..core.dims import NDA, Dims
 from ..core.error import RtErr
 from ..core.timers import timer
 from ..graph.pipe import ConvPipe
-from ..ops.cnn_variants import OpTune
+from ..ops.cnn_variants import OpTune, make_op_tune
 from ..ops.cuda.util import torch_dtype
 from ..ops.registry import get_template
 from .iface import ConvFwd
@@ -175,13 +178,48 @@ class TorchFwd(ConvFwd):
                            help="zero every bias blob at init (debug "
                                 "determinism hook; reference rtc_fwd.cc:59)")
     device = Attr(str, default="cuda", help="torch device: cuda[:i] or cpu")
+    op_tunes_pat = Attr(dict[str, str], default=None,
+                        help="per-op tune overrides by TAG REGEX, e.g. "
+                             "(res3.*_branch2b=(use_culibs=1,prec=bf16,"
+                             "layout=nhwc,quant8=1)) — runs the selective-"
+                             "precision presets through any engine mode "
+                             "(run_cnet, cls_agree)")
+    act_scales_fn = Attr(str, default="",
+                         help="calibrated static int8 activation scales "
+                              "(tune/presets save_act_scales output) "
+                              "applied onto the per-op tunes")
+
+    def _op_tunes(self, pipe: ConvPipe) -> dict[str, OpTune] | None:
+        """The per-op tunes: each op whose tag a regex of op_tunes_pat
+        matches whole gets that regex's tune (a later regex wins), then the
+        static act scales of act_scales_fn go onto them."""
+        op_tunes = None
+        if self.op_tunes_pat:
+            import re
+            pats = {}
+            for pat, spec in self.op_tunes_pat.items():
+                rx = re.compile(pat)
+                t = make_op_tune(spec)
+                for op in pipe.ops.values():
+                    if rx.fullmatch(op.tag):
+                        pats[op.tag] = t
+            op_tunes = pats or None
+        if self.act_scales_fn:
+            if not op_tunes:
+                raise RtErr("act_scales_fn requires per-op tunes "
+                            "(op_tunes_pat or wisdom_fn) naming the "
+                            "quant8 sites the scales apply to")
+            from ..tune.presets import load_act_scales
+            op_tunes = load_act_scales(self.act_scales_fn, op_tunes)
+        return op_tunes
 
     def init(self, pipe: ConvPipe) -> None:
         self.pipe = pipe
         self.dev = get_device(self.device)
         with timer("torch_fwd_init"):
-            self.plan = lower_pipe(pipe, self.op_tune, fuse_relu=True,
-                                   fused_storage=self.fuse)
+            self.plan = lower_pipe(pipe, self.op_tune,
+                                   op_tunes=self._op_tunes(pipe),
+                                   fuse_relu=True, fused_storage=self.fuse)
             self.fwd = build_forward(self.plan, self.dev,
                                      keep_all_nodes=self.keep_all_nodes)
             self._produced = produced_nodes(self.plan)

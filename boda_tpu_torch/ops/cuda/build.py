@@ -33,6 +33,8 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_LL = ctypes.c_longlong
 # C entry point -> argtypes (each launcher returns its cudaGetLastError())
 ENTRY_POINTS = {
     # A, B, bias, C, M, N, K, in_bf16, out_bf16, relu, ws, tile_n, splits,
@@ -62,6 +64,13 @@ ENTRY_POINTS = {
     "boda_quantize_int8": [_P] * 5 + [_I] * 3 + [_P],
     # () -> floats of boda_quantize_int8's workspace
     "boda_quantize_ws_floats": [],
+    # xq, wq, s_act, sws, bias, out, n, H, W, C, oc, ky, kx, sy, sx, py, px,
+    # relu, out_kind, out_q, vec, stream
+    "boda_qconv": [_P] * 6 + [_I] * 13 + [_F, _I, _P],
+    # x, xq, ws, n, in_bf16, s_static, dynamic, stream
+    "boda_act_quantize": [_P] * 3 + [_LL, _I, _F, _I, _P],
+    # () -> floats of boda_act_quantize's workspace
+    "boda_act_quantize_ws_floats": [],
 }
 
 

@@ -14,7 +14,10 @@ package (XLA convs, the last over a 2x2 phase-stacked input). Here all
 three are F.conv2d on cuDNN in full FP32 on the operands rounded to the
 compute dtype (vendor_conv says why not in bf16), channels_last under NHWC
 storage; the phase stacking only re-indexes the same arithmetic, so it is
-dropped.
+dropped. The int8 forms of XlaConv and XlaConv2 (quant8, in_q8) run on
+kernel B6 (qconv.py), an int8 edge's store (out_q8) also after a float
+vendor conv; the int8 weight-gradient form (grad_q8) is training and is
+refused.
 
 The conv family's metadata is the JAX package's (conv.py:35-126):
 `conv_params`, the shared `_ConvBase` (declared args, reduced-signature
@@ -32,6 +35,8 @@ from ...core.dims import Dims
 from ...core.error import RtErr
 from ..op_base import OpBase
 from ..registry import IN, OUT, KernelTemplate, adecl, template
+from .qconv import act_quantize, qconv, quantize_filter, static_act_scale, \
+    store_int8
 from .sgemm import matmul_ext
 from .util import compute_dtype, full_fp32, storage_io, store_dtype
 
@@ -265,47 +270,117 @@ def vendor_conv(stride, pad, cdt, io_nhwc):
     return conv
 
 
-def vendor_store(y, relu: bool, odt, io_nhwc):
+def vendor_store(y, relu: bool, odt, io_nhwc, out_absmax: float = 0.0):
     """The epilogue of a vendor conv step: ReLU, one rounding to the stored
-    dtype, and the step's storage form (NCHW, or NHWC: a view of a
-    channels_last result, copied only where it is not)."""
+    dtype (int8: an int8 edge's store at out_absmax, conv.py:173-179), and
+    the step's storage form (NCHW, or NHWC: a view of a channels_last
+    result, copied only where it is not)."""
     if relu:
         y = torch.relu(y)
-    y = y.to(odt)
+    y = store_int8(y, out_absmax) if odt == torch.int8 else y.to(odt)
     # a member of a sibling group is a channel slice: the copy splits it off
     return y.permute(0, 2, 3, 1).contiguous() if io_nhwc else y.contiguous()
 
 
+def _scale_of(rfs: OpBase, key: str) -> float:
+    """A sig's calibrated absmax (act_scale, out_scale) as the f32 value it
+    holds, or 0.0 where it has none."""
+    return float(rfs.nda_vals[key].item()) if key in rfs.nda_vals else 0.0
+
+
 def _cudnn_conv(rfs: OpBase):
     """A vendor conv step (vendor_conv, vendor_store) of a conv sig: the
-    f32-output XLA conv of the JAX package (conv.py:281-296, :334-379).
-    Takes and returns NCHW, or NHWC storage tensors when the plan's
-    fused-storage pass marked the step."""
+    f32-output XLA conv of the JAX package (conv.py:281-296, :334-379),
+    stored int8 where it produces an int8 edge (out_q8). Takes and returns
+    NCHW, or NHWC storage tensors when the plan's fused-storage pass marked
+    the step."""
     ind, outd, fd, sy, sx, py, px, relu = conv_params(rfs)
     io_nhwc, _ = storage_io(rfs)
-    odt = store_dtype(rfs)
+    out_absmax = _scale_of(rfs, "out_scale") \
+        if rfs.get_u32_or("out_q8", 0) else 0.0
+    odt = torch.int8 if out_absmax else store_dtype(rfs)
     conv = vendor_conv((sy, sx), (py, px), compute_dtype(rfs), io_nhwc)
 
     def fn(x, w, b=None):
-        return vendor_store(conv(x, w, b), relu, odt, io_nhwc)
+        return vendor_store(conv(x, w, b), relu, odt, io_nhwc, out_absmax)
     return fn
+
+
+def int8_conv(stride, pad, relu: bool, odt, io_nhwc: bool, prequant: bool,
+              act_absmax: float, in_q8: bool, out_absmax: float = 0.0):
+    """The int8 conv of a step on kernel B6 (the JAX template's quant8
+    forms, conv.py:187-266): conv(x, w, *rest) with rest = (sws, b) where
+    the weights arrive prequantized (int8 OIHW and their per-out_chan
+    scales), else (b,) and the per-channel weight quantize runs here in
+    torch ops; b may be absent. x arrives in the storage form (int8 NHWC
+    under in_q8, at the static act_absmax); the activation quantize runs
+    on the layout it arrives in, and an NCHW int8 copy is permuted to NHWC
+    for the kernel (a quarter of the f32 bytes). Returns the step's output
+    in the storage form, of odt (int8: stored at out_absmax)."""
+    s_in = {}  # in_q8: the static s_act, one f32 [1] tensor per device
+
+    def conv(x, w, *rest):
+        sws, rest = (rest[0], rest[1:]) if prequant else (None, rest)
+        b = rest[0] if rest else None
+        wq, sws = (w, sws) if prequant else quantize_filter(w)
+        if in_q8:
+            xq, s_act = x, s_in.get(x.device)
+            if s_act is None:
+                s_act = s_in[x.device] = torch.full(
+                    (1,), static_act_scale(act_absmax), device=x.device)
+        else:
+            xq, s_act = act_quantize(x.contiguous(), act_absmax)
+        if not io_nhwc:
+            xq = xq.permute(0, 2, 3, 1)
+        y = qconv(xq.contiguous(), wq.permute(0, 2, 3, 1).contiguous(), s_act,
+                  sws.float().contiguous(),
+                  None if b is None else b.float().contiguous(), stride, pad,
+                  relu, odt, out_absmax)
+        return y if io_nhwc else y.permute(0, 3, 1, 2).contiguous()
+    return conv
 
 
 @template
 class XlaConv(_ConvBase):
     """The vendor conv (cuDNN's role; XLA's in the JAX package,
-    conv.py:128-296), non-quantised: NCHW or storage NHWC, f32 or bf16
-    operands, bias and ReLU. The int8 forms are refused."""
+    conv.py:128-296): NCHW or storage NHWC, f32 or bf16 operands, bias and
+    ReLU; its int8 forms on kernel B6: quant8 with prequantized weights
+    (prequant_w) or the weight quantize in the step, a static (act_scale) or
+    dynamic activation scale, an input that arrives int8 (in_q8), and an
+    int8 output edge (out_q8), also after a float conv. The int8
+    weight-gradient form (grad_q8) is training and is refused."""
 
     name = "xla_conv"
 
     @classmethod
     def build(cls, rfs: OpBase):
-        for k in ("quant8", "in_q8", "out_q8", "grad_q8"):
-            if rfs.get_u32_or(k, 0):
-                raise RtErr(f"xla_conv: the int8 form ({k}=1) is not ported "
-                            f"to torch yet (ROADMAP A3)")
-        return _cudnn_conv(rfs)
+        if rfs.get_u32_or("grad_q8", 0):
+            raise RtErr("xla_conv: the int8 weight-gradient form (grad_q8=1) "
+                        "is training, not ported to torch yet (ROADMAP A8)")
+        quant8 = rfs.get_u32_or("quant8", 0) == 1
+        in_q8 = rfs.get_u32_or("in_q8", 0) == 1
+        out_q8 = rfs.get_u32_or("out_q8", 0) == 1
+        ind, outd, fd, sy, sx, py, px, relu = conv_params(rfs)
+        io_nhwc, _ = storage_io(rfs)
+        prequant = rfs.get_u32_or("prequant_w", 0) == 1
+        act_absmax = _scale_of(rfs, "act_scale")
+        out_absmax = _scale_of(rfs, "out_scale") if out_q8 else 0.0
+        # the lowering (engine/lower._apply_int8_edges) sets in_q8 only on
+        # static-scale prequantized int8 readers and out_q8 only in
+        # storage-NHWC plans; the JAX template has no other form of either
+        if out_q8 and (not io_nhwc or not out_absmax > 0):
+            raise RtErr(f"xla_conv: out_q8 needs the storage-NHWC form and "
+                        f"out_scale > 0 (io_layout="
+                        f"{rfs.str_vals.get('io_layout', '')}, out_scale="
+                        f"{out_absmax})")
+        if in_q8 and not (quant8 and prequant and act_absmax > 0):
+            raise RtErr("xla_conv: in_q8 needs quant8, prequant_w and a "
+                        "static act_scale > 0")
+        if not quant8:
+            return _cudnn_conv(rfs)
+        return int8_conv((sy, sx), (py, px), relu,
+                         torch.int8 if out_q8 else store_dtype(rfs), io_nhwc,
+                         prequant, act_absmax, in_q8, out_absmax)
 
 
 @template

@@ -16,7 +16,11 @@ ops/cuda/conv.vendor_conv, which says which arithmetic runs and where it
 rounds), not a kernel port. The declared args, reduced-signature keys,
 flops and the float64 reference are the JAX template's (conv2.py:35-108),
 so reduced sigs and wisdom keys stay string-equal. The int8 forms (quant8,
-prequant_w, grad_q8) are refused until the int8 conv kernel exists.
+with prequantized weights or the weight quantize in the step;
+conv2.py:139-193) run as one int8 conv on kernel B6 (conv.int8_conv) over
+the concatenated int8 filters, into f32, and are split per member as the
+float form is; the int8 center-embed pads zero taps. The int8
+weight-gradient form (grad_q8) is training and is refused.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ import torch.nn.functional as F
 from ...core.error import RtErr
 from ..op_base import OpBase
 from ..registry import IN, OUT, KernelTemplate, adecl, template
-from .conv import SIBS, _ConvBase, vendor_conv, vendor_store
+from .conv import SIBS, _ConvBase, _scale_of, int8_conv, vendor_conv, \
+    vendor_store
 from .util import compute_dtype, storage_io, torch_dtype
 
 
@@ -111,10 +116,13 @@ class XlaConv2(KernelTemplate):
 
     @classmethod
     def build(cls, rfs: OpBase):
-        for k in ("quant8", "prequant_w", "grad_q8"):
-            if rfs.get_u32_or(k, 0):
-                raise RtErr(f"xla_conv2: the int8 form ({k}=1) is not ported "
-                            f"to torch yet (ROADMAP A3)")
+        if rfs.get_u32_or("grad_q8", 0):
+            raise RtErr("xla_conv2: the int8 weight-gradient form (grad_q8=1) "
+                        "is training, not ported to torch yet (ROADMAP A8)")
+        quant8 = rfs.get_u32_or("quant8", 0) == 1
+        prequant = rfs.get_u32_or("prequant_w", 0) == 1
+        if prequant and not quant8:
+            raise RtErr("xla_conv2: prequant_w needs quant8")
         sibs = cls._sibs(rfs)
         st = rfs.get_dims_or_none("stride")
         pad = rfs.get_dims_or_none("in_pad")
@@ -130,21 +138,37 @@ class XlaConv2(KernelTemplate):
         io_nhwc, edt = storage_io(rfs)
         out_dts = [(edt if io_nhwc and edt is not None else
                     torch_dtype(rfs.get_dims(f"out_{s}").dtype)) for s in sibs]
-        conv = vendor_conv(stride, padding, compute_dtype(rfs), io_nhwc)
+        if quant8:
+            # one int8 conv over all members, stored f32 before ReLU: each
+            # member's ReLU and store follow, as in the float form
+            q = int8_conv(stride, padding, False, torch.float32, io_nhwc,
+                          prequant, _scale_of(rfs, "act_scale"), False)
+
+            def conv(x, w, b, sws):
+                y = q(x, w, sws, b) if prequant else q(x, w, b)
+                return y.permute(0, 3, 1, 2) if io_nhwc else y
+        else:
+            vconv = vendor_conv(stride, padding, compute_dtype(rfs), io_nhwc)
+
+            def conv(x, w, b, _sws):
+                return vconv(x, w, b)
 
         def fn(x, *wbs):
-            # the members' operands in declared order: filts, then biases
-            # where the member has them
+            # the members' operands in declared order: filts, biases where
+            # the member has them, and the int8 filters' scales
             it = iter(wbs)
-            ws, bs = [], []
+            ws, bs, ss = [], [], []
             for (dy, dx), n_i, hb in zip(embeds, ns, has_bias):
                 w = next(it)
                 # mixed kernel sizes: center-embed the smaller kernel in the
-                # group's largest with zero taps (exact)
+                # group's largest with zero taps (exact, int8 or float)
                 ws.append(F.pad(w, (dx, dx, dy, dy)) if (dy or dx) else w)
                 bs.append(next(it).float() if hb
                           else torch.zeros(n_i, device=x.device))
-            y = conv(x, torch.cat(ws, dim=0), torch.cat(bs, dim=0))
+                if prequant:
+                    ss.append(next(it))
+            y = conv(x, torch.cat(ws, dim=0), torch.cat(bs, dim=0),
+                     torch.cat(ss, dim=0) if prequant else None)
             outs, off = [], 0
             for n_i, relu_i, dt_i in zip(ns, relus, out_dts):
                 outs.append(vendor_store(y[:, off:off + n_i], relu_i, dt_i,

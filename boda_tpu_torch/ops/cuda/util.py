@@ -71,15 +71,17 @@ def sm_count(index: int) -> int:
 
 
 GEMM_TILE_M = 128            # block tile rows of the GEMM core
-GEMM_BK = {torch.bfloat16: 64, torch.float32: 8}   # K chunk of each route
-GEMM_VEC = {torch.bfloat16: 8, torch.float32: 4}   # elements of a 16-byte load
+# K chunk of each route (bf16 and int8: 128 bytes on the tensor cores; f32:
+# the FFMA tile's 8) and the elements of a 16-byte load
+GEMM_BK = {torch.bfloat16: 64, torch.int8: 128, torch.float32: 8}
+GEMM_VEC = {torch.bfloat16: 8, torch.int8: 16, torch.float32: 4}
 
 
 @dataclass(frozen=True)
 class GemmPlan:
     """How a kernel on the GEMM core of csrc/hopper_gemm.cuh runs one
-    product: its route ("mma": bf16 on the tensor cores, "ffma": f32 on the
-    CUDA cores), whether operands move in 16-byte loads, the block tile,
+    product: its route ("mma": bf16 or int8 on the tensor cores, "ffma":
+    f32 on the CUDA cores), whether operands move in 16-byte loads, the block tile,
     the K chunk, and the number of K splits (1: no split-K)."""
     route: str
     vec: bool
@@ -102,7 +104,7 @@ def gemm_plan(name: str, M: int, N: int, K: int, vec_extent: int,
     that puts `fill` blocks per SM on the card, then into as many splits as
     keep `min_chunks` K chunks each. `name` names the caller in errors."""
     if dtype not in GEMM_BK:
-        raise RtErr(f"{name}: dtype {dtype} not f32/bf16")
+        raise RtErr(f"{name}: dtype {dtype} not f32/bf16/int8")
     blocks = math.ceil(M / GEMM_TILE_M) * math.ceil(N / tile_n)
     chunks = math.ceil(K / GEMM_BK[dtype])
     below, least, fill, min_chunks = rules[dtype]
@@ -113,7 +115,7 @@ def gemm_plan(name: str, M: int, N: int, K: int, vec_extent: int,
             splits *= 2
         per = max(min_chunks, math.ceil(chunks / splits))
         splits = math.ceil(chunks / per)
-    return GemmPlan("mma" if dtype == torch.bfloat16 else "ffma",
+    return GemmPlan("ffma" if dtype == torch.float32 else "mma",
                     vec_extent % GEMM_VEC[dtype] == 0, GEMM_TILE_M, tile_n,
                     GEMM_BK[dtype], splits, blocks)
 

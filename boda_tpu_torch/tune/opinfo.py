@@ -49,6 +49,27 @@ def op_prec(sig: OpBase, tune_prec: str = "") -> str:
     return p if p in PRECS else "f32"
 
 
+def plan_mixed_peak(plan, device_kind: str) -> tuple[float, float]:
+    """Site-weighted mixed-precision roofline for a lowered plan
+    (boda_tpu/tune/opinfo.py:50-73): the effective peak = total_flops /
+    sum_i(flops_i / peak(prec_i)), the rate a program hitting every site's
+    own precision peak would achieve, each step's precision by op_prec and
+    the peaks those of the named card. Returns (plan_flops,
+    effective_peak_flops)."""
+    tot = 0.0
+    t_min = 0.0
+    for s in plan.steps:
+        try:
+            fl = get_template(s.func_name).flops(s.sig)
+        except Exception:
+            continue
+        if not fl:
+            continue
+        tot += fl
+        t_min += fl / peak_flops(device_kind, op_prec(s.sig))
+    return tot, (tot / t_min if t_min else 0.0)
+
+
 @mode("torch_cnn_op_info", help="cnn_op_info on the port: per-op flops/AI/"
                                 "roofline report (+optional run)")
 class TorchCnnOpInfo(HasMain):

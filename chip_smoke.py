@@ -27,7 +27,13 @@ Phases, run in order, each fatal on failure (all of them by default):
            sgemm_int8 and its quantize kernel alone bit-equal to
            their plain versions at 1024^3 and 4096^3 (timed, with the
            quantize pass and the product alone) and at ragged shapes (K=50,
-           K=3, K=4099, N=129, an all-zero A).
+           K=3, K=4099, N=129, an all-zero A); qconv (B6) and its
+           activation quantize bit-equal to their plain versions at the
+           int8 preset's nine distinct b32 conv shapes (timed on the card
+           alone through a CUDA graph, beside the wrapper's call) and at
+           edges (C = 24, ragged M and oc, stride 2 with padding, a 5x5
+           filter, an int8 output edge, f32 out, an int8 input, a dynamic
+           scale, a NaN in x, no bias).
            Each timed case also prints its bound (the larger of its FLOPs
            over the card's peak in its precision and its bytes, each input
            read and each output written once, over HBM bandwidth;
@@ -64,17 +70,23 @@ Phases, run in order, each fatal on failure (all of them by default):
            40-class ResNet-50, against the f32 tune: the bf16+NHWC tune, the
            fused bf16+NHWC tune and the headline tune (use_culibs=1, bf16,
            NHWC, fuse_siblings=1), top-1 >= 0.90 each and top-1 agreement
-           >= 0.97
+           >= 0.97; then the int8 preset (int8 with static scales at the 33
+           sites of tune/presets.RESNET_INT8_SITE_PATS, scales calibrated on
+           the trained weights) against the headline tune, also at
+           tests/test_quant8.py's 64-image gates
   full     run_cnet on the 1000-class ResNet-50 at batch 32 under those three
-           tunes' forms and the two f32 ones (five tunes): kernel launch
-           counts per forward, exact and equal to what the plan's steps send
-           to each hand kernel (unfused: 40 matmul_ext, 13 tconv; fused: 14
-           matmul_ext, 3 tconv, 1 fused_stem, 12 resblock; headline: none,
-           with 4 xla_conv2 steps; no sgemm_int8), finite softmax rows, ms
-           per forward and imgs/s, the card's busy time in one more forward
-           (torch.profiler) and so its idle share, and each template's
-           summed step time over one more forward (CUDA events around each
-           step); then one forward time of the headline tune at batch 128
+           tunes' forms, the two f32 ones and the int8 preset (six tunes):
+           kernel launch counts per forward, exact and equal to what the
+           plan's steps send to each hand kernel (unfused: 40 matmul_ext, 13
+           tconv; fused: 14 matmul_ext, 3 tconv, 1 fused_stem, 12 resblock;
+           headline: none, with 4 xla_conv2 steps; int8: 31 qconv and 31
+           act_quantize, one each per int8 step; no sgemm_int8), finite
+           softmax rows, ms per forward and imgs/s, the card's busy time in
+           one more forward (torch.profiler) and so its idle share, with
+           its heaviest device kernels, and each template's summed step
+           time over one more forward (CUDA events around each step); then
+           one forward time, with its launches, of the headline tune and of
+           the int8 preset at batch 128
   ops_prof the per-op path (mode torch_ops_prof, be=torch): the vendor
            sgemm under prec=bf16 returns the unrounded f32 product; the six
            square SGEMMs of tests/data/ops/sgemm-baseline.txt (128^3-4096^3) under
@@ -86,21 +98,28 @@ Phases, run in order, each fatal on failure (all of them by default):
            launches) in the int8 sweep, wisdom under
            build/ops_prof/, a table of ms, TF/s (TOPS) and % of the card's
            own-precision peak per op and tune; then torch_rtc_test
+  bench    the bench twin, python3 -m boda_tpu_torch.bench, in this
+           process: bench.py's JSON line for its two plans at batch 128
+           (the headline tune, and the int8 preset on the trained weights
+           as the headline), its keys exactly bench.py's
 
-A run of every phase that passes ends with three lines: the nvidia-smi name
-and power limit; a JSON object with one entry per kernel ("launches":
-launches in one run of that kernel's own main path, the f32 tune's forward
-for matmul_ext and tconv, the fused f32 tune's for fused_stem and resblock,
-and the int8 SGEMM sweep of ops_prof for sgemm_int8, whose entry also holds
-its quantize kernel's launches there ("quantize_launches");
+A run of every phase that passes ends with four lines: the bench twin's
+JSON line; the nvidia-smi name and power limit; a JSON object with one
+entry per kernel ("launches": launches in one run of that kernel's own main
+path, the f32 tune's forward for matmul_ext and tconv, the fused f32 tune's
+for fused_stem and resblock, the int8 preset's b32 forward for qconv, and
+the int8 SGEMM sweep of ops_prof for sgemm_int8; the entries of sgemm_int8
+and qconv also hold their quantize kernels' launches there
+("quantize_launches");
 "launches_by_tune": in each of those runs; "ms", "plain_ms", "bound_ms"
 and "library_ms": summed over the timed shapes, "bound_by" that of the
 case with the largest bound; "library_ms" is null for fused_stem and
 resblock, which no single PyTorch call computes, and
 "library_sequence_ms" holds the time of the sequence of calls that does;
 "max_abs_err": over every checked shape; "cases": each timed case), the
-b32 forward times (and the headline tune's at b128), the card's busy time in
-a forward, the per-template step times and the vendor phase's two sums;
+b32 forward times (and the headline tune's and the int8 preset's at b128),
+the card's busy time in a forward, the per-template step times and the
+vendor phase's two sums;
 and {"ok": true,
 "device": {...}}. Without a CUDA device, or outside a checkout of the
 repo, it exits non-zero and prints no result. It imports neither jax nor
@@ -135,17 +154,29 @@ TUNES = {"f32": "()", "bf16_nhwc": "(prec=bf16,layout=nhwc)",
          "headline": "(use_culibs=1,prec=bf16,layout=nhwc,s2d=0,"
                      "fuse_siblings=1)",
          "sib_f32": "(use_culibs=1,fuse_siblings=1,s2d=0)"}
-# the tunes whose b32 forward the `full` phase runs and times
-FULL_TUNES = ("f32", "bf16_nhwc", "fused_f32", "fused_bf16_nhwc", "headline")
+# bench.py's int8 tune, the selective-int8 preset: the headline tune with
+# int8 (B6) at the 33 sites of tune/presets.RESNET_INT8_SITE_PATS, their
+# activation scales static from the artifact calibrated for the weights
+# (engine_spec); its 31 int8 steps are 29 xla_conv and 2 xla_conv2 (the
+# res4a and res5a projection pairs)
+INT8 = "int8"
+SCALES = {"trained": DATA / "resnet50-shapes40-int8-scales.lexp",
+          "zoo": DATA / "resnet50-b128-int8-scales.lexp"}
+# the tunes whose b32 forward the `full` phase runs and times (and at b128)
+FULL_TUNES = ("f32", "bf16_nhwc", "fused_f32", "fused_bf16_nhwc", "headline",
+              INT8)
+B128_TUNES = ("headline", INT8)
 # exact kernel launches per ResNet-50 forward under each tune
 UNFUSED_LAUNCHES = {"matmul_ext": 40, "tconv": 13, "fused_stem": 0,
-                    "resblock": 0, "sgemm_int8": 0, "quantize": 0}
-FUSED_LAUNCHES = {"matmul_ext": 14, "tconv": 3, "fused_stem": 1,
-                  "resblock": 12, "sgemm_int8": 0, "quantize": 0}
+                    "resblock": 0, "sgemm_int8": 0, "quantize": 0,
+                    "qconv": 0, "act_quantize": 0}
+FUSED_LAUNCHES = {**UNFUSED_LAUNCHES, "matmul_ext": 14, "tconv": 3,
+                  "fused_stem": 1, "resblock": 12}
 VENDOR_LAUNCHES = dict.fromkeys(UNFUSED_LAUNCHES, 0)
+INT8_LAUNCHES = {**VENDOR_LAUNCHES, "qconv": 31, "act_quantize": 31}
 LAUNCHES = {"f32": UNFUSED_LAUNCHES, "bf16_nhwc": UNFUSED_LAUNCHES,
             "fused_f32": FUSED_LAUNCHES, "fused_bf16_nhwc": FUSED_LAUNCHES,
-            "headline": VENDOR_LAUNCHES}
+            "headline": VENDOR_LAUNCHES, INT8: INT8_LAUNCHES}
 # the hand kernel each template launches once per step (the vendor
 # templates xla_conv, xla_conv2, s2d_conv and the plain-torch ones launch none)
 TEMPLATE_KERNEL = {"k1conv": "matmul_ext", "conv": "matmul_ext",
@@ -155,7 +186,7 @@ TEMPLATE_KERNEL = {"k1conv": "matmul_ext", "conv": "matmul_ext",
 # per-op sweep (ops_prof's int8 sgemm run) for sgemm_int8
 KERNEL_PATH = {"matmul_ext": "f32", "tconv": "f32",
                "fused_stem": "fused_f32", "resblock": "fused_f32",
-               "sgemm_int8": "ops_prof"}
+               "sgemm_int8": "ops_prof", "qconv": INT8}
 SOURCES = {
     "matmul_ext": ("boda_tpu_torch/csrc/sgemm.cu",
                    "boda_tpu/ops/pallas/sgemm.py:114"),
@@ -166,6 +197,9 @@ SOURCES = {
                  "boda_tpu/ops/pallas/resblock.py:31"),
     "sgemm_int8": ("boda_tpu_torch/csrc/qsgemm.cu",
                    "boda_tpu/ops/pallas/qsgemm.py:47"),
+    # an XLA int8 conv in the JAX package, not a Pallas kernel
+    "qconv": ("boda_tpu_torch/csrc/qconv.cu",
+              "boda_tpu/ops/pallas/conv.py:187"),
 }
 F32_MRD, BF16_MRD = 1e-4, 5e-3
 # the per-op path: torch_ops_prof calls (op-sig file, tunes, tolerances).
@@ -197,6 +231,16 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+def engine_spec(tune_name: str, weights: str = "zoo") -> str:
+    """The engine attributes (op_tune, and the int8 preset's per-op tunes
+    and scales) of a tune of TUNES, or of INT8 with the scales calibrated
+    for `weights` ("trained" or "zoo")."""
+    if tune_name != INT8:
+        return f"op_tune={TUNES[tune_name]}"
+    from boda_tpu_torch.bench import int8_engine_spec
+    return int8_engine_spec(TUNES["headline"], SCALES[weights])
+
+
 def smi_line() -> str:
     """`name, power.limit` of the card, as nvidia-smi reports it."""
     out = subprocess.run(
@@ -209,24 +253,31 @@ def smi_line() -> str:
 def cuda_ms(fn, reps: int) -> float:
     """Milliseconds of fn() on the card: the median over three windows of
     the mean of `reps` back-to-back calls between two CUDA events, after
-    one warm-up call. A call short enough that the host sets its pace
-    varies with the host's load; the median drops the windows it slowed."""
-    import statistics
+    one warm-up call (the bench twin's timer, bench.time_forward). A call
+    short enough that the host sets its pace varies with the host's load;
+    the median drops the windows it slowed."""
+    from boda_tpu_torch.bench import time_forward
+    return time_forward(fn, reps)[1]
 
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Milliseconds of fn() on the card alone: `reps` calls captured once
+    in a CUDA graph, the graph replayed as cuda_ms times it, over reps. The
+    host's work per call (checks, allocation, the launch itself) is left
+    out, which matters where it takes longer than the kernels."""
     import torch
-    fn()
-    torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    per = []
-    for _ in range(3):
-        t0.record()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
         for _ in range(reps):
             fn()
-        t1.record()
-        t1.synchronize()
-        per.append(t0.elapsed_time(t1) / reps)
-    return statistics.median(per)
+    ms = cuda_ms(g.replay, 5) / reps
+    del g
+    return ms
 
 
 def bit_equal(got, want) -> bool:
@@ -701,6 +752,197 @@ def _check_qsgemm(stats: dict, dev, gen, peaks) -> None:
                                  "operands)"})
 
 
+def _qconv_cases():
+    """(label, case, timed) of B6 and its quantize kernel: the int8
+    preset's distinct conv shapes at batch 32 (x bf16 NHWC, a static
+    scale; a single conv stored bf16, with ReLU where the plan has it; a
+    sibling pair concatenated on N and stored f32 before its members'
+    ReLUs, as the xla_conv2 template runs it), timed; two of them at batch
+    128, the bench's, checked; then edges, checked:
+    C = 24 (element staging), ragged M and oc, stride 2 with padding, an
+    int8 output edge, an f32 output, an input that arrives int8 (s_act by
+    value), a dynamic scale, a NaN in x (dynamic and static), no bias."""
+    def c(n, H, C, oc, k=1, s=1, p=0, relu=True, **kw):
+        return dict(n=n, H=H, W=kw.pop("W", H), C=C, oc=oc, k=k, s=s, p=p,
+                    relu=relu, **kw)
+    return [
+        ("res3 3x3 n=32 28^2 128->128", c(32, 28, 128, 128, 3, p=1), True),
+        ("res4a pair 1x1/s2 n=32 28^2 512->1280",
+         c(32, 28, 512, 1280, s=2, relu=False, out="f32"), True),
+        ("res4 3x3 n=32 14^2 256->256", c(32, 14, 256, 256, 3, p=1), True),
+        ("res4 1x1 n=32 14^2 256->1024", c(32, 14, 256, 1024, relu=False),
+         True),
+        ("res4 1x1 n=32 14^2 1024->256", c(32, 14, 1024, 256), True),
+        ("res5a pair 1x1/s2 n=32 14^2 1024->2560",
+         c(32, 14, 1024, 2560, s=2, relu=False, out="f32"), True),
+        ("res5 3x3 n=32 7^2 512->512", c(32, 7, 512, 512, 3, p=1), True),
+        ("res5 1x1 n=32 7^2 512->2048", c(32, 7, 512, 2048, relu=False),
+         True),
+        ("res5 1x1 n=32 7^2 2048->512", c(32, 7, 2048, 512), True),
+        ("res3 3x3 n=128 28^2 128->128", c(128, 28, 128, 128, 3, p=1), False),
+        ("res4a pair 1x1/s2 n=128 28^2 512->1280",
+         c(128, 28, 512, 1280, s=2, relu=False, out="f32"), False),
+        ("edge C=24 3x3 n=2 9x7 oc=40", c(2, 9, 24, 40, 3, p=1, W=7), False),
+        ("edge C=24 1x1/s2 n=3 11^2 oc=130", c(3, 11, 24, 130, s=2), False),
+        ("edge ragged n=3 13x11 C=64 oc=72", c(3, 13, 64, 72, 3, p=1, W=11),
+         False),
+        ("edge 3x3/s2 pad 1 n=2 15x13 C=32 oc=48",
+         c(2, 15, 32, 48, 3, s=2, p=1, W=13), False),
+        ("edge 5x5/s2 pad 2 n=1 9^2 C=48 oc=200",
+         c(1, 9, 48, 200, 5, s=2, p=2), False),
+        ("edge out_q8 3x3 n=2 14^2 C=256 oc=256",
+         c(2, 14, 256, 256, 3, p=1, out="int8"), False),
+        ("edge f32 out 3x3 n=2 7^2 C=512 oc=512",
+         c(2, 7, 512, 512, 3, p=1, out="f32"), False),
+        ("edge in_q8 1x1 n=2 14^2 C=1024 oc=256", c(2, 14, 1024, 256,
+                                                     in_q8=True), False),
+        ("edge dynamic scale 3x3 n=2 28^2 C=128 oc=128",
+         c(2, 28, 128, 128, 3, p=1, dynamic=True), False),
+        ("edge NaN in x dynamic n=2 14^2 C=256 oc=64",
+         c(2, 14, 256, 64, dynamic=True, nan=True), False),
+        ("edge NaN in x static n=2 14^2 C=256 oc=64",
+         c(2, 14, 256, 64, nan=True), False),
+        ("edge no bias f32 x 1x1 n=2 7^2 C=512 oc=2048",
+         c(2, 7, 512, 2048, bias=False, x32=True), False),
+    ]
+
+
+def _touched(extent: int, out: int, k: int, s: int, p: int) -> int:
+    """Rows (or columns) of an input of `extent` that a conv of `out`
+    outputs, k taps, stride s and padding p reads: {o*s + t - p} within
+    [0, extent). A 1x1 at stride 2 reads every other one."""
+    return len({o * s + t - p for o in range(out) for t in range(k)}
+               & set(range(extent)))
+
+
+def _im2col_int8(xq, k: int, s: int, p: int):
+    """The (n*oy*ox, k*k*C) int8 patch matrix of NHWC xq, tap-major and
+    channel-minor (the filter's OHWI order), for the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+    n, H, W, C = xq.shape
+    oy, ox = (H + 2 * p - k) // s + 1, (W + 2 * p - k) // s + 1
+    xp = F.pad(xq, (0, 0, p, p, p, p))
+    return torch.cat([xp[:, yy:yy + (oy - 1) * s + 1:s,
+                         xx:xx + (ox - 1) * s + 1:s, :].reshape(-1, C)
+                      for yy in range(k) for xx in range(k)], dim=1)
+
+
+def _check_qconv(stats: dict, dev, gen, peaks) -> None:
+    """B6 (qconv) and its activation quantize against their plain versions
+    on the card, both bit-equal (the int32 sums are exact and every f32 op
+    rounds the same); at the timed shapes the kernel's time, the quantize
+    pass's, the plain version's (the float64 conv: a check, not a
+    yardstick), the bound (int8 operations over the int8 peak, or the bytes
+    of the input pixels the conv reads, filter, scales, bias and output
+    over HBM bandwidth), and
+    the library's: torch._int_mm on the im2col'd int8 operands (made once,
+    outside the timing) plus the same epilogue in torch ops. The kernel,
+    the quantize pass and the library are timed on the card alone
+    (graph_ms: at these shapes one call's host work outlasts its kernels);
+    the wrapper's call as the engine makes it is call_ms."""
+    import torch
+    from boda_tpu_torch.ops.cuda.qconv import act_quantize, \
+        act_quantize_plain, qconv, qconv_plain, qconv_plan, static_act_scale
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    s = stats["qconv"] = _stats("qconv")
+    s["quantize_ms"] = 0.0
+    out_dt = {"bf16": torch.bfloat16, "f32": torch.float32,
+              "int8": torch.int8}
+    for label, kw, timed in _qconv_cases():
+        n, H, W, C, oc, k = (kw[key] for key in ("n", "H", "W", "C", "oc",
+                                                   "k"))
+        st, pd = (kw["s"], kw["s"]), (kw["p"], kw["p"])
+        x = torch.randn(n, H, W, C, device=dev, generator=gen)
+        if not kw.get("x32"):
+            x = x.bfloat16()
+        if kw.get("nan"):
+            x[n // 2, H // 2, W // 3, C // 3] = float("nan")
+        # a static scale that clips the largest few values, as calibration
+        # on other inputs does
+        absmax = 0.0 if kw.get("dynamic") else \
+            0.8 * float(x.float().nan_to_num(0.0).abs().max())
+        q_got, q_want = act_quantize(x, absmax), act_quantize_plain(x, absmax)
+        torch.cuda.synchronize()
+        check(all(bit_equal(g, w) for g, w in zip(q_got, q_want)),
+              f"qconv {label}: the quantize kernel differs from "
+              f"act_quantize_plain")
+        xq = q_got[0]
+        s_act = torch.full((1,), static_act_scale(absmax), device=dev) \
+            if kw.get("in_q8") else q_got[1]
+        wq = torch.randint(-127, 128, (oc, k, k, C), device=dev,
+                           generator=gen, dtype=torch.int8)
+        sws = torch.rand(oc, device=dev, generator=gen) * 2e-3 + 1e-4
+        bias = torch.randn(oc, device=dev, generator=gen) \
+            if kw.get("bias", True) else None
+        odt = out_dt[kw.get("out", "bf16")]
+        out_absmax = 0.0
+        if odt == torch.int8:
+            y = qconv_plain(xq, wq, s_act, sws, bias, st, pd, kw["relu"])
+            out_absmax = 0.7 * float(y.abs().max())
+        args = (xq, wq, s_act, sws, bias, st, pd, kw["relu"], odt, out_absmax)
+        got = qconv(*args)
+        torch.cuda.synchronize()
+        want = qconv_plain(*args)
+        abs_err = float((got.double() - want.double()).abs().nan_to_num(0.0)
+                        .max())
+        s["max_abs_err"] = max(s["max_abs_err"], abs_err)
+        plan = qconv_plan(n, H, W, C, oc, k, k, st, pd, sms)
+        print(f"kernel qconv {str(x.dtype)[6:]}->{str(odt)[6:]:8s} "
+              f"{label:44s} bit-equal={bit_equal(got, want)} (quantize "
+              f"bit-equal) max_abs={abs_err:.3e} plan {plan.route} "
+              f"{plan.tile_m}x{plan.tile_n}"
+              f"{'' if plan.vec else ' element-staged'}", end="")
+        check(bit_equal(got, want), f"qconv {label}: differs from its plain "
+                                    f"version (max abs {abs_err:.3e})")
+        if kw.get("nan") and kw.get("dynamic"):
+            check(bool(got.isnan().all()), f"qconv {label}: a NaN scale "
+                                           f"left finite outputs")
+        elif odt != torch.int8:
+            check(bool(torch.isfinite(got.float()).all()),
+                  f"qconv {label}: non-finite output")
+        if not timed:
+            print()
+            continue
+        ms = graph_ms(lambda: qconv(*args))
+        call_ms = cuda_ms(lambda: qconv(*args), 20)
+        quant_ms = graph_ms(lambda: act_quantize(x, absmax))
+        plain_ms = cuda_ms(lambda: qconv_plain(*args), 3)
+        M = got.numel() // oc
+        work = 2 * M * oc * k * k * C
+        _, oy, ox, _ = got.shape
+        x_read = n * C * _touched(H, oy, k, kw["s"], kw["p"]) \
+            * _touched(W, ox, k, kw["s"], kw["p"])
+        bound_ms, bound_by = bound(peaks, "int8", work,
+                                   x_read + _nbytes(wq, sws, bias, got))
+        a_cols, b_cols = _im2col_int8(xq, k, kw["s"], kw["p"]), \
+            wq.view(oc, -1).t()
+        scale = s_act * sws
+
+        def lib():
+            y = torch._int_mm(a_cols, b_cols).float() * scale + bias
+            return (torch.relu(y) if kw["relu"] else y).to(odt)
+        try:
+            lib()
+            lib_ms = graph_ms(lib)
+        except RuntimeError:
+            lib_ms = None
+        print(f" kernel {ms:.4f} ms ({work / ms / 1e9:.1f} TOPS; the "
+              f"wrapper's call {call_ms:.4f}) plain "
+              f"{plain_ms:.4f} ms; quantize pass {quant_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms ({bound_by}); library _int_mm + epilogue "
+              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+        s["quantize_ms"] += quant_ms
+        _add_case(s, {"case": label, "dtype": "int8", "mrd": 0.0, "ms": ms,
+                      "call_ms": call_ms, "plain_ms": plain_ms,
+                      "quantize_ms": quant_ms,
+                      "tops": work / ms / 1e9, "bound_ms": bound_ms,
+                      "bound_by": bound_by, "library_ms": lib_ms,
+                      "library": "call: torch._int_mm (im2col'd int8 "
+                                 "operands) + epilogue"})
+        del args, got, want, a_cols, x, xq
+
+
 def phase_kernels(ctx: dict) -> None:
     import torch
     from boda_tpu_torch.core.machine import card_peaks
@@ -715,6 +957,8 @@ def phase_kernels(ctx: dict) -> None:
         return not only or kname in only
     if wanted("sgemm_int8"):
         _check_qsgemm(stats, dev, gen, peaks)
+    if wanted("qconv"):
+        _check_qconv(stats, dev, gen, peaks)
     timed = {c[0] for c in _kernel_cases()}
     for label, kname, kw in _kernel_cases() + _edge_cases():
         if not wanted(kname):
@@ -1268,7 +1512,11 @@ def phase_digests(ctx: dict) -> None:
 
 def _cls_agree(tune_a: str, tune_b: str) -> dict:
     """cls_agree of engine=torch under two tunes on the 64 held-out images;
-    returns its statistics, checked against the accuracy gates."""
+    returns its statistics, checked against the accuracy gates: top-1 >=
+    0.90 each and agreement >= 0.97; for the int8 preset against the
+    headline tune, also tests/test_quant8.py's 64-image gates (int8 within
+    one image of bf16, its top-1 in bf16's top-5 for 98% of the images, top-5
+    overlap >= 0.95)."""
     from boda_tpu_torch.core.has_main import create_and_run_has_main
     src = ("(mode=shapes-src,num_imgs=64,start_ix=100000,ysz=224,xsz=224,"
            "num_classes=40,seed=1,mean=128,scale=0.015625)")
@@ -1278,8 +1526,9 @@ def _cls_agree(tune_a: str, tune_b: str) -> dict:
         create_and_run_has_main(
             f"(mode=cls_agree,model=resnet-50,model_opts=(num_classes=40),"
             f"batch=32,weights_fn={TRAINED},src={src},"
-            f"conv_fwd=(engine=torch,op_tune={TUNES[tune_a]}),"
-            f"conv_fwd_b=(engine=torch,op_tune={TUNES[tune_b]}))", {})
+            f"conv_fwd=(engine=torch,{engine_spec(tune_a, 'trained')}),"
+            f"conv_fwd_b=(engine=torch,{engine_spec(tune_b, 'trained')}))",
+            {})
     out = buf.getvalue().strip()
     print(f"cls_agree (a={tune_a}, b={tune_b}, "
           f"{time.perf_counter() - t0:.1f} s): "
@@ -1290,17 +1539,24 @@ def _cls_agree(tune_a: str, tune_b: str) -> dict:
           f"cls_agree {tune_a} vs {tune_b}: top-1 below 0.90: {stats}")
     check(stats["top_1_agree"] >= 0.97,
           f"cls_agree {tune_a} vs {tune_b}: agreement {stats}")
+    if tune_b == INT8:
+        check(stats["num_pos_b"] >= stats["num_pos_a"] - 1
+              and stats["b_top1_in_a_top5"] >= 0.98
+              and stats["top_5_overlap"] >= 0.95,
+              f"cls_agree {tune_a} vs {tune_b}: int8 gates {stats}")
     return stats
 
 
 def phase_agree(ctx: dict) -> None:
     for tune_a in ("bf16_nhwc", "fused_bf16_nhwc", "headline"):
         _cls_agree(tune_a, "f32")
+    _cls_agree("headline", INT8)
 
 
 def _wrappers() -> dict:
     """Each kernel's wrapper, whose `launches` counts its launches
-    ("quantize": sgemm_int8's quantize kernel)."""
+    ("quantize": sgemm_int8's quantize kernel; "act_quantize": qconv's)."""
+    from boda_tpu_torch.ops.cuda.qconv import act_quantize, qconv
     from boda_tpu_torch.ops.cuda.qsgemm import quantize_operands, sgemm_int8
     from boda_tpu_torch.ops.cuda.resblock import resblock
     from boda_tpu_torch.ops.cuda.sgemm import matmul_ext
@@ -1308,7 +1564,8 @@ def _wrappers() -> dict:
     from boda_tpu_torch.ops.cuda.tconv import tconv
     return {"matmul_ext": matmul_ext, "tconv": tconv,
             "fused_stem": fused_stem, "resblock": resblock,
-            "sgemm_int8": sgemm_int8, "quantize": quantize_operands}
+            "sgemm_int8": sgemm_int8, "quantize": quantize_operands,
+            "qconv": qconv, "act_quantize": act_quantize}
 
 
 def _op_label(op) -> str:
@@ -1465,19 +1722,23 @@ def _template_ms(eng, inputs: dict, top: str) -> dict:
     return per
 
 
-def _device_busy_ms(fn) -> float:
+def _device_busy_ms(fn) -> tuple[float, list[tuple[str, int, float]]]:
     """Milliseconds the card spends in kernels and copies during one call of
     fn: the sum of the device events of torch.profiler's trace (one stream,
-    so they do not overlap)."""
+    so they do not overlap); and the six device kernels that took the most
+    of it, as (name, calls, ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
     check(busy > 0, "torch.profiler recorded no device time")
-    return busy
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+    return busy, [(e.key[:48], e.count, e.self_device_time_total / 1e3)
+                  for e in top]
 
 
 def phase_full(ctx: dict) -> None:
@@ -1487,20 +1748,22 @@ def phase_full(ctx: dict) -> None:
     batch = 32
     launches = ctx.setdefault("launches", {})
     for tune_name in FULL_TUNES:
-        tune = TUNES[tune_name]
+        tune = engine_spec(tune_name)
         buf = io.StringIO()
         for w in wrappers.values():
             w.launches = 0
         with contextlib.redirect_stdout(buf):
             hm = create_and_run_has_main(
                 f"(mode=run_cnet,model=resnet-50,batch={batch},dump_top=1,"
-                f"conv_fwd=(engine=torch,op_tune={tune}))", {})
+                f"conv_fwd=(engine=torch,{tune}))", {})
         torch.cuda.synchronize()
         counts = {k: w.launches for k, w in wrappers.items()}
         launches[tune_name] = counts
         dig = [ln for ln in buf.getvalue().splitlines()
                if ln.startswith("digest:")]
-        print(f"run_cnet resnet-50 b{batch} {tune_name} {tune}: launches "
+        print(f"run_cnet resnet-50 b{batch} {tune_name} "
+              f"{TUNES.get(tune_name, '(the headline tune, int8 sites)')}: "
+              f"launches "
               f"{counts}; {dig[0] if dig else '<no digest line>'}")
         check(counts == LAUNCHES[tune_name],
               f"run_cnet {tune_name}: launches {counts} != "
@@ -1511,11 +1774,15 @@ def phase_full(ctx: dict) -> None:
             steps[s.func_name] = steps.get(s.func_name, 0) + 1
         print(f"  steps: {steps}")
         # what the lowering sent where: one launch per step of a template
-        # that wraps a hand kernel
+        # that wraps a hand kernel, and per int8 vendor step one qconv and,
+        # unless its input arrives int8, one act_quantize
         planned = dict.fromkeys(counts, 0)
-        for f, k in steps.items():
-            if f in TEMPLATE_KERNEL:
-                planned[TEMPLATE_KERNEL[f]] += k
+        for st in eng.plan.steps:
+            if st.func_name in TEMPLATE_KERNEL:
+                planned[TEMPLATE_KERNEL[st.func_name]] += 1
+            if st.sig.get_u32_or("quant8", 0):
+                planned["qconv"] += 1
+                planned["act_quantize"] += 1 - st.sig.get_u32_or("in_q8", 0)
         check(counts == planned, f"run_cnet {tune_name}: launches {counts} "
                                  f"!= the plan's steps {planned}")
         check(("xla_conv2" in steps) == ("fuse_siblings" in tune),
@@ -1542,10 +1809,12 @@ def phase_full(ctx: dict) -> None:
               f"[{ctx['smi']}]")
         ctx.setdefault("fwd_ms", {})[tune_name] = ms
         with torch.inference_mode():
-            busy = _device_busy_ms(fwd)
+            busy, top_kernels = _device_busy_ms(fwd)
         print(f"  device busy {busy:.3f} ms of the forward's {ms:.3f} ms "
               f"({100 * (1 - busy / ms):.1f}% idle; the kernels and copies "
-              f"of one more forward in torch.profiler's device trace)")
+              f"of one more forward in torch.profiler's device trace); "
+              f"most of it: " + "; ".join(f"{k} x{n} {t:.3f} ms"
+                                          for k, n, t in top_kernels))
         ctx.setdefault("busy_ms", {})[tune_name] = busy
         per = _template_ms(eng, {data: x}, top)
         print("  per template, one more forward (CUDA events per step): "
@@ -1556,41 +1825,81 @@ def phase_full(ctx: dict) -> None:
             f: {"steps": n, "ms": t} for f, (n, t) in per.items()}
         del hm, eng
         torch.cuda.empty_cache()
-    _headline_b128(ctx)
+    for tune_name in B128_TUNES:
+        _forward_b128(ctx, tune_name)
 
 
-def _headline_b128(ctx: dict) -> None:
-    """One forward time of the headline tune at the JAX bench's batch, 128
-    (zoo weights from a seed; CUDA events, 5 reps)."""
+def _forward_b128(ctx: dict, tune_name: str) -> None:
+    """One forward time of a tune at the JAX bench's batch, 128 (zoo weights
+    from a seed; CUDA events, 5 reps), with its exact launches."""
     import torch
     from boda_tpu_torch.engine.iface import make_engine
     from boda_tpu_torch.models.zoo import build_model
     batch = 128
     pipe = build_model("resnet-50", batch=batch)
-    eng = make_engine(f"(engine=torch,op_tune={TUNES['headline']})")
+    eng = make_engine(f"(engine=torch,{engine_spec(tune_name)})")
     eng.init(pipe)
     data = pipe.data_img_node_names[0]
     top = pipe.get_single_top_node().name
     gen = torch.Generator(device=eng.dev).manual_seed(1)
     x = torch.randn(tuple(pipe.get_data_img_dims().shape), device=eng.dev,
                     generator=gen)
+    wrappers = _wrappers()
     with torch.inference_mode():
         def fwd():
             return eng.fwd({data: x}, eng.weights)[top]
+        for w in wrappers.values():
+            w.launches = 0
         p = fwd().float()
+        counts = {k: w.launches for k, w in wrappers.items()}
         ms = cuda_ms(fwd, 5)
+    check(counts == LAUNCHES[tune_name], f"{tune_name} b128: launches "
+                                         f"{counts}")
     check(tuple(p.shape) == (batch, 1000, 1, 1) and
-          bool(torch.isfinite(p).all()), "headline b128: bad prob")
-    print(f"run_cnet resnet-50 b{batch} headline: forward {ms:.3f} ms = "
+          bool(torch.isfinite(p).all()), f"{tune_name} b128: bad prob")
+    print(f"run_cnet resnet-50 b{batch} {tune_name}: forward {ms:.3f} ms = "
           f"{batch / ms * 1e3:.1f} imgs/s on [{ctx['smi']}]")
-    ctx["fwd_ms_b128"] = {"headline": ms}
+    ctx.setdefault("fwd_ms_b128", {})[tune_name] = ms
     del eng
     torch.cuda.empty_cache()
 
 
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "headline_config",
+              "conv_tflops", "frac_of_roofline", "peak_tflops", "prec",
+              "batch", "device", "compile_s", "step_ms", "bf16_step_ms",
+              "bf16_imgs_per_sec", "bf16_frac_of_roofline",
+              "bf16_vs_baseline", "int8_step_ms", "int8_imgs_per_sec",
+              "int8_frac_of_roofline", "int8_vs_baseline",
+              "int8_peak_tflops", "int8_frac_of_int8_roofline",
+              "mixed_peak_tflops", "int8_frac_of_mixed_roofline")
+
+
+def phase_bench(ctx: dict) -> None:
+    """The bench twin (python3 -m boda_tpu_torch.bench) in this process:
+    one JSON line with bench.py's keys, finite step times, the int8 preset
+    on the trained weights as the headline."""
+    import math
+
+    from boda_tpu_torch import bench
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = bench.main()
+    lines = buf.getvalue().strip().splitlines()
+    check(rc == 0 and len(lines) == 1, f"bench: rc {rc}, output {lines}")
+    res = json.loads(lines[0])
+    print(lines[0])
+    check(tuple(res) == BENCH_KEYS, f"bench: keys {tuple(res)}")
+    check(res["headline_config"] == "int8-preset+trained-weights"
+          and all(math.isfinite(res[k]) and res[k] > 0
+                  for k in ("int8_step_ms", "bf16_step_ms", "value")),
+          f"bench: {res}")
+    ctx["bench"] = lines[0]
+
+
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
           "vendor": phase_vendor, "digests": phase_digests,
-          "agree": phase_agree, "full": phase_full, "ops_prof": phase_ops_prof}
+          "agree": phase_agree, "full": phase_full, "ops_prof": phase_ops_prof,
+          "bench": phase_bench}
 
 
 def main() -> int:
@@ -1601,7 +1910,7 @@ def main() -> int:
     ap.add_argument("--kernels", default="",
                     help="comma-separated kernels the kernels phase is cut "
                          "down to (matmul_ext, tconv, fused_stem, resblock, "
-                         "sgemm_int8); no result lines then")
+                         "sgemm_int8, qconv); no result lines then")
     opts = ap.parse_args()
     phases = opts.phases.split(",")
     unknown = [p for p in phases if p not in PHASES]
@@ -1652,6 +1961,10 @@ def main() -> int:
         if name == "sgemm_int8":
             kernels[-1]["quantize_launches"] = \
                 ctx["launches"]["ops_prof"]["quantize"]
+        if name == "qconv":
+            kernels[-1]["quantize_launches"] = \
+                ctx["launches"][INT8]["act_quantize"]
+    print(ctx["bench"])
     print(smi_line())
     print(json.dumps({"kernels": kernels,
                       "forward_ms_b32": ctx["fwd_ms"],

@@ -1,11 +1,13 @@
 """The port's `xla_conv2` (sibling convs as one vendor conv) against the JAX
 XlaConv2.build on the CPU, on the same seeded inputs, in NCHW f32 and in
-NHWC bf16 storage; the int8 forms it refuses; where the vendor conv rounds
+NHWC bf16 storage, and its int8 forms on kernel B6 (bit-equal); the int8
+weight-gradient form it refuses; where the vendor conv rounds
 under prec=bf16; and a slice net with a stage boundary through TorchFwd
 against the JAX engine under the two `fuse_siblings` tunes.
 
 Tolerances: f32 rtol = atol = 2e-5; bf16 mrd <= 5e-3 (the repo's bf16
 mrd_toler), with bf16-exact filters (tests/test_torch_conv.py says why);
+the int8 forms bit-equal (exact int32 sums, every f32 op rounded alike);
 the engines at 5e-4 (f32) and 5e-3 (bf16) over every node.
 """
 
@@ -16,7 +18,9 @@ import torch
 import torch.nn.functional as F
 
 from boda_tpu.core import dims as jdims
+from boda_tpu.core.dims import NDA as JNDA
 from boda_tpu.core.dims import Dims
+from boda_tpu.engine.lower import _q8_weight
 from boda_tpu.engine import iface as jiface
 from boda_tpu.models import zoo as jzoo
 from boda_tpu.ops.op_base import OpBase as JOpBase
@@ -124,12 +128,59 @@ def test_xla_conv2_matches_jax_and_ref(name, form):
         np.testing.assert_allclose(got, ref, rtol=2e-5, atol=2e-5)
 
 
-@pytest.mark.parametrize("key", ["quant8", "prequant_w", "grad_q8"])
+@pytest.mark.parametrize("prequant", [True, False])
+@pytest.mark.parametrize("form", list(FORMS))
+@pytest.mark.parametrize("name", list(GROUPS))
+def test_xla_conv2_int8_forms_match_jax(name, form, prequant):
+    # the int8 forms on kernel B6's plain version: prequantized (int8
+    # filters, zero taps where a 1x1 embeds in a 3x3) or quantized in the
+    # step, both scale formulas; each member's output bit-equal to the JAX
+    # template's (tests/test_torch_qconv.py says why)
+    op = _group_op(name, form)
+    op.set_u32("quant8", 1)
+    bf16 = form == "nhwc-bf16"
+    x, wbs = _group_inputs(name, False)
+    static = prequant == bf16      # both scale formulas over the forms
+    if static:
+        op.nda_vals["act_scale"] = JNDA.scalar(
+            float(np.float32(0.7 * np.abs(x).max())), "float")
+    args = wbs
+    if prequant:
+        op.set_u32("prequant_w", 1)
+        args = []
+        for tag, w, b in zip("abcd", wbs[0::2], wbs[1::2]):
+            op.set_dims(f"filts_{tag}_scale",
+                        Dims.make(out_chan=w.shape[0]))
+            wq, sw = _q8_weight(w)
+            args += [wq, b, sw]
+    xs = x.transpose(0, 2, 3, 1).copy() if bf16 else x
+    jt = jax_template("xla_conv2")
+    jrfs = jt.check_args(op)
+    jx = jnp.asarray(xs).astype(jnp.bfloat16) if bf16 else xs
+    want = [np.asarray(o) for o in jt.build(jrfs)(jx, *args)]
+    pt = get_template("xla_conv2")
+    rfs = pt.check_args(OpBase.from_lexp(str(op.to_lexp())))
+    assert str(rfs) == str(jrfs)
+    tx = torch.from_numpy(xs)
+    outs = pt.build(rfs)(tx.bfloat16() if bf16 else tx,
+                         *[torch.from_numpy(a) for a in args])
+    assert len(outs) == len(want) == len(GROUPS[name][5])
+    for out, w_ in zip(outs, want):
+        assert out.dtype == (torch.bfloat16 if bf16 else torch.float32)
+        assert out.is_contiguous()
+        np.testing.assert_array_equal(out.float().numpy(),
+                                      w_.astype(np.float32))
+
+
+@pytest.mark.parametrize("key", ["grad_q8"])
 def test_xla_conv2_refuses_the_int8_forms(key):
+    # the forward int8 forms run on kernel B6 (tests/test_torch_qconv.py);
+    # the int8 weight-gradient form is training
     op = OpBase.from_lexp(str(_group_op("res2a-pair", "nchw-f32").to_lexp()))
     op.set_u32(key, 1)
     pt = get_template("xla_conv2")
-    with pytest.raises(RtErr, match=f"int8 form \\({key}=1\\).*ROADMAP A3"):
+    with pytest.raises(RtErr, match=f"int8 weight-gradient form "
+                                    f"\\({key}=1\\).*ROADMAP A8"):
         pt.build(pt.check_args(op))
 
 

@@ -7,8 +7,10 @@ the port's make_engine and build_model and through the CLI entry point
 (python -m boda_tpu_torch run_cnet), ResNet-50 runs under the fused tune
 (fused_stem, resblock), the per-op modes torch_rtc_test and torch_ops_prof
 (with sgemm_int8) run through the CLI, `help` lists only the port's modes,
-and chip_smoke.py's imports are exercised too. A static check finds no
-import statement of boda_tpu in the port's sources or chip_smoke.py.
+and chip_smoke.py's imports are exercised too; the bench twin (python3 -m
+boda_tpu_torch.bench) runs under the same hook and, without a card, exits
+non-zero with one line of error and no JSON. A static check finds no import
+statement of boda_tpu in the port's sources or chip_smoke.py.
 """
 
 import ast
@@ -95,6 +97,23 @@ def test_port_runs_without_jax():
             break  # the end of the list (the timers table follows)
         listed.append(ln.split()[0])
     assert set(listed) == PORT_MODES
+
+
+RUN_BENCH = BLOCK_JAX + """
+import runpy
+runpy.run_module("boda_tpu_torch.bench", run_name="__main__")
+"""
+
+
+def test_bench_twin_runs_without_jax_and_refuses_without_a_card():
+    env = {**os.environ, "PYTHONPATH": str(ROOT), "CUDA_VISIBLE_DEVICES": ""}
+    r = subprocess.run([sys.executable, "-c", RUN_BENCH], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0, r.stdout
+    assert r.stdout == ""
+    assert r.stderr.strip().splitlines() == [
+        "bench: no CUDA device (torch.cuda.is_available() is false); "
+        "nothing timed"], r.stderr[-2000:]
 
 
 def test_import_hook_refuses_jax():

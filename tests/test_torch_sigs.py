@@ -1,12 +1,14 @@
 """The port's own copies of the op variants, lowering, template metadata
 and wisdom agree with the JAX package's, string for string: for every step
 of ResNet-50 lowered under the unfused f32 tune, the bf16 NHWC tune, the
-fused tunes and the two fuse_siblings vendor tunes, and for every op sig of tests/data/ops/*.txt under the
-tunes the per-op sweeps use, both packages pick the same template, reduce
-the sig to the same signature, name the same instance and give the same
-wisdom key and wisdom record.
+fused tunes and the two fuse_siblings vendor tunes, under the selective-int8
+preset (with and without int8 storage edges, q8_edges=1), and for every op
+sig of tests/data/ops/*.txt under the tunes the per-op sweeps use, both
+packages pick the same template, reduce the sig to the same signature, name
+the same instance and give the same wisdom key and wisdom record.
 """
 
+import contextlib
 import io
 from pathlib import Path
 
@@ -20,6 +22,7 @@ from boda_tpu.ops.cnn_variants import make_op_tune as jmake_op_tune
 from boda_tpu.ops.op_base import read_op_sigs as jread_op_sigs
 from boda_tpu.ops.registry import Codegen as JCodegen
 from boda_tpu.ops.registry import get_template as jget_template
+from boda_tpu.tune import presets as jpresets
 from boda_tpu.tune import wisdom as jwisdom
 from boda_tpu_torch.backend.interp import InterpBackend
 from boda_tpu_torch.core.error import RtErr
@@ -29,9 +32,10 @@ from boda_tpu_torch.ops.cnn_variants import add_codegen_annotations, \
     make_op_tune
 from boda_tpu_torch.ops.op_base import read_op_sigs
 from boda_tpu_torch.ops.registry import Codegen, all_templates, get_template
-from boda_tpu_torch.tune import wisdom
+from boda_tpu_torch.tune import presets, wisdom
 
-OPS = Path(__file__).parent / "data" / "ops"
+DATA = Path(__file__).parent / "data"
+OPS = DATA / "ops"
 NET_TUNES = ["()", "(prec=bf16,layout=nhwc)",
              "(fuse_stem=1,fuse_resblock=1)",
              "(prec=bf16,layout=nhwc,fuse_stem=1,fuse_resblock=1)",
@@ -118,3 +122,40 @@ def test_sig_file_ops_agree(sig_file, tune):
         add_codegen_annotations(top, make_op_tune(tune))
         jannotate(jtop, jmake_op_tune(tune))
         _same(top, jtop, cg, jcg)
+
+
+@pytest.mark.parametrize("q8_edges", [False, True])
+@pytest.mark.parametrize("batch", [1, 32])
+def test_resnet50_int8_preset_plans_agree(batch, q8_edges):
+    # bench.py's int8 tune: int8 at the preset's 33 sites with the static
+    # scales of the trained snapshot; q8_edges=1 also stores the edges
+    # between two int8 steps int8 (out_q8 on the producer, in_q8 on the
+    # reader)
+    tune = "(use_culibs=1,prec=bf16,layout=nhwc,s2d=0,fuse_siblings=1" + \
+        (",q8_edges=1)" if q8_edges else ")")
+    scales = DATA / "resnet50-shapes40-int8-scales.lexp"
+    plans = []
+    for mod, build, lower, mk in ((presets, build_model, lower_pipe,
+                                   make_op_tune),
+                                  (jpresets, jbuild_model, jlower_pipe,
+                                   jmake_op_tune)):
+        pipe = build("resnet-50", batch=batch, num_classes=40)
+        with contextlib.redirect_stderr(io.StringIO()):
+            tunes = mod.load_act_scales(
+                scales, mod.resnet_int8_site_tunes(pipe, tune))
+        plans.append(lower(pipe, mk(tune), op_tunes=tunes, fuse_relu=True,
+                           fused_storage=True))
+    plan, jplan = plans
+    assert len(plan.steps) == len(jplan.steps)
+    assert plan.weight_nodes == jplan.weight_nodes
+    assert plan.weight_transforms == jplan.weight_transforms
+    assert {n: str(d) for n, d in plan.node_dims.items()} == \
+        {n: str(d) for n, d in jplan.node_dims.items()}
+    cg, jcg = _codegens()
+    for s, js in zip(plan.steps, jplan.steps):
+        assert (s.call_tag, s.arg_nodes) == (js.call_tag, js.arg_nodes)
+        _same(s.sig, js.sig, cg, jcg)
+    q = [s for s in plan.steps if s.sig.get_u32_or("quant8", 0)]
+    assert len(q) == 31
+    edges = sum(s.sig.get_u32_or("out_q8", 0) for s in plan.steps)
+    assert (edges > 0) == q8_edges
