@@ -1,9 +1,11 @@
-"""Classification agreement of two engine configs over a labeled stream.
+"""Classification accuracy and agreement over labeled streams.
 
-The port's copy of part of boda_tpu/apps/eval_cls.py: `score_batch`, the
-labeled `shapes-src` source (the procedural dataset of io/synth.py) and the
-`cls_agree` mode, whose default engines are engine=torch. The JAX
-package's LMDB and labeled-npy sources and its test_lmdb, lmdb_* and
+The port's copy of part of boda_tpu/apps/eval_cls.py: `score_batch`; the
+labeled sources `labeled-npy-src`, `shapes-src` (the procedural dataset of
+io/synth.py) and `lmdb-src` (caffe Datums, read by the real `lmdb` module
+when installed, else by utils/lmdbmini.py) with `encode_datum`; and the
+modes `test_lmdb` (reference: lmdb_caffe_io.cc:36-62) and `cls_agree`,
+whose default engines are engine=torch. The JAX package's lmdb_* and
 display modes are not on the port's paths and are left out.
 
 Labeled block convention: block.nda = one image (chan,y,x float32,
@@ -19,6 +21,7 @@ from ..core.config import Attr, register
 from ..core.dims import NDA, Dims
 from ..core.error import RtErr
 from ..core.has_main import mode
+from ..core.timers import timer
 from ..engine.iface import ConvFwd
 from ..io.data_stream import DataBlock, DataStream
 from .run_cnet import RunCnetBase
@@ -41,6 +44,45 @@ def score_batch(out_batch: np.ndarray, labels_gt: list[int],
         if gt in top:
             num_pos += 1
     return num_pos
+
+
+@register(DataStream, "labeled-npy-src",
+          help="labeled image blocks from images.npy + labels.npy")
+class LabeledNpySrc(DataStream):
+    images_fn = Attr(str, req=True, help=".npy of images (N,chan,y,x) float32")
+    labels_fn = Attr(str, req=True, help=".npy of int labels (N,)")
+    tag = Attr(str, default="data")
+
+    def data_stream_init(self):
+        self._imgs = np.load(self.images_fn, mmap_mode="r")
+        self._labels = np.load(self.labels_fn)
+        if self._imgs.shape[0] != self._labels.shape[0]:
+            raise RtErr(f"labeled-npy-src: {self._imgs.shape[0]} images but "
+                        f"{self._labels.shape[0]} labels")
+        self._ix = 0
+
+    def proc_block(self, db: DataBlock) -> DataBlock:
+        if self._ix >= self._imgs.shape[0]:
+            return DataBlock()
+        v = np.ascontiguousarray(self._imgs[self._ix], dtype=np.float32)
+        if v.ndim != 3:
+            raise RtErr("labeled-npy-src: images must be (N,chan,y,x)")
+        dims = Dims.make(tn="float", chan=v.shape[0], y=v.shape[1], x=v.shape[2])
+        ret = DataBlock(NDA(dims, v), tag=self.tag, frame_ix=self._ix,
+                        timestamp_ns=self._ix)
+        lab = DataBlock(NDA(Dims.make(tn="float", v=1),
+                            np.array([self._labels[self._ix]], np.float32)),
+                        tag="label")
+        ret.set_sdb(lab)
+        self._ix += 1
+        return ret
+
+    def seek_to_block(self, frame_ix: int) -> bool:
+        self._ix = min(frame_ix, self._imgs.shape[0])
+        return True
+
+    def get_pos_info_str(self) -> str:
+        return f"labeled-npy-src: {self._ix}/{self._imgs.shape[0]}"
 
 
 @register(DataStream, "shapes-src",
@@ -90,6 +132,118 @@ class ShapesSrc(DataStream):
 
     def get_pos_info_str(self) -> str:
         return f"shapes-src: {self._ix}/{self.num_imgs}"
+
+
+def encode_datum(img_u8: np.ndarray, label: int) -> bytes:
+    """Serialize a caffe Datum (caffe.proto fields: 1=channels 2=height
+    3=width 4=data 5=label) for LMDB fixtures."""
+    from ..graph.pbwire import enc_field_bytes, enc_field_varint
+    c, y, x = img_u8.shape
+    return (enc_field_varint(1, c) + enc_field_varint(2, y)
+            + enc_field_varint(3, x)
+            + enc_field_bytes(4, np.ascontiguousarray(img_u8, np.uint8).tobytes())
+            + enc_field_varint(5, int(label)))
+
+
+def open_lmdb_kv_iter(fn: str):
+    """(key, value) iterator over an LMDB env: the real `lmdb` module when
+    installed, else the built-in pure-Python reader (utils/lmdbmini.py)."""
+    try:
+        import lmdb
+        env = lmdb.open(fn, readonly=True, lock=False)
+        txn = env.begin()
+        return iter(txn.cursor())
+    except ImportError:
+        from ..utils.lmdbmini import LmdbMini
+        return LmdbMini(fn).items()
+
+
+@register(DataStream, "lmdb-src",
+          help="labeled blocks from a caffe-Datum LMDB")
+class LmdbSrc(DataStream):
+    """Reference: lmdb_parse_datums_t + parse_datum (lmdbif.cc,
+    caffepb.H:39). Datum wire fields: 1=channels 2=height 3=width
+    4=data(bytes) 5=label."""
+
+    fn = Attr(str, req=True, help="lmdb directory")
+    tag = Attr(str, default="data")
+    mean = Attr(float, default=0.0, help="scalar mean subtracted from pixels")
+    scale = Attr(float, default=1.0,
+                 help="multiplier applied after mean subtraction (caffe "
+                      "transform_param scale; e.g. 0.0078125 = 1/128 for "
+                      "unit-range training inputs)")
+
+    def data_stream_init(self):
+        self._iter = open_lmdb_kv_iter(self.fn)
+        self._ix = 0
+
+    def proc_block(self, db: DataBlock) -> DataBlock:
+        from ..graph.pbwire import decode_wire
+        try:
+            _key, raw = next(self._iter)
+        except StopIteration:
+            return DataBlock()
+        d = decode_wire(raw)
+        chans, y, x = d.varint(1, 0), d.varint(2, 0), d.varint(3, 0)
+        data = d.bytes_field(4)
+        label = d.varint(5, 0)
+        v = np.frombuffer(data, dtype=np.uint8).astype(np.float32)
+        v = (v.reshape(chans, y, x) - self.mean) * self.scale
+        ret = DataBlock(NDA(Dims.make(tn="float", chan=chans, y=y, x=x), v),
+                        tag=self.tag, frame_ix=self._ix, timestamp_ns=self._ix)
+        ret.set_sdb(DataBlock(NDA(Dims.make(tn="float", v=1),
+                                  np.array([label], np.float32)), tag="label"))
+        self._ix += 1
+        return ret
+
+    def get_pos_info_str(self) -> str:
+        return f"lmdb-src: {self._ix}"
+
+
+@mode("test_lmdb",
+      help="classification accuracy over a labeled stream (lmdb/npy)")
+class TestLmdb(RunCnetBase):
+    """Reference: test_lmdb_t (lmdb_caffe_io.cc:36-62). The stream spec
+    generalizes the lmdb reader: any labeled-block source works."""
+
+    src = Attr(DataStream, req=True, help="labeled-block stream spec")
+    top_k = Attr(int, default=1, help="count hit if gt in top-k")
+    max_imgs = Attr(int, default=0, help="stop after this many (0: all)")
+
+    def main(self):
+        pipe = self.setup_cnet()
+        d = pipe.get_data_img_dims()
+        batch_sz = d["img"]
+        data_node = pipe.data_img_node_names[0]
+        top = pipe.get_single_top_node().name
+        self.src.data_stream_init()
+        num_test = 0
+        num_pos = 0
+        with timer("test_lmdb"):
+            while not self.max_imgs or num_test < self.max_imgs:
+                imgs, labels = [], []
+                for _ in range(batch_sz):
+                    b = self.src.proc_block(DataBlock())
+                    if not b.valid():
+                        break
+                    lab = b.get_sdb("label")
+                    if lab is None:
+                        raise RtErr("test_lmdb: stream block missing 'label' "
+                                    "subblock")
+                    imgs.append(b.nda.v)
+                    labels.append(int(lab.nda.v.ravel()[0]))
+                if not labels:
+                    break
+                # pad a short final batch (the plan's shapes are static)
+                while len(imgs) < batch_sz:
+                    imgs.append(np.zeros_like(imgs[0]))
+                batch = NDA(d, np.stack(imgs).astype(d.dtype))
+                out = self.conv_fwd.run_fwd({data_node: batch}, [top])[top]
+                num_pos += score_batch(out.v, labels, self.top_k)
+                num_test += len(labels)
+        top_1_acc = num_pos / max(num_test, 1)
+        acc_tag = "top_1_acc" if self.top_k == 1 else f"top_{self.top_k}_acc"
+        print(f"{acc_tag}={top_1_acc:g} num_pos={num_pos} num_test={num_test}")
 
 
 @mode("cls_agree",

@@ -3,7 +3,9 @@
 Port of boda_tpu/backend/xla.py on the contract of backend/iface.py (named
 device vars and reshaped views, host<->device copies, compile, run by
 instance name with var-name or by-value NDA args, sync, per-call timing).
-`Attr(Backend)` fields and `rtcs=(t=(be=torch))` parse it.
+`Attr(Backend)` fields and `rtcs=(t=(be=torch))` parse it. The per-op
+modes run on it, and so does engine=torch's per-call mode (fuse=0), which
+keeps every node of the plan in a var and runs each step as one call.
 
 Vars are torch tensors on `device` (default cuda, through core/device's
 get_device: asking for cuda without a card raises, nothing falls back to

@@ -5,9 +5,9 @@ init(pipe), run_fwd(to_set, to_get), get_info_log() — selected
 polymorphically (reference engines: 'rtc' generated-kernel engine and
 'caffe' known-good reference engine).
 
-The port's copy of boda_tpu/engine/iface.py, with one engine: 'torch'
-(engine/torch_fwd.py). The JAX package's 'rtc' and 'ref' engines are not
-ported.
+The port's copy of boda_tpu/engine/iface.py, with two engines: 'torch'
+(engine/torch_fwd.py, the counterpart of the JAX package's 'rtc') and
+'ref', the float64 numpy reference (engine/ref_fwd.py).
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ class ConvFwd(Config):
 
 
 def make_engine(spec: Union[str, dict, None] = None) -> ConvFwd:
-    from . import torch_fwd  # noqa: F401  (registers engine=torch)
+    from . import ref_fwd, torch_fwd  # noqa: F401  (register the engines)
     if spec is None:
         spec = "torch"
     if isinstance(spec, dict):

@@ -6,8 +6,9 @@ parsed into {field_number: [values]} trees; caffe_io.py interprets field
 numbers. Packed repeated scalars are kept as raw bytes and decoded on
 demand by typed accessors.
 
-The port's copy of boda_tpu/graph/pbwire.py without the encoder, which
-only the JAX package's caffemodel writer uses.
+The port's copy of boda_tpu/graph/pbwire.py with only the encoder's
+varint and bytes fields (a caffe Datum: apps/eval_cls.encode_datum); the
+rest of the encoder serves the JAX package's caffemodel writer.
 """
 
 from __future__ import annotations
@@ -174,3 +175,29 @@ def decode_wire(buf: bytes) -> WireNode:
 
 
 # ---- encoding ----
+
+
+# ---- encoding ----
+
+def enc_varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if v:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def enc_tag(fno: int, wt: int) -> bytes:
+    return enc_varint((fno << 3) | wt)
+
+
+def enc_field_varint(fno: int, v: int) -> bytes:
+    return enc_tag(fno, 0) + enc_varint(int(v))
+
+
+def enc_field_bytes(fno: int, v: bytes) -> bytes:
+    return enc_tag(fno, 2) + enc_varint(len(v)) + v

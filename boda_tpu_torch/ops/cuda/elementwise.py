@@ -1,5 +1,6 @@
-"""Elementwise templates: relu, eltwise (SUM, MAX, PROD), inference
-dropout, and dot (c = a * b, the kernel of the torch_rtc_test smoke mode).
+"""Elementwise templates: relu, eltwise (SUM, MAX, PROD), dropout
+(inference and both train-mode masks), and dot (c = a * b, the kernel of
+the torch_rtc_test smoke mode).
 
 Port of boda_tpu/ops/pallas/elementwise.py (Dot, Relu, Eltwise,
 Dropout), which computes these outside Pallas too. Each works on NCHW or
@@ -16,6 +17,7 @@ import torch
 from ...core.error import RtErr
 from ..op_base import OpBase
 from ..registry import IN, INOUT, OUT, KernelTemplate, adecl, template
+from .quantize import div_const, dtype_consts, f32_recip
 
 
 @template
@@ -81,31 +83,132 @@ class Eltwise(KernelTemplate):
                                                         np.asarray(b))
 
 
-def _infer_only(rfs: OpBase) -> None:
-    if rfs.str_vals.get("drop_mode", "infer") != "infer" \
-            or "seed" in rfs.nda_vals:
-        raise RtErr("dropout: only inference mode is ported to torch "
-                    "(train-mode masks are not)")
+def _ratio(rfs: OpBase) -> float:
+    r = rfs.nda_vals.get("dropout_ratio")
+    return float(r.item()) if r is not None else 0.5
+
+
+def _scale_kept(ratio: float):
+    """fn(x, u) = x * (u >= ratio) / (1 - ratio) in x's dtype, as the JAX
+    engine computes it: the constants in u's and x's dtypes (JAX's
+    weak-typed numbers), the division a product with the f32 reciprocal
+    XLA folds (quantize.div_const); the constants made once per dtype and
+    device."""
+    consts: dict = {}
+
+    def fn(x, u):
+        key = (x.dtype, u.dtype, x.device)
+        if key not in consts:
+            consts[key] = (dtype_consts(u, ratio)[0],
+                           f32_recip(x, 1.0 - ratio))
+        r, inv = consts[key]
+        return div_const(x * (u >= r).to(x.dtype), inv)
+    return fn
 
 
 @template
 class Dropout(KernelTemplate):
-    """Inference dropout is the identity. Train-mode masks are not ported
-    yet: such a step raises when built."""
+    """Dropout with deterministic seed control (reference: dropout.cucl +
+    set_det_drop_seed rtc_fwd.cc:91-99). Inference mode is the identity;
+    train mode keeps the units whose mask value u >= ratio and scales them
+    by 1 / (1 - ratio), with a counter-based mask that every backend
+    computes alike. Two masks, as in the JAX template:
+
+    - `_mask`, static per signature: a uint64 LCG plus fmix on the flat
+      index, keyed by det_drop_seed. Computed with numpy (the JAX
+      template's own code) once per storage shape and uploaded.
+    - `_mask32`, per step: a uint32 murmur3 fmix on (flat index, seed),
+      the seed a fed input node (train_dropout lowering). It runs on the
+      seed's device in int64, each product wrapped and masked to 32 bits
+      and each shift taken of a non-negative value; `_mask32_np` is its
+      numpy twin, the JAX template's.
+    """
 
     name = "dropout"
     args = [adecl("seed", IN, "v", opt=True),
             adecl("inout", INOUT, "img chan y x")]
-    nhwc_ok = True
+    nhwc_ok = True  # elementwise; the mask follows the storage index
     sig_nda_keys = ["dropout_ratio", "det_drop_seed"]
     sig_str_keys = ["drop_mode"]
+    _FMIX = (2654435761, 0x9E3779B9, 0x85EB_CA6B, 0xC2B2_AE35)
+
+    @classmethod
+    def _mask(cls, rfs: OpBase, shape):
+        seed = rfs.get_u32_or("det_drop_seed", 0)
+        idx = np.arange(int(np.prod(shape)), dtype=np.uint64)
+        h = (idx * np.uint64(6364136223846793005)
+             + np.uint64(seed * 2654435761 + 1442695040888963407))
+        h ^= h >> np.uint64(33)
+        h *= np.uint64(0xff51afd7ed558ccd)
+        h ^= h >> np.uint64(33)
+        u = (h >> np.uint64(40)).astype(np.float64) / float(1 << 24)
+        return u.reshape(shape)
+
+    @classmethod
+    def _mask32_np(cls, seed, shape):
+        m = np.uint32
+        c1, c2, c3, c4 = (m(v) for v in cls._FMIX)
+        idx = np.arange(int(np.prod(shape)), dtype=np.uint32)
+        with np.errstate(over="ignore"):
+            h = idx * c1 + m(np.uint32(seed)) * c2
+            h ^= h >> m(16)
+            h *= c3
+            h ^= h >> m(13)
+            h *= c4
+            h ^= h >> m(16)
+        return ((h >> m(8)).astype(np.float64) / float(1 << 24)) \
+            .reshape(shape)
+
+    @classmethod
+    def _mask32(cls, seed: torch.Tensor, shape) -> torch.Tensor:
+        """The per-step mask (f32, values k / 2^24) on seed's device."""
+        m32 = 0xFFFFFFFF
+        c1, c2, c3, c4 = cls._FMIX
+        idx = torch.arange(int(np.prod(shape)), dtype=torch.int64,
+                           device=seed.device)
+        s = seed.reshape(()).to(torch.int64) & m32
+        h = (idx * c1 + s * c2) & m32
+        h = h ^ (h >> 16)
+        h = (h * c3) & m32
+        h = h ^ (h >> 13)
+        h = (h * c4) & m32
+        h = h ^ (h >> 16)
+        u = (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+        return u.reshape(shape)
 
     @classmethod
     def build(cls, rfs: OpBase):
-        _infer_only(rfs)
-        return lambda x: x
+        if rfs.str_vals.get("drop_mode", "infer") == "infer":
+            return lambda x: x
+        scale_kept = _scale_kept(_ratio(rfs))
+        if "seed" in rfs.nda_vals:
+            # per-step seeded mask; arg order is in_args then io_args
+            def fn_seeded(seed, x):
+                return scale_kept(x, cls._mask32(seed, x.shape))
+            return fn_seeded
+        masks: dict = {}
+
+        def fn(x):
+            # the static mask, in x's dtype as the JAX template bakes it,
+            # made once per storage shape, dtype and device
+            key = (tuple(x.shape), x.dtype, x.device)
+            if key not in masks:
+                masks[key] = torch.from_numpy(cls._mask(rfs, x.shape)) \
+                    .to(x.dtype).to(x.device)
+            return scale_kept(x, masks[key])
+        return fn
 
     @classmethod
-    def ref_impl(cls, rfs: OpBase, x):
-        _infer_only(rfs)
-        return np.asarray(x)
+    def ref_impl(cls, rfs: OpBase, *a):
+        if len(a) == 2:  # seeded train form: (seed, x)
+            seed, x = a
+            x = np.asarray(x)
+            ratio = _ratio(rfs)
+            u = cls._mask32_np(int(np.asarray(seed).reshape(())), x.shape)
+            return x * (u >= ratio).astype(x.dtype) / (1.0 - ratio)
+        x = np.asarray(a[0])
+        if rfs.str_vals.get("drop_mode", "infer") == "infer":
+            return x
+        ratio = _ratio(rfs)
+        u = cls._mask(rfs, x.shape)
+        return x * (u >= ratio).astype(x.dtype) / (1.0 - ratio)

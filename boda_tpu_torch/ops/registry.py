@@ -150,7 +150,8 @@ def takes_device(fn):
 
 def _load_templates() -> None:
     from .cuda import (conv, conv2, elementwise, gen_data,  # noqa: F401
-                       pool, qsgemm, resblock, sgemm, softmax, stem, tconv)
+                       pool, qsgemm, quantize, resblock, sgemm, softmax,
+                       stem, tconv, var_stats)
 
 
 def all_templates() -> dict[str, type[KernelTemplate]]:

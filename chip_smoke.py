@@ -87,6 +87,29 @@ Phases, run in order, each fatal on failure (all of them by default):
            time over one more forward (CUDA events around each step); then
            one forward time, with its launches, of the headline tune and of
            the int8 preset at batch 128
+  engine   the engine's second executor, the per-call mode (fuse=0: one
+           be=torch call per plan step, each between CUDA events): at
+           ResNet-50 b32 under () the per-call forward bit-equal to the
+           fused one on prob and ten interior nodes, with 40 matmul_ext and
+           13 tconv launches, its per_call_fn report (one line per step,
+           summed per template) and both forwards' time and device-busy
+           time; the int8 preset on the trained snapshot per call against
+           the fused executor over the 64 held-out images (agreement >=
+           0.97, top-1 >= 0.90), qconv once per int8 step; test_compute_multi
+           through the CLI on resnet-50 b1 (engine=ref, fused, per-call;
+           the TPU archive at mrd 8e-3) and vgg-19 b1 (fused, per-call; 3e-2);
+           enable_stats in both executors against the returned nodes
+           (min, max exact; mean within 1e-5 x mean|x|, sum(x^2) rtol 1e-5
+           of float64 sums); nan_check clean and with a NaN in
+           res3a_branch2b's filter (both executors name that node first), and
+           run_fwd at b32 with nan_check and with enable_stats beside
+           plain; VGG-19 b1 with train_dropout=1,det_drop_seed=7 and a
+           quantize hook on fc8-conv against engine=ref (zeroed units of
+           fc6/fc7 equal, mrd 3e-2, fc8 on the grid) and the seeded mask on
+           the card against its numpy twin; test_lmdb per call over the
+           held-out images written as an LMDB (top-1 >= 0.90); wisdom_fn
+           (tests/data/wisdom-resnet50-b32.wis) at b32: the CPU's plan, one
+           timed forward
   ops_prof the per-op path (mode torch_ops_prof, be=torch): the vendor
            sgemm under prec=bf16 returns the unrounded f32 product; the six
            square SGEMMs of tests/data/ops/sgemm-baseline.txt (128^3-4096^3) under
@@ -111,15 +134,16 @@ for fused_stem and resblock, the int8 preset's b32 forward for qconv, and
 the int8 SGEMM sweep of ops_prof for sgemm_int8; the entries of sgemm_int8
 and qconv also hold their quantize kernels' launches there
 ("quantize_launches");
-"launches_by_tune": in each of those runs; "ms", "plain_ms", "bound_ms"
+"launches_by_tune": in each of those runs, and in the engine phase's
+per-call forwards ("percall_f32", "percall_int8"); "ms", "plain_ms", "bound_ms"
 and "library_ms": summed over the timed shapes, "bound_by" that of the
 case with the largest bound; "library_ms" is null for fused_stem and
 resblock, which no single PyTorch call computes, and
 "library_sequence_ms" holds the time of the sequence of calls that does;
 "max_abs_err": over every checked shape; "cases": each timed case), the
 b32 forward times (and the headline tune's and the int8 preset's at b128),
-the card's busy time in a forward, the per-template step times and the
-vendor phase's two sums;
+the card's busy time in a forward, the per-template step times, the
+vendor phase's two sums and the engine phase's times ("engine");
 and {"ok": true,
 "device": {...}}. Without a CUDA device, or outside a checkout of the
 repo, it exits non-zero and prints no result. It imports neither jax nor
@@ -1864,6 +1888,455 @@ def _forward_b128(ctx: dict, tune_name: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- engine
+
+ENGINE_OUT = ROOT / "build" / "engine_smoke"
+# the 64 held-out images cls_agree reads (the agree phase)
+HELD_OUT = dict(num_imgs=64, start_ix=100000, ysz=224, xsz=224,
+                num_classes=40, seed=1, mean=128, scale=0.015625)
+HELD_OUT_SRC = "(mode=shapes-src," + ",".join(
+    f"{k}={v}" for k, v in HELD_OUT.items()) + ")"
+STATS_RTOL = 1e-5
+
+
+def _counts_reset(wrappers: dict) -> None:
+    for w in wrappers.values():
+        w.launches = 0
+
+
+def _planned_launches(plan, counts: dict) -> dict:
+    """The launches the plan's steps send to each hand kernel: one per
+    step of a template that wraps one, and per int8 vendor step one qconv
+    and, unless its input arrives int8, one act_quantize."""
+    planned = dict.fromkeys(counts, 0)
+    for st in plan.steps:
+        if st.func_name in TEMPLATE_KERNEL:
+            planned[TEMPLATE_KERNEL[st.func_name]] += 1
+        if st.sig.get_u32_or("quant8", 0):
+            planned["qconv"] += 1
+            planned["act_quantize"] += 1 - st.sig.get_u32_or("in_q8", 0)
+    return planned
+
+
+def _run_mode(spec: str) -> tuple[str, object]:
+    """create_and_run_has_main(spec) with its stdout captured."""
+    from boda_tpu_torch.core.has_main import create_and_run_has_main
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        hm = create_and_run_has_main(spec, {})
+    return buf.getvalue(), hm
+
+
+def _wall_ms(fn, reps: int = 5) -> float:
+    """Median host milliseconds of fn() (which ends in a host copy)."""
+    fn()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return sorted(ts)[reps // 2]
+
+
+def _percall_vs_fused(ctx: dict, wrappers: dict) -> None:
+    """ResNet-50 b32 under (): the per-call forward bit-equal to the fused
+    one on prob and interior nodes, B1 and B2 launched as the plan says,
+    the per-call report, both forwards timed."""
+    import numpy as np
+    import torch
+    from boda_tpu_torch.core.dims import NDA
+    from boda_tpu_torch.engine.iface import make_engine
+    from boda_tpu_torch.engine.torch_fwd import produced_nodes
+    from boda_tpu_torch.models.zoo import build_model
+    batch = 32
+    pipe = build_model("resnet-50", batch=batch)
+    report = ENGINE_OUT / "per_call_resnet50_b32.txt"
+    fused = make_engine("(engine=torch,op_tune=())")
+    fused.init(pipe)
+    percall = make_engine(f"(engine=torch,fuse=0,op_tune=(),"
+                          f"per_call_fn={report})")
+    percall.init(pipe)
+    d = pipe.get_data_img_dims()
+    data = pipe.data_img_node_names[0]
+    x = np.random.RandomState(1).randn(*d.shape).astype(np.float32)
+    nodes = [n for n in _nodes_to_get(pipe) if n in produced_nodes(fused.plan)]
+    interior = [n for n in nodes[:-1][::max(1, len(nodes) // 10)]]
+    want = interior + ["prob"]
+    outs_f = fused.run_fwd({data: NDA(d, x)}, want)
+    _counts_reset(wrappers)
+    outs_p = percall.run_fwd({data: NDA(d, x)}, want)
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    ctx.setdefault("launches", {})["percall_f32"] = counts
+    print(f"per-call resnet-50 b{batch} (): launches {counts}")
+    check(counts == UNFUSED_LAUNCHES,
+          f"per-call (): launches {counts} != {UNFUSED_LAUNCHES}")
+    check(counts == _planned_launches(percall.plan, counts),
+          f"per-call (): launches {counts} != the plan's steps")
+    unequal = [n for n in want if not np.array_equal(outs_f[n].v,
+                                                     outs_p[n].v)]
+    print(f"  fused vs per-call: {len(want)} nodes ({', '.join(want)}), "
+          f"bit-unequal: {unequal}")
+    check(len(interior) >= 5 and not unequal,
+          f"per-call vs fused: nodes not bit-equal: {unequal}")
+    p = outs_p["prob"].v
+    check(p.shape == (batch, 1000, 1, 1) and np.isfinite(p).all(),
+          "per-call prob: bad shape or non-finite")
+    lines = report.read_text().splitlines()
+    check(lines[0] == "per-layer timing (tag func secs):"
+          and len(lines) == 1 + len(percall.fwd_calls)
+          == 1 + len(percall.plan.steps),
+          f"per-call report: {len(lines)} lines for "
+          f"{len(percall.fwd_calls)} calls")
+    per_t: dict = {}
+    total = 0.0
+    for ln, c in zip(lines[1:], percall.fwd_calls):
+        tag, inst, secs = ln.split()
+        check(tag == c.call_tag and inst == c.func_name and float(secs) > 0,
+              f"per-call report line '{ln}'")
+        f = inst.rsplit("__", 1)[0]
+        n, t = per_t.get(f, (0, 0.0))
+        per_t[f] = (n + 1, t + float(secs) * 1e3)
+        total += float(secs) * 1e3
+    x_dev = torch.from_numpy(x).to(fused.dev)
+    top = pipe.get_single_top_node().name
+    with torch.inference_mode():
+        def fused_fwd():
+            return fused.fwd({data: x_dev}, fused.weights)[top]
+
+        def percall_fwd():
+            for c in percall.fwd_calls:
+                percall.codegen.run_func(c)
+        ms_f = cuda_ms(fused_fwd, 10)
+        busy_f, _ = _device_busy_ms(fused_fwd)
+        ms_p = cuda_ms(percall_fwd, 5)
+        busy_p, _ = _device_busy_ms(percall_fwd)
+    print(f"  per-call report: {len(lines) - 1} lines, sum of the calls' "
+          f"CUDA-event spans {total:.3f} ms; the per-call forward "
+          f"{ms_p:.3f} ms, the card busy {busy_p:.3f} ms of it "
+          f"({100 * (1 - busy_p / ms_p):.1f}% idle); the fused forward "
+          f"{ms_f:.3f} ms, busy {busy_f:.3f} ms "
+          f"({100 * (1 - busy_f / ms_f):.1f}% idle) on [{ctx['smi']}]")
+    print("  per template (per-call report): " + ", ".join(
+        f"{f} x{n} {t:.3f} ms" for f, (n, t) in
+        sorted(per_t.items(), key=lambda kv: -kv[1][1])))
+    ctx["engine"] = {"percall_report_ms": total, "percall_fwd_ms": ms_p,
+                     "percall_busy_ms": busy_p, "fused_fwd_ms": ms_f,
+                     "fused_busy_ms": busy_f,
+                     "percall_template_ms": {f: {"steps": n, "ms": t}
+                                             for f, (n, t) in per_t.items()}}
+
+
+def _percall_int8(ctx: dict, wrappers: dict) -> dict:
+    """The int8 preset on the trained snapshot, per call against the fused
+    executor, over the 64 held-out images (the cls_agree gates); B6 once
+    per int8 step of the per-call plan."""
+    import numpy as np
+    import torch
+    from boda_tpu_torch.core.dims import NDA
+    spec = engine_spec(INT8, "trained")
+    t0 = time.perf_counter()
+    out, hm = _run_mode(
+        f"(mode=cls_agree,model=resnet-50,model_opts=(num_classes=40),"
+        f"batch=32,weights_fn={TRAINED},src={HELD_OUT_SRC},"
+        f"conv_fwd=(engine=torch,{spec}),"
+        f"conv_fwd_b=(engine=torch,fuse=0,{spec}))")
+    line = out.strip().splitlines()[-1]
+    stats = {k: float(v) for k, v in re.findall(r"(\w+)=([0-9.]+)", line)}
+    print(f"cls_agree int8 preset, a=fused, b=per-call "
+          f"({time.perf_counter() - t0:.1f} s): {line}")
+    check(stats.get("num_test") == 64 and stats["top_1_agree"] >= 0.97
+          and min(stats["top_1_acc_a"], stats["top_1_acc_b"]) >= 0.90,
+          f"int8 per-call vs fused: {stats}")
+    fused, percall = hm.conv_fwd, hm.conv_fwd_b
+    n_f = sum(s.sig.get_u32_or("quant8", 0) for s in fused.plan.steps)
+    n_p = sum(s.sig.get_u32_or("quant8", 0) for s in percall.plan.steps)
+    d = hm.pipe.get_data_img_dims()
+    x = np.random.RandomState(2).randn(*d.shape).astype(np.float32)
+    _counts_reset(wrappers)
+    percall.run_fwd({hm.pipe.data_img_node_names[0]: NDA(d, x)}, ["prob"])
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    ctx.setdefault("launches", {})["percall_int8"] = counts
+    print(f"  int8 steps: fused plan {n_f}, per-call plan {n_p} (lowered "
+          f"without the storage pass); per-call forward launches {counts}")
+    check(counts == _planned_launches(percall.plan, counts)
+          and counts["qconv"] == n_p == n_f == 31,
+          f"int8 per-call: launches {counts}, int8 steps {n_p} / {n_f}")
+    del hm, fused, percall
+    torch.cuda.empty_cache()
+    return stats
+
+
+def _compute_multi(model: str, engines: str, toler: float) -> None:
+    t0 = time.perf_counter()
+    out, _ = _run_mode(
+        f"(mode=test_compute_multi,model={model},batch=1,all_vars=1,"
+        f"mrd_toler={toler},boda_output_dir={ENGINE_OUT / model},"
+        f"engines=({engines}),"
+        f"kg_digests_fn={DATA / 'tpu_digests' / model / 'digest-rtc.boda'})")
+    lines = out.strip().splitlines()
+    print(f"test_compute_multi {model} mrd {toler:g} "
+          f"({time.perf_counter() - t0:.1f} s): " + "; ".join(lines))
+    n = engines.count("engine=")
+    check(len(lines) == 2 * n - 1 and all(ln.endswith(": PASS")
+                                          for ln in lines),
+          f"test_compute_multi {model}: {lines}")
+
+
+def _stats_and_nan(ctx: dict) -> None:
+    """enable_stats at ResNet-50 b1 in both executors; nan_check, clean and
+    with a NaN in one res3 conv's filter; their cost at b32."""
+    import numpy as np
+    import torch
+    from boda_tpu_torch.core.dims import NDA
+    from boda_tpu_torch.core.error import RtErr
+    from boda_tpu_torch.engine.iface import make_engine
+    from boda_tpu_torch.engine.torch_fwd import produced_nodes, step_writes
+    from boda_tpu_torch.models.zoo import build_model
+    pipe = build_model("resnet-50", batch=1)
+    d = pipe.get_data_img_dims()
+    data = pipe.data_img_node_names[0]
+    ins = {data: NDA(d, np.random.RandomState(3).randn(*d.shape)
+                     .astype(np.float32))}
+    stats = {}
+    for fuse in (1, 0):
+        eng = make_engine(f"(engine=torch,fuse={fuse},enable_stats=1,"
+                          f"nan_check=1)")
+        eng.init(pipe)
+        nodes = sorted(produced_nodes(eng.plan) - set(eng.plan.input_nodes))
+        outs = eng.run_fwd(ins, nodes)
+        # per call, a node's stats are taken after its first write (as the
+        # JAX engine's per-call mode takes them): nodes written again (an
+        # in-place ReLU after an eltwise) are held only to the fused ones
+        writes: dict = {}
+        for s in eng.plan.steps:
+            for n in step_writes(s):
+                writes[n] = writes.get(n, 0) + 1
+        once = [n for n in nodes if writes[n] == 1]
+        check(set(eng.stats) == set(nodes), f"stats nodes fuse={fuse}")
+        held = nodes if fuse else once
+        for n in held:
+            v = outs[n].v.astype(np.float64)
+            s = eng.stats[n].v
+            # the mean's error is relative to the mean of |x| (the sum may
+            # cancel), sum(x^2)'s to itself
+            check((s[0], s[1]) == (np.float32(v.min()), np.float32(v.max()))
+                  and abs(s[2] - v.mean()) <= STATS_RTOL * np.abs(v).mean()
+                  and abs(s[3] - (v * v).sum()) <= STATS_RTOL * (v * v).sum(),
+                  f"stats fuse={fuse} node {n}: {s} vs "
+                  f"{[v.min(), v.max(), v.mean(), (v * v).sum()]}")
+        stats[fuse] = (eng.stats, once, len(nodes))
+        del eng
+    (sf, once, n_all), (sp, _, _) = stats[1], stats[0]
+    for n in once:
+        check(np.array_equal(sf[n].v, sp[n].v),
+              f"stats fused vs per-call node {n}: {sf[n].v} {sp[n].v}")
+    print(f"enable_stats resnet-50 b1: {n_all} nodes; min and max equal to "
+          f"the returned nodes', mean within {STATS_RTOL:g} x mean|x| and "
+          f"sum(x^2) within rtol {STATS_RTOL:g} of float64 sums "
+          f"(fused: every node; per-call: the {len(once)} "
+          f"nodes written once, the other {n_all - len(once)} taken before "
+          f"their in-place ReLU as in the JAX engine); fused and per-call "
+          f"bit-equal on those {len(once)}")
+    bad = build_model("resnet-50", batch=1)
+    w = bad.op_params["res3a_branch2b_filts"]
+    w.v = w.v.copy()
+    w.v.reshape(-1)[5] = np.nan
+    for fuse in (1, 0):
+        eng = make_engine(f"(engine=torch,fuse={fuse},nan_check=1)")
+        eng.init(bad)
+        try:
+            eng.run_fwd(ins, ["prob"])
+            msg = "<no error>"
+        except RtErr as e:
+            msg = str(e)
+        print(f"nan_check fuse={fuse}, NaN in res3a_branch2b_filts: {msg}")
+        check(msg.startswith("nan_check: non-finite values in node")
+              and (msg.endswith("(first in step order: 'res3a_branch2b')")
+                   if fuse else "node 'res3a_branch2b' (first" in msg),
+              f"nan_check fuse={fuse}: {msg}")
+        del eng
+    # the cost of the sanitizer and of the stats at b32 (fused executor)
+    pipe = build_model("resnet-50", batch=32)
+    d = pipe.get_data_img_dims()
+    ins = {data: NDA(d, np.random.RandomState(4).randn(*d.shape)
+                     .astype(np.float32))}
+    ms, probs = {}, {}
+    for opt in ("", ",nan_check=1", ",enable_stats=1"):
+        eng = make_engine(f"(engine=torch{opt})")
+        eng.init(pipe)
+        probs[opt] = eng.run_fwd(ins, ["prob"])["prob"].v
+        ms[opt] = _wall_ms(lambda: eng.run_fwd(ins, ["prob"]))
+        del eng
+        torch.cuda.empty_cache()
+    check(all(np.array_equal(probs[""], p) for p in probs.values()),
+          "nan_check / enable_stats changed the outputs")
+    print(f"resnet-50 b32 fused run_fwd (host copies in and out, median of "
+          f"5): plain {ms['']:.3f} ms, nan_check=1 {ms[',nan_check=1']:.3f} "
+          f"ms, enable_stats=1 {ms[',enable_stats=1']:.3f} ms on "
+          f"[{ctx['smi']}]; outputs bit-equal")
+    ctx["engine"].update({"run_fwd_ms_b32": ms[""],
+                          "nan_check_run_fwd_ms_b32": ms[",nan_check=1"],
+                          "stats_run_fwd_ms_b32": ms[",enable_stats=1"]})
+
+
+def _vgg_dropout_quantize(ctx: dict) -> None:
+    """VGG-19 b1 with train_dropout=1,det_drop_seed=7 and a quantize hook
+    on fc8-conv (after both dropouts), both executors, against engine=ref
+    with the same dropout settings; the seeded mask on the card against
+    its numpy twin."""
+    import numpy as np
+    import torch
+    from boda_tpu_torch.core.dims import NDA
+    from boda_tpu_torch.engine.iface import make_engine
+    from boda_tpu_torch.engine.lower import DROP_SEED_NODE
+    from boda_tpu_torch.models.zoo import build_model
+    from boda_tpu_torch.ops.cuda.elementwise import Dropout
+    from boda_tpu_torch.ops.cuda.gen_data import gen_test_nda
+    pipe = build_model("vgg-19", batch=1)
+    d = pipe.get_data_img_dims()
+    seed = 3
+    drop_nodes = ("fc6-conv", "fc7-conv")
+    want = [*drop_nodes, "fc8-conv", "prob"]
+    t0 = time.perf_counter()
+    ref = make_engine("(engine=ref,train_dropout=1,det_drop_seed=7)")
+    ref.init(pipe)
+    sd = ref.plan.node_dims[DROP_SEED_NODE]
+    ins = {"data": NDA(d, gen_test_nda(d, 0, 0.1)),
+           DROP_SEED_NODE: NDA(sd, np.asarray([seed], np.int32))}
+    r = ref.run_fwd(ins, want)
+    ref_s = time.perf_counter() - t0
+    # the grid: max_val a power of two above twice fc8's reach, 12 bits
+    max_val = float(2 ** np.ceil(np.log2(2 * np.abs(r["fc8-conv"].v).max())))
+    step = max_val / 4096
+    q = f"quantize=((name=fc8-conv,max_val={max_val:g},keep_bits=12))"
+    for fuse in (1, 0):
+        eng = make_engine(f"(engine=torch,fuse={fuse},train_dropout=1,"
+                          f"det_drop_seed=7,{q})")
+        eng.init(pipe)
+        got = eng.run_fwd(ins, want)
+        zeros = {n: (int((got[n].v == 0).sum()), int((r[n].v == 0).sum()))
+                 for n in drop_nodes}
+        errs = {n: mrd(torch.from_numpy(got[n].v), torch.from_numpy(r[n].v))
+                for n in want}
+        fc8 = got["fc8-conv"].v.astype(np.float64)
+        on_grid = bool((np.round(fc8 / step) * step == fc8).all())
+        print(f"vgg-19 b1 fuse={fuse} train_dropout=1,det_drop_seed=7,seed "
+              f"{seed}, {q}: zeroed units (torch, ref) {zeros}; mrd vs ref "
+              + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+              + f"; fc8-conv on the quantize grid: {on_grid}")
+        check(all(a == b for a, b in zeros.values()),
+              f"dropout zero counts fuse={fuse}: {zeros}")
+        check(all(e <= 3e-2 for e in errs.values()) and on_grid,
+              f"vgg-19 dropout/quantize fuse={fuse}: {errs}, grid {on_grid}")
+        del eng
+    shape = (1, 4096, 1, 1)
+    for s in (seed, 0, 2**31 - 1):
+        u = Dropout._mask32(torch.tensor([s], dtype=torch.int32,
+                                         device="cuda"), shape)
+        check(np.array_equal(u.cpu().numpy(),
+                             Dropout._mask32_np(s, shape).astype(np.float32)),
+              f"seeded mask on the card != _mask32_np (seed {s})")
+    print(f"  the seeded mask on the card equals _mask32_np bit for bit "
+          f"(seeds {seed}, 0, 2^31-1); engine=ref took {ref_s:.1f} s")
+    ctx["engine"]["vgg19_ref_s"] = ref_s
+
+
+def _test_lmdb(agree: dict) -> None:
+    """test_lmdb (per-call, ()) with the trained snapshot over the 64
+    held-out images, written as caffe Datums into an LMDB."""
+    from boda_tpu_torch.apps.eval_cls import encode_datum
+    from boda_tpu_torch.io.synth import render_shapes
+    from boda_tpu_torch.utils.lmdbmini import write_lmdb
+    h = HELD_OUT
+    imgs, labels = render_shapes(
+        range(h["start_ix"], h["start_ix"] + h["num_imgs"]), h["ysz"],
+        h["xsz"], h["num_classes"], h["seed"])
+    db = ENGINE_OUT / "held_out_lmdb"
+    write_lmdb(db, [(b"%08d" % i, encode_datum(im, lab))
+                    for i, (im, lab) in enumerate(zip(imgs, labels))])
+    t0 = time.perf_counter()
+    out, _ = _run_mode(
+        f"(mode=test_lmdb,model=resnet-50,model_opts=(num_classes=40),"
+        f"batch=32,weights_fn={TRAINED},conv_fwd=(engine=torch,fuse=0),"
+        f"src=(mode=lmdb-src,fn={db},mean={h['mean']},scale={h['scale']}))")
+    line = out.strip().splitlines()[-1]
+    stats = {k: float(v) for k, v in re.findall(r"(\w+)=([0-9.]+)", line)}
+    print(f"test_lmdb per-call () over the held-out LMDB "
+          f"({time.perf_counter() - t0:.1f} s): {line}; cls_agree on the "
+          f"same images: num_pos_a={agree['num_pos_a']:g} "
+          f"num_pos_b={agree['num_pos_b']:g} of {agree['num_test']:g}")
+    check(stats.get("num_test") == 64 and stats["top_1_acc"] >= 0.90,
+          f"test_lmdb: {stats}")
+
+
+def _wisdom(ctx: dict, wrappers: dict) -> None:
+    """wisdom_fn at ResNet-50 b32: the tunes picked as on the CPU (the
+    records' platform tags are a TPU's: the any-platform fallback), then
+    one timed forward."""
+    import torch
+    from boda_tpu_torch.engine.iface import make_engine
+    from boda_tpu_torch.models.zoo import build_model
+    wis = DATA / "wisdom-resnet50-b32.wis"
+    plans = {}
+    for dev in ("cuda", "cpu"):
+        pipe = build_model("resnet-50", batch=32)
+        eng = make_engine(f"(engine=torch,device={dev},wisdom_fn={wis})")
+        eng.init(pipe)
+        plans[dev] = [str(s.sig.to_lexp()) for s in eng.plan.steps]
+        log = eng.get_info_log()
+        if dev == "cuda":
+            card = eng
+    check(plans["cuda"] == plans["cpu"], "wisdom: the card's plan differs "
+                                         "from the CPU's")
+    data = pipe.data_img_node_names[0]
+    top = pipe.get_single_top_node().name
+    gen = torch.Generator(device=card.dev).manual_seed(1)
+    x = torch.randn(tuple(pipe.get_data_img_dims().shape), device=card.dev,
+                    generator=gen)
+    steps: dict = {}
+    for s in card.plan.steps:
+        steps[s.func_name] = steps.get(s.func_name, 0) + 1
+    with torch.inference_mode():
+        def fwd():
+            return card.fwd({data: x}, card.weights)[top]
+        _counts_reset(wrappers)
+        p = fwd().float()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        ms = cuda_ms(fwd, 10)
+    check(bool(torch.isfinite(p).all()), "wisdom forward: non-finite prob")
+    check(counts == _planned_launches(card.plan, counts),
+          f"wisdom forward: launches {counts}")
+    print(f"wisdom_fn={wis.name} resnet-50 b32: {log}; the same "
+          f"{len(plans['cuda'])} step sigs as on the CPU; steps {steps}; "
+          f"launches {counts}; forward {ms:.3f} ms on [{ctx['smi']}]")
+    ctx["engine"]["wisdom_fwd_ms_b32"] = ms
+    del card
+    torch.cuda.empty_cache()
+
+
+def phase_engine(ctx: dict) -> None:
+    """The engine's per-call mode (fuse=0) and its options, engine=ref and
+    the harness modes test_compute_multi and test_lmdb, on the card."""
+    import torch
+    ENGINE_OUT.mkdir(parents=True, exist_ok=True)
+    wrappers = _wrappers()
+    _percall_vs_fused(ctx, wrappers)
+    torch.cuda.empty_cache()
+    agree = _percall_int8(ctx, wrappers)
+    t0 = time.perf_counter()
+    _compute_multi("resnet-50", "ref=(engine=ref),fused=(engine=torch,"
+                   "keep_all_nodes=1),percall=(engine=torch,fuse=0)", 8e-3)
+    ctx["engine"]["compute_multi_resnet50_s"] = time.perf_counter() - t0
+    _compute_multi("vgg-19", "fused=(engine=torch,keep_all_nodes=1),"
+                   "percall=(engine=torch,fuse=0)", 3e-2)
+    _stats_and_nan(ctx)
+    _vgg_dropout_quantize(ctx)
+    _test_lmdb(agree)
+    _wisdom(ctx, wrappers)
+
+
 BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "headline_config",
               "conv_tflops", "frac_of_roofline", "peak_tflops", "prec",
               "batch", "device", "compile_s", "step_ms", "bf16_step_ms",
@@ -1898,8 +2371,8 @@ def phase_bench(ctx: dict) -> None:
 
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
           "vendor": phase_vendor, "digests": phase_digests,
-          "agree": phase_agree, "full": phase_full, "ops_prof": phase_ops_prof,
-          "bench": phase_bench}
+          "agree": phase_agree, "full": phase_full, "engine": phase_engine,
+          "ops_prof": phase_ops_prof, "bench": phase_bench}
 
 
 def main() -> int:
@@ -1971,6 +2444,7 @@ def main() -> int:
                       "forward_ms_b128": ctx["fwd_ms_b128"],
                       "device_busy_ms_b32": ctx["busy_ms"],
                       "template_ms_b32": ctx["template_ms"],
+                      "engine": ctx["engine"],
                       "vendor_conv_ms_b32": ctx["vendor_ms"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

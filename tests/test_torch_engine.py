@@ -306,8 +306,10 @@ def test_engine_refuses_cuda_without_a_card_and_unported_options():
             eng.init(build_model("mini", batch=1))
     # options of engine=rtc that the port leaves out are refused by the
     # config's unused-value check
-    with pytest.raises(RtErr, match="unused config value.*nan_check"):
-        make_engine("(engine=torch,device=cpu,nan_check=1)")
+    for opt in ("mesh_dp=2", "mesh_mp=2", "per_call_slope=1"):
+        name = opt.split("=")[0]
+        with pytest.raises(RtErr, match=f"unused config value.*{name}"):
+            make_engine(f"(engine=torch,device=cpu,{opt})")
 
 
 def _run_cnet(conv_fwd, run=create_and_run_has_main):

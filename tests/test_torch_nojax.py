@@ -6,7 +6,10 @@ the port is imported, mini is built, lowered and run on the CPU through
 the port's make_engine and build_model and through the CLI entry point
 (python -m boda_tpu_torch run_cnet), ResNet-50 runs under the fused tune
 (fused_stem, resblock), the per-op modes torch_rtc_test and torch_ops_prof
-(with sgemm_int8) run through the CLI, `help` lists only the port's modes,
+(with sgemm_int8), test_compute_multi (engine=ref, the fused and the
+per-call executors against the `mini` TPU digests) and test_lmdb (the
+per-call executor over tests/data/lmdb-tiny) run through the CLI, `help`
+lists only the port's modes,
 and chip_smoke.py's imports are exercised too; the bench twin (python3 -m
 boda_tpu_torch.bench) runs under the same hook and, without a card, exits
 non-zero with one line of error and no JSON. A static check finds no import
@@ -35,7 +38,8 @@ sys.meta_path.insert(0, _NoJax())
 """
 
 # the port's modes: `help` lists these and no other
-PORT_MODES = {"run_cnet", "cnet_predict", "cls_agree", "torch_rtc_test",
+PORT_MODES = {"run_cnet", "cnet_predict", "cls_agree", "test_lmdb",
+              "test_compute_multi", "comp_ndas", "torch_rtc_test",
               "torch_ops_prof", "torch_cnn_op_info", "torch_cnn_prof"}
 
 RUN_MINI = BLOCK_JAX + """
@@ -65,6 +69,15 @@ assert out["prob"].v.shape == (1, 1000, 1, 1)
 for argv in (["help"],
              ["run_cnet", "--model=mini", "--conv_fwd=(engine=torch,device=cpu)"],
              ["torch_rtc_test", "--rtc=(be=torch,device=cpu)"],
+             ["test_compute_multi", "--model=mini", "--all_vars=1",
+              "--write_digests=0",
+              "--engines=(ref=(engine=ref),fused=(engine=torch,device=cpu),"
+              "percall=(engine=torch,device=cpu,fuse=0))",
+              "--kg_digests_fn=tests/data/tpu_digests/mini/digest-rtc.boda"],
+             ["test_lmdb", "--model=mini",
+              "--in_dims=(dims=(img=4,chan=3,y=32,x=32))",
+              "--src=(mode=lmdb-src,fn=tests/data/lmdb-tiny,mean=128)",
+              "--conv_fwd=(engine=torch,device=cpu,fuse=0)"],
              ["torch_ops_prof", "--ops_fn=tests/data/ops/sgemm-tiny.txt",
               "--rtcs=(t=(be=torch,device=cpu),ref=(be=interp))",
               "--op_tunes=(kg=(use_culibs=1),hand=(),int8=(prec=int8))",
@@ -87,6 +100,8 @@ def test_port_runs_without_jax():
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
     assert "run_cnet: out node 'prob'" in r.stdout
     assert "torch_rtc_test PASSED plat=torch:cpu:cpu" in r.stdout
+    assert "kg digests vs percall: PASS" in r.stdout
+    assert "top_1_acc=0 num_pos=0 num_test=8" in r.stdout
     assert r.stdout.count("func=sgemm_int8 ") == 4  # 2 ops x 2 backends
     for bad in ("COMP_FAIL", "ERROR"):
         assert bad not in r.stdout

@@ -5,7 +5,10 @@ fused tunes and the two fuse_siblings vendor tunes, under the selective-int8
 preset (with and without int8 storage edges, q8_edges=1), and for every op
 sig of tests/data/ops/*.txt under the tunes the per-op sweeps use, both
 packages pick the same template, reduce the sig to the same signature, name
-the same instance and give the same wisdom key and wisdom record.
+the same instance and give the same wisdom key and wisdom record. The
+per-call executor (fuse=0) issues the same calls as the JAX engine's: call
+tags, instance names, arg maps and full sigs, with the quantize and stats
+calls the engine inserts.
 """
 
 import contextlib
@@ -15,6 +18,7 @@ from pathlib import Path
 import pytest
 
 from boda_tpu.backend.interp import InterpBackend as JInterp
+from boda_tpu.engine.iface import make_engine as jmake_engine
 from boda_tpu.engine.lower import lower_pipe as jlower_pipe
 from boda_tpu.models.zoo import build_model as jbuild_model
 from boda_tpu.ops.cnn_variants import add_codegen_annotations as jannotate
@@ -26,7 +30,9 @@ from boda_tpu.tune import presets as jpresets
 from boda_tpu.tune import wisdom as jwisdom
 from boda_tpu_torch.backend.interp import InterpBackend
 from boda_tpu_torch.core.error import RtErr
+from boda_tpu_torch.engine.iface import make_engine
 from boda_tpu_torch.engine.lower import lower_pipe
+from boda_tpu_torch.engine.torch_fwd import produced_nodes
 from boda_tpu_torch.models.zoo import build_model
 from boda_tpu_torch.ops.cnn_variants import add_codegen_annotations, \
     make_op_tune
@@ -159,3 +165,52 @@ def test_resnet50_int8_preset_plans_agree(batch, q8_edges):
     assert len(q) == 31
     edges = sum(s.sig.get_u32_or("out_q8", 0) for s in plan.steps)
     assert (edges > 0) == q8_edges
+
+
+PER_CALL_TUNES = {
+    "()": "op_tune=()",
+    "fuse_siblings": "op_tune=(use_culibs=1,prec=bf16,layout=nhwc,s2d=0,"
+                     "fuse_siblings=1)",
+    # the selective-int8 preset: int8 at the 33 sites with the trained
+    # snapshot's static scales
+    "int8": "op_tune=(use_culibs=1,prec=bf16,layout=nhwc,s2d=0,"
+            "fuse_siblings=1),op_tunes_pat=(res3[a-z0-9]*_branch2b=(use_"
+            "culibs=1,prec=bf16,layout=nhwc,s2d=0,fuse_siblings=1,quant8=1),"
+            "res[45][a-z0-9]*_branch.*=(use_culibs=1,prec=bf16,layout=nhwc,"
+            "s2d=0,fuse_siblings=1,quant8=1)),act_scales_fn="
+            + str(DATA / "resnet50-shapes40-int8-scales.lexp")}
+
+
+@pytest.mark.parametrize("tune", list(PER_CALL_TUNES))
+def test_resnet50_per_call_plans_agree(tune, tmp_path):
+    # ResNet-50 (40 classes, as the scales were calibrated) at batch 1 under
+    # fuse=0, with two quantize hooks and the stats calls
+    hooks = ("enable_stats=1,quantize=((name=res2a_branch2a,max_val=4,"
+             "keep_bits=8),(name=res4b,max_val=8,keep_bits=6))")
+    calls, sigs = [], []
+    for make, build, spec in (
+            (make_engine, build_model, "(engine=torch,device=cpu"),
+            (jmake_engine, jbuild_model, "(engine=rtc,rtc=interp")):
+        fn = tmp_path / f"sigs-{len(calls)}.txt"
+        eng = make(f"{spec},fuse=0,{PER_CALL_TUNES[tune]},{hooks},"
+                   f"write_op_sigs_fn={fn})")
+        with contextlib.redirect_stderr(io.StringIO()):
+            eng.init(build("resnet-50", batch=1, num_classes=40))
+        calls.append([(c.call_tag, c.func_name, c.args)
+                      for c in eng.fwd_calls])
+        sigs.append(fn.read_text())
+        steps = [s.func_name for s in eng.plan.steps]
+    assert calls[0] == calls[1]
+    assert sigs[0] == sigs[1]
+    tags = [c[0] for c in calls[0]]
+    assert tags.count("quantize__res2a_branch2a") == 1
+    # res4b is written by its eltwise and again by its in-place ReLU: a
+    # quantize call after each, as in the JAX engine
+    assert tags.count("quantize__res4b") == 2
+    # one stats call per node written (after its first write)
+    written = produced_nodes(eng.plan) - set(eng.plan.input_nodes)
+    assert sum(t.startswith("stats__") for t in tags) == len(written) > 50
+    assert ("xla_conv2" in steps) == (tune != "()")
+    assert ("tconv" in steps) == (tune == "()")
+    quant8 = [s for s in eng.plan.steps if s.sig.get_u32_or("quant8", 0)]
+    assert len(quant8) == (31 if tune == "int8" else 0)
