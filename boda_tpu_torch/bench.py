@@ -54,20 +54,30 @@ def int8_engine_spec(tune_s: str, scales_fn) -> str:
     return f"op_tune={tune_s},op_tunes_pat=({pats}),act_scales_fn={scales_fn}"
 
 
-def time_forward(fwd, iters: int = ITERS) -> tuple[float, float]:
+def time_forward(fwd, iters: int = ITERS, reps: int = 3,
+                 cuda: bool = True) -> tuple[float, float]:
     """(seconds of the first call, its wall time with every build it
-    triggers; ms per call: the median over three windows of `iters`
-    back-to-back calls between two CUDA events). chip_smoke.py times every
-    case with it too."""
+    triggers; ms per call: the median over `reps` windows of `iters`
+    back-to-back calls between two CUDA events, or on the host clock when
+    `cuda` is false, for a forward on the CPU). chip_smoke.py and
+    cnet_bench time with it too."""
     import torch
     t0 = time.perf_counter()
     fwd()
+    if not cuda:
+        first, per = time.perf_counter() - t0, []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fwd()
+            per.append((time.perf_counter() - t0) * 1e3 / iters)
+        return first, statistics.median(per)
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     per = []
-    for _ in range(3):
+    for _ in range(reps):
         e0.record()
         for _ in range(iters):
             fwd()

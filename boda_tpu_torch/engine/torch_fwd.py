@@ -84,6 +84,16 @@ def _storage_out(v: torch.Tensor, dims: Dims, plan: Plan) -> torch.Tensor:
     return v.to(torch_dtype(dims.dtype)).contiguous()
 
 
+def _storage_zeros(dims: Dims, plan: Plan,
+                   device: torch.device) -> torch.Tensor:
+    """A zero tensor of a node in the plan's storage form (NHWC, in the
+    edge dtype, when the fused-storage pass is on), on `device`."""
+    shape = tuple(dims.shape)
+    if plan.storage_nhwc and len(shape) == 4:
+        shape = (shape[0], shape[2], shape[3], shape[1])
+    return torch.zeros(shape, dtype=_storage_dtype(dims, plan), device=device)
+
+
 def step_writes(s: Step) -> list[str]:
     """The nodes step s writes (its template's OUT and INOUT args)."""
     tmpl = get_template(s.func_name)
@@ -116,7 +126,10 @@ def build_forward(plan: Plan, device: torch.device,
     given, is called with each step and returns a context manager that the
     step runs in (a per-step timer, for instance). write_hook(node, value),
     when given, is called on every node a step writes, with the value in
-    storage form (the engine's stats and nan_check)."""
+    storage form (the engine's stats and nan_check). An INOUT target that
+    no step has written yet (a concat, which its members' copy steps fill
+    in place) starts as zeros in storage form, made anew in each forward;
+    a weight missing from `weights` raises."""
     fns = []
     for s in plan.steps:
         tmpl = get_template(s.func_name)
@@ -159,11 +172,22 @@ def build_forward(plan: Plan, device: torch.device,
                     continue
                 node = s.arg_nodes[an]
                 if node not in vals:
-                    what = "weight node" if node in weight_set else "node"
-                    raise RtErr(f"build_forward: {what} '{node}' read by "
-                                f"step {s.call_tag} has no value (weights "
-                                f"from another plan, or no earlier step "
-                                f"writes it)")
+                    if node in weight_set:
+                        # zero-filling a missing weight would be silently
+                        # wrong numerics
+                        raise RtErr(
+                            f"build_forward: weight node '{node}' read by "
+                            f"step {s.call_tag} has no value: missing from "
+                            f"the weights dict (resolve_plan_weights on "
+                            f"THIS plan)")
+                    if an not in tmpl.io_args():
+                        raise RtErr(f"build_forward: node '{node}' read by "
+                                    f"step {s.call_tag} has no value (no "
+                                    f"earlier step writes it)")
+                    # an INOUT target's first touch (a concat's buffer): a
+                    # fresh zero tensor in storage form each forward
+                    vals[node] = _storage_zeros(node_dims[node], plan,
+                                                device)
                 ins.append(vals[node])
             if step_hook is None:
                 outs = fn(*ins)

@@ -2,6 +2,7 @@
 modes, engines and backends (the port's counterpart of boda_tpu/modes.py):
 
   run_cnet, cnet_predict             apps/run_cnet.py
+  cnet_bench                         apps/cnet_bench.py
   test_lmdb, cls_agree (and the      apps/eval_cls.py
     streams labeled-npy-src,
     shapes-src, lmdb-src)
@@ -15,7 +16,7 @@ plus the engines engine=torch (engine/torch_fwd.py) and engine=ref
 be=interp (backend/interp.py).
 """
 
-from .apps import eval_cls, run_cnet  # noqa: F401
+from .apps import cnet_bench, eval_cls, run_cnet  # noqa: F401
 from .backend import interp, modes as _backend_modes, torch_be  # noqa: F401
 from .engine import ref_fwd, torch_fwd  # noqa: F401
 from .testing import modes as _testing_modes  # noqa: F401

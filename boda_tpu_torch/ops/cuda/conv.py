@@ -9,6 +9,10 @@ template takes and returns NCHW tensors, or NHWC storage tensors in the
 edge dtype when the plan's fused-storage pass marked the step
 io_layout=nhwc.
 
+Deconv (the transposed conv) is an XLA conv over the lhs-dilated input in
+the JAX package; here it is F.conv_transpose2d on cuDNN, under the same
+rule as the vendor convs below.
+
 XlaConv, XlaConv2 (conv2.py) and S2dConv are vendor roles in the JAX
 package (XLA convs, the last over a 2x2 phase-stacked input). Here all
 three are F.conv2d on cuDNN in full FP32 on the operands rounded to the
@@ -21,8 +25,7 @@ refused.
 
 The conv family's metadata is the JAX package's (conv.py:35-126):
 `conv_params`, the shared `_ConvBase` (declared args, reduced-signature
-keys, flops, the float64 reference) and `make_conv_op`. The JAX deconv
-template is not on the port's paths and is left out.
+keys, flops, the float64 reference), `make_conv_op` and `make_deconv_op`.
 """
 
 from __future__ import annotations
@@ -239,7 +242,7 @@ class IpConv(_ConvBase):
         return fn
 
 
-def vendor_conv(stride, pad, cdt, io_nhwc):
+def vendor_conv(stride, pad, cdt, io_nhwc, conv_fn=F.conv2d):
     """The vendor conv of a step (cuDNN's role; XLA's in the JAX package):
     conv(x, w, b) -> the f32 conv of the operands rounded to the compute
     dtype `cdt`, + the f32 bias, as a logical NCHW tensor. It runs F.conv2d
@@ -255,7 +258,10 @@ def vendor_conv(stride, pad, cdt, io_nhwc):
     Under NHWC storage (io_nhwc) x arrives NHWC and is passed on as the
     channels_last NCHW tensor it already is, with the filter in
     channels_last too, so the result comes back channels_last and its NHWC
-    view is contiguous: no permute copy on either side."""
+    view is contiguous: no permute copy on either side.
+
+    conv_fn is F.conv2d, or F.conv_transpose2d for a deconv step (its
+    filter given (in_chan, out_chan, ky, kx))."""
     cl = torch.channels_last
 
     def conv(x, w, b=None):
@@ -263,7 +269,7 @@ def vendor_conv(stride, pad, cdt, io_nhwc):
         if io_nhwc:
             xc, wc = xc.permute(0, 3, 1, 2), wc.contiguous(memory_format=cl)
         with full_fp32():
-            y = F.conv2d(xc, wc, stride=stride, padding=pad)
+            y = conv_fn(xc, wc, stride=stride, padding=pad)
         if b is not None:
             y = y + b.float()[None, :, None, None]
         return y
@@ -397,3 +403,94 @@ class S2dConv(_ConvBase):
         if (sy, sx) != (2, 2):
             raise RtErr(f"s2d_conv: needs stride 2, got ({sy}, {sx})")
         return _cudnn_conv(rfs)
+
+
+@template
+class Deconv(_ConvBase):
+    """Transposed convolution (caffe's Deconvolution): each input pixel
+    (iy, ix) adds x[n, i, iy, ix] * w[o, i, ky, kx] at out[n, o,
+    iy*sy + ky - py, ix*sx + kx - px]; out = (in - 1) * stride + kernel -
+    2 * pad.
+
+    The filter arrives in the pipe's convention (out_chan, in_chan, y, x),
+    out_chan being this layer's output channels (graph/caffe_io.py
+    transposes a caffemodel's physical (in_chan, out_chan, ky, kx) blob at
+    weight-copy time). F.conv_transpose2d wants (in_chan, out_chan, ky,
+    kx) and runs the scatter itself, so the first two dims are swapped and
+    the taps are not flipped (the JAX body flips them, since it runs a
+    correlation). It is a vendor conv (vendor_conv, vendor_store): full
+    FP32 on the operands rounded to the compute dtype, then the f32 bias,
+    the ReLU and one rounding to the stored dtype; a bf16 conv_transpose2d
+    would round the sum to bf16 before the bias (PERF.md, fault C2)."""
+
+    name = "deconv"
+
+    @classmethod
+    def flops(cls, rfs: OpBase) -> int:
+        ind = rfs.get_dims("in")
+        fd = rfs.get_dims("filts")
+        return 2 * ind.sz() * fd["out_chan"] * fd["y"] * fd["x"]
+
+    @classmethod
+    def ref_impl(cls, rfs: OpBase, x, w, b=None):
+        """Independent numpy scatter: each input pixel (iy,ix) adds
+        x[n,i,iy,ix]·w[o,i,ky,kx] at out[n,o, iy·sy+ky−py, ix·sx+kx−px]."""
+        ind, outd, fd, sy, sx, py, px, relu = conv_params(rfs)
+        x = np.asarray(x, np.float64)
+        w = np.asarray(w, np.float64)
+        n, C, H, W = x.shape
+        oc, ic, ky, kx = w.shape
+        oy, ox = outd["y"], outd["x"]
+        full = np.zeros((n, oc, (H - 1) * sy + ky, (W - 1) * sx + kx))
+        for yy in range(ky):
+            for xx in range(kx):
+                full[:, :, yy:yy + (H - 1) * sy + 1:sy,
+                     xx:xx + (W - 1) * sx + 1:sx] += \
+                    np.einsum("nihw,oi->nohw", x, w[:, :, yy, xx],
+                              optimize=True)
+        out = full[:, :, py:py + oy, px:px + ox]
+        if b is not None:
+            out = out + np.asarray(b, np.float64)[None, :, None, None]
+        if relu:
+            out = np.maximum(out, 0)
+        return out
+
+    @classmethod
+    def build(cls, rfs: OpBase):
+        ind, outd, fd, sy, sx, py, px, relu = conv_params(rfs)
+        ky, kx = fd["y"], fd["x"]
+        want = ((ind["y"] - 1) * sy + ky - 2 * py,
+                (ind["x"] - 1) * sx + kx - 2 * px)
+        if (outd["y"], outd["x"]) != want:
+            raise RtErr(f"deconv: out {outd} is not (in - 1) * stride + "
+                        f"kernel - 2 * pad = {want}")
+        io_nhwc, _ = storage_io(rfs)
+        odt = store_dtype(rfs)
+        conv = vendor_conv((sy, sx), (py, px), compute_dtype(rfs), io_nhwc,
+                           F.conv_transpose2d)
+
+        def fn(x, w, b=None):
+            return vendor_store(conv(x, w.transpose(0, 1), b), relu, odt,
+                                io_nhwc)
+        return fn
+
+
+def make_deconv_op(n: int, cin: int, h: int, w: int, cout: int, ky: int,
+                   kx: int, sy: int = 1, sx: int = 1, py: int = 0,
+                   px: int = 0, relu: bool = False,
+                   bias: bool = True) -> OpBase:
+    """Helper: construct a Deconvolution op sig in the pipe convention."""
+    oy = (h - 1) * sy + ky - 2 * py
+    ox = (w - 1) * sx + kx - 2 * px
+    op = OpBase({"type": "Deconvolution", "func_name": "deconv"})
+    op.set_dims("in", Dims.make(img=n, chan=cin, y=h, x=w))
+    op.set_dims("filts", Dims.make(out_chan=cout, in_chan=cin, y=ky, x=kx))
+    if bias:
+        op.set_dims("biases", Dims.make(out_chan=cout))
+    op.set_dims("out", Dims.make(img=n, chan=cout, y=oy, x=ox))
+    op.set_null_dims("in_pad", y=py, x=px)
+    op.set_null_dims("stride", y=sy, x=sx)
+    op.set_null_dims("kern_sz", y=ky, x=kx)
+    if relu:
+        op.set_u32("conv_has_relu", 1)
+    return op

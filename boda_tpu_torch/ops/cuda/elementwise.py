@@ -1,12 +1,15 @@
-"""Elementwise templates: relu, eltwise (SUM, MAX, PROD), dropout
-(inference and both train-mode masks), and dot (c = a * b, the kernel of
-the torch_rtc_test smoke mode).
+"""Elementwise and data-movement templates: copy and split_copy (the
+Concat and Split lowerings), relu, ZeroIfNonPos (ReLU's backward), eltwise
+(SUM, MAX, PROD), scale (per-channel scale and bias), dropout (inference
+and both train-mode masks), and dot (c = a * b, the kernel of the
+torch_rtc_test smoke mode).
 
-Port of boda_tpu/ops/pallas/elementwise.py (Dot, Relu, Eltwise,
-Dropout), which computes these outside Pallas too. Each works on NCHW or
-NHWC storage alike, in the tensors' own dtype (bf16 edges add in bf16 in
-both packages). The JAX package's copy, split_copy, zero_if_nonpos and
-scale templates are not on the port's paths and are left out.
+Port of boda_tpu/ops/pallas/elementwise.py, which computes these outside
+Pallas too. Each works on NCHW or NHWC storage alike, in the tensors' own
+dtype (bf16 edges add in bf16 in both packages). `copy` writes into the
+engine's concat buffer in place and returns it: JAX's dynamic_update_slice
+is in place under jit, and a functional copy here would move the whole
+concat once per member.
 """
 
 from __future__ import annotations
@@ -37,6 +40,72 @@ class Dot(KernelTemplate):
         return np.asarray(a) * np.asarray(b)
 
 
+def _chan_slice(t: torch.Tensor, start: int, n: int, nhwc: bool):
+    """The channel slice [start, start + n) of a 4-D tensor: the last dim
+    under NHWC storage, dim 1 otherwise."""
+    return t[..., start:start + n] if nhwc else t[:, start:start + n]
+
+
+@template
+class Copy(KernelTemplate):
+    """Copy `in` into the channel slice [ocix, ocix + C) of `out` (the
+    Concat lowering: one call per member at its channel offset), in place:
+    `out` is the buffer the engine owns (zero-filled at its first touch),
+    and the call returns it."""
+
+    name = "copy"
+    args = [adecl("in", IN, "img chan y x"),
+            adecl("out", INOUT, "img chan y x")]
+    sig_nda_keys = ["ocix"]
+    nhwc_ok = True
+
+    @classmethod
+    def build(cls, rfs: OpBase):
+        ocix = rfs.get_u32_or("ocix", 0)
+        cn = rfs.get_dims("in")["chan"]
+        nhwc = rfs.str_vals.get("io_layout") == "nhwc"
+
+        def fn(x, out):
+            _chan_slice(out, ocix, cn, nhwc).copy_(x)
+            return out
+        return fn
+
+    @classmethod
+    def ref_impl(cls, rfs: OpBase, x, out):
+        ocix = rfs.get_u32_or("ocix", 0)
+        out = np.array(out)
+        out[:, ocix:ocix + x.shape[1]] = x
+        return out
+
+
+@template
+class SplitCopy(KernelTemplate):
+    """Copy the channel slice [icix, icix + C) of `in` into `out` (the
+    Split lowering), as a tensor of its own."""
+
+    name = "split_copy"
+    args = [adecl("in", IN, "img chan y x"),
+            adecl("out", OUT, "img chan y x")]
+    sig_nda_keys = ["icix"]
+    nhwc_ok = True
+
+    @classmethod
+    def build(cls, rfs: OpBase):
+        icix = rfs.get_u32_or("icix", 0)
+        cn = rfs.get_dims("out")["chan"]
+        nhwc = rfs.str_vals.get("io_layout") == "nhwc"
+
+        def fn(x):
+            return _chan_slice(x, icix, cn, nhwc).contiguous()
+        return fn
+
+    @classmethod
+    def ref_impl(cls, rfs: OpBase, x):
+        icix = rfs.get_u32_or("icix", 0)
+        cn = rfs.get_dims("out")["chan"]
+        return np.asarray(x)[:, icix:icix + cn]
+
+
 @template
 class Relu(KernelTemplate):
     """In-place ReLU at an unfused graph position."""
@@ -52,6 +121,29 @@ class Relu(KernelTemplate):
     @classmethod
     def ref_impl(cls, rfs: OpBase, x):
         return np.maximum(np.asarray(x), 0)
+
+
+@template
+class ZeroIfNonPos(KernelTemplate):
+    """ReLU's backward: out = grad where in > 0, else 0 (a training plan's
+    step)."""
+
+    name = "ZeroIfNonPos"
+    args = [adecl("in", IN, "img chan y x"),
+            adecl("grad", IN, "img chan y x"),
+            adecl("out", OUT, "img chan y x")]
+
+    @classmethod
+    def build(cls, rfs: OpBase):
+        def fn(x, g):
+            return torch.where(x > 0, g, torch.zeros((), dtype=g.dtype,
+                                                     device=g.device))
+        return fn
+
+    @classmethod
+    def ref_impl(cls, rfs: OpBase, x, g):
+        return np.where(np.asarray(x) > 0, np.asarray(g), 0) \
+            .astype(np.asarray(g).dtype)
 
 
 _EW_NP = {"SUM": np.add, "MAX": np.maximum, "PROD": np.multiply}
@@ -81,6 +173,38 @@ class Eltwise(KernelTemplate):
     def ref_impl(cls, rfs: OpBase, a, b):
         return _EW_NP[rfs.str_vals.get("ew_op", "SUM")](np.asarray(a),
                                                         np.asarray(b))
+
+
+@template
+class Scale(KernelTemplate):
+    """Per-channel scale and optional bias (caffe's Scale layer), in x's
+    dtype: y = x * s, then + b, each rounded to x's dtype."""
+
+    name = "scale"
+    args = [adecl("in", IN, "img chan y x"), adecl("scales", IN, "chan"),
+            adecl("biases", IN, "chan", opt=True),
+            adecl("out", OUT, "img chan y x")]
+    nhwc_ok = True
+
+    @classmethod
+    def build(cls, rfs: OpBase):
+        nhwc = rfs.str_vals.get("io_layout") == "nhwc"
+
+        def per_chan(v, x):
+            v = v.to(x.dtype)
+            return v if nhwc else v[:, None, None]
+
+        def fn(x, s, b=None):
+            y = x * per_chan(s, x)
+            return y if b is None else y + per_chan(b, x)
+        return fn
+
+    @classmethod
+    def ref_impl(cls, rfs: OpBase, x, s, b=None):
+        y = np.asarray(x) * np.asarray(s)[None, :, None, None]
+        if b is not None:
+            y = y + np.asarray(b)[None, :, None, None]
+        return y
 
 
 def _ratio(rfs: OpBase) -> float:

@@ -149,9 +149,10 @@ def takes_device(fn):
 
 
 def _load_templates() -> None:
-    from .cuda import (conv, conv2, elementwise, gen_data,  # noqa: F401
-                       pool, qsgemm, quantize, resblock, sgemm, softmax,
-                       stem, tconv, var_stats)
+    from .cuda import (bwai, conv, conv2, elementwise,  # noqa: F401
+                       gen_data, lrn, pool, qsgemm, quantize, reduce,
+                       resblock, sgemm, softmax, stem, tconv, var_stats,
+                       xpose)
 
 
 def all_templates() -> dict[str, type[KernelTemplate]]:

@@ -121,6 +121,35 @@ Phases, run in order, each fatal on failure (all of them by default):
            launches) in the int8 sweep, wisdom under
            build/ops_prof/, a table of ms, TF/s (TOPS) and % of the card's
            own-precision peak per op and tune; then torch_rtc_test
+  zoo      the rest of the zoo (build/zoo_smoke): the zoo's templates at
+           zoo shapes on the card against their float64 references (lrn
+           at AlexNet's norm1, b128, f32 NCHW mrd 1e-5 and bf16 NHWC 5e-3;
+           copy as GoogLeNet's inception_3b/output concat at b128,
+           bit-equal and in place; deconv at deconv-tiny's layer and a 2x
+           upsample of 256 channels at 56^2, b8; scale, xpose, xpose_filts,
+           reduce, bwai), bwai's memory rates through torch_ops_prof
+           (tests/data/ops/bwai.txt, bwai-tiny.txt); B6 bit-equal at
+           GoogLeNet's int8 shapes (the 5x5s with C = 16, 24, 32, 48, the
+           3x3 with C = 96; timed); test_compute_multi at b1 on
+           googlenet_conv_lrn, alexnet_ng_conv and squeezenet-1.0 (zoo
+           weights; engine=ref, the fused () executor and the per-call
+           mode on every node, mrd 1e-4; B1 and B2 launched as both plans
+           say); cls_agree on the trained 40-class GoogLeNet over the 64
+           held-out images (() against bf16 NHWC and against the headline
+           tune, the headline tune against int8 at inception_.*/[35]x[35]
+           with static scales calibrated on the trained weights; top-1 >=
+           0.85, agreement >= 0.97); cnet_bench rows at b128 through the
+           CLI (googlenet_conv, nin_imagenet, squeezenet-1.0,
+           alexnet_ng_conv under the headline tune and under their int8
+           site sets with static scales; GoogLeNet under ()): ms per
+           forward, imgs/s, TF/s, share of the bf16 peak and each hand
+           kernel's launches per forward, exactly as the plan says; in
+           one more forward of every row that launches B1, B2 or B6,
+           each distinct call recorded and held against its plain
+           version (B1/B2 mrd 1e-4 f32, B6 and its quantize bit-equal);
+           the card's busy share of one GoogLeNet and one AlexNet
+           headline forward, and AlexNet's LRN share (norm1 and norm2
+           timed alone at b128)
   bench    the bench twin, python3 -m boda_tpu_torch.bench, in this
            process: bench.py's JSON line for its two plans at batch 128
            (the headline tune, and the int8 preset on the trained weights
@@ -143,7 +172,11 @@ resblock, which no single PyTorch call computes, and
 "max_abs_err": over every checked shape; "cases": each timed case), the
 b32 forward times (and the headline tune's and the int8 preset's at b128),
 the card's busy time in a forward, the per-template step times, the
-vendor phase's two sums and the engine phase's times ("engine");
+vendor phase's two sums, the engine phase's times ("engine") and the zoo
+phase's readings ("zoo": templates, bwai rates, B6 at GoogLeNet's
+shapes, cls_agree, the cnet_bench rows with what each held; the zoo
+forwards' launches are
+in each kernel's "launches_by_tune");
 and {"ok": true,
 "device": {...}}. Without a CUDA device, or outside a checkout of the
 repo, it exits non-zero and prints no result. It imports neither jax nor
@@ -866,105 +899,111 @@ def _check_qconv(stats: dict, dev, gen, peaks) -> None:
     (graph_ms: at these shapes one call's host work outlasts its kernels);
     the wrapper's call as the engine makes it is call_ms."""
     import torch
-    from boda_tpu_torch.ops.cuda.qconv import act_quantize, \
-        act_quantize_plain, qconv, qconv_plain, qconv_plan, static_act_scale
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     s = stats["qconv"] = _stats("qconv")
     s["quantize_ms"] = 0.0
+    for label, kw, timed in _qconv_cases():
+        _qconv_case(s, label, kw, timed, dev, gen, peaks, sms)
+
+
+def _qconv_case(s: dict, label: str, kw: dict, timed: bool, dev, gen, peaks,
+                sms: int) -> None:
+    """One case of _check_qconv (the case's dict as _qconv_cases makes
+    it), its timed readings summed into the stats `s`."""
+    import torch
+    from boda_tpu_torch.ops.cuda.qconv import act_quantize, \
+        act_quantize_plain, qconv, qconv_plain, qconv_plan, static_act_scale
     out_dt = {"bf16": torch.bfloat16, "f32": torch.float32,
               "int8": torch.int8}
-    for label, kw, timed in _qconv_cases():
-        n, H, W, C, oc, k = (kw[key] for key in ("n", "H", "W", "C", "oc",
-                                                   "k"))
-        st, pd = (kw["s"], kw["s"]), (kw["p"], kw["p"])
-        x = torch.randn(n, H, W, C, device=dev, generator=gen)
-        if not kw.get("x32"):
-            x = x.bfloat16()
-        if kw.get("nan"):
-            x[n // 2, H // 2, W // 3, C // 3] = float("nan")
-        # a static scale that clips the largest few values, as calibration
-        # on other inputs does
-        absmax = 0.0 if kw.get("dynamic") else \
-            0.8 * float(x.float().nan_to_num(0.0).abs().max())
-        q_got, q_want = act_quantize(x, absmax), act_quantize_plain(x, absmax)
-        torch.cuda.synchronize()
-        check(all(bit_equal(g, w) for g, w in zip(q_got, q_want)),
-              f"qconv {label}: the quantize kernel differs from "
-              f"act_quantize_plain")
-        xq = q_got[0]
-        s_act = torch.full((1,), static_act_scale(absmax), device=dev) \
-            if kw.get("in_q8") else q_got[1]
-        wq = torch.randint(-127, 128, (oc, k, k, C), device=dev,
-                           generator=gen, dtype=torch.int8)
-        sws = torch.rand(oc, device=dev, generator=gen) * 2e-3 + 1e-4
-        bias = torch.randn(oc, device=dev, generator=gen) \
-            if kw.get("bias", True) else None
-        odt = out_dt[kw.get("out", "bf16")]
-        out_absmax = 0.0
-        if odt == torch.int8:
-            y = qconv_plain(xq, wq, s_act, sws, bias, st, pd, kw["relu"])
-            out_absmax = 0.7 * float(y.abs().max())
-        args = (xq, wq, s_act, sws, bias, st, pd, kw["relu"], odt, out_absmax)
-        got = qconv(*args)
-        torch.cuda.synchronize()
-        want = qconv_plain(*args)
-        abs_err = float((got.double() - want.double()).abs().nan_to_num(0.0)
-                        .max())
-        s["max_abs_err"] = max(s["max_abs_err"], abs_err)
-        plan = qconv_plan(n, H, W, C, oc, k, k, st, pd, sms)
-        print(f"kernel qconv {str(x.dtype)[6:]}->{str(odt)[6:]:8s} "
-              f"{label:44s} bit-equal={bit_equal(got, want)} (quantize "
-              f"bit-equal) max_abs={abs_err:.3e} plan {plan.route} "
-              f"{plan.tile_m}x{plan.tile_n}"
-              f"{'' if plan.vec else ' element-staged'}", end="")
-        check(bit_equal(got, want), f"qconv {label}: differs from its plain "
-                                    f"version (max abs {abs_err:.3e})")
-        if kw.get("nan") and kw.get("dynamic"):
-            check(bool(got.isnan().all()), f"qconv {label}: a NaN scale "
-                                           f"left finite outputs")
-        elif odt != torch.int8:
-            check(bool(torch.isfinite(got.float()).all()),
-                  f"qconv {label}: non-finite output")
-        if not timed:
-            print()
-            continue
-        ms = graph_ms(lambda: qconv(*args))
-        call_ms = cuda_ms(lambda: qconv(*args), 20)
-        quant_ms = graph_ms(lambda: act_quantize(x, absmax))
-        plain_ms = cuda_ms(lambda: qconv_plain(*args), 3)
-        M = got.numel() // oc
-        work = 2 * M * oc * k * k * C
-        _, oy, ox, _ = got.shape
-        x_read = n * C * _touched(H, oy, k, kw["s"], kw["p"]) \
-            * _touched(W, ox, k, kw["s"], kw["p"])
-        bound_ms, bound_by = bound(peaks, "int8", work,
-                                   x_read + _nbytes(wq, sws, bias, got))
-        a_cols, b_cols = _im2col_int8(xq, k, kw["s"], kw["p"]), \
-            wq.view(oc, -1).t()
-        scale = s_act * sws
+    n, H, W, C, oc, k = (kw[key] for key in ("n", "H", "W", "C", "oc", "k"))
+    st, pd = (kw["s"], kw["s"]), (kw["p"], kw["p"])
+    x = torch.randn(n, H, W, C, device=dev, generator=gen)
+    if not kw.get("x32"):
+        x = x.bfloat16()
+    if kw.get("nan"):
+        x[n // 2, H // 2, W // 3, C // 3] = float("nan")
+    # a static scale that clips the largest few values, as calibration
+    # on other inputs does
+    absmax = 0.0 if kw.get("dynamic") else \
+        0.8 * float(x.float().nan_to_num(0.0).abs().max())
+    q_got, q_want = act_quantize(x, absmax), act_quantize_plain(x, absmax)
+    torch.cuda.synchronize()
+    check(all(bit_equal(g, w) for g, w in zip(q_got, q_want)),
+          f"qconv {label}: the quantize kernel differs from "
+          f"act_quantize_plain")
+    xq = q_got[0]
+    s_act = torch.full((1,), static_act_scale(absmax), device=dev) \
+        if kw.get("in_q8") else q_got[1]
+    wq = torch.randint(-127, 128, (oc, k, k, C), device=dev,
+                       generator=gen, dtype=torch.int8)
+    sws = torch.rand(oc, device=dev, generator=gen) * 2e-3 + 1e-4
+    bias = torch.randn(oc, device=dev, generator=gen) \
+        if kw.get("bias", True) else None
+    odt = out_dt[kw.get("out", "bf16")]
+    out_absmax = 0.0
+    if odt == torch.int8:
+        y = qconv_plain(xq, wq, s_act, sws, bias, st, pd, kw["relu"])
+        out_absmax = 0.7 * float(y.abs().max())
+    args = (xq, wq, s_act, sws, bias, st, pd, kw["relu"], odt, out_absmax)
+    got = qconv(*args)
+    torch.cuda.synchronize()
+    want = qconv_plain(*args)
+    abs_err = float((got.double() - want.double()).abs().nan_to_num(0.0)
+                    .max())
+    s["max_abs_err"] = max(s["max_abs_err"], abs_err)
+    plan = qconv_plan(n, H, W, C, oc, k, k, st, pd, sms)
+    print(f"kernel qconv {str(x.dtype)[6:]}->{str(odt)[6:]:8s} "
+          f"{label:44s} bit-equal={bit_equal(got, want)} (quantize "
+          f"bit-equal) max_abs={abs_err:.3e} plan {plan.route} "
+          f"{plan.tile_m}x{plan.tile_n}"
+          f"{'' if plan.vec else ' element-staged'}", end="")
+    check(bit_equal(got, want), f"qconv {label}: differs from its plain "
+                                f"version (max abs {abs_err:.3e})")
+    if kw.get("nan") and kw.get("dynamic"):
+        check(bool(got.isnan().all()), f"qconv {label}: a NaN scale "
+                                       f"left finite outputs")
+    elif odt != torch.int8:
+        check(bool(torch.isfinite(got.float()).all()),
+              f"qconv {label}: non-finite output")
+    if not timed:
+        print()
+        return
+    ms = graph_ms(lambda: qconv(*args))
+    call_ms = cuda_ms(lambda: qconv(*args), 20)
+    quant_ms = graph_ms(lambda: act_quantize(x, absmax))
+    plain_ms = cuda_ms(lambda: qconv_plain(*args), 3)
+    M = got.numel() // oc
+    work = 2 * M * oc * k * k * C
+    _, oy, ox, _ = got.shape
+    x_read = n * C * _touched(H, oy, k, kw["s"], kw["p"]) \
+        * _touched(W, ox, k, kw["s"], kw["p"])
+    bound_ms, bound_by = bound(peaks, "int8", work,
+                               x_read + _nbytes(wq, sws, bias, got))
+    a_cols, b_cols = _im2col_int8(xq, k, kw["s"], kw["p"]), \
+        wq.view(oc, -1).t()
+    scale = s_act * sws
 
-        def lib():
-            y = torch._int_mm(a_cols, b_cols).float() * scale + bias
-            return (torch.relu(y) if kw["relu"] else y).to(odt)
-        try:
-            lib()
-            lib_ms = graph_ms(lib)
-        except RuntimeError:
-            lib_ms = None
-        print(f" kernel {ms:.4f} ms ({work / ms / 1e9:.1f} TOPS; the "
-              f"wrapper's call {call_ms:.4f}) plain "
-              f"{plain_ms:.4f} ms; quantize pass {quant_ms:.4f} ms; bound "
-              f"{bound_ms:.4f} ms ({bound_by}); library _int_mm + epilogue "
-              f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
-        s["quantize_ms"] += quant_ms
-        _add_case(s, {"case": label, "dtype": "int8", "mrd": 0.0, "ms": ms,
-                      "call_ms": call_ms, "plain_ms": plain_ms,
-                      "quantize_ms": quant_ms,
-                      "tops": work / ms / 1e9, "bound_ms": bound_ms,
-                      "bound_by": bound_by, "library_ms": lib_ms,
-                      "library": "call: torch._int_mm (im2col'd int8 "
-                                 "operands) + epilogue"})
-        del args, got, want, a_cols, x, xq
+    def lib():
+        y = torch._int_mm(a_cols, b_cols).float() * scale + bias
+        return (torch.relu(y) if kw["relu"] else y).to(odt)
+    try:
+        lib()
+        lib_ms = graph_ms(lib)
+    except RuntimeError:
+        lib_ms = None
+    print(f" kernel {ms:.4f} ms ({work / ms / 1e9:.1f} TOPS; the "
+          f"wrapper's call {call_ms:.4f}) plain "
+          f"{plain_ms:.4f} ms; quantize pass {quant_ms:.4f} ms; bound "
+          f"{bound_ms:.4f} ms ({bound_by}); library _int_mm + epilogue "
+          f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
+    s["quantize_ms"] += quant_ms
+    _add_case(s, {"case": label, "dtype": "int8", "mrd": 0.0, "ms": ms,
+                  "call_ms": call_ms, "plain_ms": plain_ms,
+                  "quantize_ms": quant_ms,
+                  "tops": work / ms / 1e9, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "library_ms": lib_ms,
+                  "library": "call: torch._int_mm (im2col'd int8 "
+                             "operands) + epilogue"})
 
 
 def phase_kernels(ctx: dict) -> None:
@@ -1534,35 +1573,41 @@ def phase_digests(ctx: dict) -> None:
             del eng
 
 
-def _cls_agree(tune_a: str, tune_b: str) -> dict:
-    """cls_agree of engine=torch under two tunes on the 64 held-out images;
+def _run_cls_agree(label: str, model_args: str, spec_a: str, spec_b: str,
+                   top1: float, batch: int = 32) -> dict:
+    """cls_agree of two engine=torch specs on the 64 held-out images;
     returns its statistics, checked against the accuracy gates: top-1 >=
-    0.90 each and agreement >= 0.97; for the int8 preset against the
-    headline tune, also tests/test_quant8.py's 64-image gates (int8 within
-    one image of bf16, its top-1 in bf16's top-5 for 98% of the images, top-5
-    overlap >= 0.95)."""
+    `top1` each and agreement >= 0.97."""
     from boda_tpu_torch.core.has_main import create_and_run_has_main
-    src = ("(mode=shapes-src,num_imgs=64,start_ix=100000,ysz=224,xsz=224,"
-           "num_classes=40,seed=1,mean=128,scale=0.015625)")
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         create_and_run_has_main(
-            f"(mode=cls_agree,model=resnet-50,model_opts=(num_classes=40),"
-            f"batch=32,weights_fn={TRAINED},src={src},"
-            f"conv_fwd=(engine=torch,{engine_spec(tune_a, 'trained')}),"
-            f"conv_fwd_b=(engine=torch,{engine_spec(tune_b, 'trained')}))",
-            {})
+            f"(mode=cls_agree,{model_args},batch={batch},src={HELD_OUT_SRC},"
+            f"conv_fwd=(engine=torch,{spec_a}),"
+            f"conv_fwd_b=(engine=torch,{spec_b}))", {})
     out = buf.getvalue().strip()
-    print(f"cls_agree (a={tune_a}, b={tune_b}, "
-          f"{time.perf_counter() - t0:.1f} s): "
+    print(f"cls_agree {label} ({time.perf_counter() - t0:.1f} s): "
           f"{out.splitlines()[-1] if out else '<no output>'}")
     stats = {k: float(v) for k, v in re.findall(r"(\w+)=([0-9.]+)", out)}
     check(stats.get("num_test") == 64, f"cls_agree: num_test {stats}")
-    check(stats["top_1_acc_a"] >= 0.90 and stats["top_1_acc_b"] >= 0.90,
-          f"cls_agree {tune_a} vs {tune_b}: top-1 below 0.90: {stats}")
-    check(stats["top_1_agree"] >= 0.97,
-          f"cls_agree {tune_a} vs {tune_b}: agreement {stats}")
+    check(stats["top_1_acc_a"] >= top1 and stats["top_1_acc_b"] >= top1,
+          f"cls_agree {label}: top-1 below {top1}: {stats}")
+    check(stats["top_1_agree"] >= 0.97, f"cls_agree {label}: agreement "
+                                        f"{stats}")
+    return stats
+
+
+def _cls_agree(tune_a: str, tune_b: str) -> dict:
+    """cls_agree of engine=torch under two tunes with the trained
+    ResNet-50 (_run_cls_agree, top-1 >= 0.90); for the int8 preset against
+    the headline tune, also tests/test_quant8.py's 64-image gates (int8
+    within one image of bf16, its top-1 in bf16's top-5 for 98% of the
+    images, top-5 overlap >= 0.95)."""
+    stats = _run_cls_agree(
+        f"(a={tune_a}, b={tune_b})",
+        f"model=resnet-50,model_opts=(num_classes=40),weights_fn={TRAINED}",
+        engine_spec(tune_a, "trained"), engine_spec(tune_b, "trained"), 0.90)
     if tune_b == INT8:
         check(stats["num_pos_b"] >= stats["num_pos_a"] - 1
               and stats["b_top1_in_a_top5"] >= 0.98
@@ -2068,20 +2113,29 @@ def _percall_int8(ctx: dict, wrappers: dict) -> dict:
     return stats
 
 
-def _compute_multi(model: str, engines: str, toler: float) -> None:
+def _compute_multi(model: str, engines: str, toler: float,
+                   out_dir: Path = ENGINE_OUT, kg: bool = True):
+    """test_compute_multi at batch 1 through the CLI: the engines against
+    each other and, with kg, against the model's TPU digest archive (which
+    must be in the repo); returns the mode's object (its engines hold
+    their plans)."""
     t0 = time.perf_counter()
-    out, _ = _run_mode(
+    kg_fn = DATA / "tpu_digests" / model / "digest-rtc.boda"
+    check(not kg or kg_fn.exists(), f"test_compute_multi {model}: no TPU "
+                                    f"digest archive {kg_fn}")
+    out, hm = _run_mode(
         f"(mode=test_compute_multi,model={model},batch=1,all_vars=1,"
-        f"mrd_toler={toler},boda_output_dir={ENGINE_OUT / model},"
-        f"engines=({engines}),"
-        f"kg_digests_fn={DATA / 'tpu_digests' / model / 'digest-rtc.boda'})")
+        f"mrd_toler={toler},boda_output_dir={out_dir / model},"
+        f"engines=({engines})"
+        + (f",kg_digests_fn={kg_fn})" if kg else ")"))
     lines = out.strip().splitlines()
     print(f"test_compute_multi {model} mrd {toler:g} "
           f"({time.perf_counter() - t0:.1f} s): " + "; ".join(lines))
     n = engines.count("engine=")
-    check(len(lines) == 2 * n - 1 and all(ln.endswith(": PASS")
-                                          for ln in lines),
+    check(len(lines) == (2 * n - 1 if kg else n - 1)
+          and all(ln.endswith(": PASS") for ln in lines),
           f"test_compute_multi {model}: {lines}")
+    return hm
 
 
 def _stats_and_nan(ctx: dict) -> None:
@@ -2369,10 +2423,669 @@ def phase_bench(ctx: dict) -> None:
     ctx["bench"] = lines[0]
 
 
+# ---------------------------------------------------------------- zoo
+
+ZOO_OUT = ROOT / "build" / "zoo_smoke"
+GOOGLENET_TRAINED = DATA / "googlenet-shapes40.boda"
+# each zoo model's int8 site set (the JAX package's tests/test_quant8.py
+# and docs/PERF.md per-model table) and its static scales, calibrated at
+# b128 on the zoo weights; squeezenet has no scales file in the repo, so
+# the phase calibrates it as scripts/calibrate_int8.py does (one float
+# forward of the headline tune over the bench's seeded input)
+ZOO_INT8 = {"googlenet_conv": (r"inception_.*/[35]x[35]",
+                               DATA / "googlenet-b128-int8-scales.lexp"),
+            "nin_imagenet": (r"conv2|conv3|conv4-1024",
+                             DATA / "nin-b128-int8-scales.lexp"),
+            "squeezenet-1.0": (r".*expand3x3", None),
+            "alexnet_ng_conv": (r"conv[2-5]|fc[67]-conv",
+                                DATA / "alexnet-b128-int8-scales.lexp")}
+# the cnet_bench rows at b128: every model under the headline tune and
+# under its int8 site set, and GoogLeNet under () (B1 and B2 at full width)
+ZOO_ROWS = [(m, "headline") for m in ZOO_INT8] + \
+    [(m, INT8) for m in ZOO_INT8] + [("googlenet_conv", "f32")]
+ZOO_BENCH_ITERS = 10
+# B6 at GoogLeNet's int8 sites, batch 128 (x bf16 NHWC at a static scale,
+# ReLU, bf16 out): the 5x5s with C = 16, 24, 32 and 48 (K = 400-1200; C =
+# 24 is element-staged) and the 3x3 with C = 96
+ZOO_QCONV = [
+    ("googlenet 3a/5x5 n=128 28^2 16->32",
+     dict(n=128, H=28, W=28, C=16, oc=32, k=5, s=1, p=2, relu=True)),
+    ("googlenet 3b/5x5 n=128 28^2 32->96",
+     dict(n=128, H=28, W=28, C=32, oc=96, k=5, s=1, p=2, relu=True)),
+    ("googlenet 4b/5x5 n=128 14^2 24->64",
+     dict(n=128, H=14, W=14, C=24, oc=64, k=5, s=1, p=2, relu=True)),
+    ("googlenet 5b/5x5 n=128 7^2 48->128",
+     dict(n=128, H=7, W=7, C=48, oc=128, k=5, s=1, p=2, relu=True)),
+    ("googlenet 3a/3x3 n=128 28^2 96->128",
+     dict(n=128, H=28, W=28, C=96, oc=128, k=3, s=1, p=1, relu=True)),
+]
+ZOO_F32_MRD = 1e-5
+# test_compute_multi on the zoo nets: every node of the fused () forward
+# (B1, B2, cuDNN's FP32 stem) and of the per-call one against the float64
+# engine=ref (the engine phase holds vgg-19 to 3e-2; these pass far inside)
+ZOO_NET_MRD = 1e-4
+
+
+def _step_sig(model: str, tune: str, tag: str, batch: int):
+    """The sig of the plan step with call tag `tag` in `model` lowered at
+    `batch` under `tune` (with the fused-storage pass)."""
+    from boda_tpu_torch.engine.lower import lower_pipe
+    from boda_tpu_torch.models.zoo import build_model
+    from boda_tpu_torch.ops.cnn_variants import make_op_tune
+    plan = lower_pipe(build_model(model, batch=batch), make_op_tune(tune),
+                      fuse_relu=True, fused_storage=True)
+    return [s.sig for s in plan.steps if s.call_tag == tag]
+
+
+def _built(op):
+    from boda_tpu_torch.ops.registry import get_template
+    t = get_template(op.func_name)
+    rfs = t.check_args(op)
+    return t, rfs, t.build(rfs)
+
+
+def _zoo_record(z: dict, label: str, err: float, toler: float, ms: float,
+                nbytes: int, peaks, extra: str = "") -> None:
+    bound_ms, _ = bound(peaks, "f32", 0, nbytes)
+    print(f"zoo template {label:52s} mrd {err:.3e} (<= {toler:g}) "
+          f"{ms:.4f} ms (bytes bound {bound_ms:.4f} ms){extra}")
+    check(err <= toler, f"zoo template {label}: mrd {err:.3e} > {toler:g}")
+    z.setdefault("templates", {})[label] = {
+        "mrd": err, "toler": toler, "ms": ms, "bound_ms": bound_ms}
+
+
+def _zoo_lrn(z: dict, dev, gen, peaks) -> None:
+    """LRN at AlexNet's norm1 (b128, 96x55x55) and norm2 (b128, 256x27x27)
+    under () (f32 NCHW) and the headline tune (bf16 NHWC storage), against
+    the float64 reference of the input as the template gets it; each
+    time is kept for the AlexNet rows' LRN share."""
+    import torch
+    for tag, C, H in (("norm1", 96, 55), ("norm2", 256, 27)):
+        x = torch.relu(torch.randn(128, C, H, H, device=dev,
+                                   generator=gen)) * 20
+        for tune_name, dt, tol in (("f32", torch.float32, ZOO_F32_MRD),
+                                   ("headline", torch.bfloat16, BF16_MRD)):
+            (op,) = _step_sig("alexnet_ng_conv", TUNES[tune_name], tag, 128)
+            t, rfs, fn = _built(op)
+            nhwc = op.str_vals.get("io_layout") == "nhwc"
+            xs = x.to(dt)
+            xin = xs.permute(0, 2, 3, 1).contiguous() if nhwc else xs
+            got = fn(xin)
+            torch.cuda.synchronize()
+            want = t.ref_impl(rfs, xs.double().cpu().numpy())
+            g = got.permute(0, 3, 1, 2) if nhwc else got
+            err = mrd(g.cpu(), torch.from_numpy(want))
+            ms = cuda_ms(lambda: fn(xin), 10)
+            z.setdefault("lrn_ms", {}).setdefault(tune_name, {})[tag] = ms
+            _zoo_record(z, f"lrn alexnet {tag} b128 {C}x{H}^2 "
+                           f"{str(dt)[6:]}{' nhwc' if nhwc else ''}", err,
+                        tol, ms, 2 * _nbytes(xin), peaks)
+            del got, g, xin, xs
+
+
+def _zoo_copy(z: dict, dev, gen, peaks) -> None:
+    """GoogLeNet's inception_3b/output concat at b128 (four members, 480
+    channels of 28x28) under () and the headline tune: its four copy steps
+    write their members into one zero buffer in place, bit-equal to the
+    float64 reference's slices."""
+    import torch
+    from boda_tpu_torch.engine.lower import lower_pipe
+    from boda_tpu_torch.models.zoo import build_model
+    from boda_tpu_torch.ops.cnn_variants import make_op_tune
+    for tune in ("()", TUNES["headline"]):
+        plan = lower_pipe(build_model("googlenet_conv", batch=128),
+                          make_op_tune(tune), fuse_relu=True,
+                          fused_storage=True)
+        steps = [s for s in plan.steps if s.func_name == "copy"
+                 and s.arg_nodes["out"] == "inception_3b/output"]
+        check(len(steps) == 4, f"zoo copy: {len(steps)} members")
+        nhwc = plan.storage_nhwc
+        dt = torch.bfloat16 if plan.edge_prec == "bf16" else torch.float32
+        fns = [_built(s.sig) for s in steps]
+        members = [torch.randn(*plan.node_dims[s.arg_nodes["in"]].shape,
+                               device=dev, generator=gen).to(dt)
+                   for s in steps]
+        if nhwc:
+            members = [m.permute(0, 2, 3, 1).contiguous() for m in members]
+        d = plan.node_dims["inception_3b/output"].shape
+        shape = (d[0], d[2], d[3], d[1]) if nhwc else tuple(d)
+
+        def concat():
+            buf = torch.zeros(shape, dtype=dt, device=dev)
+            for (_, _, fn), m in zip(fns, members):
+                check(fn(m, buf) is buf, "zoo copy: not in place")
+            return buf
+        got = concat()
+        torch.cuda.synchronize()
+        want = torch.zeros(tuple(d), dtype=torch.float64).numpy()
+        for (t, rfs, _), m in zip(fns, members):
+            mm = m.permute(0, 3, 1, 2) if nhwc else m
+            want = t.ref_impl(rfs, mm.double().cpu().numpy(), want)
+        g = got.permute(0, 3, 1, 2) if nhwc else got
+        equal = bool(torch.equal(g.double().cpu(), torch.from_numpy(want)))
+        check(equal, f"zoo copy {tune}: differs from the reference")
+        ms = cuda_ms(concat, 10)
+        _zoo_record(z, f"copy googlenet 3b/output b128 480x28^2 "
+                       f"{str(dt)[6:]}{' nhwc' if nhwc else ''} (4 members)",
+                    0.0, 0.0, ms, 2 * _nbytes(got), peaks,
+                    " bit-equal, in place")
+
+
+def _zoo_deconv(z: dict, dev, gen, peaks) -> None:
+    """deconv at deconv-tiny.prototxt's layer (8->4, k4/s2/p1, b1) and at a
+    2x upsample of 256 channels at 56^2, b8, f32 NCHW and bf16 NHWC
+    storage: the whole batch against a float64 conv_transpose2d on the
+    card, and the first image against the template's float64 scatter
+    (ref_impl), of the operands as the template rounds them."""
+    import torch
+    import torch.nn.functional as F
+    from boda_tpu_torch.ops.cuda.conv import make_deconv_op
+    cases = [("deconv-tiny up1 b1 8->4 8^2", (1, 8, 8, 8, 4)),
+             ("upsample x2 b8 256->256 56^2", (8, 256, 56, 56, 256))]
+    for label, (n, cin, h, w, cout) in cases:
+        x = torch.randn(n, cin, h, w, device=dev, generator=gen)
+        wt = torch.randn(cout, cin, 4, 4, device=dev, generator=gen) \
+            * (cin * 4) ** -0.5
+        b = torch.randn(cout, device=dev, generator=gen)
+        for nhwc, dt, tol in ((False, torch.float32, ZOO_F32_MRD),
+                              (True, torch.bfloat16, BF16_MRD)):
+            op = make_deconv_op(n, cin, h, w, cout, 4, 4, 2, 2, 1, 1)
+            if nhwc:
+                op.str_vals.update(io_layout="nhwc", prec="bf16",
+                                   edge_prec="bf16")
+            t, rfs, fn = _built(op)
+            xs = x.to(dt)
+            xin = xs.permute(0, 2, 3, 1).contiguous() if nhwc else xs
+            got = fn(xin, wt, b)
+            torch.cuda.synchronize()
+            g = (got.permute(0, 3, 1, 2) if nhwc else got).double()
+            wr = wt.to(dt).double()
+            want = F.conv_transpose2d(xs.double(), wr.transpose(0, 1),
+                                      b.double(), stride=2, padding=1)
+            err = mrd(g, want)
+            ref0 = t.ref_impl(rfs, xs[:1].double().cpu().numpy(),
+                              wr.cpu().numpy(), b.double().cpu().numpy())
+            err0 = mrd(g[:1].cpu(), torch.from_numpy(ref0))
+            ms = cuda_ms(lambda: fn(xin, wt, b), 10)
+            _zoo_record(z, f"deconv {label} {str(dt)[6:]}"
+                           f"{' nhwc' if nhwc else ''}", max(err, err0), tol,
+                        ms, _nbytes(xin, wt, b, got), peaks,
+                        f" (image 0 vs ref_impl {err0:.3e})")
+
+
+def _zoo_small_templates(z: dict, dev, gen, peaks) -> None:
+    """scale (with bias), xpose, xpose_filts and reduce at GoogLeNet's
+    inception_3b output size against their float64 references (scale
+    under bf16 storage rounds the product and the sum to bf16, as the JAX
+    template does: bit-equal to the same template on the CPU, which
+    tests/test_torch_zoo_ops.py holds bit-equal to the JAX template);
+    bwai's three ops at bwai-tiny.txt's size against its reference."""
+    import math
+
+    import numpy as np
+    import torch
+    from boda_tpu_torch.core.dims import Dims
+    from boda_tpu_torch.ops.op_base import OpBase
+    n, C, H, W = 32, 480, 28, 28
+    x = torch.randn(n, C, H, W, device=dev, generator=gen)
+    s_, b_ = (torch.randn(C, device=dev, generator=gen) for _ in range(2))
+    for nhwc, dt in ((False, torch.float32), (True, torch.bfloat16)):
+        op = OpBase({"type": "Scale", "func_name": "scale"})
+        op.set_dims("in", Dims.make(img=n, chan=C, y=H, x=W))
+        op.set_dims("scales", Dims.make(chan=C))
+        op.set_dims("biases", Dims.make(chan=C))
+        op.set_dims("out", Dims.make(img=n, chan=C, y=H, x=W))
+        if nhwc:
+            op.str_vals.update(io_layout="nhwc", edge_prec="bf16")
+        t, rfs, fn = _built(op)
+        xs = x.to(dt)
+        xin = xs.permute(0, 2, 3, 1).contiguous() if nhwc else xs
+        sv, bv = s_.to(dt), b_.to(dt)
+        got = fn(xin, sv, bv)
+        if nhwc:
+            err, tol = (0.0 if torch.equal(got.cpu(), fn(
+                xin.cpu(), sv.cpu(), bv.cpu())) else math.inf), 0.0
+        else:
+            err, tol = mrd(got.cpu(), torch.from_numpy(t.ref_impl(
+                rfs, xs.double().cpu().numpy(), sv.double().cpu().numpy(),
+                bv.double().cpu().numpy()))), 1e-6
+        _zoo_record(z, f"scale {n}x{C}x{H}^2 {str(dt)[6:]}"
+                       f"{' nhwc (vs the CPU)' if nhwc else ''}", err, tol,
+                    cuda_ms(lambda: fn(xin, sv, bv), 10),
+                    2 * _nbytes(xin), peaks)
+    op = OpBase({"type": "xpose", "func_name": "xpose"})
+    op.set_dims("in", Dims.make(img=n, chan=C, y=H, x=W))
+    op.set_dims("out", Dims.make(img=n, y=H, x=W, chan=C))
+    t, rfs, fn = _built(op)
+    got = fn(x)
+    equal = bool(torch.equal(got.cpu(), torch.from_numpy(
+        t.ref_impl(rfs, x.cpu().numpy()))))
+    check(equal, "zoo xpose: differs from its reference")
+    _zoo_record(z, f"xpose nchw->nhwc {n}x{C}x{H}^2 float32", 0.0, 0.0,
+                cuda_ms(lambda: fn(x), 10), 2 * _nbytes(x), peaks,
+                " bit-equal")
+    op = OpBase({"type": "xpose_filts", "func_name": "xpose_filts"})
+    op.set_dims("filts", Dims.make(out_chan=192, in_chan=96, y=3, x=3))
+    op.set_dims("filts_xp", Dims.make(y=3, x=3, in_chan=96, out_chan=192))
+    t, rfs, fn = _built(op)
+    f = torch.randn(192, 96, 3, 3, device=dev, generator=gen)
+    check(bool(torch.equal(fn(f).cpu(), torch.from_numpy(
+        t.ref_impl(rfs, f.cpu().numpy())))), "zoo xpose_filts: differs")
+    ins = torch.randn(4, n, C, H, W, device=dev, generator=gen)
+    op = OpBase({"type": "reduce", "func_name": "reduce"})
+    op.set_dims("ins", Dims.make(v=4, img=n, chan=C, y=H, x=W))
+    op.set_dims("out", Dims.make(img=n, chan=C, y=H, x=W))
+    t, rfs, fn = _built(op)
+    want = np.asarray(ins.double().cpu().numpy()).sum(axis=0)
+    _zoo_record(z, f"reduce 4 x {n}x{C}x{H}^2 float32",
+                mrd(fn(ins).cpu(), torch.from_numpy(want)), 1e-6,
+                cuda_ms(lambda: fn(ins), 10), _nbytes(ins, x), peaks)
+    xb = torch.randn(65536, device=dev, generator=gen) * 3
+    for bw_op in ("copy", "scale", "read"):
+        op = OpBase({"type": "bwai", "func_name": "bwai", "bw_op": bw_op})
+        op.set_dims("in", Dims.make(tn="float", n=65536))
+        op.set_dims("out", Dims.make(tn="float",
+                                     n=8 if bw_op == "read" else 65536))
+        t, rfs, fn = _built(op)
+        got = fn(xb).cpu()
+        want = torch.from_numpy(t.ref_impl(rfs, xb.cpu().numpy()))
+        if bw_op == "read":
+            what = "sum within 1e-6 of sum|x|"
+            ok = float((got - want).abs().max()) \
+                <= 1e-6 * float(xb.abs().sum())
+        else:
+            what, ok = "bit-equal", torch.equal(got, want)
+        print(f"zoo template bwai {bw_op} n=65536: {what} {ok}")
+        check(ok, f"zoo bwai {bw_op}: differs from its reference")
+
+
+def _zoo_bwai_rates(z: dict, peaks) -> None:
+    """bwai through torch_ops_prof (be=torch on the card) on
+    tests/data/ops/bwai.txt (67M f32 elements: 256 MiB in, and out but for
+    read) and bwai-tiny.txt: each op's best time of 5 calls and its memory
+    rate (the bytes it moves over it: bytes_accessed, twice that for scale's
+    two passes) beside the card's nominal HBM rate."""
+    import torch
+    from boda_tpu_torch.core.has_main import create_and_run_has_main
+    from boda_tpu_torch.ops.op_base import OpBase
+    from boda_tpu_torch.ops.registry import get_template
+    bwai = get_template("bwai")
+    for ops_fn in ("bwai.txt", "bwai-tiny.txt"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            create_and_run_has_main(
+                f"(mode=torch_ops_prof,ops_fn={DATA / 'ops' / ops_fn},"
+                f"op_tunes=(t=()),run_iter=5,boda_output_dir={ZOO_OUT},"
+                f"wisdom_out_fn=bwai.wis)", {})
+        text = buf.getvalue()
+        rows = re.findall(r"^OP (\(.*\)) tune=t be=\w+ func=bwai "
+                          r"secs=(\S+) .* ok$", text, re.M)
+        check(len(rows) == 3 and "COMP_FAIL" not in text
+              and "ERROR" not in text,
+              f"torch_ops_prof {ops_fn}: {len(rows)} bwai runs ok")
+        for sig, secs in rows:
+            op = OpBase.from_lexp(sig)
+            nb = bwai.bytes_accessed(bwai.check_args(op))
+            bw_op = op.str_vals["bw_op"]
+            # scale runs as two torch passes (x * a, then + b, each rounded
+            # as the JAX body rounds): it moves twice the bytes it counts
+            moved = 2 * nb if bw_op == "scale" else nb
+            rate = moved / float(secs)
+            print(f"bwai {ops_fn} {bw_op:5s} n={op.get_dims('in')['n']}: "
+                  f"{float(secs) * 1e3:.4f} ms, {rate / 1e12:.3f} TB/s "
+                  f"over {moved} bytes moved"
+                  f"{' by two passes' if bw_op == 'scale' else ''} "
+                  f"({100 * rate / peaks.hbm_bw:.1f}% of the nominal "
+                  f"{peaks.hbm_bw / 1e12:.2f} TB/s) on [{z['smi']}]")
+            if ops_fn == "bwai.txt":
+                z.setdefault("bwai_tb_per_s", {})[bw_op] = rate / 1e12
+    torch.cuda.synchronize()
+
+
+def _zoo_qconv(z: dict, dev, gen, peaks) -> None:
+    """B6 at GoogLeNet's int8 shapes, bit-equal to its plain version
+    (the kernels phase's case, _qconv_case, timed)."""
+    import torch
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    s = _stats("qconv")
+    s["quantize_ms"] = 0.0
+    for label, kw in ZOO_QCONV:
+        _qconv_case(s, label, kw, True, dev, gen, peaks, sms)
+    z["qconv_googlenet"] = {k: s[k] for k in ("ms", "plain_ms", "bound_ms",
+                                              "library_ms", "quantize_ms",
+                                              "max_abs_err")}
+    z["qconv_googlenet"]["cases"] = [
+        {k: c[k] for k in ("case", "ms", "call_ms", "plain_ms", "tops",
+                           "bound_ms", "bound_by", "library_ms")}
+        for c in s["cases"]]
+
+
+def _zoo_compute_multi(z: dict, launches: dict, wrappers: dict) -> None:
+    """test_compute_multi at b1 on googlenet_conv_lrn, alexnet_ng_conv and
+    squeezenet-1.0 with zoo weights: engine=ref (float64), the fused ()
+    executor (B1 and B2 at every conv shape of the net) and the per-call
+    mode on every node; the hand kernels launched as the two plans say."""
+    import torch
+    engines = ("ref=(engine=ref),fused=(engine=torch,keep_all_nodes=1),"
+               "percall=(engine=torch,fuse=0)")
+    for model in ("googlenet_conv_lrn", "alexnet_ng_conv", "squeezenet-1.0"):
+        _counts_reset(wrappers)
+        t0 = time.perf_counter()
+        hm = _compute_multi(model, engines, ZOO_NET_MRD, ZOO_OUT, kg=False)
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        planned = dict.fromkeys(counts, 0)
+        for name in ("fused", "percall"):
+            for k, v in _planned_launches(hm.engines[name].plan,
+                                          counts).items():
+                planned[k] += v
+        print(f"  launches (fused + per-call forward) {counts}")
+        check(counts == planned and counts["matmul_ext"] > 0,
+              f"test_compute_multi {model}: launches {counts} != the "
+              f"plans' {planned}")
+        launches[f"zoo_compute_multi:{model}"] = counts
+        z.setdefault("compute_multi_s", {})[model] = \
+            time.perf_counter() - t0
+
+
+def _calibrate(model: str, pats: str, out_fn: Path) -> None:
+    """Static int8 scales of `model`'s site set at b128 on the zoo weights:
+    one float forward of the headline tune over the bench's seeded input
+    (tune/presets.calibrate_int8_act_scales), saved to out_fn."""
+    import numpy as np
+    from boda_tpu_torch.models.zoo import build_model
+    from boda_tpu_torch.ops.cnn_variants import make_op_tune
+    from boda_tpu_torch.tune.presets import calibrate_int8_act_scales, \
+        save_act_scales
+    pipe = build_model(model, batch=128)
+    d = pipe.get_data_img_dims()
+    x = (np.random.RandomState(0).randn(*d.shape) * 0.1).astype(np.float32)
+    rx = re.compile(pats)
+    q = make_op_tune(TUNES["headline"][:-1] + ",quant8=1)")
+    sites = {op.tag: q for op in pipe.ops.values()
+             if op.type == "Convolution" and rx.fullmatch(op.tag)}
+    save_act_scales(out_fn, calibrate_int8_act_scales(
+        pipe, TUNES["headline"], x, sites))
+    print(f"calibrated {len(sites)} int8 site(s) of {model}: {out_fn.name}")
+
+
+def _int8_spec(pats: str, scales_fn) -> str:
+    """The engine attributes of the headline tune with int8 at the sites
+    `pats` matches, their activation scales static from scales_fn."""
+    q = TUNES["headline"][:-1] + ",quant8=1)"
+    return (f"op_tune={TUNES['headline']},op_tunes_pat=({pats}={q}),"
+            f"act_scales_fn={scales_fn}")
+
+
+def _zoo_cls_agree(z: dict) -> None:
+    """cls_agree on the trained 40-class GoogLeNet over the 64 held-out
+    images: () against the bf16 NHWC tune and against the headline tune
+    (its inception 1x1 trios fused into 3-member xla_conv2 steps), and the
+    headline tune against int8 at GoogLeNet's site set with static scales
+    calibrated on the trained weights (32 training-split images, as
+    scripts/calibrate_int8.py calibrates the trained ResNet-50); top-1 >=
+    0.85 under every tune, agreement >= 0.97."""
+    import numpy as np
+    from boda_tpu_torch.apps.train import load_weights_into_pipe
+    from boda_tpu_torch.io.synth import render_shapes
+    from boda_tpu_torch.models.zoo import build_model
+    from boda_tpu_torch.ops.cnn_variants import make_op_tune
+    from boda_tpu_torch.tune.presets import calibrate_int8_act_scales, \
+        save_act_scales
+    pats, _ = ZOO_INT8["googlenet_conv"]
+    pipe = build_model("googlenet_conv", batch=32, num_classes=40)
+    load_weights_into_pipe(pipe, str(GOOGLENET_TRAINED))
+    imgs, _ = render_shapes(range(32), 224, 224, 40, seed=1)
+    x = (imgs.astype(np.float32) - 128.0) / 64.0
+    rx = re.compile(pats)
+    q = make_op_tune(TUNES["headline"][:-1] + ",quant8=1)")
+    sites = {op.tag: q for op in pipe.ops.values()
+             if op.type == "Convolution" and rx.fullmatch(op.tag)}
+    scales_fn = ZOO_OUT / "googlenet-shapes40-int8-scales.lexp"
+    save_act_scales(scales_fn, calibrate_int8_act_scales(
+        pipe, TUNES["headline"], x, sites))
+    args = (f"model=googlenet_conv,model_opts=(num_classes=40),"
+            f"weights_fn={GOOGLENET_TRAINED}")
+    for a, b in ((TUNES["f32"], TUNES["bf16_nhwc"]),
+                 (TUNES["f32"], TUNES["headline"])):
+        z.setdefault("cls_agree", {})[f"{a} vs {b}"] = _run_cls_agree(
+            f"googlenet (a={a}, b={b})", args, f"op_tune={a}",
+            f"op_tune={b}", 0.85)
+    z["cls_agree"]["headline vs int8"] = _run_cls_agree(
+        f"googlenet (a=headline, b=int8 at {pats}, {len(sites)} sites)",
+        args, f"op_tune={TUNES['headline']}",
+        _int8_spec(pats, scales_fn), 0.85)
+
+
+# the hand kernels a zoo row launches and their plain versions: every
+# distinct call of one row's forward is held against the plain version on
+# the same inputs (B1 and B2 at mrd F32_MRD / BF16_MRD by the operands'
+# dtype against the f32 plain result, as the kernels phase holds them; B6
+# and its activation quantize bit-equal)
+HELD = ("matmul_ext", "tconv", "qconv", "act_quantize")
+
+
+@contextlib.contextmanager
+def _recording(wrappers: dict):
+    """For the block, every module of boda_tpu_torch that holds one of the
+    HELD wrappers holds instead a stand-in that calls it, counts the call
+    and keeps copies of the arguments and the result of its first call at
+    each distinct key (the tensors' shapes and dtypes, the other
+    arguments' values). Yields ({key: (name, args, kwargs, result)},
+    {name: calls})."""
+    import torch
+    seen, calls = {}, dict.fromkeys(HELD, 0)
+
+    def sig(v):
+        return (tuple(v.shape), v.dtype) if isinstance(v, torch.Tensor) \
+            else repr(v)
+
+    def keep(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        return tuple(keep(u) for u in v) if isinstance(v, tuple) else v
+
+    def stand_in(name, fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            calls[name] += 1
+            key = (name, *map(sig, a), *((kk, sig(v))
+                                         for kk, v in sorted(k.items())))
+            if key not in seen:
+                seen[key] = (name, keep(a),
+                             {kk: keep(v) for kk, v in k.items()}, keep(out))
+            return out
+        # the wrapper's body counts its launch on the name in its module,
+        # which is the stand-in's for the block
+        call.launches = fn.launches
+        return call
+    swaps, proxies = [], {}
+    for name in HELD:
+        fn = wrappers[name]
+        proxy = proxies[name] = stand_in(name, fn)
+        for mod in list(sys.modules.values()):
+            if getattr(mod, "__name__", "").startswith("boda_tpu_torch"):
+                for attr, v in list(vars(mod).items()):
+                    if v is fn:
+                        swaps.append((mod, attr, fn))
+                        setattr(mod, attr, proxy)
+    try:
+        yield seen, calls
+    finally:
+        for mod, attr, fn in swaps:
+            setattr(mod, attr, fn)
+        for name, proxy in proxies.items():
+            wrappers[name].launches = proxy.launches
+
+
+def _hold_row(label: str, eng, per: dict, wrappers: dict) -> dict:
+    """One more forward of a cnet_bench row's engine with its hand-kernel
+    calls recorded (every launch must pass through the stand-ins: their
+    calls equal the launches per forward), then each distinct call held
+    against its plain version; returns what was held."""
+    import inspect
+
+    import torch
+    from boda_tpu_torch.ops.cuda.qconv import act_quantize_plain, \
+        qconv_plain
+    from boda_tpu_torch.ops.cuda.sgemm import matmul_ext_plain
+    from boda_tpu_torch.ops.cuda.tconv import tconv_plain
+    plains = {"matmul_ext": matmul_ext_plain, "tconv": tconv_plain,
+              "qconv": qconv_plain, "act_quantize": act_quantize_plain}
+    data = eng.pipe.data_img_node_names[0]
+    gen = torch.Generator(device=eng.dev).manual_seed(2)
+    x = torch.randn(tuple(eng.pipe.get_data_img_dims().shape),
+                    device=eng.dev, generator=gen) * 0.1
+    t0 = time.perf_counter()
+    with torch.inference_mode(), _recording(wrappers) as (seen, calls):
+        eng.fwd({data: x}, eng.weights)
+        torch.cuda.synchronize()
+    check(calls == {k: per[k] for k in HELD},
+          f"{label}: the recorded calls {calls} are not the launches per "
+          f"forward {per}")
+    held = {"distinct": dict.fromkeys(HELD, 0), "max_mrd": 0.0}
+    with torch.inference_mode():
+        for name, a, k, got in seen.values():
+            plain = plains[name]
+            held["distinct"][name] += 1
+            if name in ("qconv", "act_quantize"):
+                want = plain(*a, **k)
+                pairs = zip(got, want) if isinstance(got, tuple) \
+                    else [(got, want)]
+                check(all(bit_equal(g, w) for g, w in pairs),
+                      f"{label}: {name} differs from its plain version at "
+                      f"{[tuple(t.shape) for t in a if hasattr(t, 'shape')]}")
+                continue
+            ba = inspect.signature(plain).bind(*a, **k)
+            ba.arguments["out_dtype"] = torch.float32
+            err = mrd(got, plain(*ba.args, **ba.kwargs))
+            toler = F32_MRD if a[0].dtype == torch.float32 else BF16_MRD
+            check(err <= toler, f"{label}: {name} at "
+                                f"{[tuple(t.shape) for t in a[:2]]} mrd "
+                                f"{err:.3e} > {toler:g}")
+            held["max_mrd"] = max(held["max_mrd"], err)
+    torch.cuda.synchronize()
+    held["s"] = time.perf_counter() - t0
+    print(f"  {label}: every hand-kernel call of one forward recorded "
+          f"({calls}); distinct calls held against the plain versions "
+          f"{held['distinct']} (B1/B2 max mrd {held['max_mrd']:.3e}, B6 "
+          f"and quantize bit-equal; {held['s']:.1f} s)")
+    del seen
+    torch.cuda.empty_cache()
+    return held
+
+
+def _zoo_rows(z: dict, launches: dict, wrappers: dict) -> None:
+    """The cnet_bench rows at b128 through the CLI (mode cnet_bench, zoo
+    weights, the bench's seeded input on the card): ms per forward, imgs/s,
+    TF/s and share of the bf16 peak; the hand kernels' launches per
+    forward, exactly as the plan's steps say; every distinct hand-kernel
+    call of one more forward held against its plain version (_hold_row);
+    the card's busy share of one GoogLeNet and one AlexNet forward under
+    the headline tune, and AlexNet's LRN share."""
+    import torch
+    rows = z.setdefault("cnet_bench", [])
+    for model, tune_name in ZOO_ROWS:
+        pats, scales_fn = ZOO_INT8[model]
+        if tune_name == INT8:
+            if scales_fn is None:
+                scales_fn = ZOO_OUT / f"{model}-b128-int8-scales.lexp"
+                _calibrate(model, pats, scales_fn)
+            spec = _int8_spec(pats, scales_fn)
+        else:
+            spec = f"op_tune={TUNES[tune_name]}"
+        _counts_reset(wrappers)
+        out, hm = _run_mode(f"(mode=cnet_bench,model={model},batch=128,"
+                            f"iters={ZOO_BENCH_ITERS},reps=3,{spec})")
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        per = {k: v // hm.forwards for k, v in counts.items()}
+        planned = _planned_launches(hm.eng.plan, counts)
+        line = out.strip().splitlines()[-1]
+        print(f"{line}; launches per forward {per} on [{z['smi']}]")
+        check(line.startswith(f"cnet_bench {model} b128 "),
+              f"cnet_bench {model}: {line}")
+        check(all(counts[k] == planned[k] * hm.forwards for k in counts),
+              f"cnet_bench {model} {tune_name}: launches {counts} over "
+              f"{hm.forwards} forwards != the plan's {planned} each")
+        check(tune_name != INT8 or per["qconv"] > 0,
+              f"cnet_bench {model} int8: no qconv launch")
+        stats = dict(re.findall(r"(\w+)=(\S+)", line))
+        frac = float(stats["frac_roofline"])
+        check(hm.step_ms > 0 and frac > 0, f"cnet_bench {model}: {line}")
+        launches[f"zoo_cnet_bench:{model}:{tune_name}"] = per
+        row = {"model": model, "tune": tune_name, "batch": 128,
+               "step_ms": hm.step_ms, "imgs_per_sec": 128 / hm.step_ms * 1e3,
+               "tflops": hm.tflops, "frac_bf16_peak": frac,
+               "launches_per_forward": per}
+        if model == "alexnet_ng_conv":
+            # both tunes store bf16 NHWC: the headline tune's LRN times
+            lrn = sum(z["lrn_ms"]["headline"].values())
+            row["lrn_share"] = lrn / hm.step_ms
+            print(f"  alexnet_ng_conv b128 {tune_name}: norm1 + norm2 "
+                  f"alone {lrn:.3f} ms, {100 * lrn / hm.step_ms:.1f}% of "
+                  f"the forward")
+        rows.append(row)
+        if any(per[k] for k in HELD):
+            row["held"] = _hold_row(f"cnet_bench {model} {tune_name}",
+                                    hm.eng, per, wrappers)
+        if tune_name == "headline" and model in ("googlenet_conv",
+                                                 "alexnet_ng_conv"):
+            eng = hm.eng
+            data = eng.pipe.data_img_node_names[0]
+            gen = torch.Generator(device=eng.dev).manual_seed(1)
+            x = torch.randn(tuple(eng.pipe.get_data_img_dims().shape),
+                            device=eng.dev, generator=gen)
+            top = eng.plan.output_nodes[-1]
+            with torch.inference_mode():
+                busy, top_k = _device_busy_ms(
+                    lambda: eng.fwd({data: x}, eng.weights)[top])
+            print(f"  {model} b128 headline: device busy {busy:.3f} "
+                  f"ms of the forward's {hm.step_ms:.3f} ms "
+                  f"({100 * (1 - busy / hm.step_ms):.1f}% idle); most of "
+                  f"it: " + "; ".join(f"{k} x{n} {t:.3f} ms"
+                                      for k, n, t in top_k))
+            row["busy_ms"], row["idle_share"] = busy, 1 - busy / hm.step_ms
+            row["top_kernels"] = [{"kernel": k, "calls": n, "ms": t}
+                                  for k, n, t in top_k]
+        del hm
+        torch.cuda.empty_cache()
+
+
+def phase_zoo(ctx: dict) -> None:
+    """The rest of the zoo on the card: the zoo's templates at zoo shapes,
+    B6 at GoogLeNet's int8 shapes, test_compute_multi on three nets, the
+    trained GoogLeNet's cls_agree and the cnet_bench rows."""
+    import torch
+    from boda_tpu_torch.core.machine import card_peaks
+    ZOO_OUT.mkdir(parents=True, exist_ok=True)
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    z = ctx["zoo"] = {"smi": ctx["smi"]}
+    launches = ctx.setdefault("launches", {})
+    wrappers = _wrappers()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        _zoo_lrn(z, dev, gen, peaks)
+        _zoo_copy(z, dev, gen, peaks)
+        _zoo_deconv(z, dev, gen, peaks)
+        _zoo_small_templates(z, dev, gen, peaks)
+    _zoo_bwai_rates(z, peaks)
+    torch.cuda.empty_cache()
+    _zoo_qconv(z, dev, gen, peaks)
+    z["templates_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    _zoo_compute_multi(z, launches, wrappers)
+    _zoo_cls_agree(z)
+    _zoo_rows(z, launches, wrappers)
+    del z["smi"]
+
+
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
           "vendor": phase_vendor, "digests": phase_digests,
           "agree": phase_agree, "full": phase_full, "engine": phase_engine,
-          "ops_prof": phase_ops_prof, "bench": phase_bench}
+          "ops_prof": phase_ops_prof, "zoo": phase_zoo, "bench": phase_bench}
 
 
 def main() -> int:
@@ -2445,7 +3158,8 @@ def main() -> int:
                       "device_busy_ms_b32": ctx["busy_ms"],
                       "template_ms_b32": ctx["template_ms"],
                       "engine": ctx["engine"],
-                      "vendor_conv_ms_b32": ctx["vendor_ms"]}))
+                      "vendor_conv_ms_b32": ctx["vendor_ms"],
+                      "zoo": ctx["zoo"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

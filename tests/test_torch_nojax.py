@@ -5,7 +5,8 @@ In a fresh interpreter an import hook refuses jax, jaxlib and boda_tpu;
 the port is imported, mini is built, lowered and run on the CPU through
 the port's make_engine and build_model and through the CLI entry point
 (python -m boda_tpu_torch run_cnet), ResNet-50 runs under the fused tune
-(fused_stem, resblock), the per-op modes torch_rtc_test and torch_ops_prof
+(fused_stem, resblock), cnet_bench runs GoogLeNet (its concat and LRN
+templates) on the CPU, the per-op modes torch_rtc_test and torch_ops_prof
 (with sgemm_int8), test_compute_multi (engine=ref, the fused and the
 per-call executors against the `mini` TPU digests) and test_lmdb (the
 per-call executor over tests/data/lmdb-tiny) run through the CLI, `help`
@@ -38,9 +39,10 @@ sys.meta_path.insert(0, _NoJax())
 """
 
 # the port's modes: `help` lists these and no other
-PORT_MODES = {"run_cnet", "cnet_predict", "cls_agree", "test_lmdb",
-              "test_compute_multi", "comp_ndas", "torch_rtc_test",
-              "torch_ops_prof", "torch_cnn_op_info", "torch_cnn_prof"}
+PORT_MODES = {"run_cnet", "cnet_predict", "cnet_bench", "cls_agree",
+              "test_lmdb", "test_compute_multi", "comp_ndas",
+              "torch_rtc_test", "torch_ops_prof", "torch_cnn_op_info",
+              "torch_cnn_prof"}
 
 RUN_MINI = BLOCK_JAX + """
 import runpy
@@ -78,6 +80,9 @@ for argv in (["help"],
               "--in_dims=(dims=(img=4,chan=3,y=32,x=32))",
               "--src=(mode=lmdb-src,fn=tests/data/lmdb-tiny,mean=128)",
               "--conv_fwd=(engine=torch,device=cpu,fuse=0)"],
+             ["cnet_bench", "--model=googlenet_conv_lrn", "--batch=1",
+              "--model_opts=(ysz=64,xsz=64)",
+              "--conv_fwd=(engine=torch,device=cpu)", "--iters=1", "--reps=1"],
              ["torch_ops_prof", "--ops_fn=tests/data/ops/sgemm-tiny.txt",
               "--rtcs=(t=(be=torch,device=cpu),ref=(be=interp))",
               "--op_tunes=(kg=(use_culibs=1),hand=(),int8=(prec=int8))",
@@ -102,6 +107,8 @@ def test_port_runs_without_jax():
     assert "torch_rtc_test PASSED plat=torch:cpu:cpu" in r.stdout
     assert "kg digests vs percall: PASS" in r.stdout
     assert "top_1_acc=0 num_pos=0 num_test=8" in r.stdout
+    assert "cnet_bench googlenet_conv_lrn b1 bf16 storage=nhwc: step_ms=" \
+        in r.stdout
     assert r.stdout.count("func=sgemm_int8 ") == 4  # 2 ops x 2 backends
     for bad in ("COMP_FAIL", "ERROR"):
         assert bad not in r.stdout

@@ -2,7 +2,10 @@
 and wisdom agree with the JAX package's, string for string: for every step
 of ResNet-50 lowered under the unfused f32 tune, the bf16 NHWC tune, the
 fused tunes and the two fuse_siblings vendor tunes, under the selective-int8
-preset (with and without int8 storage edges, q8_edges=1), and for every op
+preset (with and without int8 storage edges, q8_edges=1), for every step of
+every zoo model under (), the bf16 NHWC tune and the JAX bench's tune (the
+plan, the storage pass's decision and each template's nhwc_ok flag), and
+for every op
 sig of tests/data/ops/*.txt under the tunes the per-op sweeps use, both
 packages pick the same template, reduce the sig to the same signature, name
 the same instance and give the same wisdom key and wisdom record. The
@@ -20,20 +23,22 @@ import pytest
 from boda_tpu.backend.interp import InterpBackend as JInterp
 from boda_tpu.engine.iface import make_engine as jmake_engine
 from boda_tpu.engine.lower import lower_pipe as jlower_pipe
+from boda_tpu.models import zoo as jzoo
 from boda_tpu.models.zoo import build_model as jbuild_model
 from boda_tpu.ops.cnn_variants import add_codegen_annotations as jannotate
 from boda_tpu.ops.cnn_variants import make_op_tune as jmake_op_tune
 from boda_tpu.ops.op_base import read_op_sigs as jread_op_sigs
 from boda_tpu.ops.registry import Codegen as JCodegen
+from boda_tpu.ops.registry import all_templates as jall_templates
 from boda_tpu.ops.registry import get_template as jget_template
 from boda_tpu.tune import presets as jpresets
 from boda_tpu.tune import wisdom as jwisdom
 from boda_tpu_torch.backend.interp import InterpBackend
-from boda_tpu_torch.core.error import RtErr
 from boda_tpu_torch.engine.iface import make_engine
 from boda_tpu_torch.engine.lower import lower_pipe
 from boda_tpu_torch.engine.torch_fwd import produced_nodes
-from boda_tpu_torch.models.zoo import build_model
+from boda_tpu_torch.models import zoo as port_zoo
+from boda_tpu_torch.models.zoo import MODEL_BUILDERS, build_model
 from boda_tpu_torch.ops.cnn_variants import add_codegen_annotations, \
     make_op_tune
 from boda_tpu_torch.ops.op_base import read_op_sigs
@@ -51,8 +56,14 @@ NET_TUNES = ["()", "(prec=bf16,layout=nhwc)",
              "(use_culibs=1,prec=bf16,layout=nhwc,s2d=0,fuse_siblings=1)"]
 SIG_TUNES = ["()", "(prec=bf16,layout=nhwc)", "(use_culibs=1)",
              "(prec=int8)"]
-# sig-file templates of the JAX package that no path of the port runs
-NOT_PORTED = {"bwai"}
+# the JAX package's training templates, which the port has not yet
+NOT_PORTED = {"BckConv", "Spreading", "bck_lrn", "sm_grad_and_loss",
+              "sum_loss_over_imgs"}
+# the zoo's plans: every model under the f32 tune, the bf16 NHWC-storage
+# tune and the tune the JAX bench times
+ZOO_TUNES = ["()", "(prec=bf16,layout=nhwc)",
+             "(use_culibs=1,prec=bf16,layout=nhwc,s2d=0,fuse_siblings=1)"]
+_ZOO_PIPES: dict = {}  # the last model's pipes, (port, JAX)
 
 
 def _record(mod, op) -> str:
@@ -70,10 +81,6 @@ def _same(op, jop, cg, jcg) -> str:
     assert str(op) == str(jop)
     assert wisdom.wisdom_key(op) == jwisdom.wisdom_key(jop)
     assert _record(wisdom, op) == _record(jwisdom, jop)
-    if op.func_name in NOT_PORTED:
-        with pytest.raises(RtErr, match="has no kernel template"):
-            get_template(op.func_name)
-        return op.func_name
     pt, jt = get_template(op.func_name), jget_template(op.func_name)
     assert str(pt.check_args(op)) == str(jt.check_args(jop))
     assert pt.flops(pt.check_args(op)) == jt.flops(jt.check_args(jop))
@@ -114,6 +121,60 @@ def test_resnet50_plans_agree(tune, batch):
     assert ("tconv" in funcs) == ("use_culibs" not in tune)
     assert ("xla_conv2" in funcs) == ("fuse_siblings" in tune)
     assert ("resblock" in funcs) == ("fuse_resblock" in tune)
+
+
+@pytest.mark.parametrize("tune", ZOO_TUNES)
+@pytest.mark.parametrize("model", sorted(MODEL_BUILDERS))
+def test_zoo_plans_agree(model, tune, monkeypatch):
+    # each model built once per package and lowered under each tune; the
+    # plan reads no weight value, so the weights are left uninitialised
+    # (their init is most of a build's time)
+    if model not in _ZOO_PIPES:
+        for mod in (port_zoo, jzoo):
+            monkeypatch.setattr(mod, "init_pipe_weights",
+                                lambda *a, **k: None)
+        _ZOO_PIPES.clear()
+        _ZOO_PIPES[model] = (build_model(model, batch=1),
+                             jbuild_model(model, batch=1))
+    pipe, jpipe = _ZOO_PIPES[model]
+    plan = lower_pipe(pipe, make_op_tune(tune), fuse_relu=True,
+                      fused_storage=True)
+    jplan = jlower_pipe(jpipe, jmake_op_tune(tune), fuse_relu=True,
+                        fused_storage=True)
+    assert len(plan.steps) == len(jplan.steps)
+    assert plan.storage_nhwc == jplan.storage_nhwc
+    assert plan.edge_prec == jplan.edge_prec
+    assert plan.input_nodes == jplan.input_nodes
+    assert plan.weight_nodes == jplan.weight_nodes
+    assert {n: str(d) for n, d in plan.node_dims.items()} == \
+        {n: str(d) for n, d in jplan.node_dims.items()}
+    cg, jcg = _codegens()
+    for s, js in zip(plan.steps, jplan.steps):
+        assert (s.call_tag, s.arg_nodes) == (js.call_tag, js.arg_nodes)
+        _same(s.sig, js.sig, cg, jcg)
+        # every step has a port template, the storage pass's flag included
+        pt = get_template(s.func_name)
+        assert pt.nhwc_ok == jget_template(s.func_name).nhwc_ok
+    # the storage pass runs wherever the tune asks for NHWC storage: every
+    # template of every zoo plan is nhwc_ok
+    assert plan.storage_nhwc == ("layout=nhwc" in tune)
+
+
+def test_templates_match_the_jax_package():
+    ported = all_templates()
+    jax_all = jall_templates()
+    assert set(jax_all) - set(ported) == NOT_PORTED
+    assert set(ported) <= set(jax_all)
+    for name, pt in ported.items():
+        jt = jax_all[name]
+        assert pt.nhwc_ok == jt.nhwc_ok, name
+        assert (pt.in_args(), pt.out_args(), pt.io_args()) == \
+            (jt.in_args(), jt.out_args(), jt.io_args()), name
+        assert (pt.sig_nda_keys, pt.sig_str_keys) == \
+            (jt.sig_nda_keys, jt.sig_str_keys), name
+    assert {n for n, t in ported.items() if t.nhwc_ok} >= {
+        "copy", "split_copy", "scale", "lrn", "deconv"}
+    assert not ported["ZeroIfNonPos"].nhwc_ok
 
 
 @pytest.mark.parametrize("tune", SIG_TUNES)
