@@ -3,13 +3,15 @@
 Capability parity with caffeif.{H,cc}: run_cnet_t (load net+weights → pipe
 → engine → forward, caffeif.cc:163-210; single-blob helpers :104-106) and
 cnet_predict_t (ImageNet classification: top-k with labels, temporal prob
-filtering, caffeif.H:121-161).
+filtering, caffeif.H:121-161), with the 2x-upsampled companion net
+(enable_upsamp_net, caffeif.cc:185-236; models/upsamp.py) and
+cnet_predict's dense path (dense: scale infos, NMS grid and annotations,
+apps/predict.py).
 
-The port's copy of boda_tpu/apps/run_cnet.py, whose default engine is
-engine=torch. Left out: the 2x-upsampled companion net
-(enable_upsamp_net) and cnet_predict's dense path and annotated output
-(dense, anno_fn and their thresholds), which need the JAX package's
-pyramid, prediction and display modules.
+The port's copy of boda_tpu/apps/run_cnet.py, whose default engines are
+engine=torch. Left out: cnet_predict's annotated image (anno_fn), which
+needs the JAX package's display module (io/disp); the config refuses it
+as an unused value.
 """
 
 from __future__ import annotations
@@ -30,6 +32,12 @@ from ..graph.modes import _NetMode
 class RunCnetBase(_NetMode):
     conv_fwd = Attr(ConvFwd, default="torch", help="execution engine")
     out_node = Attr(str, default="", help="output node (default: single top)")
+    enable_upsamp_net = Attr(bool, default=False,
+                             help="also build the 2x-upsampled companion "
+                                  "net (folded first-conv filters; "
+                                  "caffeif.cc:185-236)")
+    conv_fwd_upsamp = Attr(ConvFwd, default="torch",
+                           help="engine for the companion net")
 
     def setup_cnet(self):
         from ..graph.modes import _load_pipe
@@ -37,6 +45,10 @@ class RunCnetBase(_NetMode):
             self.pipe = _load_pipe(self)
             self.pipe.out_node_name = self.out_node
             self.conv_fwd.init(self.pipe)
+            if self.enable_upsamp_net:
+                from ..models.upsamp import make_upsamp_pipe
+                self.pipe_upsamp = make_upsamp_pipe(self.pipe)
+                self.conv_fwd_upsamp.init(self.pipe_upsamp)
         return self.pipe
 
     def run_one_blob_in_one_blob_out(self, blob: NDA) -> NDA:
@@ -45,6 +57,12 @@ class RunCnetBase(_NetMode):
         data_node = self.pipe.data_img_node_names[0]
         top = self.pipe.get_single_top_node().name
         return self.conv_fwd.run_fwd({data_node: blob}, [top])[top]
+
+    def run_one_blob_in_one_blob_out_upsamp(self, blob: NDA) -> NDA:
+        """reference: run_one_blob_in_one_blob_out_upsamp (caffeif.cc:105)."""
+        data_node = self.pipe_upsamp.data_img_node_names[0]
+        top = self.pipe_upsamp.get_single_top_node().name
+        return self.conv_fwd_upsamp.run_fwd({data_node: blob}, [top])[top]
 
 
 @mode("run_cnet", help="load a net and run one forward pass")
@@ -84,9 +102,19 @@ class CnetPredict(RunCnetBase):
     top_k = Attr(int, default=5)
     filt_rate = Attr(float, default=0.0,
                      help="temporal prob filtering rate (streaming use)")
+    dense = Attr(bool, default=False,
+                 help="use the dense prediction path (scale_infos + NMS "
+                      "grid + per-region annos; reference default — "
+                      "caffeif.cc setup_scale_infos single-scale case)")
+    filt_show_thresh = Attr(float, default=0.02)
+    filt_drop_thresh = Attr(float, default=0.005)
+    max_num_disp = Attr(int, default=20)
+    nms_grid_pels = Attr(list[int], default="25 25")
+    nms_core_rat = Attr(float, default=0.75)
 
     def base_setup(self):
         self._filt_prob = None
+        self._dense_pred = None
 
     def load_labels(self, n: int) -> list[str]:
         if self.label_fn and Path(self.label_fn).exists():
@@ -109,12 +137,37 @@ class CnetPredict(RunCnetBase):
         return [(int(i), float(p[i]), labels[i] if i < len(labels) else str(i))
                 for i in top]
 
+    def do_predict_dense(self, pipe, out) -> list:
+        """Single-scale dense path (reference cnet_predict default):
+        whole-feature-map region → pred_state → NMS grid → annos."""
+        from ..core.geom import Pt
+        from .predict import DensePredictor
+        if self._dense_pred is None:
+            d = pipe.get_data_img_dims()
+            top = pipe.get_single_top_node()
+            labels = self.load_labels(out.v.shape[1])
+            self._dense_pred = DensePredictor(
+                labels,
+                filt_rate=self.filt_rate if self.filt_rate > 0 else 0.2,
+                filt_show_thresh=self.filt_show_thresh,
+                filt_drop_thresh=self.filt_drop_thresh,
+                max_num_disp=self.max_num_disp,
+                nms_grid_pels=Pt(*self.nms_grid_pels),
+                nms_core_rat=self.nms_core_rat)
+            self._dense_pred.setup_single_scale(
+                top.csi, Pt(out.v.shape[2], out.v.shape[3]),
+                Pt(d["y"], d["x"]), out.v.shape[1])
+        return self._dense_pred.do_predict(out.v, print_to_terminal=True)
+
     def main(self):
         from ..io.img import img_to_batch, load_img, make_test_pattern_img
         pipe = self.setup_cnet()
         d = pipe.get_data_img_dims()
         img = load_img(self.img_fn) if self.img_fn else make_test_pattern_img(d["y"], d["x"])
         out = self.run_one_blob_in_one_blob_out(img_to_batch(img, d))
+        if self.dense:
+            self.annos = self.do_predict_dense(pipe, out)
+            return
         preds = self.do_predict(out.v[0])
         for rank, (idx, p, lbl) in enumerate(preds, 1):
             print(f"#{rank}: {lbl} (class {idx}) p={p:.5f}")

@@ -33,6 +33,13 @@ class ConvFwd(Config):
     def get_info_log(self) -> str:
         return ""
 
+    def set_input_preproc(self, node: str, fn, wire_dims) -> None:
+        """Put a device-side transform in front of input `node` (the torch
+        fused executor only): the caller feeds `node` tensors of
+        `wire_dims`, and fn turns them into the plan's input."""
+        from ..core.error import RtErr
+        raise RtErr(f"engine '{type(self).__name__}' does not support "
+                    "device-side input preprocessing (rtc fused engine only)")
 
 
 def make_engine(spec: Union[str, dict, None] = None) -> ConvFwd:

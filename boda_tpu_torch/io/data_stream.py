@@ -8,10 +8,13 @@ an empty block and produce data as a side effect of reading; sinks echo
 their input; xforms transform/filter. An invalid (empty) returned block
 means end-of-stream.
 
-The port's copy of the core of boda_tpu/io/data_stream.py. Of the JAX
-package's stage library only the labeled `shapes-src` source is on the
-port's paths (it feeds cls_agree; apps/eval_cls.py); the other stages and
-the scan_data_stream mode are left out.
+The port's copy of the core of boda_tpu/io/data_stream.py, with
+make_data_stream, read_all_blocks and the stages `test-gen` (synthetic
+blocks) and `pipe` (a chain of stages), which carry the serving stages
+`zmq-det` (apps/zmq_serve.py) and `cnet-infer` (apps/stream_infer.py).
+The labeled sources that feed cls_agree and test_lmdb are in
+apps/eval_cls.py; the JAX package's other stages and the scan_data_stream
+mode are left out.
 """
 
 from __future__ import annotations
@@ -20,8 +23,8 @@ from typing import Optional
 
 import numpy as np
 
-from ..core.config import Config
-from ..core.dims import NDA
+from ..core.config import Attr, Config, register
+from ..core.dims import NDA, Dims
 from ..core.error import RtErr
 
 _INVALID = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -133,3 +136,73 @@ class DataStream(Config):
                 for s in v:
                     if isinstance(s, DataStream):
                         s.stream_eof()
+
+
+def make_data_stream(spec) -> DataStream:
+    from ..core.lexp import Lexp
+    if isinstance(spec, dict):
+        spec = Lexp.from_obj(spec)
+    ds = DataStream.init_from_lexp(spec)
+    ds.data_stream_init()
+    return ds
+
+
+def read_all_blocks(ds: DataStream, max_blocks: int = 1 << 40) -> list[DataBlock]:
+    out = []
+    while len(out) < max_blocks:
+        db = ds.proc_block(DataBlock())
+        if not db.valid():
+            break
+        out.append(db)
+    return out
+
+
+@register(DataStream, "test-gen", help="deterministic synthetic blocks")
+class TestGen(DataStream):
+    num = Attr(int, default=10, help="number of blocks to generate")
+    sz = Attr(int, default=16, help="elements per block")
+    dt_ns = Attr(int, default=1000, help="timestamp step")
+    t0_ns = Attr(int, default=0, help="first timestamp")
+    tag = Attr(str, default="test-gen")
+
+    def data_stream_init(self):
+        self._ix = 0
+
+    def proc_block(self, db: DataBlock) -> DataBlock:
+        if self._ix >= self.num:
+            return DataBlock()
+        v = (np.arange(self.sz, dtype=np.float32) + self._ix * 100.0)
+        ret = DataBlock(NDA(Dims.make(tn="float", v=self.sz), v), tag=self.tag,
+                        frame_ix=self._ix,
+                        timestamp_ns=self.t0_ns + self._ix * self.dt_ns)
+        self._ix += 1
+        return ret
+
+    def seek_to_block(self, frame_ix: int) -> bool:
+        self._ix = min(frame_ix, self.num)
+        return True
+
+    def get_pos_info_str(self) -> str:
+        return f"test-gen: {self._ix}/{self.num}"
+
+
+@register(DataStream, "pipe", help="chain stages: block flows through each")
+class Pipe(DataStream):
+    stages = Attr(list[DataStream], req=True, help="stages in order")
+
+    def data_stream_init(self):
+        for s in self.stages:
+            s.data_stream_init()
+
+    def proc_block(self, db: DataBlock) -> DataBlock:
+        # an invalid block still flows through the remaining stages so
+        # sinks see EOF (stateless stages echo invalid blocks unchanged)
+        for s in self.stages:
+            db = s.proc_block(db)
+        return db
+
+    def seek_to_block(self, frame_ix: int) -> bool:
+        return bool(self.stages) and self.stages[0].seek_to_block(frame_ix)
+
+    def get_pos_info_str(self) -> str:
+        return " | ".join(s.get_pos_info_str() for s in self.stages)

@@ -150,6 +150,43 @@ Phases, run in order, each fatal on failure (all of them by default):
            the card's busy share of one GoogLeNet and one AlexNet
            headline forward, and AlexNet's LRN share (norm1 and norm2
            timed alone at b128)
+  serve    the serving path on ResNet-50 224², 1000 classes, zoo weights:
+           aio_cls_selfcheck with 3 clients (max_batch_seen=3, one ()
+           forward's launches); device_preproc_fn on the card equal to the
+           host img_to_chw at 224² and within 1e-3 of the CPU at a resize
+           down and up, and PrefetchFeeder's five batches in order, each
+           within 1e-3 of the CPU's; serve_bench rows (n1=2, n2=8, max_batch = clients)
+           on the u8 wire (preprocessing on the card) under () at 8 and
+           32 clients, the headline tune at 8, 32 and 64 and the int8
+           preset (the trained 40-class snapshot, its static scales) at 8
+           and 32, and on the f32 wire under () at 8: req/s, ms/req,
+           queue ms/req, engine ms/batch, mean batch, the hand kernels'
+           launches per engine batch exact (B1 40 and B2 13 under (), none
+           under the headline tune, B6 31 and its quantize 31 under int8),
+           every client's last reply equal in classes to a direct run_fwd
+           of its image in a zero-padded batch of the same size under the
+           same engine (probabilities 1e-5 f32, 5e-3 bf16 and int8); in
+           each row with hand-kernel launches (() and int8), every distinct
+           B1, B2, B6 and quantize call of one more engine batch of the
+           clients' images on the row's wire held against its plain
+           version (as the zoo rows hold theirs); at 32
+           clients (and the f32 wire's row) one engine call taken apart:
+           run_fwd wall, upload, forward alone (CUDA events), busy
+           (torch.profiler); the u8 wire's replies equal to the f32 wire's
+           under () (1e-6); with pyzmq and PIL, zmq_cls_server on ResNet-50
+           against a direct forward
+  pyra     dense inference: pyra_bench on googlenet_conv, a 480x640 test
+           frame in 640² bins (interval 3: 12 scales, 6 bins), pack=device
+           under the headline tune and under () (B1 31 and B2 2 per
+           forward, exact as the plan says; under () every distinct B1
+           and B2 call of one more forward of the packed frame held against
+           its plain version), with PIL also pack=host: pack
+           ms, forward ms, frames/s serial and overlapped; the pyramid
+           pack on the card within 1e-3 of the CPU; cnet_predict dense=1
+           (the trained GoogLeNet at 320², inception_4e/output) on the
+           card and on the CPU: the same boxes and labels, confidences
+           1e-4; with PIL, conv_pyra predict=1 (host pack) on a 128² frame,
+           card against CPU: the same annotations and feature digests
   bench    the bench twin, python3 -m boda_tpu_torch.bench, in this
            process: bench.py's JSON line for its two plans at batch 128
            (the headline tune, and the int8 preset on the trained weights
@@ -176,7 +213,9 @@ vendor phase's two sums, the engine phase's times ("engine") and the zoo
 phase's readings ("zoo": templates, bwai rates, B6 at GoogLeNet's
 shapes, cls_agree, the cnet_bench rows with what each held; the zoo
 forwards' launches are
-in each kernel's "launches_by_tune");
+in each kernel's "launches_by_tune"), the serve phase's rows ("serve"; per
+engine batch in "launches_by_tune" as "serve:<tune>:<wire>:<clients>")
+and the pyra phase's ("pyra"; per forward as "pyra:<tune>:<pack>");
 and {"ok": true,
 "device": {...}}. Without a CUDA device, or outside a checkout of the
 repo, it exits non-zero and prints no result. It imports neither jax nor
@@ -2918,11 +2957,14 @@ def _recording(wrappers: dict):
             wrappers[name].launches = proxy.launches
 
 
-def _hold_row(label: str, eng, per: dict, wrappers: dict) -> dict:
-    """One more forward of a cnet_bench row's engine with its hand-kernel
-    calls recorded (every launch must pass through the stand-ins: their
-    calls equal the launches per forward), then each distinct call held
-    against its plain version; returns what was held."""
+def _hold_row(label: str, eng, per: dict, wrappers: dict, x=None) -> dict:
+    """One more forward of a row's engine with its hand-kernel calls
+    recorded (every launch must pass through the stand-ins: their calls
+    equal the launches per forward), then each distinct call held against
+    its plain version; returns what was held. x is the forward's input on
+    the card in the form the engine is fed (a u8 wire batch where the
+    engine preprocesses its input); by default a seeded f32 batch of the
+    net's input dims."""
     import inspect
 
     import torch
@@ -2933,9 +2975,10 @@ def _hold_row(label: str, eng, per: dict, wrappers: dict) -> dict:
     plains = {"matmul_ext": matmul_ext_plain, "tconv": tconv_plain,
               "qconv": qconv_plain, "act_quantize": act_quantize_plain}
     data = eng.pipe.data_img_node_names[0]
-    gen = torch.Generator(device=eng.dev).manual_seed(2)
-    x = torch.randn(tuple(eng.pipe.get_data_img_dims().shape),
-                    device=eng.dev, generator=gen) * 0.1
+    if x is None:
+        gen = torch.Generator(device=eng.dev).manual_seed(2)
+        x = torch.randn(tuple(eng.pipe.get_data_img_dims().shape),
+                        device=eng.dev, generator=gen) * 0.1
     t0 = time.perf_counter()
     with torch.inference_mode(), _recording(wrappers) as (seen, calls):
         eng.fwd({data: x}, eng.weights)
@@ -3082,10 +3125,468 @@ def phase_zoo(ctx: dict) -> None:
     del z["smi"]
 
 
+# ---------------------------------------------------------------- serve
+
+# the serve phase's serve_bench rows: (tune, wire format, clients); the
+# server's max_batch is the client count, so each engine batch is that size
+SERVE_ROWS = [("f32", "u8", 8), ("f32", "u8", 32),
+              ("headline", "u8", 8), ("headline", "u8", 32),
+              ("headline", "u8", 64),
+              (INT8, "u8", 8), (INT8, "u8", 32),
+              ("f32", "f32", 8)]
+SERVE_N1, SERVE_N2, SERVE_TOP_K = 2, 8, 5
+# a reply's probabilities against a direct run_fwd of its image
+SERVE_PROB_TOL = {"f32": 1e-5, "headline": 5e-3, INT8: 5e-3}
+# the u8 and f32 wires under () (the same floats reach the forward), and
+# device_preproc_fn on the card against the CPU at a resize
+WIRE_TOL, PREPROC_TOL = 1e-6, 1e-3
+
+
+def _optional(mod: str) -> bool:
+    """Whether `mod` imports on this machine."""
+    try:
+        __import__(mod)
+    except ImportError:
+        return False
+    return True
+
+
+def _serve_spec(tune_name: str, wire: str, k: int) -> str:
+    """serve_bench on ResNet-50 224² (zoo weights; the int8 preset on the
+    trained 40-class snapshot with its calibrated scales)."""
+    extra = ""
+    weights = "zoo"
+    if tune_name == INT8:
+        weights = "trained"
+        extra = f",model_opts=(num_classes=40),weights_fn={TRAINED}"
+    return (f"(mode=serve_bench,model=resnet-50,num_clients={k},"
+            f"n1={SERVE_N1},n2={SERVE_N2},top_k={SERVE_TOP_K},"
+            f"batch_window_ms=20,wire_fmt={wire}{extra},"
+            f"engine=(engine=torch,{engine_spec(tune_name, weights)}))")
+
+
+def _direct_rows(srv, img, top_k: int):
+    """img's top-k (class, prob) from the server's engine itself: one
+    run_fwd of img in slot 0 of a zero-padded batch of the server's size."""
+    import numpy as np
+    from boda_tpu_torch.core.dims import NDA
+    x = np.zeros(srv._in_dims.shape, srv._in_dims.dtype)
+    x[0] = img
+    top = srv.pipe.get_single_top_node().name
+    p = srv.conv_fwd.run_fwd({srv.pipe.data_img_node_names[0]:
+                              NDA(srv._in_dims, x)}, [top])[top].v
+    p = p.reshape(p.shape[0], -1)[0]
+    ix = np.argsort(-p)[:top_k]
+    return ix, p[ix]
+
+
+def _engine_split(srv) -> dict:
+    """Where a b<max_batch> engine call's time goes, on the server's engine
+    and a u8 or f32 wire batch: run_fwd's wall ms (upload, forward,
+    readback), the upload alone (wall), the forward alone on a batch
+    already on the card (CUDA events) and the card's busy ms in one
+    run_fwd (torch.profiler)."""
+    import numpy as np
+    import torch
+    from boda_tpu_torch.core.dims import NDA
+    eng, d = srv.conv_fwd, srv._in_dims
+    x = np.random.RandomState(0).randint(0, 256, d.shape).astype(d.dtype)
+    data = srv.pipe.data_img_node_names[0]
+    top = srv.pipe.get_single_top_node().name
+
+    def run():
+        return eng.run_fwd({data: NDA(d, x)}, [top])
+
+    def upload():
+        torch.from_numpy(x).to(eng.dev)
+        torch.cuda.synchronize()
+    xd = torch.from_numpy(x).to(eng.dev)
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: eng.fwd({data: xd}, eng.weights)[top], 10)
+        busy, _ = _device_busy_ms(run)
+    return {"run_fwd_ms": _wall_ms(run), "upload_ms": _wall_ms(upload),
+            "forward_ms": fwd_ms, "busy_ms": busy}
+
+
+def _serve_row(s: dict, wrappers: dict, tune_name: str, wire: str,
+               k: int) -> dict:
+    """One serve_bench row: its record, the hand kernels' launches per
+    engine batch (exact, as the plan says), every client's last reply
+    against a direct run_fwd of its image under the same engine, and every
+    distinct hand-kernel call of one more engine batch (the clients'
+    images on the row's wire) held against its plain version."""
+    import numpy as np
+    import torch
+    _counts_reset(wrappers)
+    out, hm = _run_mode(_serve_spec(tune_name, wire, k))
+    torch.cuda.synchronize()
+    counts = {n: w.launches for n, w in wrappers.items()}
+    srv = hm.srv
+    batches = len(srv._batch_sizes)
+    want = LAUNCHES[tune_name]
+    per = {n: c // batches for n, c in counts.items()}
+    check(all(counts[n] == want[n] * batches for n in counts),
+          f"serve {tune_name} {wire} {k}: launches {counts} over {batches} "
+          f"batches != {want} each")
+    planned = _planned_launches(srv.conv_fwd.plan, counts)
+    check(planned == want, f"serve {tune_name}: the plan's launches "
+                           f"{planned} != {want}")
+    rec = hm.record
+    check(rec["req_per_sec"] > 0 and rec["engine_ms_per_batch"] > 0,
+          f"serve {tune_name} {wire} {k}: {rec}")
+    # each reply against a direct forward of its image (distinct images
+    # once: clients from the third on send the second's pattern)
+    direct: dict = {}
+    tol = SERVE_PROB_TOL[tune_name]
+    max_err = 0.0
+    for i, (img, (bsz, rows)) in enumerate(zip(hm.imgs, hm.replies)):
+        key = img.tobytes()
+        if key not in direct:
+            direct[key] = _direct_rows(srv, img, SERVE_TOP_K)
+        ix, p = direct[key]
+        check(rows.shape == (SERVE_TOP_K, 2)
+              and np.array_equal(rows[:, 0], ix.astype(np.float32)),
+              f"serve {tune_name} {wire} {k}: client {i}'s classes "
+              f"{rows[:, 0]} != the direct forward's {ix}")
+        err = float(np.abs(rows[:, 1] - p).max())
+        check(err <= tol, f"serve {tune_name} {wire} {k}: client {i}'s "
+                          f"probabilities differ by {err:.3e} > {tol:g}")
+        max_err = max(max_err, err)
+    row = {"tune": tune_name, "wire": wire, "clients": k, **rec,
+           "launches_per_batch": per,
+           "max_batch_seen": max(srv._batch_sizes),
+           "replies_max_abs_err": max_err,
+           "replies": [r[1].tolist() for r in hm.replies]}
+    if any(per[n] for n in HELD):
+        d = srv._in_dims
+        x = np.zeros(d.shape, d.dtype)
+        x[:len(hm.imgs)] = np.stack(hm.imgs)
+        row["held"] = _hold_row(f"serve {tune_name} {wire} b{k}",
+                                srv.conv_fwd, per, wrappers,
+                                torch.from_numpy(x).to(srv.conv_fwd.dev))
+    if k == 32 or (wire == "f32" and k == 8):
+        row["engine_split"] = _engine_split(srv)
+    print(f"  serve_bench resnet-50 {tune_name} {wire} {k} clients: "
+          f"{rec['req_per_sec']:.1f} req/s, {rec['secs_per_req'] * 1e3:.3f} "
+          f"ms/req, queue {rec['queue_ms_per_req']:.3f} ms/req, engine "
+          f"{rec['engine_ms_per_batch']:.3f} ms/batch, mean batch "
+          f"{rec['mean_batch']:.2f} (p2 {rec['p2_batch']:.2f}); launches per "
+          f"batch {({n: v for n, v in per.items() if v})}; replies = direct "
+          f"forwards "
+          f"(max abs err {max_err:.2e})"
+          + (f"; one b{k} engine call: run_fwd "
+             f"{row['engine_split']['run_fwd_ms']:.3f} ms, upload "
+             f"{row['engine_split']['upload_ms']:.3f}, forward "
+             f"{row['engine_split']['forward_ms']:.3f}, busy "
+             f"{row['engine_split']['busy_ms']:.3f}"
+             if "engine_split" in row else "") + f" [{s['smi']}]",
+          flush=True)
+    del hm, srv
+    torch.cuda.empty_cache()
+    return row
+
+
+def _serve_preproc(s: dict) -> None:
+    """device_preproc_fn on the card: at the net's size equal to the host
+    img_to_chw; at a resize down and up within PREPROC_TOL of the CPU."""
+    import numpy as np
+    import torch
+    from boda_tpu_torch.io.device_preproc import device_preproc_fn
+    from boda_tpu_torch.io.img import img_to_chw, make_test_pattern_img
+    dev = torch.device("cuda", 0)
+    img = make_test_pattern_img(224, 224, 2)
+    got = device_preproc_fn(224, 224)(torch.from_numpy(img[None]).to(dev))
+    err = float(np.abs(got.cpu().numpy()[0] - img_to_chw(img)).max())
+    check(err <= WIRE_TOL, f"u8 preproc at 224²: {err:.3e} from img_to_chw")
+    errs = {"same_size_vs_img_to_chw": err}
+    rng = np.random.RandomState(4)
+    for name, (h, w) in (("down_300x400", (300, 400)),
+                         ("up_100x150", (100, 150))):
+        x = rng.randint(0, 256, (8, h, w, 3)).astype(np.uint8)
+        f = device_preproc_fn(224, 224)
+        a = f(torch.from_numpy(x).to(dev)).cpu().numpy()
+        b = f(torch.from_numpy(x)).numpy()
+        e = float(np.abs(a - b).max())
+        check(e <= PREPROC_TOL, f"device_preproc_fn {name}: card vs CPU "
+                                f"{e:.3e} > {PREPROC_TOL:g}")
+        errs[name] = e
+    # the prefetcher: batches copied from pinned buffers on a side stream,
+    # preprocessed on the card, each in order and equal to the CPU's
+    from boda_tpu_torch.io.device_preproc import PrefetchFeeder
+    src = [rng.randint(0, 256, (8, 300, 400, 3)).astype(np.uint8)
+           for _ in range(5)]
+    fed = list(PrefetchFeeder(iter(src), 224, 224))
+    f = device_preproc_fn(224, 224)
+    e = max(float(np.abs(g.cpu().numpy() - f(torch.from_numpy(x)).numpy())
+                  .max()) for g, x in zip(fed, src))
+    check(len(fed) == len(src) and all(g.is_cuda for g in fed)
+          and e <= PREPROC_TOL,
+          f"PrefetchFeeder: {len(fed)} of {len(src)} batches, max abs err "
+          f"{e:.3e} against the CPU")
+    errs["prefetch_feeder"] = e
+    s["preproc_max_abs_err"] = errs
+    print(f"  device_preproc_fn and PrefetchFeeder (5 batches) on the card: "
+          f"{errs} (limits {WIRE_TOL:g} same size, {PREPROC_TOL:g} at a "
+          f"resize)")
+
+
+def _serve_zmq(s: dict) -> None:
+    """zmq_cls_server on ResNet-50 224² with a client sending an encoded
+    test image (needs pyzmq and PIL): its top-5 against a direct forward."""
+    import threading
+
+    import numpy as np
+    from boda_tpu_torch.apps.zmq_serve import ZmqClsServer
+    from boda_tpu_torch.io.img import img_to_batch, load_img, \
+        make_test_pattern_img, save_img
+    out_dir = ROOT / "build" / "serve_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    img_fn = out_dir / "in.png"
+    save_img(img_fn, make_test_pattern_img(300, 260, 2))
+    ep = f"ipc://{out_dir}/zmq_cls"
+    srv = ZmqClsServer.init_from_lexp(
+        f"(endpoint={ep},num_req=1,model=resnet-50,in_sz=224,top_k=5)")
+    th = threading.Thread(target=srv.main)
+    th.start()
+    out, _ = _run_mode(f"(mode=zmq_det_client,endpoint={ep},"
+                       f"image_fn={img_fn})")
+    th.join(120)
+    check(not th.is_alive(), "zmq_cls_server did not finish")
+    rows = [[float(t.split("=")[1]) for t in ln.split()[1:]]
+            for ln in out.splitlines() if ln.startswith("box:")]
+    d = srv.pipe.get_data_img_dims()
+    p = srv.eng.run_fwd({"data": img_to_batch(load_img(img_fn), d)},
+                        ["prob"])["prob"].v.reshape(-1)
+    ix = np.argsort(-p)[:5]
+    check(len(rows) == 5 and [int(r[0]) for r in rows] == ix.tolist(),
+          f"zmq_cls_server: {rows} != the direct top-5 {ix}")
+    s["zmq_cls_server_top5"] = [int(r[0]) for r in rows]
+    print(f"  zmq_cls_server resnet-50: top-5 {s['zmq_cls_server_top5']} = "
+          f"the direct forward's")
+
+
+def phase_serve(ctx: dict) -> None:
+    """The serving path on ResNet-50 224², 1000 classes, zoo weights from a
+    seed: aio_cls_selfcheck (coalescing), serve_bench rows under (), the
+    headline tune and the int8 preset on the u8 wire (preprocessing on the
+    card) and one on the f32 wire, each reply held to a direct forward,
+    the hand kernels' launches per engine batch exact and each distinct
+    hand-kernel call held against its plain version; the u8 wire against
+    the f32 wire; device_preproc_fn on the card against the CPU."""
+    import numpy as np
+    import torch
+    wrappers = _wrappers()
+    s = ctx["serve"] = {"smi": ctx["smi"]}
+    launches = ctx.setdefault("launches", {})
+    t0 = time.perf_counter()
+    _counts_reset(wrappers)
+    out, hm = _run_mode("(mode=aio_cls_selfcheck,model=resnet-50,"
+                        "num_clients=3)")
+    torch.cuda.synchronize()
+    check(hm._max_batch_seen == 3, f"aio_cls_selfcheck: {out}")
+    counts = {n: w.launches for n, w in wrappers.items()}
+    check(counts == {n: UNFUSED_LAUNCHES[n] for n in counts},
+          f"aio_cls_selfcheck: launches {counts} != one () forward's")
+    s["selfcheck_max_batch_seen"] = hm._max_batch_seen
+    print(f"  {out.strip().splitlines()[-1]}; launches {counts}")
+    del hm
+    _serve_preproc(s)
+    rows = s["rows"] = []
+    for tune_name, wire, k in SERVE_ROWS:
+        rows.append(_serve_row(s, wrappers, tune_name, wire, k))
+        launches[f"serve:{tune_name}:{wire}:{k}"] = rows[-1][
+            "launches_per_batch"]
+    # the u8 wire's replies equal the f32 wire's under ()
+    u8 = next(r for r in rows if r["tune"] == "f32" and r["wire"] == "u8"
+              and r["clients"] == 8)
+    f32 = next(r for r in rows if r["tune"] == "f32" and r["wire"] == "f32")
+    err = float(np.abs(np.array(u8["replies"]) - np.array(f32["replies"]))
+                .max())
+    check(err <= WIRE_TOL, f"u8 and f32 wires differ by {err:.3e}")
+    s["u8_vs_f32_max_abs_err"] = err
+    print(f"  u8 wire replies = f32 wire replies under () (max abs err "
+          f"{err:.2e})")
+    for r in rows:
+        del r["replies"]
+    if _optional("zmq") and _optional("PIL"):
+        _serve_zmq(s)
+    else:
+        print("  zmq modes not run here: pyzmq or PIL does not import on "
+              "this machine (tests/test_torch_zmq.py runs them on the CPU)")
+        s["zmq"] = "not run: pyzmq or PIL missing"
+    s["s"] = time.perf_counter() - t0
+    del s["smi"]
+
+
+# ---------------------------------------------------------------- pyra
+
+PYRA_FRAME = "in_dims=(dims=(img=1,chan=3,y=480,x=640)),bin_sz=640 640," \
+             "interval=3,min_sz=32"
+PYRA_ITERS = 10
+# dense prediction on a small frame, card against CPU: the trained
+# GoogLeNet at 320² with its inception_4e features as the predicted map
+DENSE_SPEC = ("(mode=cnet_predict,model=googlenet_conv,dense=1,"
+              "out_node=inception_4e/output,model_opts=(num_classes=40,"
+              "ysz=320,xsz=320),weights_fn=" + str(DATA /
+                                                   "googlenet-shapes40.boda"))
+DENSE_TOL = 1e-4
+
+
+def _annos_key(annos):
+    return [(tuple(int(v) for v in a.box),
+             [ln.split()[0] for ln in a.str.splitlines()]) for a in annos]
+
+
+def _pyra_row(p: dict, wrappers: dict, tune_name: str, pack: str) -> dict:
+    """One pyra_bench row: its record, the hand kernels' launches per
+    forward (exact, as the plan says) and, where it launches any, every
+    distinct hand-kernel call of one more forward of the packed
+    test-pattern frame held against its plain version."""
+    import torch
+    _counts_reset(wrappers)
+    out, hm = _run_mode(f"(mode=pyra_bench,model=googlenet_conv,{PYRA_FRAME},"
+                        f"pack={pack},iters={PYRA_ITERS},reps=3,"
+                        f"op_tune={TUNES[tune_name]})")
+    torch.cuda.synchronize()
+    counts = {n: w.launches for n, w in wrappers.items()}
+    planned = _planned_launches(hm.eng.plan, counts)
+    check(all(counts[n] == planned[n] * hm.forwards for n in counts),
+          f"pyra_bench {tune_name}: launches {counts} over {hm.forwards} "
+          f"forwards != the plan's {planned} each")
+    per = {n: v for n, v in planned.items() if v}
+    check(tune_name != "f32" or (planned["matmul_ext"] > 0
+                                 and planned["tconv"] > 0),
+          f"pyra_bench (): no B1 or B2 launch ({per})")
+    line = out.strip().splitlines()[-1]
+    check(line.startswith("pyra_bench googlenet_conv in=480x640 "),
+          f"pyra_bench: {line}")
+    print(f"  {line}; launches per forward {per} [{p['smi']}]", flush=True)
+    row = {"tune": tune_name, "pack": pack, **hm.record,
+           "launches_per_forward": planned}
+    if any(planned[n] for n in HELD):
+        row["held"] = _hold_row(f"pyra_bench {tune_name} pack={pack}",
+                                hm.eng, planned, wrappers,
+                                _pyra_input(hm.pp, pack, hm.eng.dev))
+    if pack == "device" and tune_name == "headline":
+        _pyra_pack_on_card(p, hm.pp)
+    del hm
+    torch.cuda.empty_cache()
+    return row
+
+
+def _pyra_input(pp, pack: str, dev):
+    """pyra_bench's forward input on the card: the 480x640 test-pattern
+    frame packed into pp's bins, on the card (pack=device) or on the host
+    through PIL (pack=host), as the mode packs it."""
+    import numpy as np
+    import torch
+    from boda_tpu_torch.io.img import img_to_chw, make_test_pattern_img
+    img = make_test_pattern_img(480, 640, 2)
+    if pack == "device":
+        from boda_tpu_torch.io.device_preproc import make_device_pyra_pack
+        frame = torch.from_numpy(np.ascontiguousarray(img, np.float32))
+        return make_device_pyra_pack(pp)(frame.to(dev))
+    packed = pp.scale_and_pack_img_into_bins(img)
+    return torch.from_numpy(np.stack([img_to_chw(packed[b]) for b in range(
+        pp.num_bins)]).astype(np.float32)).to(dev)
+
+
+def _pyra_pack_on_card(p: dict, pp) -> None:
+    """The device pyramid pack of the test-pattern frame on the card
+    against the same pack on the CPU."""
+    import numpy as np
+    a = _pyra_input(pp, "device", "cuda").cpu().numpy()
+    b = _pyra_input(pp, "device", "cpu").numpy()
+    err = float(np.abs(a - b).max())
+    check(err <= PREPROC_TOL, f"pyramid pack: card vs CPU {err:.3e}")
+    p["pack_max_abs_err"] = err
+    print(f"  pyramid pack ({pp.num_bins} bins, {len(pp.scales)} scales) on "
+          f"the card = on the CPU (max abs err {err:.2e})")
+
+
+def _pyra_dense(p: dict) -> None:
+    """cnet_predict dense=1 on the card and with device=cpu: the same
+    boxes and labels, confidences within DENSE_TOL."""
+    res = {}
+    for dev in ("cuda", "cpu"):
+        _, hm = _run_mode(f"{DENSE_SPEC},conv_fwd=(engine=torch,"
+                          f"device={dev}))")
+        res[dev] = hm.annos
+    check(res["cuda"] and _annos_key(res["cuda"]) == _annos_key(res["cpu"]),
+          f"cnet_predict dense=1: {_annos_key(res['cuda'])} != "
+          f"{_annos_key(res['cpu'])}")
+    err = max(abs(a.top_prob - b.top_prob)
+              for a, b in zip(res["cuda"], res["cpu"]))
+    check(err <= DENSE_TOL, f"cnet_predict dense=1: confidences {err:.3e}")
+    p["dense"] = {"annos": _annos_key(res["cuda"]), "max_abs_err": err}
+    print(f"  cnet_predict dense=1 (trained GoogLeNet 320², "
+          f"inception_4e/output): {len(res['cuda'])} anno(s) "
+          f"{_annos_key(res['cuda'])}, card = CPU (confidences within "
+          f"{err:.2e})")
+
+
+def _pyra_conv_pyra(p: dict) -> None:
+    """conv_pyra predict=1 (host pack through PIL) on a small frame, on the
+    card and with device=cpu: the same annotations and feature digests."""
+    from boda_tpu_torch.testing.comp import read_digest_stream
+    out_dir = ROOT / "build" / "pyra_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        _, hm = _run_mode(
+            f"(mode=conv_pyra,model=googlenet_conv,in_dims=(dims=(img=1,"
+            f"chan=3,y=128,x=128)),out_node=inception_3a/output,"
+            f"bin_sz=256 256,interval=2,min_sz=48,predict=1,"
+            f"filt_show_thresh=0.05,boda_output_dir={out_dir},"
+            f"digest_fn={dev}.boda,conv_fwd=(engine=torch,device={dev},"
+            f"keep_all_nodes=1))")
+        res[dev] = (hm.annos, read_digest_stream(out_dir / f"{dev}.boda"))
+    check(_annos_key(res["cuda"][0]) == _annos_key(res["cpu"][0]),
+          "conv_pyra predict=1: the card's annotations != the CPU's")
+    dg, dc = res["cuda"][1], res["cpu"][1]
+    bad = [k for k in dg if k not in dc or dg[k].comp(dc[k], DENSE_TOL)]
+    check(sorted(dg) == sorted(dc) and not bad,
+          f"conv_pyra feature digests differ: {bad}")
+    p["conv_pyra"] = {"annos": len(res["cuda"][0]), "scales": len(dg)}
+    print(f"  conv_pyra predict=1 (host pack): {len(res['cuda'][0])} "
+          f"anno(s), {len(dg)} scale digests, card = CPU")
+
+
+def phase_pyra(ctx: dict) -> None:
+    """Dense inference: pyra_bench on googlenet_conv, a 480x640 frame in
+    640² bins, pack=device under the headline tune and (), B1/B2 launches
+    per forward exact and each distinct call held against its plain
+    version; the device pack on the card against the CPU;
+    cnet_predict dense=1 on the card against the CPU; with PIL, also
+    pyra_bench pack=host and conv_pyra predict=1."""
+    wrappers = _wrappers()
+    p = ctx["pyra"] = {"smi": ctx["smi"]}
+    launches = ctx.setdefault("launches", {})
+    t0 = time.perf_counter()
+    rows = p["rows"] = []
+    runs = [("headline", "device"), ("f32", "device")]
+    if _optional("PIL"):
+        runs.append(("headline", "host"))
+    for tune_name, pack in runs:
+        rows.append(_pyra_row(p, wrappers, tune_name, pack))
+        launches[f"pyra:{tune_name}:{pack}"] = rows[-1]["launches_per_forward"]
+    _pyra_dense(p)
+    if _optional("PIL"):
+        _pyra_conv_pyra(p)
+    else:
+        print("  pack=host and conv_pyra not run here: PIL does not import "
+              "on this machine (tests/test_torch_dense.py runs them on the "
+              "CPU)")
+        p["host_pack"] = "not run: PIL missing"
+    p["s"] = time.perf_counter() - t0
+    del p["smi"]
+
+
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
           "vendor": phase_vendor, "digests": phase_digests,
           "agree": phase_agree, "full": phase_full, "engine": phase_engine,
-          "ops_prof": phase_ops_prof, "zoo": phase_zoo, "bench": phase_bench}
+          "ops_prof": phase_ops_prof, "zoo": phase_zoo, "serve": phase_serve,
+          "pyra": phase_pyra, "bench": phase_bench}
 
 
 def main() -> int:
@@ -3159,7 +3660,8 @@ def main() -> int:
                       "template_ms_b32": ctx["template_ms"],
                       "engine": ctx["engine"],
                       "vendor_conv_ms_b32": ctx["vendor_ms"],
-                      "zoo": ctx["zoo"]}))
+                      "zoo": ctx["zoo"], "serve": ctx["serve"],
+                      "pyra": ctx["pyra"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -8,9 +8,10 @@ the port's make_engine and build_model and through the CLI entry point
 (fused_stem, resblock), cnet_bench runs GoogLeNet (its concat and LRN
 templates) on the CPU, the per-op modes torch_rtc_test and torch_ops_prof
 (with sgemm_int8), test_compute_multi (engine=ref, the fused and the
-per-call executors against the `mini` TPU digests) and test_lmdb (the
-per-call executor over tests/data/lmdb-tiny) run through the CLI, `help`
-lists only the port's modes,
+per-call executors against the `mini` TPU digests), test_lmdb (the
+per-call executor over tests/data/lmdb-tiny) and aio_cls_selfcheck (the
+serving path: three clients coalesced into one batch) run through the
+CLI, `help` lists only the port's modes,
 and chip_smoke.py's imports are exercised too; the bench twin (python3 -m
 boda_tpu_torch.bench) runs under the same hook and, without a card, exits
 non-zero with one line of error and no JSON. A static check finds no import
@@ -42,7 +43,14 @@ sys.meta_path.insert(0, _NoJax())
 PORT_MODES = {"run_cnet", "cnet_predict", "cnet_bench", "cls_agree",
               "test_lmdb", "test_compute_multi", "comp_ndas",
               "torch_rtc_test", "torch_ops_prof", "torch_cnn_op_info",
-              "torch_cnn_prof"}
+              "torch_cnn_prof", "aio_cls_server", "serve_bench",
+              "aio_cls_selfcheck", "blf_pack", "conv_pyra", "pyra_bench",
+              "zmq_hello_server", "zmq_hello_client", "zmq_det_stub_server",
+              "zmq_cls_server", "zmq_det_server", "zmq_det_client"}
+# the serving and dense-inference modules: the source scan must cover them
+SLICE_MODULES = ["parallel/transport.py", "io/device_preproc.py",
+                 "apps/aio_serve.py", "models/upsamp.py", "apps/predict.py",
+                 "apps/pyra.py", "apps/zmq_serve.py", "apps/stream_infer.py"]
 
 RUN_MINI = BLOCK_JAX + """
 import runpy
@@ -86,7 +94,9 @@ for argv in (["help"],
              ["torch_ops_prof", "--ops_fn=tests/data/ops/sgemm-tiny.txt",
               "--rtcs=(t=(be=torch,device=cpu),ref=(be=interp))",
               "--op_tunes=(kg=(use_culibs=1),hand=(),int8=(prec=int8))",
-              "--func_mrd_toler=(sgemm_int8=5e-2)", "--run_iter=1"]):
+              "--func_mrd_toler=(sgemm_int8=5e-2)", "--run_iter=1"],
+             ["aio_cls_selfcheck", "--model=mini",
+              "--conv_fwd=(engine=torch,device=cpu)"]):
     sys.argv = ["boda_tpu_torch", *argv]
     try:
         runpy.run_module("boda_tpu_torch", run_name="__main__")
@@ -110,6 +120,7 @@ def test_port_runs_without_jax():
     assert "cnet_bench googlenet_conv_lrn b1 bf16 storage=nhwc: step_ms=" \
         in r.stdout
     assert r.stdout.count("func=sgemm_int8 ") == 4  # 2 ops x 2 backends
+    assert "selfcheck ok: 3 clients, max_batch_seen=3" in r.stdout
     for bad in ("COMP_FAIL", "ERROR"):
         assert bad not in r.stdout
     assert "NOJAX_OK" in r.stdout
@@ -165,6 +176,8 @@ def test_no_source_of_the_port_imports_boda_tpu():
     files = sorted((ROOT / "boda_tpu_torch").rglob("*.py")) + \
         [ROOT / "chip_smoke.py"]
     assert len(files) > 40
+    assert {f"boda_tpu_torch/{m}" for m in SLICE_MODULES} <= \
+        {str(f.relative_to(ROOT)) for f in files}
     assert [f"{f.relative_to(ROOT)}:{b}" for f in files
             for b in _boda_tpu_imports(f)] == []
 
