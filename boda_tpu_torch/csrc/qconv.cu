@@ -34,6 +34,14 @@
 // the core's other tensor-core kernels, the staging from L2 sets its pace.
 // Split-K is left out: res5 at batch 32 fills 52 of 132 SMs.
 //
+// The same kernel runs training's int8 weight gradient (grad_q8; the JAX
+// package's boda_tpu/ops/mxu_grad.py _wgrad_q8, :170-205, an XLA int8 conv
+// there), driven by ops/cuda/qconv.wgrad_q8: the forward's input as an NHWC
+// [C_in, H, W, N] tensor (the batch as the channels contracted) and the
+// cotangent as an [O, OH, OW, N] filter, so M = C_in*ky*kx is small and K =
+// N*OH*OW long; with no K split, ResNet-50's res3 3x3 (1152 x 128 x 25088 at
+// batch 32) fills 9 of 132 SMs.
+//
 // The activation quantize (`act_quantize`) makes xq from f32 or bf16 x as
 // conv.py:162-171 does: q = clamp(rint(x / s_act), -127, 127) with IEEE
 // division. A static s_act (float32(act_absmax / 127) rounded on the host from

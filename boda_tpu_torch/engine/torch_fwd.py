@@ -44,6 +44,7 @@ from ..core.timers import timer
 from ..graph.pipe import ConvPipe
 from ..ops.cnn_variants import OpTune, make_op_tune
 from ..ops.cuda.util import torch_dtype
+from ..ops.mxu_grad import check_trainable, step_has_backward
 from ..ops.op_base import OpBase
 from ..ops.registry import Codegen, get_template
 from .iface import ConvFwd
@@ -62,6 +63,20 @@ def weights_to_torch(plan: Plan, op_params: dict, device: torch.device,
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         out[n] = t.to(device)
+    return out
+
+
+def pat_tunes(pipe: ConvPipe, op_tunes_pat: dict) -> dict[str, OpTune]:
+    """{op tag: tune} of op_tunes_pat ({tag regex: tune spec}): each op
+    whose tag a regex matches whole gets that regex's tune, a later regex
+    winning (boda_tpu/apps/cnet_bench.py pat_tunes)."""
+    out = {}
+    for pat, spec in op_tunes_pat.items():
+        rx = re.compile(pat)
+        t = make_op_tune(spec)
+        for op in pipe.ops.values():
+            if rx.fullmatch(op.tag):
+                out[op.tag] = t
     return out
 
 
@@ -128,7 +143,11 @@ def build_forward(plan: Plan, device: torch.device,
     weights: weights_to_torch(plan, ...). Returns the plan's outputs plus
     `out_nodes` (every produced node under keep_all_nodes), logical form.
     When the plan's fused-storage pass is on, the conversion to and from
-    NHWC / the edge dtype happens once, at this boundary. step_hook, when
+    NHWC / the edge dtype happens once, at this boundary. Under autograd
+    (weights or inputs that require grad) the forward differentiates as the
+    JAX package's does: the vendor convs through ops/mxu_grad, the rest as
+    torch ops; a step of a template with no backward there
+    (mxu_grad.step_has_backward) raises, naming the step. step_hook, when
     given, is called with each step and returns a context manager that the
     step runs in (a per-step timer, for instance). write_hook(node, value),
     when given, is called on every node a step writes, with the value in
@@ -139,7 +158,8 @@ def build_forward(plan: Plan, device: torch.device,
     fns = []
     for s in plan.steps:
         tmpl = get_template(s.func_name)
-        fns.append((tmpl.build(tmpl.check_args(s.sig)), tmpl, s))
+        fns.append((tmpl.build(tmpl.check_args(s.sig)), tmpl, s,
+                    step_has_backward(s.sig)))
     node_dims = plan.node_dims
     weight_set = set(plan.weight_nodes)
     want_inputs = set(plan.input_nodes)
@@ -186,7 +206,8 @@ def build_forward(plan: Plan, device: torch.device,
                 _check_input(n, v, node_dims[n], "the plan's logical dims "
                              "(the output of its input preprocessing)")
             vals[n] = _storage_in(v, node_dims[n], plan)
-        for fn, tmpl, s in fns:
+        grad = torch.is_grad_enabled()
+        for fn, tmpl, s, has_bwd in fns:
             ins = []
             for an in tmpl.in_args() + tmpl.io_args():
                 if an not in s.arg_nodes:
@@ -210,6 +231,8 @@ def build_forward(plan: Plan, device: torch.device,
                     vals[node] = _storage_zeros(node_dims[node], plan,
                                                 device)
                 ins.append(vals[node])
+            if grad and not has_bwd and any(v.requires_grad for v in ins):
+                check_trainable([s], "build_forward")
             if step_hook is None:
                 outs = fn(*ins)
             else:
@@ -342,13 +365,7 @@ class TorchFwd(ConvFwd):
         act scales of act_scales_fn go onto them."""
         op_tunes = self._wisdom_tunes(pipe) if self.wisdom_fn else None
         if self.op_tunes_pat:
-            pats = {}
-            for pat, spec in self.op_tunes_pat.items():
-                rx = re.compile(pat)
-                t = make_op_tune(spec)
-                for op in pipe.ops.values():
-                    if rx.fullmatch(op.tag):
-                        pats[op.tag] = t
+            pats = pat_tunes(pipe, self.op_tunes_pat)
             self._info_log.append(f"op_tunes_pat: tuned {len(pats)} op(s)")
             op_tunes = {**(op_tunes or {}), **pats} or None
         if self.act_scales_fn:

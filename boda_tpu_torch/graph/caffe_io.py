@@ -9,17 +9,19 @@ support, no caffe dependency):
   * binary .caffemodel weight load via the schema-less wire decoder
     (must_read_binary_proto caffepb.cc:474) + name-matched blob copy
     (copy_matching_layer_blobs_from_param_to_pipe :593),
+  * export back to prototxt + caffemodel (as_net_param; net-surgery writes
+    caffepb.cc:773-779): cnet_train's trained-weights outputs,
   * BatchNorm+Scale deploy-time folding into the preceding Convolution
     (the reference predates BN-heavy nets; resnet prototxts import to
     conv-only graphs this way).
 
 Field numbers in _F are wire-format facts of the public caffe schema.
 
-The port's copy of the import half of boda_tpu/graph/caffe_io.py. The
-export to prototxt and caffemodel and the net-surgery helpers
-(fc_to_conv, resize_kernel, create_upsamp_layer_weights) serve the JAX
-package's net-surgery modes and upsampled nets, which the port leaves
-out.
+The port's copy of boda_tpu/graph/caffe_io.py up to its writers
+(pipe_to_net_param, write_prototxt, write_caffemodel: the same bytes). The
+net-surgery helpers (fc_to_conv, resize_kernel, create_upsamp_layer_
+weights) serve the JAX package's net-surgery modes and upsampled nets,
+which the port leaves out.
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ import numpy as np
 
 from ..core.dims import NDA, Dims
 from ..core.error import RtErr
-from .pbtext import PbNode, parse_pbtext
-from .pbwire import WireNode, decode_wire
+from .pbtext import PbNode, parse_pbtext, print_pbtext
+from .pbwire import (WireNode, decode_wire, enc_field_bytes, enc_field_packed_floats,
+                     enc_field_packed_varints, enc_field_string)
 from .pipe import ConvOp, ConvPipe
 
 # V1 enum name → V2 string type
@@ -485,3 +488,127 @@ def read_model(prototxt_path, caffemodel_path=None, in_dims: Optional[Dims] = No
 
 
 # ---- export (as_net_param; surgery writers) ----
+
+def pipe_to_net_param(pipe: ConvPipe, name: str = "net") -> PbNode:
+    net = PbNode()
+    net.add("name", name)
+    if pipe.data_img_node_names:
+        dn = pipe.data_img_node_names[0]
+        nd = pipe.must_get_node(dn)
+        net.add("input", dn)
+        if nd.dims is not None:
+            sh = PbNode()
+            for s in nd.dims.shape:
+                sh.add("dim", int(s))
+            net.add("input_shape", sh)
+
+    def add_layer(op: ConvOp):
+        l = PbNode()
+        l.add("name", op.tag)
+        l.add("type", op.type)
+        data_bots = op.bots[:1] if op.type in ("Convolution", "Deconvolution",
+                                               "InnerProduct") else op.bots
+        for b in data_bots:
+            l.add("bottom", b)
+        for t in op.tops:
+            l.add("top", t)
+        if op.type in ("Convolution", "Deconvolution", "InnerProduct"):
+            # round-trip non-default ParamSpec mults ([filts, biases])
+            mults = [pipe.param_mults.get(b) for b in op.bots[1:3]]
+            if any(m is not None for m in mults):
+                for m in mults:
+                    sp = PbNode()
+                    lm, dm = m if m is not None else (1.0, 1.0)
+                    sp.add("lr_mult", lm)
+                    sp.add("decay_mult", dm)
+                    l.add("param", sp)
+        if op.type in ("Convolution", "Deconvolution"):
+            cp = PbNode()
+            cp.add("num_output", op.get_u32("out_chans"))
+            ks, st, pd = op.kern_sz(), op.stride(), op.in_pad()
+            cp.add("kernel_size", ks.y) if ks.y == ks.x else (
+                cp.add("kernel_h", ks.y), cp.add("kernel_w", ks.x))
+            if st != (1, 1):
+                cp.add("stride", st.y) if st.y == st.x else (
+                    cp.add("stride_h", st.y), cp.add("stride_w", st.x))
+            if pd != (0, 0):
+                cp.add("pad", pd.y) if pd.y == pd.x else (
+                    cp.add("pad_h", pd.y), cp.add("pad_w", pd.x))
+            l.add("convolution_param", cp)
+        elif op.type == "InnerProduct":
+            ip = PbNode()
+            ip.add("num_output", op.get_u32("out_chans"))
+            l.add("inner_product_param", ip)
+        elif op.type == "Pooling":
+            pp = PbNode()
+            pp.add("pool", "AVE" if op.get_u32_or("avg_pool", 0) else "MAX")
+            ks = op.kern_sz()
+            if ks.is_zeros():
+                pp.add("global_pooling", True)
+            else:
+                pp.add("kernel_size", ks.y)
+            st = op.stride()
+            if st != (1, 1):
+                pp.add("stride", st.y)
+            pd = op.in_pad()
+            if pd != (0, 0):
+                pp.add("pad", pd.y)
+            l.add("pooling_param", pp)
+        elif op.type == "LRN":
+            lp = PbNode()
+            lp.add("local_size", op.get_u32_or("local_size", 5))
+            lp.add("alpha", float(op.nda_vals["alpha"].item()))
+            lp.add("beta", float(op.nda_vals["beta"].item()))
+            l.add("lrn_param", lp)
+        elif op.type == "Dropout":
+            dp = PbNode()
+            dp.add("dropout_ratio", float(op.nda_vals["dropout_ratio"].item()))
+            l.add("dropout_param", dp)
+        elif op.type == "Eltwise":
+            ep = PbNode()
+            ep.add("operation", op.str_vals.get("ew_op", "SUM"))
+            l.add("eltwise_param", ep)
+        net.add("layer", l)
+
+    emitted = set()
+    for op in pipe.topo_order():
+        add_layer(op)
+        emitted.add(op.tag)
+        for ip in pipe.must_get_node(op.tops[0]).in_place_ops:
+            add_layer(ip)
+            emitted.add(ip.tag)
+    return net
+
+
+def write_prototxt(pipe: ConvPipe, path, name: str = "net") -> None:
+    Path(path).write_text(print_pbtext(pipe_to_net_param(pipe, name)))
+
+
+def write_caffemodel(pipe: ConvPipe, path, name: str = "net") -> None:
+    """Binary NetParameter with V2 layers carrying this pipe's weights."""
+    out = bytearray()
+    out += enc_field_string(_F.net_name, name)
+    for op in pipe.topo_order():
+        if op.type not in ("Convolution", "Deconvolution", "InnerProduct"):
+            continue
+        lb = bytearray()
+        lb += enc_field_string(_F.l_name, op.tag)
+        lb += enc_field_string(_F.l_type, op.type)
+        for bname in op.bots[1:3]:
+            nda = pipe.op_params.get(bname)
+            if nda is None:
+                continue
+            v, shape = nda.v, nda.dims.shape
+            if op.type == "Deconvolution" and bname == op.bots[1] and v.ndim == 4:
+                # write back in caffe's physical deconv layout
+                # (in_chan, out_chan, ky, kx) — inverse of the copy-in
+                v = v.transpose(1, 0, 2, 3)
+                shape = v.shape
+            bb = bytearray()
+            shp = bytearray()
+            shp += enc_field_packed_varints(_F.bs_dim, shape)
+            bb += enc_field_packed_floats(_F.b_data, v.reshape(-1))
+            bb += enc_field_bytes(_F.b_shape, bytes(shp))
+            lb += enc_field_bytes(_F.l_blobs, bytes(bb))
+        out += enc_field_bytes(_F.net_layer, bytes(lb))
+    Path(path).write_bytes(bytes(out))

@@ -1,4 +1,4 @@
-"""Generic protobuf text-format parser (schema-less).
+"""Generic protobuf text-format parser/printer (schema-less).
 
 Role parity: the reference links protobuf and vendored caffe.proto to read
 prototxt (caffepb.cc:329). This build parses the text format directly into
@@ -11,8 +11,7 @@ Grammar subset (covers caffe prototxt):
   scalar  := number | 'true' | 'false' | ENUM_NAME | "string" | 'string'
 Repeated fields accumulate in order. '#' comments are stripped.
 
-The port's copy of boda_tpu/graph/pbtext.py without the printer, which
-only the JAX package's prototxt writer uses.
+The port's copy of boda_tpu/graph/pbtext.py.
 """
 
 from __future__ import annotations
@@ -141,3 +140,23 @@ def parse_pbtext(s: str) -> PbNode:
         return node
 
     return parse_msg(0)
+
+
+def print_pbtext(node: PbNode, indent: int = 0) -> str:
+    pad = "  " * indent
+    out = []
+    for name, vals in node.fields.items():
+        for v in vals:
+            if isinstance(v, PbNode):
+                out.append(f"{pad}{name} {{\n{print_pbtext(v, indent + 1)}{pad}}}\n")
+            elif isinstance(v, bool):
+                out.append(f"{pad}{name}: {'true' if v else 'false'}\n")
+            elif isinstance(v, str) and not _is_enumish(v):
+                out.append(f'{pad}{name}: "{v}"\n')
+            else:
+                out.append(f"{pad}{name}: {v}\n")
+    return "".join(out)
+
+
+def _is_enumish(s: str) -> bool:
+    return s.isupper() and s.replace("_", "").isalnum() and not s[0].isdigit()

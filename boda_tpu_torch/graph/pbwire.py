@@ -1,14 +1,12 @@
-"""Generic protobuf wire-format decoder (schema-less, tag-based).
+"""Generic protobuf wire-format decoder/encoder (schema-less, tag-based).
 
-Role parity: binary .caffemodel reading (reference: must_read_binary_proto
-caffepb.cc:474) without linking protobuf codegen: the wire format is
-parsed into {field_number: [values]} trees; caffe_io.py interprets field
-numbers. Packed repeated scalars are kept as raw bytes and decoded on
-demand by typed accessors.
+Role parity: binary .caffemodel reading/writing (reference:
+must_read_binary_proto caffepb.cc:474, write at :773-779) without linking
+protobuf codegen: the wire format is parsed into {field_number: [values]}
+trees; caffe_io.py interprets field numbers. Packed repeated scalars are
+kept as raw bytes and decoded on demand by typed accessors.
 
-The port's copy of boda_tpu/graph/pbwire.py with only the encoder's
-varint and bytes fields (a caffe Datum: apps/eval_cls.encode_datum); the
-rest of the encoder serves the JAX package's caffemodel writer.
+The port's copy of boda_tpu/graph/pbwire.py.
 """
 
 from __future__ import annotations
@@ -199,5 +197,21 @@ def enc_field_varint(fno: int, v: int) -> bytes:
     return enc_tag(fno, 0) + enc_varint(int(v))
 
 
+def enc_field_float(fno: int, v: float) -> bytes:
+    return enc_tag(fno, 5) + struct.pack("<f", v)
+
+
 def enc_field_bytes(fno: int, v: bytes) -> bytes:
     return enc_tag(fno, 2) + enc_varint(len(v)) + v
+
+
+def enc_field_string(fno: int, s: str) -> bytes:
+    return enc_field_bytes(fno, s.encode("utf-8"))
+
+
+def enc_field_packed_floats(fno: int, arr: np.ndarray) -> bytes:
+    return enc_field_bytes(fno, np.asarray(arr, "<f4").tobytes())
+
+
+def enc_field_packed_varints(fno: int, vals) -> bytes:
+    return enc_field_bytes(fno, b"".join(enc_varint(int(v)) for v in vals))

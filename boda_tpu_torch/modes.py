@@ -3,7 +3,9 @@ modes, engines, backends and stream stages (the port's counterpart of
 boda_tpu/modes.py):
 
   run_cnet, cnet_predict             apps/run_cnet.py
-  cnet_bench, pyra_bench             apps/cnet_bench.py
+  cnet_bench, pyra_bench,            apps/cnet_bench.py
+    train_bench
+  cnet_train                         apps/train.py
   blf_pack, conv_pyra                apps/pyra.py
   aio_cls_server, serve_bench,       apps/aio_serve.py
     aio_cls_selfcheck
@@ -26,7 +28,7 @@ the backends be=torch (backend/torch_be.py) and be=interp
 """
 
 from .apps import aio_serve, cnet_bench, eval_cls, pyra, run_cnet  # noqa: F401
-from .apps import stream_infer, zmq_serve  # noqa: F401
+from .apps import stream_infer, train, zmq_serve  # noqa: F401
 from .backend import interp, modes as _backend_modes, torch_be  # noqa: F401
 from .engine import ref_fwd, torch_fwd  # noqa: F401
 from .testing import modes as _testing_modes  # noqa: F401

@@ -20,8 +20,10 @@ compute dtype (vendor_conv says why not in bf16), channels_last under NHWC
 storage; the phase stacking only re-indexes the same arithmetic, so it is
 dropped. The int8 forms of XlaConv and XlaConv2 (quant8, in_q8) run on
 kernel B6 (qconv.py), an int8 edge's store (out_q8) also after a float
-vendor conv; the int8 weight-gradient form (grad_q8) is training and is
-refused.
+vendor conv. Under autograd the vendor convs carry the mixed-precision VJP
+of ops/mxu_grad.py, with the int8 weight gradient of grad_q8 on B6. The
+matmul variants k1conv, conv and ipconv have no backward, in the JAX
+package as here: their kernel's wrapper refuses autograd.
 
 The conv family's metadata is the JAX package's (conv.py:35-126):
 `conv_params`, the shared `_ConvBase` (declared args, reduced-signature
@@ -36,12 +38,13 @@ import torch.nn.functional as F
 
 from ...core.dims import Dims
 from ...core.error import RtErr
+from ..mxu_grad import grad_q8_site, mxu_conv, relu_store
 from ..op_base import OpBase
 from ..registry import IN, OUT, KernelTemplate, adecl, template
 from .qconv import act_quantize, qconv, quantize_filter, static_act_scale, \
     store_int8
 from .sgemm import matmul_ext
-from .util import compute_dtype, full_fp32, storage_io, store_dtype
+from .util import compute_dtype, storage_io, store_dtype
 
 
 # the member tags of a sibling-fused conv (the JAX xla_conv2,
@@ -242,34 +245,36 @@ class IpConv(_ConvBase):
         return fn
 
 
-def vendor_conv(stride, pad, cdt, io_nhwc, conv_fn=F.conv2d):
+def vendor_conv(stride, pad, cdt, io_nhwc, transposed: bool = False,
+                q8: bool = False):
     """The vendor conv of a step (cuDNN's role; XLA's in the JAX package):
     conv(x, w, b) -> the f32 conv of the operands rounded to the compute
-    dtype `cdt`, + the f32 bias, as a logical NCHW tensor. It runs F.conv2d
-    in full FP32 (never TF32) on the rounded operands, also under prec=bf16:
-    FP32 products of bf16 values are exact, so the sum is rounded nowhere
-    before the bias, as in the JAX templates (bf16 operands, f32
-    accumulation, f32 output: boda_tpu/ops/mxu_grad.py mxu_conv). A bf16
-    cuDNN conv would round that sum to bf16 before the bias, since torch's
-    conv has no f32 output for bf16 operands: one rounding more, which moves
-    14-34% of the stored values by one bf16 step and fails the 5e-3 gate
-    against the JAX template (PERF.md section 6), so it is not used.
+    dtype `cdt`, + the f32 bias, as a logical NCHW tensor. It runs in full
+    FP32 (never TF32) on the rounded operands, also under prec=bf16: FP32
+    products of bf16 values are exact, so the sum is rounded nowhere before
+    the bias, as in the JAX templates (bf16 operands, f32 accumulation, f32
+    output: boda_tpu/ops/mxu_grad.py mxu_conv). A bf16 cuDNN conv would
+    round that sum to bf16 before the bias, since torch's conv has no f32
+    output for bf16 operands: one rounding more, which moves 14-34% of the
+    stored values by one bf16 step and fails the 5e-3 gate against the JAX
+    template (PERF.md section 6), so it is not used.
+
+    Under autograd the conv carries the mixed-precision VJP of
+    ops/mxu_grad.mxu_conv (bf16 grad convs, the cd operands as residuals;
+    q8: the int8 weight gradient of grad_q8 on kernel B6).
 
     Under NHWC storage (io_nhwc) x arrives NHWC and is passed on as the
     channels_last NCHW tensor it already is, with the filter in
     channels_last too, so the result comes back channels_last and its NHWC
     view is contiguous: no permute copy on either side.
 
-    conv_fn is F.conv2d, or F.conv_transpose2d for a deconv step (its
-    filter given (in_chan, out_chan, ky, kx))."""
-    cl = torch.channels_last
+    transposed: a deconv step's F.conv_transpose2d (its filter given
+    (in_chan, out_chan, ky, kx))."""
 
     def conv(x, w, b=None):
-        xc, wc = x.to(cdt).float(), w.to(cdt).float()
         if io_nhwc:
-            xc, wc = xc.permute(0, 3, 1, 2), wc.contiguous(memory_format=cl)
-        with full_fp32():
-            y = conv_fn(xc, wc, stride=stride, padding=pad)
+            x = x.permute(0, 3, 1, 2)
+        y = mxu_conv(x, w, stride, pad, cdt, transposed, io_nhwc, q8)
         if b is not None:
             y = y + b.float()[None, :, None, None]
         return y
@@ -280,10 +285,12 @@ def vendor_store(y, relu: bool, odt, io_nhwc, out_absmax: float = 0.0):
     """The epilogue of a vendor conv step: ReLU, one rounding to the stored
     dtype (int8: an int8 edge's store at out_absmax, conv.py:173-179), and
     the step's storage form (NCHW, or NHWC: a view of a channels_last
-    result, copied only where it is not)."""
-    if relu:
-        y = torch.relu(y)
-    y = store_int8(y, out_absmax) if odt == torch.int8 else y.to(odt)
+    result, copied only where it is not). A ReLU before a float store is
+    ops/mxu_grad.relu_store, whose backward keeps the stored output."""
+    if odt == torch.int8:
+        y = store_int8(torch.relu(y) if relu else y, out_absmax)
+    else:
+        y = relu_store(y, odt) if relu else y.to(odt)
     # a member of a sibling group is a channel slice: the copy splits it off
     return y.permute(0, 2, 3, 1).contiguous() if io_nhwc else y.contiguous()
 
@@ -294,18 +301,19 @@ def _scale_of(rfs: OpBase, key: str) -> float:
     return float(rfs.nda_vals[key].item()) if key in rfs.nda_vals else 0.0
 
 
-def _cudnn_conv(rfs: OpBase):
+def _cudnn_conv(rfs: OpBase, q8: bool = False):
     """A vendor conv step (vendor_conv, vendor_store) of a conv sig: the
     f32-output XLA conv of the JAX package (conv.py:281-296, :334-379),
     stored int8 where it produces an int8 edge (out_q8). Takes and returns
     NCHW, or NHWC storage tensors when the plan's fused-storage pass marked
-    the step."""
+    the step. q8: the int8 weight gradient under autograd (grad_q8)."""
     ind, outd, fd, sy, sx, py, px, relu = conv_params(rfs)
     io_nhwc, _ = storage_io(rfs)
     out_absmax = _scale_of(rfs, "out_scale") \
         if rfs.get_u32_or("out_q8", 0) else 0.0
     odt = torch.int8 if out_absmax else store_dtype(rfs)
-    conv = vendor_conv((sy, sx), (py, px), compute_dtype(rfs), io_nhwc)
+    conv = vendor_conv((sy, sx), (py, px), compute_dtype(rfs), io_nhwc,
+                       q8=q8)
 
     def fn(x, w, b=None):
         return vendor_store(conv(x, w, b), relu, odt, io_nhwc, out_absmax)
@@ -353,16 +361,15 @@ class XlaConv(_ConvBase):
     ReLU; its int8 forms on kernel B6: quant8 with prequantized weights
     (prequant_w) or the weight quantize in the step, a static (act_scale) or
     dynamic activation scale, an input that arrives int8 (in_q8), and an
-    int8 output edge (out_q8), also after a float conv. The int8
-    weight-gradient form (grad_q8) is training and is refused."""
+    int8 output edge (out_q8), also after a float conv. grad_q8 (training:
+    the int8 weight gradient on B6) leaves the forward as it is; the JAX
+    template takes it only in its NHWC form (storage NHWC or layout=nhwc,
+    conv.py:219-223, :274-278), and so does this one."""
 
     name = "xla_conv"
 
     @classmethod
     def build(cls, rfs: OpBase):
-        if rfs.get_u32_or("grad_q8", 0):
-            raise RtErr("xla_conv: the int8 weight-gradient form (grad_q8=1) "
-                        "is training, not ported to torch yet (ROADMAP A8)")
         quant8 = rfs.get_u32_or("quant8", 0) == 1
         in_q8 = rfs.get_u32_or("in_q8", 0) == 1
         out_q8 = rfs.get_u32_or("out_q8", 0) == 1
@@ -383,7 +390,8 @@ class XlaConv(_ConvBase):
             raise RtErr("xla_conv: in_q8 needs quant8, prequant_w and a "
                         "static act_scale > 0")
         if not quant8:
-            return _cudnn_conv(rfs)
+            return _cudnn_conv(rfs, grad_q8_site(
+                rfs, io_nhwc or rfs.str_vals.get("layout") == "nhwc"))
         return int8_conv((sy, sx), (py, px), relu,
                          torch.int8 if out_q8 else store_dtype(rfs), io_nhwc,
                          prequant, act_absmax, in_q8, out_absmax)
@@ -467,7 +475,7 @@ class Deconv(_ConvBase):
         io_nhwc, _ = storage_io(rfs)
         odt = store_dtype(rfs)
         conv = vendor_conv((sy, sx), (py, px), compute_dtype(rfs), io_nhwc,
-                           F.conv_transpose2d)
+                           transposed=True)
 
         def fn(x, w, b=None):
             return vendor_store(conv(x, w.transpose(0, 1), b), relu, odt,

@@ -19,8 +19,11 @@ so reduced sigs and wisdom keys stay string-equal. The int8 forms (quant8,
 with prequantized weights or the weight quantize in the step;
 conv2.py:139-193) run as one int8 conv on kernel B6 (conv.int8_conv) over
 the concatenated int8 filters, into f32, and are split per member as the
-float form is; the int8 center-embed pads zero taps. The int8
-weight-gradient form (grad_q8) is training and is refused.
+float form is; the int8 center-embed pads zero taps. Under autograd the
+float form carries ops/mxu_grad's VJP over the concatenated filter, whose
+gradient autograd splits back per member (conv2.py:130, :200); with every
+member grad_q8 (the lowering sets it only so), its weight gradient is the
+int8 one on B6.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from ...core.error import RtErr
+from ..mxu_grad import grad_q8_site
 from ..op_base import OpBase
 from ..registry import IN, OUT, KernelTemplate, adecl, template
 from .conv import SIBS, _ConvBase, _scale_of, int8_conv, vendor_conv, \
@@ -116,9 +120,6 @@ class XlaConv2(KernelTemplate):
 
     @classmethod
     def build(cls, rfs: OpBase):
-        if rfs.get_u32_or("grad_q8", 0):
-            raise RtErr("xla_conv2: the int8 weight-gradient form (grad_q8=1) "
-                        "is training, not ported to torch yet (ROADMAP A8)")
         quant8 = rfs.get_u32_or("quant8", 0) == 1
         prequant = rfs.get_u32_or("prequant_w", 0) == 1
         if prequant and not quant8:
@@ -148,7 +149,8 @@ class XlaConv2(KernelTemplate):
                 y = q(x, w, sws, b) if prequant else q(x, w, b)
                 return y.permute(0, 3, 1, 2) if io_nhwc else y
         else:
-            vconv = vendor_conv(stride, padding, compute_dtype(rfs), io_nhwc)
+            vconv = vendor_conv(stride, padding, compute_dtype(rfs), io_nhwc,
+                                q8=grad_q8_site(rfs, True))
 
             def conv(x, w, b, _sws):
                 return vconv(x, w, b)

@@ -8,8 +8,9 @@ at the end as the JAX body does. The window runs over the channels (the
 last dim under NHWC storage, dim 1 otherwise) with the half-window padding
 (n//2, n-1-n//2), summed in one reduction over a size-n window of the
 padded squares (an unfold view, no copy): a prefix sum would cancel in
-f32. `emit_out_scale_base` stays in the reduced sig for training's bck_lrn,
-which is not ported.
+f32. `emit_out_scale_base` stays in the reduced sig, as in the JAX
+template; training's bck_lrn (ops/cuda/bck.py) differentiates this
+function.
 """
 
 from __future__ import annotations

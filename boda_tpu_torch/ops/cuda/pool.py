@@ -1,4 +1,5 @@
-"""The `pool` template (forward): max and average pooling, caffe semantics.
+"""The `pool` template: max and average pooling, caffe semantics, and their
+backward.
 
 Port of boda_tpu/ops/pallas/pool.py, which computes pooling outside Pallas
 too. Caffe's ceil-mode output size can put a last window partly outside
@@ -7,6 +8,16 @@ in the right-hand padding, so the input is padded explicitly instead (with
 -inf for max, 0 for sums) and the valid windows are cropped to (oy, ox).
 Average pooling divides by caffe's clipped window count, and under NHWC
 storage it sums in f32 and returns the edge dtype (pool.py:165-213).
+
+Backward: autograd's, through the pad, the pool and the crop.
+torch's max-pool backward sends each window's cotangent to its first
+maximum in row-major window order (the kernels keep a candidate only where
+it is strictly greater), caffe's semantics and XLA SelectAndScatter's
+GE-select, which the JAX package's default backward is; the -inf padding
+never wins a window that holds an input, and the crop drops what falls on
+the padding. It is the one backward: the JAX package's pool_bwd=gather
+(pool.py:18-134) computes the same first-argmax gradient in another form,
+chosen there to avoid XLA's scatter, so the key changes no values here.
 """
 
 from __future__ import annotations
@@ -38,7 +49,7 @@ def _params(rfs: OpBase):
 class Pool(KernelTemplate):
     """Max / average pooling over NCHW or NHWC storage tensors. The
     pool_bwd and (non-storage) layout keys change only the JAX program's
-    backward and transposes, not forward values, so they are not read."""
+    backward form and transposes, not values, so they are not read."""
 
     name = "pool"
     args = [adecl("in", IN, "img chan y x"), adecl("out", OUT, "img chan y x")]

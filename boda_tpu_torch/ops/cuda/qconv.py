@@ -1,5 +1,6 @@
-"""qconv (kernel B6), the int8 convolution of the selective-int8 preset, and
-act_quantize, the activation quantize that makes its input.
+"""qconv (kernel B6), the int8 convolution of the selective-int8 preset;
+act_quantize, the activation quantize that makes its input; and wgrad_q8,
+training's int8 weight gradient (grad_q8) on the same two kernels.
 
 Port of the int8 forms of the vendor conv: boda_tpu/ops/pallas/conv.py
 XlaConv.build (:162-266) and boda_tpu/ops/pallas/conv2.py XlaConv2.build
@@ -21,6 +22,12 @@ sum, converted to f32, times s_act * sws[o], plus the bias, ReLU, and the
 store: f32, bf16, or an int8 edge at clamp(rint(v * float32(127 /
 out_absmax)), -127, 127) (conv.py:173-179). So kernel, plain version and
 JAX template agree bit for bit where XLA rounds the same way.
+
+wgrad_q8 is boda_tpu/ops/mxu_grad.py's _wgrad_q8 (:170-205) as glue around
+them: the activation quantized per tensor, the cotangent per output
+channel (quantize_filter's formula), the batch as B6's channels, one
+stride-1 B6 conv per phase of a forward stride (where JAX dilates the
+cotangent); wgrad_q8_plain is the same glue on the plain versions.
 """
 
 from __future__ import annotations
@@ -34,8 +41,8 @@ import torch.nn.functional as F
 from ...core.error import RtErr
 from .build import check_launch, load_kernels
 from .qsgemm import K_MAX
-from .util import GemmPlan, check_operand, cuda_stream, gemm_plan, sm_count, \
-    use_kernel
+from .util import GemmPlan, check_operand, cuda_stream, forbid_autograd, \
+    gemm_plan, sm_count, use_kernel
 
 TILE_N = 128                 # block tile: 128 pixels x 128 output channels
 _N_MAX = 65535 * TILE_N      # the grid puts oc / 128 tiles on gridDim.y
@@ -116,6 +123,7 @@ def act_quantize(x: torch.Tensor, act_absmax: float = 0.0):
     NaN in x gives a NaN dynamic scale; an element whose quotient is NaN
     quantizes to 0."""
     _check_x(x)
+    forbid_autograd("act_quantize", x)
     if not use_kernel(x):
         return act_quantize_plain(x, act_absmax)
     lib = load_kernels()
@@ -225,6 +233,7 @@ def qconv(xq, wq, s_act, sws, bias=None, stride=(1, 1), pad=(0, 0),
     counted in qconv.launches."""
     n, H, W, C, oc, ky, kx, oy, ox = _check(xq, wq, s_act, sws, bias, stride,
                                             pad, out_dtype, out_absmax)
+    forbid_autograd("qconv", s_act, sws, bias)
     if not use_kernel(xq, wq, s_act, sws, bias):
         return qconv_plain(xq, wq, s_act, sws, bias, stride, pad, relu,
                            out_dtype, out_absmax)
@@ -246,3 +255,82 @@ def qconv(xq, wq, s_act, sws, bias=None, stride=(1, 1), pad=(0, 0),
 
 
 qconv.launches = 0
+
+
+# ------------------------------------------------------- the weight gradient
+
+def _wgrad_q8(x, w, g, stride, pad, quantize, conv):
+    """wgrad_q8's glue around the activation quantize and the conv it is
+    given (the kernels' wrappers, or their plain versions)."""
+    oc, ic, ky, kx = w.shape
+    n, H, W, _ = x.shape
+    _, oy, ox, _ = g.shape
+    # per-tensor activation scale over all of x, before any crop
+    xq, s_x = quantize(x.contiguous())
+    # per-O cotangent scale: quantize_filter over g as an [O, OH, OW, N]
+    # "filter" (B6's OHWI), the JAX _wgrad_q8's s_g over (N, OH, OW)
+    gq, s_g = quantize_filter(g.permute(3, 1, 2, 0))
+    gq, s_g = gq.contiguous(), s_g.float().contiguous()
+    (sy, sx), (py, px) = stride, pad
+    xt = xq.permute(3, 1, 2, 0)        # [I, H, W, N]: B6's NHWC, C = batch
+    if (sy, sx) == (1, 1):
+        # pad_hi of the transposed conv (mxu_grad.py:196-200): the output
+        # extent is exactly (ky, kx); where it is not pad_lo, pad (or crop)
+        # x explicitly (quantized zero is 0)
+        hy, hx = oy - H + ky - py - 1, ox - W + kx - px - 1
+        if (hy, hx) != (py, px):
+            xt = F.pad(xt, (0, 0, px, hx, py, hy))
+            py = px = 0
+        dw = conv(xt.contiguous(), gq, s_x, s_g, None, (1, 1), (py, px),
+                  False, torch.float32, 0.0)
+        return dw.permute(3, 0, 1, 2)  # [I, ky, kx, O] -> OIHW
+    # a forward stride: tap ky = qy*sy + ry reads x at (oy + qy)*sy + ry
+    # - py, so phase (ry, rx) of the taps is a stride-1 conv of x's phase
+    # xpad[ry::sy, rx::sx] with the undilated cotangent as its filter: each
+    # launch sums N*OH*OW terms, the count q8_fits bounds, and none of the
+    # zeros that JAX's dilated cotangent multiplies
+    hp, wp = (oy - 1) * sy + ky, (ox - 1) * sx + kx  # the extent taps read
+    xp = F.pad(xt, (0, 0, px, max(0, wp - W - px), py, max(0, hp - H - py)))
+    dw = torch.empty((ic, ky, kx, oc), dtype=torch.float32, device=x.device)
+    for ry in range(min(sy, ky)):
+        ny = -(-(ky - ry) // sy)
+        for rx in range(min(sx, kx)):
+            nx = -(-(kx - rx) // sx)
+            xs = xp[:, ry:ry + (oy + ny - 2) * sy + 1:sy,
+                    rx:rx + (ox + nx - 2) * sx + 1:sx]
+            dw[:, ry::sy, rx::sx] = conv(xs.contiguous(), gq, s_x, s_g,
+                                         None, (1, 1), (0, 0), False,
+                                         torch.float32, 0.0)
+    return dw.permute(3, 0, 1, 2)
+
+
+def wgrad_q8_launches(stride, kern) -> int:
+    """The qconv launches of one wgrad_q8: one per phase of the forward
+    stride that holds a tap."""
+    return min(stride[0], kern[0]) * min(stride[1], kern[1])
+
+
+def wgrad_q8_plain(x, w, g, stride=(1, 1), pad=(0, 0)):
+    """Plain PyTorch wgrad_q8: the same glue on act_quantize_plain and
+    qconv_plain."""
+    return _wgrad_q8(x, w, g, stride, pad, act_quantize_plain, qconv_plain)
+
+
+def wgrad_q8(x, w, g, stride=(1, 1), pad=(0, 0)):
+    """The int8 weight gradient of a conv (grad_q8; the JAX package's
+    mxu_grad._wgrad_q8, :170-205) on kernel B6: dW[o, i, ky, kx] =
+    sum over n, oy, ox of x[n, oy*sy+ky-py, ox*sx+kx-px, i] * g[n, oy, ox, o],
+    in int32 on x quantized per tensor (dynamic, act_quantize: max|x| / 127
+    + 1e-30) and g quantized per output channel (quantize_filter's formula),
+    times s_x * s_g[o] in f32.
+
+    x: the forward's input, NHWC [N, H, W, I] (f32 or bf16); w: its OIHW
+    filter (read for its shape); g: the cotangent of the conv's f32 output,
+    NHWC [N, OH, OW, O]. Returns dW in f32, OIHW. B6 sees the batch as its
+    channels: x as [I, H, W, N], g as an [O, OH, OW, N] filter, stride 1
+    and the forward's padding; an asymmetric padding pads x explicitly, and
+    a forward stride s > 1 runs one conv per phase of the taps on x's
+    phase, both exact. Raises where N*OH*OW is over qconv's K bound (see
+    mxu_grad.q8_fits). On CUDA tensors: one act_quantize and
+    wgrad_q8_launches(stride, (ky, kx)) qconv launches."""
+    return _wgrad_q8(x, w, g, stride, pad, act_quantize, qconv)

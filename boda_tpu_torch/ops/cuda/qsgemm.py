@@ -29,7 +29,7 @@ from ..op_base import OpBase
 from ..registry import IN, OUT, KernelTemplate, adecl, template
 from .build import check_launch, load_kernels
 from .sgemm import _mnk
-from .util import check_operand, cuda_stream, use_kernel
+from .util import check_operand, cuda_stream, forbid_autograd, use_kernel
 
 # the largest K for which no sum of K products of two values in [-127, 127]
 # overflows the int32 accumulator
@@ -155,6 +155,7 @@ def sgemm_int8(a, b):
     On CUDA tensors the quantize pass and the product are asynchronous on
     the current stream: the product reads sa * sb from device memory."""
     _check(a, b)
+    forbid_autograd("sgemm_int8", a, b)
     use_kernel(a, b)  # raises for mixed or unsupported devices
     return int8_product(*quantize_operands(a, b))
 

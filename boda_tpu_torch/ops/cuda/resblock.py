@@ -29,8 +29,8 @@ from ...core.error import RtErr
 from ..op_base import OpBase
 from ..registry import IN, OUT, KernelTemplate, adecl, template
 from .build import check_launch, load_kernels
-from .util import check_operand, compute_dtype, cuda_stream, full_fp32, \
-    sm_count, storage_io, torch_dtype, use_kernel
+from .util import check_operand, compute_dtype, cuda_stream, forbid_autograd, \
+    full_fp32, sm_count, storage_io, torch_dtype, use_kernel
 
 SMEM_MAX = 232448             # shared memory one block can use (227 KB)
 CLUSTERS = (1, 2, 4, 8)       # blocks that may share one image band
@@ -268,6 +268,7 @@ def resblock(x, w1, b1, w2, b2, w3, b3, relu_out=True,
     input freed after the call is reused only in that stream's order by
     torch's caching allocator, so no synchronisation is needed."""
     w1, w3 = _check(x, w1, b1, w2, b2, w3, b3, out_dtype)
+    forbid_autograd("resblock", x, w1, b1, w2, b2, w3, b3)
     if not use_kernel(x, w1, b1, w2, b2, w3, b3):
         return resblock_plain(x, w1, b1, w2, b2, w3, b3, relu_out, out_dtype)
     n, H, W, C = x.shape

@@ -26,8 +26,8 @@ from ...core.error import RtErr
 from ..op_base import OpBase
 from ..registry import IN, OUT, KernelTemplate, adecl, template
 from .build import check_launch, load_kernels
-from .util import GemmPlan, check_operand, cuda_stream, full_fp32, \
-    gemm_plan, sm_count, torch_dtype, use_kernel
+from .util import GemmPlan, check_operand, cuda_stream, forbid_autograd, \
+    full_fp32, gemm_plan, sm_count, torch_dtype, use_kernel
 
 
 GRID_Y = 65535               # CUDA's limit on grid.y (the N tiles)
@@ -110,6 +110,7 @@ def matmul_ext(a, b, bias=None, relu=False, out_dtype=torch.float32):
     stream's order by torch's caching allocator, so no synchronisation is
     needed."""
     _check(a, b, bias, out_dtype)
+    forbid_autograd("matmul_ext", a, b, bias)
     if not use_kernel(a, b, bias):
         return matmul_ext_plain(a, b, bias, relu, out_dtype)
     (M, K), N = a.shape, b.shape[0]

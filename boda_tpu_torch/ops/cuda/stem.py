@@ -31,8 +31,8 @@ from ..op_base import OpBase
 from ..registry import IN, OUT, adecl, template
 from .build import check_launch, load_kernels
 from .conv import _ConvBase
-from .util import check_operand, compute_dtype, cuda_stream, full_fp32, \
-    sm_count, storage_io, store_dtype, use_kernel
+from .util import check_operand, compute_dtype, cuda_stream, forbid_autograd, \
+    full_fp32, sm_count, storage_io, store_dtype, use_kernel
 
 
 def _stem_params(rfs: OpBase):
@@ -316,6 +316,7 @@ def fused_stem(x, w, bias=None, pad=(3, 3), pool=((3, 3), (2, 2)),
     torch's caching allocator, so no synchronisation is needed."""
     n, H, W, C, oc, ky, kx, oy, ox = _check(x, w, bias, stride, pad, pool,
                                             out_dtype)
+    forbid_autograd("fused_stem", x, w, bias)
     if not use_kernel(x, w, bias):
         return fused_stem_plain(x, w, bias, pad, pool, relu, out_dtype,
                                 stride)

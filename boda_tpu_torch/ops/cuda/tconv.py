@@ -25,7 +25,8 @@ from ..registry import template
 from .build import check_launch, load_kernels
 from .conv import _ConvBase, conv_params
 from .util import GemmPlan, check_operand, compute_dtype, cuda_stream, \
-    full_fp32, gemm_plan, sm_count, storage_io, store_dtype, use_kernel
+    forbid_autograd, full_fp32, gemm_plan, sm_count, storage_io, store_dtype, \
+    use_kernel
 
 TILE_N = 128                 # block tile: 128 pixels x 128 output channels
 # Split-K, by route, as util.gemm_plan reads it: (split grids of fewer than
@@ -110,6 +111,7 @@ def tconv(x, w, bias=None, pad=(0, 0), relu=False, out_dtype=torch.float32):
     stream's order by torch's caching allocator, so no synchronisation is
     needed."""
     n, H, W, C, oc, ky, kx, oy, ox = _check(x, w, bias, pad, out_dtype)
+    forbid_autograd("tconv", x, w, bias)
     if not use_kernel(x, w, bias):
         return tconv_plain(x, w, bias, pad, relu, out_dtype)
     plan = tconv_plan(n, H, W, C, oc, ky, kx, x.dtype, pad,

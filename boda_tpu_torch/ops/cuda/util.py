@@ -63,6 +63,18 @@ def use_kernel(*tensors) -> bool:
     raise RtErr(f"no kernel for device '{dev}' (cuda or cpu)")
 
 
+def forbid_autograd(name: str, *tensors) -> None:
+    """The guard of an inference-only kernel's wrapper (ops/mxu_grad.
+    INFERENCE_ONLY): raise where a forward under autograd reaches it, on the
+    CPU as on the card. Its plain version would differentiate on the CPU,
+    and the kernel's output has no grad_fn: either way the gradient would
+    differ from the JAX package, which has no backward for it."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RtErr(f"{name}: an inference-only kernel reached under autograd "
+                    f"(its tensors require grad); it has no backward")
+
+
 @functools.lru_cache(maxsize=None)
 def sm_count(index: int) -> int:
     """The SM count of CUDA device `index`, read once per process (the
@@ -157,13 +169,17 @@ def compute_dtype(rfs: OpBase) -> torch.dtype:
 def full_fp32():
     """Run f32 matmuls and cuDNN convs in full FP32, not TF32 (the port of
     the JAX package's Precision.HIGHEST), and sum bf16 matmuls in f32 (no
-    reduced-precision reductions). Restores the previous settings."""
+    reduced-precision reductions). cuDNN's benchmark and deterministic
+    settings stay as the caller set them (the trainer asks for
+    deterministic algorithms). Restores the previous settings."""
     mm = torch.backends.cuda.matmul
     prev = mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction
     mm.allow_tf32 = False
     mm.allow_bf16_reduced_precision_reduction = False
+    cudnn = torch.backends.cudnn
     try:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
             yield
     finally:
         mm.allow_tf32, mm.allow_bf16_reduced_precision_reduction = prev

@@ -149,7 +149,7 @@ def takes_device(fn):
 
 
 def _load_templates() -> None:
-    from .cuda import (bwai, conv, conv2, elementwise,  # noqa: F401
+    from .cuda import (bck, bwai, conv, conv2, elementwise,  # noqa: F401
                        gen_data, lrn, pool, qsgemm, quantize, reduce,
                        resblock, sgemm, softmax, stem, tconv, var_stats,
                        xpose)

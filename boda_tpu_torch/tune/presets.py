@@ -3,11 +3,11 @@ net, and its calibrated static activation scales.
 
 The port's copy of boda_tpu/tune/presets.py: RESNET_INT8_SITE_PATS,
 resnet_int8_site_tunes (:43), save_act_scales (:94) and load_act_scales
-(:101), and a twin of calibrate_int8_act_scales (:54-91) that runs its
-float forward through the port's engine (engine/torch_fwd.build_forward)
-on the card, or on the CPU where the caller asks. Left out: the training
-site set RESNET_GRAD_Q8_SITE_PATS and resnet_grad_q8_site_tunes (int8
-weight gradients; ROADMAP A8).
+(:101), the training site set RESNET_GRAD_Q8_SITE_PATS and
+resnet_grad_q8_site_tunes (:27-41; int8 weight gradients on kernel B6),
+and a twin of calibrate_int8_act_scales (:54-91) that runs its float
+forward through the port's engine (engine/torch_fwd.build_forward) on the
+card, or on the CPU where the caller asks.
 """
 
 from __future__ import annotations
@@ -22,6 +22,25 @@ from ..ops.cnn_variants import OpTune, make_op_tune
 # the stage-2 convs and the stage-3 1x1s stay float.
 RESNET_INT8_SITE_PATS = (r"res3[a-z0-9]*_branch2b",
                          r"res[45][a-z0-9]*_branch.*")
+
+# The training int8 weight-gradient site set, found on a TPU v5e (the JAX
+# package's presets.py, scripts/wgrad_int8_probe.py): the 3x3 weight
+# gradients of stages 3-5 and the res5 1x1 expansions to 2048, where the
+# contraction amortizes the quantize passes; every other 1x1 and stage 2
+# stay bf16.
+RESNET_GRAD_Q8_SITE_PATS = (r"res[345][a-z0-9]*_branch2b",
+                            r"res5[a-z0-9]*_branch2c")
+
+
+def resnet_grad_q8_site_tunes(pipe, base_tune_spec: str) -> dict[str, OpTune]:
+    """Tag→tune map applying int8 WEIGHT-GRADIENT convs (OpTune grad_q8)
+    to the measured-winner training site set of a ResNet-family pipe."""
+    assert base_tune_spec.endswith(")")
+    q = make_op_tune(base_tune_spec[:-1] + ",grad_q8=1)")
+    rxs = [re.compile(p) for p in RESNET_GRAD_Q8_SITE_PATS]
+    return {op.tag: q for op in pipe.ops.values()
+            if op.type == "Convolution"
+            and any(rx.fullmatch(op.tag) for rx in rxs)}
 
 
 def resnet_int8_site_tunes(pipe, base_tune_spec: str) -> dict[str, OpTune]:

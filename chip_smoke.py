@@ -187,6 +187,32 @@ Phases, run in order, each fatal on failure (all of them by default):
            card and on the CPU: the same boxes and labels, confidences
            1e-4; with PIL, conv_pyra predict=1 (host pack) on a 128² frame,
            card against CPU: the same annotations and feature digests
+  train    training on the trained 40-class ResNet-50 (224², b32,
+           shapes-src data, momentum): one batch's step-1 weight gradients
+           under the headline tune against the f32 tune's (relative L2 of
+           the whole gradient <= 8e-2, every blob's cosine >= 0.98; the
+           per-blob mrd printed), every distinct bf16 cuDNN grad conv of
+           its backward held against its FP32 plain form (mrd 5e-3); the
+           grad_q8 preset (tune/presets.RESNET_GRAD_Q8_SITE_PATS) on the
+           same batch: B6 and act_quantize launched once per planned int8
+           weight gradient, each distinct wgrad call bit-equal to
+           wgrad_q8_plain, dx at every grad_q8 site bit-equal to the bf16
+           VJP's; cnet_train three steps under the headline tune (no hand
+           kernel) and under the preset (B6 and act_quantize launches over
+           the run = steps x the plan's count, counts zeroed just before),
+           finite losses; a training forward under (), the fused tune
+           and quant8 raises naming its first step with no backward,
+           before any hand kernel launches; resume (2 steps, a snapshot,
+           2 more) bit-identical
+           to 4 straight steps in losses and weights; GoogLeNet (the trained
+           weights on its LRN variant) three steps with train_dropout=1;
+           train_bench rows (headline, grad_q8, remat=1): ms per step under
+           the trainer's deterministic cuDNN and under cuDNN's defaults,
+           imgs/s, TF/s at 3x the forward FLOPs, share of the bf16 peak,
+           torch.cuda.max_memory_allocated; B6 in its wgrad role at the
+           preset's four b32 site shapes (bit-equal; the kernel alone
+           through a CUDA graph beside its plain version, its bound, bf16
+           cuDNN's weight gradient and the wgrad_q8 wrapper)
   bench    the bench twin, python3 -m boda_tpu_torch.bench, in this
            process: bench.py's JSON line for its two plans at batch 128
            (the headline tune, and the int8 preset on the trained weights
@@ -215,7 +241,10 @@ shapes, cls_agree, the cnet_bench rows with what each held; the zoo
 forwards' launches are
 in each kernel's "launches_by_tune"), the serve phase's rows ("serve"; per
 engine batch in "launches_by_tune" as "serve:<tune>:<wire>:<clients>")
-and the pyra phase's ("pyra"; per forward as "pyra:<tune>:<pack>");
+and the pyra phase's ("pyra"; per forward as "pyra:<tune>:<pack>"),
+the train phase's ("train"; B6's wgrad role is the kernel entry
+"qconv_wgrad", its launches those of the grad_q8 preset's cnet_train run,
+per step of each train_bench row as "train_bench:<tune>");
 and {"ok": true,
 "device": {...}}. Without a CUDA device, or outside a checkout of the
 repo, it exits non-zero and prints no result. It imports neither jax nor
@@ -3582,11 +3611,608 @@ def phase_pyra(ctx: dict) -> None:
     del p["smi"]
 
 
+# ---------------------------------------------------------------- train
+
+TRAIN_OUT = ROOT / "build" / "train_smoke"
+TRAIN_BATCH, TRAIN_HW = 32, 224
+# the trained 40-class ResNet-50 and GoogLeNet on shapes-src data (the set
+# they were trained on: 40 classes, mean 128, scale 1/64)
+TRAIN_SRC = ("(mode=shapes-src,num_imgs={n},ysz={hw},xsz={hw},"
+             "num_classes=40,seed=2,mean=128,scale=0.015625)")
+TRAIN_NETS = {
+    "resnet-50": f"model=resnet-50,model_opts=(num_classes=40),"
+                 f"weights_fn={TRAINED}",
+    # the trained GoogLeNet's weights on its LRN variant (the same blobs),
+    # so that the steps cover the LRN backward beside concat and dropout
+    "googlenet_conv_lrn": f"model=googlenet_conv_lrn,model_opts=(num_classes"
+                          f"=40),weights_fn={DATA / 'googlenet-shapes40.boda'}"}
+# step-1 weight gradients of the headline tune against the f32 tune's:
+# tests/test_mxu_grad.py's whole-program bound 8e-2, on the whole gradient
+# (relative L2), and every blob's direction (cosine). Its per-blob mrd
+# bound holds on that test's mini net but not on ResNet-50, in the JAX
+# package either: there its headline gradients are 0.56-0.60 max per-blob
+# mrd off its f32 tune's, at relative L2 0.057-0.063 and per-blob cosine
+# >= 0.990 (b2, b8, b32 on the CPU: scripts/resnet50_grad_agreement.py).
+# Each bf16 cuDNN grad conv is held against its FP32 plain form at VJP_MRD.
+TRAIN_GRAD_L2, TRAIN_GRAD_COS, VJP_MRD = 8e-2, 0.98, 5e-3
+# the grad_q8 preset's step-1 gradients against the f32 tune's: the same
+# cosine gate (the JAX package's least per-blob cosine there is 0.990, its
+# sites' blobs 0.992-0.994), and a relative L2 gate over the JAX package's
+# own 0.0675 (b8) and 0.0731 (b32) by about the margin TRAIN_GRAD_L2 has
+# over 0.063 (scripts/resnet50_grad_agreement.py on the CPU)
+TRAIN_Q8_L2 = 9e-2
+TRAIN_STEPS = 3
+# B6's wgrad at the preset's four site shapes at b32: (label, n, hw, I, O, k)
+WGRAD_SHAPES = [("res3 3x3", 32, 28, 128, 128, 3),
+                ("res4 3x3", 32, 14, 256, 256, 3),
+                ("res5 3x3", 32, 7, 512, 512, 3),
+                ("res5 1x1 2c", 32, 7, 512, 2048, 1)]
+# and at two strided sites (not in the preset; one B6 conv per phase of
+# the stride), held bit-equal only: (label, n, hw in, I, O, k, stride)
+WGRAD_STRIDED = [("res3a_branch1 1x1/s2", 32, 56, 256, 512, 1, 2),
+                 ("3x3/s2", 32, 28, 128, 128, 3, 2)]
+TRAIN_BENCH_ITERS = 10
+
+
+def _grad_q8_pats() -> str:
+    """op_tunes_pat of tune/presets.RESNET_GRAD_Q8_SITE_PATS over the
+    headline tune: the grad_q8 preset (resnet_grad_q8_site_tunes) as a CLI
+    value."""
+    from boda_tpu_torch.tune.presets import RESNET_GRAD_Q8_SITE_PATS
+    q = TUNES["headline"][:-1] + ",grad_q8=1)"
+    return "(" + ",".join(f"{p}={q}" for p in RESNET_GRAD_Q8_SITE_PATS) + ")"
+
+
+def _train_pipe(model: str, batch: int):
+    """The trained 40-class net of TRAIN_NETS as its mode would load it."""
+    from boda_tpu_torch.apps.train import load_weights_into_pipe
+    from boda_tpu_torch.models.zoo import build_model
+    pipe = build_model(model, batch=batch, ysz=TRAIN_HW, xsz=TRAIN_HW,
+                       num_classes=40)
+    load_weights_into_pipe(pipe, re.search(r"weights_fn=(\S+)",
+                                           TRAIN_NETS[model]).group(1))
+    return pipe
+
+
+def _train_batch(pipe, dev):
+    """The first batch of TRAIN_SRC as (x f32, labels) on dev."""
+    import numpy as np
+    import torch
+    from boda_tpu_torch.io.synth import render_shapes
+    d = pipe.get_data_img_dims()
+    imgs, labels = render_shapes(range(d["img"]), d["y"], d["x"], 40, 2)
+    x = (imgs.astype(np.float32) - 128.0) * 0.015625
+    return (torch.from_numpy(x).to(dev),
+            torch.from_numpy(np.asarray(labels, np.int64)).to(dev))
+
+
+@contextlib.contextmanager
+def _vjp_recording():
+    """For the block, MxuConv's backward calls (ops/mxu_grad.conv_backward)
+    and its int8 weight gradients (ops/cuda/qconv.wgrad_q8) go through
+    stand-ins that keep, in call order, copies of each call's arguments
+    and results. Yields {"conv_backward": [...], "wgrad_q8": [...]} of
+    (args, result)."""
+    import torch
+    from boda_tpu_torch.ops import mxu_grad
+    from boda_tpu_torch.ops.cuda import qconv
+    calls = {"conv_backward": [], "wgrad_q8": []}
+
+    def keep(v):
+        if isinstance(v, torch.Tensor):
+            return v.detach().clone()
+        return tuple(keep(u) for u in v) if isinstance(v, tuple) else v
+
+    def stand_in(name, fn):
+        def call(*a):
+            out = fn(*a)
+            calls[name].append((keep(a), keep(out)))
+            return out
+        return call
+    swaps = [(mxu_grad, "conv_backward"), (qconv, "wgrad_q8")]
+    orig = [getattr(m, n) for m, n in swaps]
+    for (m, n), fn in zip(swaps, orig):
+        setattr(m, n, stand_in(n, fn))
+    try:
+        yield calls
+    finally:
+        for (m, n), fn in zip(swaps, orig):
+            setattr(m, n, fn)
+
+
+def _step_grads(pipe, tune: str, op_tunes, xb, lb):
+    """(loss, {weight: gradient}, plan) of one training batch under a tune
+    (and per-op tunes), as cnet_train's first step computes them, under
+    its cuDNN settings."""
+    import torch
+    from boda_tpu_torch.apps.train import batch_loss, deterministic_cudnn, \
+        train_forward, train_top
+    from boda_tpu_torch.engine.lower import lower_pipe
+    from boda_tpu_torch.engine.torch_fwd import weights_to_torch
+    from boda_tpu_torch.ops.cnn_variants import make_op_tune
+    plan = lower_pipe(pipe, make_op_tune(tune), op_tunes=op_tunes,
+                      fused_storage=True, train_dropout=False)
+    dev = xb.device
+    w = {k: v.requires_grad_(True)
+         for k, v in weights_to_torch(plan, pipe.op_params, dev).items()}
+    top, from_logits = train_top(pipe, plan)
+    fwd = train_forward(plan, dev, top)
+    names = sorted(w)
+    with deterministic_cudnn():
+        loss = batch_loss(fwd, pipe.data_img_node_names[0], top, from_logits,
+                          w, xb, lb)
+        g = torch.autograd.grad(loss, [w[k] for k in names])
+    return float(loss.detach()), dict(zip(names, g)), plan
+
+
+def _planned_wgrad(plan, n: int) -> tuple[int, int]:
+    """The int8 weight gradients a training step of `plan` runs on B6, as
+    (act_quantize launches, qconv launches), counted here from the plan
+    alone: one quantize for each grad_q8 vendor step the JAX package takes
+    it for (xla_conv in NHWC form, xla_conv2) whose N*OH*OW-term int32 sums
+    cannot wrap, and one qconv for each phase of its stride that holds a
+    filter tap."""
+    sites = convs = 0
+    for st in plan.steps:
+        sig = st.sig
+        if not sig.get_u32_or("grad_q8", 0) or sig.get_u32_or("quant8", 0):
+            continue
+        nhwc = sig.str_vals.get("io_layout") == "nhwc" \
+            or sig.str_vals.get("layout") == "nhwc"
+        if st.func_name == "xla_conv2" or (st.func_name == "xla_conv"
+                                           and nhwc):
+            od = sig.get_dims("out" if "out" in sig.nda_vals else "out_a")
+            if n * od["y"] * od["x"] * 127 * 127 >= 2 ** 31:
+                continue
+            sd = sig.get_dims_or_none("stride")
+            fds = [sig.get_dims(k) for k in sig.nda_vals
+                   if k == "filts" or k.startswith("filts_")]
+            sites += 1
+            convs += min(sd["y"] if sd else 1, max(d["y"] for d in fds)) \
+                * min(sd["x"] if sd else 1, max(d["x"] for d in fds))
+    return sites, convs
+
+
+def _grad_agreement(g, g_ref) -> tuple[float, dict]:
+    """(relative L2 of the whole gradient g against g_ref, {blob: cosine})
+    over the blobs both hold, in f64."""
+    import torch
+    common = sorted(set(g) & set(g_ref))
+    cos = {k: float(torch.nn.functional.cosine_similarity(
+        g[k].double().flatten(), g_ref[k].double().flatten(), dim=0))
+        for k in common}
+    d = torch.cat([g[k].double().flatten() for k in common])
+    dr = torch.cat([g_ref[k].double().flatten() for k in common])
+    return float((d - dr).norm() / dr.norm()), cos
+
+
+def _train_grads(t: dict, dev) -> None:
+    """(a) and (b) on one batch of the trained ResNet-50: the headline
+    tune's step-1 weight gradients against the f32 tune's, each distinct
+    bf16 grad conv against its plain form; under the grad_q8 preset, each
+    distinct B6 wgrad call bit-equal to its plain version and the dx of
+    every grad_q8 site bit-equal to the headline run's."""
+    import torch
+    from boda_tpu_torch.ops.cuda.qconv import wgrad_q8_plain
+    from boda_tpu_torch.ops.mxu_grad import conv_backward_plain
+    from boda_tpu_torch.tune.presets import resnet_grad_q8_site_tunes
+    pipe = _train_pipe("resnet-50", TRAIN_BATCH)
+    xb, lb = _train_batch(pipe, dev)
+    t0 = time.perf_counter()
+    with _vjp_recording() as rec_h:
+        loss_h, g_h, _ = _step_grads(pipe, TUNES["headline"], None, xb, lb)
+    loss_f, g_f, _ = _step_grads(pipe, "(use_culibs=1)", None, xb, lb)
+    common = sorted(set(g_h) & set(g_f))
+    errs = {k: mrd(g_h[k], g_f[k]) for k in common}
+    worst = max(errs, key=errs.get)
+    l2, cos = _grad_agreement(g_h, g_f)
+    least = min(cos, key=cos.get)
+    print(f"  step-1 loss headline {loss_h:.6f} f32 {loss_f:.6f}; weight "
+          f"gradients of {len(common)} blobs against the f32 tune's: "
+          f"relative L2 {l2:.3e} (gate {TRAIN_GRAD_L2:g}), least cosine "
+          f"{cos[least]:.5f} ({least}; gate {TRAIN_GRAD_COS:g}), max mrd "
+          f"{errs[worst]:.3e} ({worst}), median "
+          f"{sorted(errs.values())[len(errs) // 2]:.3e}")
+    check(len(common) == len(g_h) and l2 <= TRAIN_GRAD_L2
+          and cos[least] >= TRAIN_GRAD_COS,
+          f"train: headline gradients off the f32 tune's: relative L2 "
+          f"{l2:.3e}, cosine {cos[least]:.5f} at {least}")
+    check(abs(loss_h - loss_f) < 0.05 * max(abs(loss_f), 1.0),
+          f"train: step-1 loss {loss_h} against the f32 tune's {loss_f}")
+    seen, vjp_worst = {}, 0.0
+    for a, out in rec_h["conv_backward"]:
+        gc, xc, wc, stride, pad, transposed, mask = a
+        key = (tuple(gc.shape), tuple(xc.shape), tuple(wc.shape), stride,
+               pad, transposed, mask)
+        if key in seen:
+            continue
+        want = conv_backward_plain(*a)
+        e = max(mrd(o, w_) for o, w_ in zip(out, want) if o is not None)
+        seen[key] = e
+        vjp_worst = max(vjp_worst, e)
+    print(f"  headline backward: {len(rec_h['conv_backward'])} grad-conv "
+          f"calls, {len(seen)} distinct, each held against its FP32 plain "
+          f"form: max mrd {vjp_worst:.3e} (gate {VJP_MRD:g})")
+    check(vjp_worst <= VJP_MRD, f"train: a bf16 cuDNN grad conv is "
+                                f"{vjp_worst:.3e} off its plain form")
+    t["grads"] = {"loss_headline": loss_h, "loss_f32": loss_f,
+                  "grad_rel_l2": l2, "grad_min_cos": cos[least],
+                  "grad_max_mrd": errs[worst], "grad_worst": worst,
+                  "vjp_calls": len(rec_h["conv_backward"]),
+                  "vjp_distinct": len(seen), "vjp_max_mrd": vjp_worst}
+    # (b): the grad_q8 preset on the same batch
+    wrappers = _wrappers()
+    _counts_reset(wrappers)
+    q8_tunes = resnet_grad_q8_site_tunes(pipe, TUNES["headline"])
+    with _vjp_recording() as rec_q:
+        loss_q, g_q, plan_q = _step_grads(pipe, TUNES["headline"], q8_tunes,
+                                          xb, lb)
+        torch.cuda.synchronize()
+    planned, planned_convs = _planned_wgrad(plan_q, TRAIN_BATCH)
+    got = (wrappers["qconv"].launches, wrappers["act_quantize"].launches)
+    check(planned > 0 and got == (planned_convs, planned)
+          and len(rec_q["wgrad_q8"]) == planned,
+          f"train: grad_q8 step launched B6 / act_quantize {got}, recorded "
+          f"{len(rec_q['wgrad_q8'])} wgrad calls; the plan has "
+          f"{planned_convs} / {planned}")
+    held, wgrad_abs = {}, 0.0
+    for a, out in rec_q["wgrad_q8"]:
+        key = tuple(tuple(v.shape) if isinstance(v, torch.Tensor) else v
+                    for v in a)
+        if key not in held:
+            want = wgrad_q8_plain(*a)
+            held[key] = bit_equal(out, want)
+            wgrad_abs = max(wgrad_abs, float((out - want).abs().max()))
+    check(all(held.values()), f"train: a B6 wgrad call differs from "
+                              f"wgrad_q8_plain at {held}")
+    q8_sites = [i for i, (a, _) in enumerate(rec_q["conv_backward"])
+                if not a[6][1]]
+    check(len(rec_q["conv_backward"]) == len(rec_h["conv_backward"])
+          and len(q8_sites) == planned
+          and all(bit_equal(rec_q["conv_backward"][i][1][0],
+                            rec_h["conv_backward"][i][1][0])
+                  for i in q8_sites if rec_h["conv_backward"][i][1][0]
+                  is not None),
+          "train: dx at a grad_q8 site differs from the bf16 VJP's")
+    gq_errs = {k: mrd(g_q[k], g_h[k]) for k in g_h}
+    gq_worst = max(gq_errs, key=gq_errs.get)
+    # the whole grad_q8 gradient held to the f32 tune's as (a) holds the
+    # headline's, and each blob of a grad_q8 site on its own
+    l2_q, cos_q = _grad_agreement(g_q, g_f)
+    q_blobs = [k for k in cos_q if k.rsplit("_", 1)[0] in q8_tunes]
+    least_q, least_site = min(cos_q, key=cos_q.get), \
+        min(q_blobs, key=cos_q.get)
+    print(f"  grad_q8: step-1 loss {loss_q:.6f}; {planned} int8 weight "
+          f"gradients on B6 ({got[0]} qconv + {got[1]} act_quantize "
+          f"launches, as the plan says); {len(held)} distinct wgrad calls "
+          f"bit-equal to wgrad_q8_plain; dx at the {len(q8_sites)} sites "
+          f"bit-equal to the bf16 VJP's; gradients against the f32 tune's: "
+          f"relative L2 {l2_q:.3e} (gate {TRAIN_Q8_L2:g}), least cosine "
+          f"{cos_q[least_q]:.5f} ({least_q}; gate {TRAIN_GRAD_COS:g}), at "
+          f"the {len(q_blobs)} blobs of the sites {cos_q[least_site]:.5f} "
+          f"({least_site}); against the headline's: max mrd "
+          f"{gq_errs[gq_worst]:.3e} ({gq_worst})")
+    check(len(cos_q) == len(g_q)
+          and {k.rsplit("_", 1)[0] for k in q_blobs} == set(q8_tunes)
+          and l2_q <= TRAIN_Q8_L2 and cos_q[least_q] >= TRAIN_GRAD_COS,
+          f"train: grad_q8 gradients off the f32 tune's: relative L2 "
+          f"{l2_q:.3e}, cosine {cos_q[least_q]:.5f} at {least_q}")
+    t["grad_q8"] = {"loss": loss_q, "planned_per_step": planned,
+                    "qconv_per_step": planned_convs,
+                    "wgrad_distinct": len(held),
+                    "wgrad_max_abs_err": wgrad_abs,
+                    "grad_rel_l2": l2_q, "grad_min_cos": cos_q[least_q],
+                    "grad_min_cos_sites": cos_q[least_site],
+                    "grad_max_mrd_vs_headline": gq_errs[gq_worst],
+                    "grad_worst": gq_worst}
+    t["grads"]["s"] = time.perf_counter() - t0
+    del rec_h, rec_q, g_h, g_q, g_f
+    torch.cuda.empty_cache()
+
+
+GUARD_TUNES = {"f32": TUNES["f32"], "fused_f32": TUNES["fused_f32"],
+               "quant8": "(use_culibs=1,prec=bf16,layout=nhwc,quant8=1)"}
+
+
+def _train_guard(t: dict, dev) -> None:
+    """A training forward (weights that require grad) through the hand
+    kernels' templates raises on the card as on the CPU, naming the step,
+    before any hand kernel launches: B1/B2 under (), B4/B5 under the fused
+    tune, B6's int8 forward under quant8."""
+    import torch
+    from boda_tpu_torch.core.error import RtErr
+    from boda_tpu_torch.engine.lower import lower_pipe
+    from boda_tpu_torch.engine.torch_fwd import build_forward, \
+        weights_to_torch
+    from boda_tpu_torch.ops.cnn_variants import make_op_tune
+    wrappers = _wrappers()
+    pipe = _train_pipe("resnet-50", 2)
+    x, _ = _train_batch(pipe, dev)
+    refused = t["refused"] = {}
+    for name, tune in GUARD_TUNES.items():
+        plan = lower_pipe(pipe, make_op_tune(tune), fused_storage=True)
+        w = {k: v.requires_grad_(v.is_floating_point()) for k, v in
+             weights_to_torch(plan, pipe.op_params, dev).items()}
+        _counts_reset(wrappers)
+        try:
+            build_forward(plan, dev)({"data": x}, w)
+            msg = ""
+        except RtErr as e:
+            msg = str(e)
+        torch.cuda.synchronize()
+        launched = {k: v.launches for k, v in wrappers.items() if v.launches}
+        check("has no backward" in msg and not launched,
+              f"train guard {name}: '{msg}', launches {launched}")
+        refused[name] = msg.split(":")[1].strip().split(",")[0]
+    print(f"  training through the hand kernels' templates raises before "
+          f"any launch: {refused}")
+
+
+def _cnet_train(net: str, extra: str) -> tuple[str, object]:
+    """cnet_train through the CLI's parser on TRAIN_SRC, momentum, b32."""
+    src = TRAIN_SRC.format(n=4 * TRAIN_BATCH, hw=TRAIN_HW)
+    return _run_mode(f"(mode=cnet_train,{TRAIN_NETS[net]},batch="
+                     f"{TRAIN_BATCH},in_dims=(dims=(img={TRAIN_BATCH},"
+                     f"chan=3,y={TRAIN_HW},x={TRAIN_HW})),stream={src},"
+                     f"optimizer=momentum,lr=0.001,log_every=1,"
+                     f"boda_output_dir={TRAIN_OUT},{extra})")
+
+
+def _train_runs(t: dict, launches: dict) -> None:
+    """cnet_train's own runs: three steps under the headline tune and
+    under the grad_q8 preset (B6's launches counted over the run alone),
+    resume bit-identical, and GoogLeNet with dropout."""
+    import numpy as np
+    import torch
+    wrappers = _wrappers()
+    runs = t["cnet_train"] = {}
+    for label, extra in (("headline", f"op_tune={TUNES['headline']}"),
+                         ("grad_q8", f"op_tune={TUNES['headline']},"
+                                     f"op_tunes_pat={_grad_q8_pats()}")):
+        _counts_reset(wrappers)
+        t0 = time.perf_counter()
+        out, hm = _cnet_train("resnet-50", f"steps={TRAIN_STEPS},{extra}")
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        s = time.perf_counter() - t0
+        check(len(hm.losses) == TRAIN_STEPS
+              and all(np.isfinite(hm.losses)),
+              f"train {label}: losses {hm.losses}")
+        launches[f"train:{label}"] = counts
+        runs[label] = {"losses": hm.losses, "s": s, "launches": counts}
+        print(f"  cnet_train resnet-50 b{TRAIN_BATCH} {label}: losses "
+              f"{[round(v, 6) for v in hm.losses]} ({s:.1f} s with the "
+              f"load); launches {counts}")
+        if label == "grad_q8":
+            sites, convs = _planned_wgrad(hm._plan, TRAIN_BATCH)
+            check(sites > 0 and counts["qconv"] == convs * TRAIN_STEPS
+                  and counts["act_quantize"] == sites * TRAIN_STEPS
+                  and sum(counts.values()) == (sites + convs) * TRAIN_STEPS,
+                  f"train grad_q8: launches {counts}, the plan's "
+                  f"{sites} wgrads ({convs} qconv) over {TRAIN_STEPS} steps")
+        else:
+            check(not any(counts.values()),
+                  f"train headline: hand-kernel launches {counts}")
+        del hm
+    # (c) resume: 2 steps + snapshot + 2 more == 4 straight, bit for bit
+    t0 = time.perf_counter()
+    base = f"op_tune={TUNES['headline']}"
+    _, full = _cnet_train("resnet-50", f"steps=4,{base}")
+    _, half = _cnet_train("resnet-50", f"steps=2,{base},snapshot_every=2,"
+                                       f"snapshot_fn=resume.boda")
+    _, res = _cnet_train("resnet-50", f"steps=4,{base},resume_fn="
+                                      f"{TRAIN_OUT / 'resume.boda'}")
+    same_w = full.weights.keys() == res.weights.keys() and all(
+        bit_equal(full.weights[k], res.weights[k]) for k in full.weights)
+    check(full.losses == res.losses and same_w,
+          f"train: resume differs: losses {full.losses} against "
+          f"{res.losses}, weights equal {same_w}")
+    runs["resume"] = {"losses": res.losses, "s": time.perf_counter() - t0}
+    print(f"  resume: 2 steps, a snapshot, 2 more = 4 straight steps, bit "
+          f"for bit in {len(res.losses)} losses and {len(res.weights)} "
+          f"weights ({runs['resume']['s']:.1f} s)")
+    del full, half, res
+    # GoogLeNet: concat, LRN and the seeded dropout under autograd
+    t0 = time.perf_counter()
+    out, hm = _cnet_train("googlenet_conv_lrn", f"steps={TRAIN_STEPS},"
+                                            f"op_tune={TUNES['headline']},"
+                                            f"train_dropout=1")
+    check(len(hm.losses) == TRAIN_STEPS and all(np.isfinite(hm.losses))
+          and any(st.func_name == "dropout" for st in hm._plan.steps)
+          and any(st.func_name == "lrn" for st in hm._plan.steps),
+          f"train googlenet: losses {hm.losses}")
+    runs["googlenet"] = {"losses": hm.losses, "s": time.perf_counter() - t0}
+    print(f"  cnet_train googlenet_conv_lrn b{TRAIN_BATCH} headline "
+          f"train_dropout=1: losses {[round(v, 6) for v in hm.losses]}")
+    del hm
+    torch.cuda.empty_cache()
+
+
+def _train_bench_rows(t: dict, launches: dict, smi: str) -> None:
+    """train_bench on ResNet-50 b32 (the trained 40-class weights) under
+    the headline tune, the grad_q8 preset and remat=1, with the card's busy
+    time in one more step (torch.profiler) and so its idle share."""
+    import torch
+    from boda_tpu_torch.apps.train import deterministic_cudnn
+    wrappers = _wrappers()
+    rows = t["train_bench"] = []
+    for label, extra in (("headline", f"op_tune={TUNES['headline']}"),
+                         ("grad_q8", f"op_tune={TUNES['headline']},"
+                                     f"op_tunes_pat={_grad_q8_pats()}"),
+                         ("remat", f"op_tune={TUNES['headline']},remat=1")):
+        _counts_reset(wrappers)
+        out, hm = _run_mode(f"(mode=train_bench,{TRAIN_NETS['resnet-50']},"
+                            f"batch={TRAIN_BATCH},in_dims=(dims=(img="
+                            f"{TRAIN_BATCH},chan=3,y={TRAIN_HW},"
+                            f"x={TRAIN_HW})),optimizer=momentum,"
+                            f"iters={TRAIN_BENCH_ITERS},reps=3,{extra})")
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        line = out.strip().splitlines()[-1]
+        print(f"{line} on [{smi}]")
+        check(line.startswith(f"train_bench resnet-50 b{TRAIN_BATCH} ")
+              and hm.step_ms > 0, f"train_bench {label}: {line}")
+        per = {k: v // hm.steps for k, v in counts.items()}
+        sites, convs = _planned_wgrad(hm.plan, TRAIN_BATCH)
+        check(counts["qconv"] == convs * hm.steps
+              and counts["act_quantize"] == sites * hm.steps,
+              f"train_bench {label}: launches {counts} over {hm.steps} "
+              f"steps, {convs} qconv and {sites} act_quantize each")
+        launches[f"train_bench:{label}"] = per
+        with deterministic_cudnn():
+            busy, top_k = _device_busy_ms(hm.one_step)
+        idle = 1 - busy / hm.step_ms
+        print(f"  train_bench {label}: device busy {busy:.3f} ms of the "
+              f"step's {hm.step_ms:.3f} ms ({100 * idle:.1f}% idle); most "
+              f"of it: " + "; ".join(f"{k} x{n} {t:.3f} ms"
+                                     for k, n, t in top_k))
+        rows.append({"tune": label, "batch": TRAIN_BATCH,
+                     "busy_ms": busy, "idle_share": idle,
+                     "top_kernels": [{"kernel": k, "calls": n, "ms": t}
+                                     for k, n, t in top_k],
+                     "step_ms": hm.step_ms,
+                     "nondet_step_ms": hm.nondet_step_ms,
+                     "imgs_per_sec": TRAIN_BATCH / hm.step_ms * 1e3,
+                     "tflops": hm.tflops, "frac_bf16_peak": hm.frac,
+                     "max_mem_bytes": hm.max_mem,
+                     "base_mem_bytes": hm.base_mem,
+                     "launches_per_step": per})
+        del hm
+        torch.cuda.empty_cache()
+
+
+def _wgrad_times(t: dict, dev, peaks) -> dict:
+    """B6 in its wgrad role at the preset's four b32 site shapes: the
+    wrapper (both quantize passes, the layout glue, the kernel) and the
+    kernel alone bit-equal to their plain versions; the kernel alone timed
+    through a CUDA graph beside its plain version, its bound and bf16
+    cuDNN's weight gradient (aten.convolution_backward, the weight only);
+    the wrapper's time beside it; then the wrapper bit-equal at the
+    strided sites of WGRAD_STRIDED. Returns the kernel-line entry."""
+    import torch
+    from boda_tpu_torch.ops.cuda.qconv import act_quantize, qconv, \
+        qconv_plain, quantize_filter, wgrad_q8, wgrad_q8_plain
+    gen = torch.Generator(device=dev).manual_seed(12)
+    entry = {"name": "qconv_wgrad", "route": "cuda",
+             "source": "boda_tpu_torch/csrc/qconv.cu",
+             "replaces": "boda_tpu/ops/mxu_grad.py:170",
+             "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+             "bound_by": None, "library_ms": 0.0, "wrapper_ms": 0.0,
+             "cases": []}
+    cl = torch.channels_last
+    for label, n, hw, ci, co, k in WGRAD_SHAPES:
+        p = k // 2
+        x = torch.relu(torch.randn(n, hw, hw, ci, device=dev,
+                                   generator=gen)).to(torch.bfloat16)
+        g = (torch.randn(n, hw, hw, co, device=dev, generator=gen) * 1e-3) \
+            .to(torch.bfloat16).float()
+        w = torch.empty(co, ci, k, k, device=dev, dtype=torch.bfloat16)
+        got = wgrad_q8(x, w, g, (1, 1), (p, p))
+        want = wgrad_q8_plain(x, w, g, (1, 1), (p, p))
+        check(bit_equal(got, want),
+              f"wgrad {label}: differs from wgrad_q8_plain")
+        xq, s_x = act_quantize(x)
+        xt = xq.permute(3, 1, 2, 0).contiguous()
+        gq, s_g = quantize_filter(g.permute(3, 1, 2, 0))
+        gq = gq.contiguous()
+        args = (xt, gq, s_x, s_g, None, (1, 1), (p, p), False,
+                torch.float32, 0.0)
+        out = qconv(*args)
+        out_plain = qconv_plain(*args)
+        check(bit_equal(out, out_plain),
+              f"wgrad {label}: B6 differs from qconv_plain")
+        entry["max_abs_err"] = max(
+            entry["max_abs_err"], float((got - want).abs().max()),
+            float((out - out_plain).abs().max()))
+        ms = graph_ms(lambda: qconv(*args))
+        plain_ms = cuda_ms(lambda: qconv_plain(*args), 3)
+        wrapper_ms = cuda_ms(lambda: wgrad_q8(x, w, g, (1, 1), (p, p)), 20)
+        xc, gc = x.permute(0, 3, 1, 2), g.to(torch.bfloat16).permute(
+            0, 3, 1, 2)
+        wc = w.contiguous(memory_format=cl)
+        lib_ms = cuda_ms(lambda: torch.ops.aten.convolution_backward(
+            gc, xc, wc, None, [1, 1], [p, p], [1, 1], False, [0, 0], 1,
+            [False, True, False]), 20)
+        M, N, K = ci * k * k, co, n * hw * hw
+        b_ms, b_by = bound(peaks, "int8", 2 * M * N * K,
+                           _nbytes(xt, gq, out))
+        case = {"case": label, "gemm": [M, N, K], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": lib_ms, "wrapper_ms": wrapper_ms}
+        print(f"  wgrad {label} (B6 M x N x K = {M} x {N} x {K}): kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f}, bound {b_ms:.4f} "
+              f"({b_by}), bf16 cuDNN wgrad {lib_ms:.4f}; wgrad_q8 with its "
+              f"quantize passes {wrapper_ms:.4f} ms; bit-equal")
+        for kk in ("ms", "plain_ms", "bound_ms", "library_ms", "wrapper_ms"):
+            entry[kk] += case[kk]
+        if all(b_ms >= c["bound_ms"] for c in entry["cases"]):
+            entry["bound_by"] = b_by
+        entry["cases"].append(case)
+        del x, g, xq, xt, gq, out, out_plain, got, want
+    for label, n, hw, ci, co, k, st in WGRAD_STRIDED:
+        p, oy = k // 2, (hw + 2 * (k // 2) - k) // st + 1
+        x = torch.relu(torch.randn(n, hw, hw, ci, device=dev,
+                                   generator=gen)).to(torch.bfloat16)
+        g = torch.randn(n, oy, oy, co, device=dev, generator=gen) * 1e-3
+        w = torch.empty(co, ci, k, k, device=dev, dtype=torch.bfloat16)
+        before = qconv.launches
+        got = wgrad_q8(x, w, g, (st, st), (p, p))
+        convs = qconv.launches - before
+        want = wgrad_q8_plain(x, w, g, (st, st), (p, p))
+        check(bit_equal(got, want) and convs == min(st, k) ** 2,
+              f"wgrad {label}: differs from wgrad_q8_plain or ran {convs} "
+              f"B6 convs")
+        entry["max_abs_err"] = max(entry["max_abs_err"],
+                                   float((got - want).abs().max()))
+        print(f"  wgrad {label} b{n} {hw}x{hw}: {convs} B6 conv(s), one per "
+              f"phase of the stride, K = {n * oy * oy} each; bit-equal")
+        del x, g, got, want
+    torch.cuda.empty_cache()
+    # and the distinct wgrad calls of the grad_q8 training step
+    entry["max_abs_err"] = max(entry["max_abs_err"],
+                               t["grad_q8"]["wgrad_max_abs_err"])
+    t["wgrad"] = entry
+    return entry
+
+
+def phase_train(ctx: dict) -> None:
+    """Training on the card: cnet_train and train_bench on the trained
+    40-class ResNet-50 (224², b32) and GoogLeNet, the conv VJP held
+    against its plain form and the f32 tune, B6's int8 weight gradient."""
+    import torch
+    from boda_tpu_torch.core.machine import card_peaks
+    TRAIN_OUT.mkdir(parents=True, exist_ok=True)
+    dev = torch.device("cuda", 0)
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    t = ctx["train"] = {}
+    launches = ctx.setdefault("launches", {})
+    # the host paces a training step, and autograd makes many Python
+    # objects: the earlier phases' objects are moved out of the collector's
+    # reach (gc.freeze), as in a fresh process, and what else runs in the
+    # process is noted
+    import gc
+    import threading
+    gc.collect()
+    gc.freeze()
+    t["threads"] = sorted(th.name for th in threading.enumerate())
+    print(f"  train: {len(t['threads'])} threads in the process: "
+          f"{t['threads']}; {gc.get_freeze_count()} objects frozen")
+    t0 = time.perf_counter()
+    _train_grads(t, dev)
+    _train_guard(t, dev)
+    _train_runs(t, launches)
+    _train_bench_rows(t, launches, ctx["smi"])
+    _wgrad_times(t, dev, peaks)
+    gc.unfreeze()
+    t["s"] = time.perf_counter() - t0
+    print(f"  train: the card {ctx['smi']}")
+
+
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
           "vendor": phase_vendor, "digests": phase_digests,
           "agree": phase_agree, "full": phase_full, "engine": phase_engine,
           "ops_prof": phase_ops_prof, "zoo": phase_zoo, "serve": phase_serve,
-          "pyra": phase_pyra, "bench": phase_bench}
+          "pyra": phase_pyra, "train": phase_train, "bench": phase_bench}
 
 
 def main() -> int:
@@ -3651,6 +4277,15 @@ def main() -> int:
         if name == "qconv":
             kernels[-1]["quantize_launches"] = \
                 ctx["launches"][INT8]["act_quantize"]
+    # B6 in the training path's role: the int8 weight gradients of the
+    # grad_q8 preset's cnet_train run
+    wg = ctx["train"]["wgrad"]
+    q8_run = ctx["launches"]["train:grad_q8"]
+    kernels.append({**wg, "launches": q8_run["qconv"],
+                    "quantize_launches": q8_run["act_quantize"],
+                    "launches_by_tune": {
+                        t: c["qconv"] for t, c in ctx["launches"].items()
+                        if t.startswith("train")}})
     print(ctx["bench"])
     print(smi_line())
     print(json.dumps({"kernels": kernels,
@@ -3661,7 +4296,7 @@ def main() -> int:
                       "engine": ctx["engine"],
                       "vendor_conv_ms_b32": ctx["vendor_ms"],
                       "zoo": ctx["zoo"], "serve": ctx["serve"],
-                      "pyra": ctx["pyra"]}))
+                      "pyra": ctx["pyra"], "train": ctx["train"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -116,10 +116,35 @@ def test_conv_templates_without_bias(monkeypatch):
 @pytest.mark.parametrize("key", ["grad_q8"])
 def test_xla_conv_refuses_the_int8_forms(key):
     # the forward int8 forms run on kernel B6 (tests/test_torch_qconv.py);
-    # the int8 weight-gradient form is training
-    op = _port_op(_op("xla_conv-3x3-s1", "nchw"))
-    op.set_u32(key, 1)
-    pt = get_template("xla_conv")
-    with pytest.raises(RtErr, match=f"int8 weight-gradient form "
-                                    f"\\({key}=1\\).*ROADMAP A8"):
-        pt.build(op)
+    # the int8 weight-gradient form is training and builds: its forward is
+    # the float form's, bit for bit, and its gradients are the JAX
+    # template's (mxu_conv's VJP; in the NCHW form the JAX template keeps
+    # the bf16 VJP, NHWC storage takes the int8 weight gradient)
+    import jax
+    for form in ("nchw", "nhwc-bf16"):
+        jop = _op("xla_conv-3x3-s1", form)
+        jop.set_u32(key, 1)
+        op = _port_op(jop)
+        pt, jt = get_template("xla_conv"), jax_template("xla_conv")
+        x, wts, b = _inputs("xla_conv-3x3-s1")
+        nhwc = form != "nchw"
+        if nhwc:
+            x = torch.from_numpy(x).bfloat16().float().numpy() \
+                .transpose(0, 2, 3, 1).copy()
+        fn = pt.build(pt.check_args(op))
+        plain = pt.build(pt.check_args(_port_op(_op("xla_conv-3x3-s1",
+                                                    form))))
+        xt = torch.from_numpy(x)
+        xt = xt.bfloat16() if nhwc else xt
+        wt = torch.from_numpy(wts).requires_grad_(True)
+        y = fn(xt, wt, torch.from_numpy(b))
+        assert torch.equal(y, plain(xt, torch.from_numpy(wts),
+                                    torch.from_numpy(b)))
+        c = np.cos(np.arange(y.numel(), dtype=np.float32)).reshape(y.shape)
+        (gw,) = torch.autograd.grad((y.float() * torch.from_numpy(c)).sum(),
+                                    wt)
+        jx = jnp.asarray(x).astype(jnp.bfloat16) if nhwc else x
+        jfn = jt.build(jt.check_args(jop))
+        jgw = jax.grad(lambda w_: (jfn(jx, w_, b).astype(jnp.float32)
+                                   * c).sum())(wts)
+        assert mrd(gw.numpy(), np.asarray(jgw)) < 5e-3, form

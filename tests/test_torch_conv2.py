@@ -1,7 +1,7 @@
 """The port's `xla_conv2` (sibling convs as one vendor conv) against the JAX
 XlaConv2.build on the CPU, on the same seeded inputs, in NCHW f32 and in
-NHWC bf16 storage, and its int8 forms on kernel B6 (bit-equal); the int8
-weight-gradient form it refuses; where the vendor conv rounds
+NHWC bf16 storage, and its int8 forms on kernel B6 (bit-equal); its int8
+weight-gradient form against the JAX template's; where the vendor conv rounds
 under prec=bf16; and a slice net with a stage boundary through TorchFwd
 against the JAX engine under the two `fuse_siblings` tunes.
 
@@ -175,15 +175,33 @@ def test_xla_conv2_int8_forms_match_jax(name, form, prequant):
 @pytest.mark.parametrize("key", ["grad_q8"])
 def test_xla_conv2_refuses_the_int8_forms(key):
     # the forward int8 forms run on kernel B6 (tests/test_torch_qconv.py);
-    # the int8 weight-gradient form is training
-    op = OpBase.from_lexp(str(_group_op("res2a-pair", "nchw-f32").to_lexp()))
-    op.set_u32(key, 1)
-    pt = get_template("xla_conv2")
-    with pytest.raises(RtErr, match=f"int8 weight-gradient form "
-                                    f"\\({key}=1\\).*ROADMAP A8"):
-        pt.build(pt.check_args(op))
-
-
+    # the int8 weight-gradient form is training and builds: its forward is
+    # the float form's, bit for bit, and each member's weight gradient is
+    # the JAX template's int8 one (f32 compute: no rounding after the f32
+    # rescale, so equal up to the order of the glue's f32 ops)
+    import jax
+    jop = _group_op("res2a-pair", "nchw-f32")
+    jop.set_u32(key, 1)
+    op = OpBase.from_lexp(str(jop.to_lexp()))
+    pt, jt = get_template("xla_conv2"), jax_template("xla_conv2")
+    x, wbs = _group_inputs("res2a-pair", False)
+    fn = pt.build(pt.check_args(op))
+    plain = pt.build(pt.check_args(OpBase.from_lexp(str(
+        _group_op("res2a-pair", "nchw-f32").to_lexp()))))
+    ws = [torch.from_numpy(v).requires_grad_(True) for v in wbs]
+    outs = fn(torch.from_numpy(x), *ws)
+    for a, b_ in zip(outs, plain(torch.from_numpy(x),
+                                 *map(torch.from_numpy, wbs))):
+        assert torch.equal(a, b_)
+    cs = [np.cos(np.arange(o.numel(), dtype=np.float32) + i)
+          .reshape(o.shape) for i, o in enumerate(outs)]
+    loss = sum((o * torch.from_numpy(c)).sum() for o, c in zip(outs, cs))
+    grads = torch.autograd.grad(loss, ws)
+    jfn = jt.build(jt.check_args(jop))
+    jgrads = jax.grad(lambda wl: sum(
+        (o * c).sum() for o, c in zip(jfn(x, *wl), cs)))(list(wbs))
+    for i, (g, jg) in enumerate(zip(grads, jgrads)):
+        assert mrd(g.numpy(), np.asarray(jg)) < 1e-5, i
 @pytest.mark.parametrize("func", ["xla_conv", "s2d_conv", "xla_conv2"])
 def test_vendor_conv_bf16_rounds_once_after_the_bias(func):
     # under prec=bf16 the f32 sum of the bf16 products meets the f32 bias

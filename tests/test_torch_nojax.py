@@ -46,11 +46,15 @@ PORT_MODES = {"run_cnet", "cnet_predict", "cnet_bench", "cls_agree",
               "torch_cnn_prof", "aio_cls_server", "serve_bench",
               "aio_cls_selfcheck", "blf_pack", "conv_pyra", "pyra_bench",
               "zmq_hello_server", "zmq_hello_client", "zmq_det_stub_server",
-              "zmq_cls_server", "zmq_det_server", "zmq_det_client"}
-# the serving and dense-inference modules: the source scan must cover them
+              "zmq_cls_server", "zmq_det_server", "zmq_det_client",
+              "cnet_train", "train_bench"}
+# the serving, dense-inference and training modules: the source scan must
+# cover them
 SLICE_MODULES = ["parallel/transport.py", "io/device_preproc.py",
                  "apps/aio_serve.py", "models/upsamp.py", "apps/predict.py",
-                 "apps/pyra.py", "apps/zmq_serve.py", "apps/stream_infer.py"]
+                 "apps/pyra.py", "apps/zmq_serve.py", "apps/stream_infer.py",
+                 "apps/train.py", "ops/mxu_grad.py", "ops/cuda/bck.py",
+                 "engine/segments.py"]
 
 RUN_MINI = BLOCK_JAX + """
 import runpy
@@ -96,7 +100,11 @@ for argv in (["help"],
               "--op_tunes=(kg=(use_culibs=1),hand=(),int8=(prec=int8))",
               "--func_mrd_toler=(sgemm_int8=5e-2)", "--run_iter=1"],
              ["aio_cls_selfcheck", "--model=mini",
-              "--conv_fwd=(engine=torch,device=cpu)"]):
+              "--conv_fwd=(engine=torch,device=cpu)"],
+             ["cnet_train", "--model=mini", "--batch=2", "--steps=2",
+              "--device=cpu", "--optimizer=momentum"],
+             ["train_bench", "--model=mini", "--batch=2", "--device=cpu",
+              "--iters=1", "--reps=1"]):
     sys.argv = ["boda_tpu_torch", *argv]
     try:
         runpy.run_module("boda_tpu_torch", run_name="__main__")
@@ -121,6 +129,9 @@ def test_port_runs_without_jax():
         in r.stdout
     assert r.stdout.count("func=sgemm_int8 ") == 4  # 2 ops x 2 backends
     assert "selfcheck ok: 3 clients, max_batch_seen=3" in r.stdout
+    assert "cnet_train mini b2 opt=momentum lr=0.01: loss " in r.stdout
+    assert "train_bench mini b2 bf16 storage=nhwc opt=sgd lr=0.01: " \
+        "step_ms=" in r.stdout
     for bad in ("COMP_FAIL", "ERROR"):
         assert bad not in r.stdout
     assert "NOJAX_OK" in r.stdout

@@ -235,7 +235,8 @@ def test_matmul_ext_admits_offsets_past_int32():
 
 
 def test_registry_names_unknown_templates():
-    # bck_lrn: a training template the port does not have yet
-    with pytest.raises(RtErr, match="no kernel template 'bck_lrn'.*"
-                                    "k1conv.*sgemm.*tconv"):
-        get_template("bck_lrn")
+    # the port has every template of the JAX package (the training ones
+    # too): a name neither has is refused, naming the templates it has
+    with pytest.raises(RtErr, match="no kernel template 'bck_pool'.*"
+                                    "BckConv.*bck_lrn.*k1conv.*sgemm.*tconv"):
+        get_template("bck_pool")
