@@ -1,6 +1,8 @@
 // The Hopper GEMM core shared by tconv (B2, tconv.cu), matmul_ext (B1,
 // sgemm.cu), sgemm_int8 (B3, qsgemm.cu), resblock (B5, resblock.cu) and
-// fused_stem (B4, stem.cu):
+// fused_stem (B4, stem.cu), and the pieces of it that qconv (B6, qconv.cu)
+// takes (the swizzle, the wgmma descriptor and int8 wgmma; its pipeline is
+// tma_pipe.cuh's):
 // C[M, N] = A[M, K] . B[N, K]^T with both operands K-contiguous. Each kernel
 // brings its own operand loader (B2: the implicit-im2col window of a conv;
 // B1, B3: a row-major matrix, stage_rows below; B5: an image band, then its
@@ -43,8 +45,11 @@
 //    over the card, several times the HBM rate, so the staging and its
 //    latency, not the tensor cores, set the pace. The 3-stage ring keeps two
 //    chunks in flight and two blocks share an SM (97 KB of shared memory
-//    each, <= 128 registers a thread); wider tiles (128 x 256) or a TMA
-//    multicast of B across a cluster would cut the traffic further.
+//    each, <= 128 registers a thread). tma_pipe.cuh holds the warp-
+//    specialized TMA / mbarrier pipeline B6 runs on instead (producer
+//    warps, full and empty barriers per stage, B by TMA), the pattern for
+//    moving B1, B2 and B5 off this ring; wider tiles (128 x 256) or a TMA
+//    multicast of B across a cluster are not tried.
 //  - FFMA route: 4 float4 shared loads per 64 FFMA (8 x 8 micro-tile) or 3
 //    per 32 (8 x 4), so the FFMA issue rate of 67 TF/s bounds it.
 #pragma once

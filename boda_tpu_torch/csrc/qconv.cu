@@ -1,6 +1,7 @@
-// qconv: the int8 convolution of the selective-int8 preset, as an implicit GEMM
-// on int8 tensor cores; and the activation quantize that makes its input.
-// Hand-written for Hopper (sm_90a).
+// qconv (B6): the int8 convolution of the selective-int8 preset and of
+// training's int8 weight gradient, as an implicit GEMM on int8 tensor cores;
+// and the activation quantize that makes its input. Hand-written for Hopper
+// (sm_90a).
 //
 // Replaces the int8 form of the vendor conv in boda_tpu/ops/pallas/conv.py
 // (XlaConv.build :187-266, the quant8 / in_q8 / out_q8 forms) and
@@ -11,153 +12,203 @@
 //   y[n,oy,ox,o] = store(relu?(f32(sum_{ky,kx,c} xq[n, oy*sy+ky-py, ox*sx+kx-px, c]
 //                                        * wq[o,ky,kx,c]) * (s_act * sws[o]) + bias[o]))
 // with store = f32, bf16, or int8 at clamp(rint(v * q), -127, 127) (q = 127 /
-// out_absmax, an out_q8 edge). The int32 sum is exact (the wrapper bounds K).
-// s_act is read from device memory: the quantize below writes it, also for a
-// dynamic scale, so the host never waits.
+// out_absmax, an out_q8 edge). The int32 sum is exact (the wrapper bounds K),
+// so it may be taken in any order: split into K ranges, each range's int32
+// partial sums added by a second kernel before the one epilogue, it is the
+// same sum bit for bit. s_act is read from device memory: the quantize below
+// writes it, also for a dynamic scale, so the host never waits.
 //
-// The product runs on the GEMM core of hopper_gemm.cuh exactly as sgemm_int8's
-// (qsgemm.cu): 128 x 128 block tiles, M = n*oy*ox output pixels by N = oc, K =
-// ky*kx*C in tap-major, channel-minor order, in chunks of 128 bytes (128 int8
-// values) through the 3-stage swizzled cp.async ring, and two warpgroups each
-// issuing wgmma.mma_async m64n128k32 s32.s8.s8 from shared memory. A is never
-// formed: tconv.cu's window loader, extended to strides sy, sx, copies 16 int8
-// channels of one input pixel per 16-byte cp.async, zero-filled where the pixel
-// lies in the padding or past M. B is the filter in OHWI order, [oc, ky, kx, C],
-// which is row-major [N, K]. Where C % 16 != 0 (16 channels of a copy would
-// straddle a tap) or an operand is not 16-byte aligned, a compile-time variant
-// stages element by element.
+// The GEMM: M = n*oy*ox output pixels by N = oc over K = ky*kx*C in tap-major,
+// channel-minor order, 128 x 128 tiles, K in chunks of 128 bytes.
 //
 // What bounds it on an H100 SXM (1979 TOPS int8 dense, 3.35 TB/s): ResNet-50's
-// int8 sites at batch 32 do 0.9-7.4 G operations each (1-3.7 us at the peak)
-// against 1.5-7 MB of int8 input, filter and bf16 output (0.5-2 us): the
-// operations, by a little, at the 3x3s; the bytes at the 1x1s of res5. Like
-// the core's other tensor-core kernels, the staging from L2 sets its pace.
-// Split-K is left out: res5 at batch 32 fills 52 of 132 SMs.
-//
-// The same kernel runs training's int8 weight gradient (grad_q8; the JAX
-// package's boda_tpu/ops/mxu_grad.py _wgrad_q8, :170-205, an XLA int8 conv
-// there), driven by ops/cuda/qconv.wgrad_q8: the forward's input as an NHWC
-// [C_in, H, W, N] tensor (the batch as the channels contracted) and the
-// cotangent as an [O, OH, OW, N] filter, so M = C_in*ky*kx is small and K =
-// N*OH*OW long; with no K split, ResNet-50's res3 3x3 (1152 x 128 x 25088 at
-// batch 32) fills 9 of 132 SMs.
+// int8 sites at batch 32 do 0.9-7.4 G operations each (0.5-3.7 us at the peak)
+// against 1.5-7 MB of int8 input, filter and bf16 output (0.5-2 us); the
+// weight-gradient role (the batch as the contracted channels, K = N*OH*OW up to
+// 25088) does 0.3-7 G. Neither bound is near: a 32 KB chunk feeds 0.28 us of
+// int8 wgmma on an SM, and the staging of A (the conv window, copied by
+// threads) takes several times that. Taking the wgmma out of the kernel leaves
+// its time as it is, taking A's copies out halves it, and a ring of 3, 4 or 5
+// stages runs at the same speed; more producer threads, more copies in flight,
+// run faster (PERF.md, kernel table). The design:
+//  1. Fill. 128 x 128 tiles give 9-490 tiles at these shapes, against 132
+//     SMs, and a tile of a long K (36 chunks at res5 3x3, 196 in the res3
+//     weight gradient) runs its chunks one after the other on one SM. So the
+//     plan (ops/cuda/qconv.qconv_plan) splits K where the tiles do not fill
+//     the card, into at most one unit per SM, and where they fill it with a
+//     last wave of few tiles, splits those: the full waves' tiles run whole,
+//     each split unit writes int32 partial sums to a workspace, and
+//     qconv_reduce adds them and runs the epilogue for the split tiles' rows.
+//     Splits that make a second wave of units measured slower than none.
+//  2. The pipeline. One block per SM, persistent over the (tile, split)
+//     units: two producer warpgroups keep a 4-stage ring of 32 KB stages full
+//     (each stage's "full" and "empty" mbarriers, tma_pipe.cuh) while two
+//     consumer warpgroups each run wgmma m64n128k32 s32 on their 64 rows; the
+//     producers run on into the next unit while the consumers store a tile.
+//     B (the filter, row-major [oc, K]) comes by one TMA load per chunk in the
+//     128-byte swizzle the wgmma descriptor reads; so does A where the conv
+//     is 1x1 with stride 1 and no padding (xq is then a row-major [M, C]
+//     matrix, and one producer thread issues both loads). Else A comes by
+//     cp.async from the producers' threads, which arrive on the stage's
+//     barrier as their copies land (cp.async.mbarrier.arrive.noinc). TMA's
+//     im2col mode was not taken: its strides must be multiples of 16 bytes,
+//     which leaves out every C % 16 != 0 (GoogLeNet's C = 24, the narrow
+//     route below), and one copy route for every window is one to keep
+//     right. Each producer thread copies one 16-byte (or narrower) run of
+//     several rows per chunk; each row's pixel is worked out once per tile
+//     (a shared table), and the tap of the thread's run advances by 128
+//     bytes per chunk without a division.
+//  3. Narrow channels. Where C % 16 != 0 a 16-byte run would straddle two
+//     taps: the copies are 8 bytes (C % 8 == 0) or 4 (C % 4 == 0), still
+//     zero-filled by cp.async; only the rest (C = 3) is staged element by
+//     element. B then moves by the same copies where K % 16 != 0 (TMA needs
+//     16-byte rows).
+//  4. The epilogue stages each consumer warpgroup's 64 x 128 results in
+//     shared memory and writes 16-byte runs of whole rows.
 //
 // The activation quantize (`act_quantize`) makes xq from f32 or bf16 x as
 // conv.py:162-171 does: q = clamp(rint(x / s_act), -127, 127) with IEEE
 // division. A static s_act (float32(act_absmax / 127) rounded on the host from
 // the double quotient) takes one launch; a dynamic one, s_act = max|x| / 127 +
 // 1e-30 in f32, two: sgemm_int8's partial maxima (quant.cuh, NaN kept), then
-// every block reduces them, computes s_act and quantizes. Its bytes bound it:
-// x read twice (once when static), xq written once.
+// every block reduces them, computes s_act and quantizes. The weight gradient
+// takes x transposed, [N, H, W, I] stored as [I, H, W, N] (the batch as B6's
+// channels): the transposing form writes that layout through a shared tile in
+// the same pass. Its per-channel form quantizes the cotangent [N, OH, OW, O]
+// per output channel (the JAX _wgrad_q8's s_g, quantize_filter's formula)
+// straight into the [O, OH, OW, N] filter B6 takes: the per-channel maxima in
+// one launch, the scales and the transposing quantize in a second. Their bytes
+// bound them: x read twice (once when static), xq written once.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <type_traits>
 
 #include "hopper_gemm.cuh"
-#include "quant.cuh"  // quant_amax, block_max, q8
+#include "quant.cuh"  // quant_amax, block_max, nan_max, q8
+#include "tma_pipe.cuh"
 
 namespace {
 
 using namespace boda::hopper;
+namespace tma = boda::tma;
 
-constexpr int kTile = 128;  // block tile: 128 pixels x 128 output channels
-constexpr int kChan = 16;   // int8 channels of one 16-byte copy
+constexpr int kTile = 128;                      // block tile: 128 pixels x 128 output channels
+constexpr int kRing = 4;                        // stages of the ring
+constexpr int kBytesA = kTile * kRowBytes;      // 16 KB of A per stage
+constexpr int kStageBytes = 2 * kBytesA;        // A then B
+constexpr int kProducers = 256;                 // warpgroups 0 and 1
+constexpr int kBlock = kProducers + 2 * 128;    // and two consumer warpgroups
+constexpr int kEpiStride = 128 * 4 + 32;        // bytes of a staged row of 4-byte results
+constexpr int kEpiBytes = 64 * kEpiStride;      // one consumer warpgroup's staging
+constexpr int kOffEpi = kRing * kStageBytes;
+constexpr int kOffPix = kOffEpi + 2 * kEpiBytes;
+constexpr int kOffBar = kOffPix + kTile * 16;
+constexpr int kSmem = kOffBar + 2 * kRing * 8 + 1024;  // and up to 1 KB to align
 
 struct QShape {
   int M, N, K;     // GEMM rows (n*oy*ox), cols (oc), depth (ky*kx*C)
   int H, W, C;     // input NHWC extents
   int oy, ox;      // output extents
-  int kx, sy, sx, py, px;
+  int ky, kx, sy, sx, py, px;
+  int chunks;      // K chunks of 128 bytes
+  int tiles_n;     // tiles along N
+  int tiles;       // tiles of the output
+  int full;        // tiles [0, full) run whole, each one unit (a multiple of tiles_n)
+  int splits;      // the rest, tiles [full, tiles), in this many K ranges each
+  int va, vb;      // bytes of one copy of A / of B (16, 8, 4 or 1; B by TMA where 16)
 };
 
 // Output pixel m's window: tap (yy, xx), channel c of it is the element
 // base + (yy*W + xx)*C + c, inside the image iff 0 <= iy0 + yy < H and
-// 0 <= ix0 + xx < W. valid is false past M.
-struct Pixel {
-  int base, iy0, ix0;
-  bool valid;
-};
-
-__device__ __forceinline__ Pixel pixel_of(const QShape& s, int m) {
-  Pixel p;
-  p.valid = m < s.M;
-  const int mm = p.valid ? m : 0;
-  const int img = mm / (s.oy * s.ox);
-  const int rem = mm - img * (s.oy * s.ox);
+// 0 <= ix0 + xx < W. A row past M gets iy0 far below 0 (never inside).
+__device__ __forceinline__ int4 pixel_of(const QShape& s, int m) {
+  if (m >= s.M) return make_int4(0, -(1 << 30), -(1 << 30), 0);
+  const int img = m / (s.oy * s.ox);
+  const int rem = m - img * (s.oy * s.ox);
   const int oyy = rem / s.ox;
-  p.iy0 = oyy * s.sy - s.py;
-  p.ix0 = (rem - oyy * s.ox) * s.sx - s.px;
-  p.base = ((img * s.H + p.iy0) * s.W + p.ix0) * s.C;
-  return p;
+  const int iy0 = oyy * s.sy - s.py;
+  const int ix0 = (rem - oyy * s.ox) * s.sx - s.px;
+  return make_int4(((img * s.H + iy0) * s.W + ix0) * s.C, iy0, ix0, 0);
 }
 
+// The tap (yy, xx) and channel c of depth k, advanced a chunk at a time.
 struct Tap {
-  int yy, xx, c;
+  int c, xx, yy;
+  __device__ __forceinline__ void at(const QShape& s, int k) {
+    const int tap = k / s.C;
+    c = k - tap * s.C;
+    yy = tap / s.kx;
+    xx = tap - yy * s.kx;
+  }
+  __device__ __forceinline__ void next_chunk(const QShape& s) {
+    c += kRowBytes;
+    while (c >= s.C) {
+      c -= s.C;
+      if (++xx == s.kx) xx = 0, ++yy;
+    }
+  }
 };
 
-__device__ __forceinline__ Tap tap_of(const QShape& s, int k) {
-  Tap t;
-  const int tap = k / s.C;
-  t.c = k - tap * s.C;
-  t.yy = tap / s.kx;
-  t.xx = tap - t.yy * s.kx;
-  return t;
+// Byte offset of byte b of row r in a stage buffer: 16-byte chunk b / 16
+// XOR-swizzled by r % 8 (swz of hopper_gemm.cuh, which TMA's 128-byte
+// swizzle also writes).
+__device__ __forceinline__ uint32_t swz_byte(int r, int b) {
+  return (uint32_t)(r * kRowBytes + ((((b >> 4) ^ (r & 7)) << 4) | (b & 15)));
 }
 
-__device__ __forceinline__ bool inside(const QShape& s, const Pixel& p, const Tap& t) {
-  const int iy = p.iy0 + t.yy, ix = p.ix0 + t.xx;
-  return p.valid && iy >= 0 && iy < s.H && ix >= 0 && ix < s.W;
-}
-
-__device__ __forceinline__ int offset(const QShape& s, const Pixel& p, const Tap& t) {
-  return p.base + (t.yy * s.W + t.xx) * s.C + t.c;
-}
-
-// Stage K chunk kc of A (128 pixels) and B (128 filters) into the stage
-// buffers at shared addresses sa, sb (generic sa_p, sb_p). Thread t copies
-// 16-byte chunk j = t % 8 of rows t / 8 + 32 i. kVec: cp.async copies of 16
-// channels of one tap (C % 16 == 0); else element by element, zero outside.
-template <bool kVec>
-__device__ __forceinline__ void stage_q(const QShape& s, const int8_t* __restrict__ x,
-                                        const int8_t* __restrict__ w, const Pixel (&px)[4],
-                                        int n0, int kc, uint32_t sa, uint32_t sb, uint8_t* sa_p,
-                                        uint8_t* sb_p) {
-  const int j = threadIdx.x & 7;
-  const int k = kc * kRowBytes + j * kChan;
-  if constexpr (kVec) {
-    const bool kin = k < s.K;
-    const Tap t = tap_of(s, kin ? k : 0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = (threadIdx.x >> 3) + 32 * i;
-      const bool va = kin && inside(s, px[i], t);
-      cp_async16(sa + swz(r, j), va ? x + offset(s, px[i], t) : x, va);
-      const int n = n0 + r;
-      const bool vb = kin && n < s.N;
-      cp_async16(sb + swz(r, j), vb ? w + (size_t)n * s.K + k : w, vb);
+// Producer thread t's copies of A for one chunk, V bytes each: run j = t %
+// (128 / V) of the rows t / (128 / V) + RS * i, RS = kProducers / (128 /
+// V) rows a pass; tap the tap of its run. V = 1: element by element into
+// shared memory.
+template <int V>
+__device__ __forceinline__ void stage_a(const QShape& s, const int8_t* __restrict__ x,
+                                        const int4* pix, const Tap& tap, uint32_t sa,
+                                        uint8_t* sa_p) {
+  constexpr int R = kRowBytes / V;  // runs per row
+  constexpr int RS = kProducers / R;  // rows per pass
+  static_assert(kTile % RS == 0, "whole passes over the tile's rows");
+  const int t = threadIdx.x;
+  const int b = (t % R) * V;
+  const bool kin = tap.yy < s.ky;
+  const int toff = (tap.yy * s.W + tap.xx) * s.C + tap.c;
+#pragma unroll 8
+  for (int i = 0; i < kTile / RS; ++i) {
+    const int r = t / R + RS * i;
+    const int4 p = pix[r];
+    const bool ok = kin && (unsigned)(p.y + tap.yy) < (unsigned)s.H &&
+                    (unsigned)(p.z + tap.xx) < (unsigned)s.W;
+    if constexpr (V == 1) {
+      sa_p[swz_byte(r, b)] = ok ? (uint8_t)x[p.x + toff] : (uint8_t)0;
+    } else {
+      tma::cp_async<V>(sa + swz_byte(r, b), ok ? x + p.x + toff : x, ok);
     }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = (threadIdx.x >> 3) + 32 * i;
-      const int n = n0 + r;
-      union {
-        uint4 v;
-        int8_t e[kChan];
-      } a, b;
-#pragma unroll
-      for (int e = 0; e < kChan; ++e) {
-        const int kk = k + e;
-        a.e[e] = b.e[e] = 0;
-        if (kk < s.K) {
-          const Tap t = tap_of(s, kk);
-          if (inside(s, px[i], t)) a.e[e] = x[offset(s, px[i], t)];
-          if (n < s.N) b.e[e] = w[(size_t)n * s.K + kk];
-        }
-      }
-      *reinterpret_cast<uint4*>(sa_p + swz(r, j)) = a.v;
-      *reinterpret_cast<uint4*>(sb_p + swz(r, j)) = b.v;
+  }
+}
+
+// Producer thread t's copies of B (rows n0 .. n0 + 127 of the row-major [N,
+// K] filter) for chunk kc where B does not come by TMA.
+template <int V>
+__device__ __forceinline__ void stage_b(const QShape& s, const int8_t* __restrict__ w, int n0,
+                                        int kc, uint32_t sb, uint8_t* sb_p) {
+  constexpr int R = kRowBytes / V;
+  constexpr int RS = kProducers / R;
+  const int t = threadIdx.x;
+  const int b = (t % R) * V;
+  const int k = kc * kRowBytes + b;
+#pragma unroll 8
+  for (int i = 0; i < kTile / RS; ++i) {
+    const int r = t / R + RS * i;
+    const int n = n0 + r;
+    const bool ok = k < s.K && n < s.N;
+    const int8_t* src = ok ? w + (size_t)n * s.K + k : w;
+    if constexpr (V == 1) {
+      sb_p[swz_byte(r, b)] = ok ? (uint8_t)*src : (uint8_t)0;
+    } else {
+      tma::cp_async<V>(sb + swz_byte(r, b), src, ok);
     }
   }
 }
@@ -172,102 +223,342 @@ __device__ __forceinline__ float dequant(int v, float s_act, const float* __rest
   return f;
 }
 
+// The stored form of a result: f32, bf16, int8 (an out_q8 edge: clamp(rint(v
+// * q), -127, 127)), or int32 (a split's partial sum, stored as summed).
 template <typename T>
 struct Store;
 template <>
 struct Store<float> {
-  using T2 = float2;
   __device__ static float cvt(float v, float) { return v; }
-  __device__ static float2 pair(float a, float b) { return make_float2(a, b); }
 };
 template <>
 struct Store<__nv_bfloat16> {
-  using T2 = __nv_bfloat162;
   __device__ static __nv_bfloat16 cvt(float v, float) { return __float2bfloat16_rn(v); }
-  __device__ static __nv_bfloat162 pair(__nv_bfloat16 a, __nv_bfloat16 b) {
-    __nv_bfloat162 p;
-    p.x = a;
-    p.y = b;
-    return p;
-  }
 };
 template <>
-struct Store<int8_t> {  // an int8 edge: clamp(rint(v * q), -127, 127)
-  using T2 = char2;
+struct Store<int8_t> {
   __device__ static int8_t cvt(float v, float q) {
     return (int8_t)max(-127, min(__float2int_rn(__fmul_rn(v, q)), 127));
   }
-  __device__ static char2 pair(int8_t a, int8_t b) { return make_char2(a, b); }
 };
 
-// Two warpgroups, each the 64 x 128 product of half the tile's rows. Two
-// blocks per SM (2 x 97 KB of shared memory) need at most 128 registers a
-// thread.
-template <typename TOut, bool kVec>
-__global__ void __launch_bounds__(kThreads, 2)
-    qconv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                 const float* __restrict__ s_act_p, const float* __restrict__ sws,
-                 const float* __restrict__ bias, TOut* __restrict__ out, QShape s, int relu,
-                 float out_q) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align_1024(smem_raw);
-  const int m0 = blockIdx.x * kTile;
-  const int n0 = blockIdx.y * kTile;
-
-  Pixel px[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) px[i] = pixel_of(s, m0 + (threadIdx.x >> 3) + 32 * i);
-
-  using R = Ring<kTile>;
-  int acc[64];
-  ring_product<kTile>(
-      smem, 0, (s.K + kRowBytes - 1) / kRowBytes,
-      [&](int st, int kc) {
-        stage_q<kVec>(s, x, w, px, n0, kc, smem_addr(R::a(smem, st)), smem_addr(R::b(smem, st)),
-                      R::a(smem, st), R::b(smem, st));
-      },
-      acc);
-  const float s_act = *s_act_p;
-  for_pairs(acc, [&](int r, int c, int v0, int v1) {
-    const int m = m0 + r, n = n0 + c;
-    if (m >= s.M || n >= s.N) return;
-    const size_t i = (size_t)m * s.N + n;
-    const TOut o0 = Store<TOut>::cvt(dequant(v0, s_act, sws, bias, n, relu), out_q);
-    if (n + 1 >= s.N) {
-      out[i] = o0;
-      return;
-    }
-    const TOut o1 = Store<TOut>::cvt(dequant(v1, s_act, sws, bias, n + 1, relu), out_q);
-    if (i % 2 == 0) {
-      *reinterpret_cast<typename Store<TOut>::T2*>(out + i) = Store<TOut>::pair(o0, o1);
-    } else {
-      out[i] = o0;
-      out[i + 1] = o1;
-    }
-  });
+// The staged row stride of a result type: 128 results and a pad that keeps
+// the pair stores of a warp off shared bank conflicts (rows 16-byte aligned).
+template <typename T>
+__host__ __device__ constexpr int epi_stride() {
+  return sizeof(T) == 4 ? kEpiStride : 128 * (int)sizeof(T) + 16;
 }
 
-template <typename TOut, bool kVec>
-int launch_qconv(const void* x, const void* w, const void* s_act, const void* sws,
-                 const void* bias, void* out, const QShape& s, int relu, float out_q,
-                 cudaStream_t stream) {
+struct Outs {
+  const float* s_act;
+  const float* sws;
+  const float* bias;
+  void* out;      // the result [M, N]
+  int* ws;        // the split tiles' int32 partial sums [splits, M - m_split, N]
+  int m_split;    // their first row: (full / tiles_n) * 128
+  int relu;
+  float out_q;
+};
+
+// A consumer warpgroup's epilogue of its 64 x 128 results (rows m0 .. m0 +
+// 63, columns n0 ..): into its staging rows of shared memory, then whole rows
+// out to row m - out_m0 of the row-major [.., N] out, in 16-byte runs where
+// the row's stride allows, else element by element.
+template <typename T>
+__device__ __forceinline__ void epilogue(const QShape& s, const Outs& o, const int (&acc)[64],
+                                         uint8_t* stg, int wg, int m0, int n0, T* out,
+                                         int out_m0) {
+  constexpr int kS = epi_stride<T>();
+  constexpr bool kPartial = sizeof(T) == 4 && !std::is_same<T, float>::value;
+  const int t = threadIdx.x & 127;
+  const int lane = t & 31;
+  const int r = (t >> 5) * 16 + (lane >> 2);
+  tma::named_sync(2 + wg, 128);  // the previous tile's reads of stg are done
+  float s_act = 0.f;
+  if constexpr (!kPartial) s_act = *o.s_act;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int c = i * 8 + (lane & 3) * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int v0 = acc[i * 4 + 2 * h], v1 = acc[i * 4 + 2 * h + 1];
+      T* dst = reinterpret_cast<T*>(stg + (r + 8 * h) * kS) + c;
+      if constexpr (kPartial) {
+        dst[0] = v0;
+        dst[1] = v1;
+      } else {
+        const int n = n0 + c;
+        // columns past N are staged but never stored
+        dst[0] = Store<T>::cvt(n < s.N ? dequant(v0, s_act, o.sws, o.bias, n, o.relu) : 0.f,
+                               o.out_q);
+        dst[1] = Store<T>::cvt(
+            n + 1 < s.N ? dequant(v1, s_act, o.sws, o.bias, n + 1, o.relu) : 0.f, o.out_q);
+      }
+    }
+  }
+  tma::named_sync(2 + wg, 128);
+  constexpr int kPer = 16 / sizeof(T);  // results of a 16-byte run
+  constexpr int kRuns = 128 / kPer;     // runs of a row
+  const bool vec = (s.N * sizeof(T)) % 16 == 0;
+#pragma unroll 4
+  for (int idx = t; idx < 64 * kRuns; idx += 128) {
+    const int row = idx / kRuns, q = idx % kRuns;
+    const int m = m0 + row, n = n0 + q * kPer;
+    if (m >= s.M || n >= s.N) continue;
+    const uint8_t* src = stg + row * kS + q * 16;
+    T* dst = out + (size_t)(m - out_m0) * s.N + n;
+    if (vec && n + kPer <= s.N) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < kPer && n + e < s.N; ++e) dst[e] = reinterpret_cast<const T*>(src)[e];
+    }
+  }
+}
+
+// Unit u of the walk: tile (mt, nt) and its chunks [kc0, kc1). The first
+// `full` units are tiles 0 .. full - 1, each whole (z = -1); then split z
+// of every later tile, the chunks in `splits` ranges whose sizes differ by
+// at most one, split 0 of each first.
+struct Unit {
+  int z, m0, n0, kc0, kc1;
+  __device__ __forceinline__ Unit(const QShape& s, int u) {
+    int tile = u;
+    z = -1;
+    kc0 = 0;
+    kc1 = s.chunks;
+    if (u >= s.full) {
+      const int rest = s.tiles - s.full, v = u - s.full;
+      z = v / rest;
+      tile = s.full + (v - z * rest);
+      kc0 = z * s.chunks / s.splits;
+      kc1 = (z + 1) * s.chunks / s.splits;
+    }
+    m0 = (tile / s.tiles_n) * kTile;
+    n0 = (tile % s.tiles_n) * kTile;
+  }
+};
+
+// The number of units: the whole tiles and every split of the rest.
+__host__ __device__ inline int units_of(const QShape& s) {
+  return s.full + (s.tiles - s.full) * s.splits;
+}
+
+// How a stage is filled: A and B by the producers' copies; B by TMA (s.vb
+// == 16); or both by TMA, where A is the row-major [M, C] matrix xq is (a
+// 1x1 conv of stride 1, no padding, s.va == 16).
+enum Fill { kCopies, kTmaB, kTmaAB };
+
+// One block per SM walks the units u = blockIdx.x, + gridDim.x, ...: the
+// two producer warpgroups fill the ring (one thread of them where both
+// operands come by TMA), the two consumer warpgroups multiply and store: a
+// whole tile's results in T, a split's int32 partial sums into the
+// workspace.
+template <typename T, int kFill>
+__global__ void __launch_bounds__(kBlock, 1)
+    qconv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
+                 const __grid_constant__ CUtensorMap wmap,
+                 const __grid_constant__ CUtensorMap xmap, Outs o, QShape s, int units) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t ring = smem_addr(smem);
+  int4* pix = reinterpret_cast<int4*>(smem + kOffPix);
+  const uint32_t full0 = smem_addr(smem + kOffBar), empty0 = full0 + 8 * kRing;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kRing; ++st) {
+      tma::mbar_init(full0 + 8 * st,
+                     kFill == kTmaAB ? 1 : kProducers + (kFill == kTmaB ? 1 : 0));
+      tma::mbar_init(empty0 + 8 * st, 8);  // one arrival per consumer warp
+    }
+    tma::fence_mbar_init();
+    if constexpr (kFill != kCopies) tma::prefetch_map(&wmap);
+    if constexpr (kFill == kTmaAB) tma::prefetch_map(&xmap);
+  }
+  __syncthreads();
+
+  int st = 0;
+  uint32_t phase = 0;
+  if (kFill == kTmaAB && threadIdx.x < kProducers) {
+    // ---- producer, both operands by TMA: one thread, two loads a chunk
+    if (threadIdx.x == 0) {
+      for (int u = blockIdx.x; u < units; u += gridDim.x) {
+        const Unit un(s, u);
+        for (int kc = un.kc0; kc < un.kc1; ++kc) {
+          const uint32_t full = full0 + 8 * st;
+          tma::mbar_wait(empty0 + 8 * st, phase ^ 1);
+          const uint32_t sa = ring + st * kStageBytes;
+          tma::mbar_expect_tx(full, kStageBytes);
+          tma::tma_load_2d(sa, &xmap, kc * kRowBytes, un.m0, full);
+          tma::tma_load_2d(sa + kBytesA, &wmap, kc * kRowBytes, un.n0, full);
+          if (++st == kRing) st = 0, phase ^= 1;
+        }
+      }
+    }
+  } else if (threadIdx.x < kProducers) {
+    // ---- producers: fill the ring, unit after unit
+    const int t = threadIdx.x;
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const Unit un(s, u);
+      tma::named_sync(1, kProducers);  // the previous unit's copies are issued
+      if (t < kTile) pix[t] = pixel_of(s, un.m0 + t);
+      tma::named_sync(1, kProducers);
+      const int runs = kRowBytes / s.va;
+      Tap tap;
+      tap.at(s, un.kc0 * kRowBytes + (t % runs) * s.va);
+      for (int kc = un.kc0; kc < un.kc1; ++kc) {
+        const uint32_t full = full0 + 8 * st;
+        tma::mbar_wait(empty0 + 8 * st, phase ^ 1);
+        const uint32_t sa = ring + st * kStageBytes, sb = sa + kBytesA;
+        uint8_t* sa_p = smem + st * kStageBytes;
+        if constexpr (kFill == kTmaB) {
+          if (t == 0) {
+            tma::mbar_expect_tx(full, kBytesA);
+            tma::tma_load_2d(sb, &wmap, kc * kRowBytes, un.n0, full);
+          }
+        }
+        switch (s.va) {
+          case 16: stage_a<16>(s, x, pix, tap, sa, sa_p); break;
+          case 8: stage_a<8>(s, x, pix, tap, sa, sa_p); break;
+          case 4: stage_a<4>(s, x, pix, tap, sa, sa_p); break;
+          default: stage_a<1>(s, x, pix, tap, sa, sa_p); break;
+        }
+        if constexpr (kFill == kCopies) {
+          switch (s.vb) {
+            case 16: stage_b<16>(s, w, un.n0, kc, sb, sa_p + kBytesA); break;
+            case 8: stage_b<8>(s, w, un.n0, kc, sb, sa_p + kBytesA); break;
+            case 4: stage_b<4>(s, w, un.n0, kc, sb, sa_p + kBytesA); break;
+            default: stage_b<1>(s, w, un.n0, kc, sb, sa_p + kBytesA); break;
+          }
+        }
+        if (s.va == 1 || s.vb == 1) {
+          // element stores: every copy of this thread landed, then one
+          // release arrival (the writes visible to the async proxy first)
+          tma::cp_async_wait_all();
+          fence_proxy_async();
+          tma::mbar_arrive(full);
+        } else {
+          tma::cp_async_arrive(full);
+        }
+        tap.next_chunk(s);
+        if (++st == kRing) st = 0, phase ^= 1;
+      }
+    }
+    tma::cp_async_wait_all();
+  } else {
+    // ---- consumers: warpgroup wg multiplies rows 64 wg .. 64 wg + 63
+    const int wg = (threadIdx.x - kProducers) >> 7;
+    const bool lead = (threadIdx.x & 31) == 0;
+    uint8_t* stg = smem + kOffEpi + wg * kEpiBytes;
+    int acc[64];
+    for (int u = blockIdx.x; u < units; u += gridDim.x) {
+      const Unit un(s, u);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0;
+      int prev = -1;
+      for (int kc = un.kc0; kc < un.kc1; ++kc) {
+        tma::mbar_wait(full0 + 8 * st, phase);
+        fence_proxy_async();  // the producers' copies, seen by wgmma's reads
+        const uint32_t sa = ring + st * kStageBytes;
+        const uint64_t da = smem_desc(sa + wg * 64 * kRowBytes);
+        const uint64_t db = smem_desc(sa + kBytesA);
+        fence_acc(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kRowBytes / 32; ++ks) wgmma(acc, da + 2 * ks, db + 2 * ks);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous chunk's products are done: free its stage
+        fence_acc(acc);
+        if (prev >= 0 && lead) tma::mbar_arrive(empty0 + 8 * prev);
+        prev = st;
+        if (++st == kRing) st = 0, phase ^= 1;
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      if (prev >= 0 && lead) tma::mbar_arrive(empty0 + 8 * prev);
+      if (un.z < 0)
+        epilogue<T>(s, o, acc, stg, wg, un.m0 + 64 * wg, un.n0, static_cast<T*>(o.out), 0);
+      else
+        epilogue<int>(s, o, acc, stg, wg, un.m0 + 64 * wg, un.n0,
+                      o.ws + (size_t)un.z * (s.M - o.m_split) * s.N, o.m_split);
+    }
+  }
+}
+
+// out[m][n] = store(dequant(sum over z of ws[z][m - m_split][n])) for the
+// rows m_split .. M - 1 of the split tiles, the int32 partials added exactly;
+// 4 results a thread where N % 4 == 0.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    qconv_reduce(Outs o, int M, int N, int splits) {
+  const size_t MN = (size_t)(M - o.m_split) * N;
+  const int* ws = o.ws;
+  T* out = static_cast<T*>(o.out) + (size_t)o.m_split * N;
+  const float s_act = *o.s_act;
+  const size_t stride = (size_t)gridDim.x * kThreads;
+  if (N % 4 == 0) {
+    for (size_t g = (size_t)blockIdx.x * kThreads + threadIdx.x; g < MN / 4; g += stride) {
+      int4 v = reinterpret_cast<const int4*>(ws)[g];
+      for (int z = 1; z < splits; ++z) {
+        const int4 p = reinterpret_cast<const int4*>(ws + (size_t)z * MN)[g];
+        v.x += p.x, v.y += p.y, v.z += p.z, v.w += p.w;
+      }
+      const int n = (int)(4 * g % N);
+      const int vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        out[4 * g + e] = Store<T>::cvt(dequant(vs[e], s_act, o.sws, o.bias, n + e, o.relu), o.out_q);
+    }
+    return;
+  }
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < MN; i += stride) {
+    int v = 0;
+    for (int z = 0; z < splits; ++z) v += ws[(size_t)z * MN + i];
+    out[i] = Store<T>::cvt(dequant(v, s_act, o.sws, o.bias, (int)(i % N), o.relu), o.out_q);
+  }
+}
+
+template <typename T, int kFill>
+int launch_fill(const int8_t* x, const int8_t* w, const CUtensorMap& wmap, const CUtensorMap& xmap,
+                const Outs& o, const QShape& s, int grid, cudaStream_t stream) {
   static bool smem_set = false;  // per instantiation
-  const cudaError_t e = allow_smem(qconv_kernel<TOut, kVec>, Ring<kTile>::kSmem, smem_set);
+  const cudaError_t e = allow_smem(qconv_kernel<T, kFill>, kSmem, smem_set);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((s.M + kTile - 1) / kTile, (s.N + kTile - 1) / kTile);
-  qconv_kernel<TOut, kVec><<<grid, kThreads, Ring<kTile>::kSmem, stream>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(s_act), static_cast<const float*>(sws),
-      static_cast<const float*>(bias), static_cast<TOut*>(out), s, relu, out_q);
+  qconv_kernel<T, kFill><<<grid, kBlock, kSmem, stream>>>(x, w, wmap, xmap, o, s, units_of(s));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TOut>
-int launch_vec(int vec, const void* x, const void* w, const void* s_act, const void* sws,
-               const void* bias, void* out, const QShape& s, int relu, float out_q,
-               cudaStream_t stream) {
-  return vec ? launch_qconv<TOut, true>(x, w, s_act, sws, bias, out, s, relu, out_q, stream)
-             : launch_qconv<TOut, false>(x, w, s_act, sws, bias, out, s, relu, out_q, stream);
+template <typename T>
+int launch_main(const int8_t* x, const int8_t* w, const CUtensorMap& wmap, const CUtensorMap& xmap,
+                int fill, const Outs& o, const QShape& s, int grid, cudaStream_t stream) {
+  if (fill == kTmaAB) return launch_fill<T, kTmaAB>(x, w, wmap, xmap, o, s, grid, stream);
+  if (fill == kTmaB) return launch_fill<T, kTmaB>(x, w, wmap, xmap, o, s, grid, stream);
+  return launch_fill<T, kCopies>(x, w, wmap, xmap, o, s, grid, stream);
+}
+
+template <typename T>
+int launch_qconv(const int8_t* x, const int8_t* w, const Outs& o, const QShape& s, int grid,
+                 cudaStream_t stream) {
+  CUtensorMap wmap, xmap;
+  memset(&wmap, 0, sizeof(wmap));
+  memset(&xmap, 0, sizeof(xmap));
+  int fill = kCopies;
+  if (s.vb == 16) {
+    const int rc = tma::encode_2d_u8(&wmap, w, s.N, s.K, kTile, kRowBytes);
+    if (rc != 0) return rc;
+    fill = kTmaB;
+    if (s.va == 16 && s.ky == 1 && s.kx == 1 && s.sy == 1 && s.sx == 1 && s.py == 0 &&
+        s.px == 0) {
+      const int rx = tma::encode_2d_u8(&xmap, x, s.M, s.C, kTile, kRowBytes);
+      if (rx != 0) return rx;
+      fill = kTmaAB;
+    }
+  }
+  const int rc = launch_main<T>(x, w, wmap, xmap, fill, o, s, grid, stream);
+  if (rc != 0 || s.full == s.tiles) return rc;
+  const size_t MN = (size_t)(s.M - o.m_split) * s.N;
+  const size_t need = (MN / (s.N % 4 == 0 ? 4 : 1) + kThreads - 1) / kThreads;
+  const int blocks = need < 4096 ? (int)(need > 0 ? need : 1) : 4096;
+  qconv_reduce<T><<<blocks, kThreads, 0, stream>>>(o, s.M, s.N, s.splits);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- quantize
@@ -315,23 +606,141 @@ __global__ void __launch_bounds__(kThreads)
   for (size_t i = tail + t0; i < n; i += stride) xq[i] = q8(boda::to_f32(x[i]), s);
 }
 
+constexpr int kXT = 32;  // the transposing quantize's tile: 32 x 32 values
+constexpr int kXB = 8;   // and the b a block of it walks
+
+// The transposing quantize: x is [A, B, Cc] (contiguous), xq[c, b, a] =
+// q8(x[a, b, c], s) is [Cc, B, A]. Block (b tile, c tile, a tile), for each
+// of its kXB b, reads 32 rows of 32 channels, quantizes them into a shared
+// tile and writes 32 rows of 32 bytes of the transpose. kPerChan: s = s_c[c],
+// from the per-channel partial maxima part[p * Cc + c] (p < nparts), max / 127
+// + 1e-30, written to s_out[c] by the blocks of b tile 0 and a tile 0; else s
+// is the static scale or the dynamic one (act_quant_write's), written to
+// s_out[0] by the first block.
+template <typename T, bool kPerChan>
+__global__ void __launch_bounds__(kThreads)
+    act_quant_xpose(const T* __restrict__ x, int8_t* __restrict__ xq, int A, int B, int Cc,
+                    const float* __restrict__ part, int nparts, float s_static, int dynamic,
+                    float* __restrict__ s_out) {
+  __shared__ int8_t tile[kXT][kXT + 4];
+  __shared__ float sc[kXT];
+  const int b0 = blockIdx.x * kXB, c0 = blockIdx.y * kXT, a0 = blockIdx.z * kXT;
+  const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  const bool first = blockIdx.x == 0 && blockIdx.z == 0;
+  float s = s_static;
+  if constexpr (kPerChan) {
+    // 8 threads reduce each of the tile's 32 channels
+    const int cl = threadIdx.x >> 3, q = threadIdx.x & 7, c = c0 + cl;
+    float m = 0.f;
+    if (c < Cc)
+      for (int p = q; p < nparts; p += 8) m = nan_max(m, part[(size_t)p * Cc + c]);
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+    if (q == 0) {
+      sc[cl] = __fadd_rn(__fdiv_rn(m, 127.f), 1e-30f);
+      if (first && c < Cc) s_out[c] = sc[cl];
+    }
+    __syncthreads();
+  } else {
+    if (dynamic) s = __fadd_rn(__fdiv_rn(block_max(part[threadIdx.x]), 127.f), 1e-30f);
+    if (first && blockIdx.y == 0 && threadIdx.x == 0) *s_out = s;
+  }
+  const float s_c = kPerChan ? sc[lane] : s;
+  for (int b = b0; b < min(b0 + kXB, B); ++b) {
+#pragma unroll
+    for (int i = 0; i < kXT / 8; ++i) {
+      const int al = wp + 8 * i, a = a0 + al, c = c0 + lane;
+      int8_t q = 0;
+      if (a < A && c < Cc) q = q8(boda::to_f32(x[((size_t)a * B + b) * Cc + c]), s_c);
+      tile[al][lane] = q;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kXT / 8; ++i) {
+      const int cl = wp + 8 * i, c = c0 + cl, a = a0 + lane;
+      if (c < Cc && a < A) xq[((size_t)c * B + b) * A + a] = tile[lane][cl];
+    }
+    __syncthreads();  // the tile is free for the next b
+  }
+}
+
+constexpr int kColRows = kThreads / kXT;  // rows a block of quant_colmax reads at once
+
+// part[blockIdx.x * Cc + c] = max |x[r, c]| over the rows r of the [rows,
+// Cc] x that block row blockIdx.x reads (NaN kept): warp w of block (p, c
+// tile) reads rows (p * kColRows + w) + i * gridDim.x * kColRows, one
+// channel a lane, 128 contiguous bytes (f32) a warp.
 template <typename T>
-int launch_quantize(const void* x, void* xq, float* ws, size_t n, float s_static, int dynamic,
+__global__ void __launch_bounds__(kThreads)
+    quant_colmax(const T* __restrict__ x, size_t rows, int Cc, float* __restrict__ part) {
+  __shared__ float red[kColRows][kXT + 1];
+  const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  const int c = blockIdx.y * kXT + lane;
+  const size_t step = (size_t)gridDim.x * kColRows;
+  float m0 = 0.f, m1 = 0.f;
+  if (c < Cc) {
+    size_t r = (size_t)blockIdx.x * kColRows + wp;
+    for (; r + step < rows; r += 2 * step) {  // two loads in flight
+      m0 = nan_max(m0, fabsf(boda::to_f32(x[r * Cc + c])));
+      m1 = nan_max(m1, fabsf(boda::to_f32(x[(r + step) * Cc + c])));
+    }
+    if (r < rows) m0 = nan_max(m0, fabsf(boda::to_f32(x[r * Cc + c])));
+  }
+  red[wp][lane] = nan_max(m0, m1);
+  __syncthreads();
+  if (wp == 0 && c < Cc) {
+    float m = red[0][lane];
+#pragma unroll
+    for (int w = 1; w < kColRows; ++w) m = nan_max(m, red[w][lane]);
+    part[(size_t)blockIdx.x * Cc + c] = m;
+  }
+}
+
+// Block rows of quant_colmax: 64, or fewer where x has fewer rows than 64
+// blocks read at once.
+inline int colmax_parts(long long rows, long long) {
+  const long long p = (rows + kColRows - 1) / kColRows;
+  return (int)(p < 64 ? p : 64);
+}
+
+template <typename T>
+int launch_quantize(const void* x, void* xq, float* ws, long long A, long long B, long long Cc,
+                    float s_static, int dynamic, int transpose, int per_chan,
                     cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
+  int8_t* q = static_cast<int8_t*>(xq);
+  const size_t n = (size_t)(A * B * Cc);
   const int vec = reinterpret_cast<size_t>(x) % 16 == 0;
+  const dim3 tiles((unsigned)((B + kXB - 1) / kXB), (unsigned)((Cc + kXT - 1) / kXT),
+                   (unsigned)((A + kXT - 1) / kXT));
+  if (per_chan) {
+    const int parts = colmax_parts(A * B, Cc);
+    float* part = ws + Cc;
+    quant_colmax<T><<<dim3(parts, (unsigned)((Cc + kXT - 1) / kXT)), kThreads, 0, stream>>>(
+        xt, (size_t)(A * B), (int)Cc, part);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    act_quant_xpose<T, true><<<tiles, kThreads, 0, stream>>>(xt, q, (int)A, (int)B, (int)Cc, part,
+                                                             parts, 0.f, 1, ws);
+    return static_cast<int>(cudaGetLastError());
+  }
   float* part = ws + 4;
   if (dynamic) {
     quant_amax<T><<<dim3(kParts, 1), kThreads, 0, stream>>>(xt, n, vec, xt, 0, 0, part);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
+  if (transpose) {
+    act_quant_xpose<T, false><<<tiles, kThreads, 0, stream>>>(xt, q, (int)A, (int)B, (int)Cc, part,
+                                                              kParts, s_static, dynamic, ws);
+    return static_cast<int>(cudaGetLastError());
+  }
   // about 8 16-byte runs a thread, at most 2048 blocks
   const size_t per = (size_t)kThreads * 8 * (16 / sizeof(T));
   size_t gx = (n + per - 1) / per;
   gx = gx < 1 ? 1 : (gx < 2048 ? gx : 2048);
-  act_quant_write<T><<<(unsigned)gx, kThreads, 0, stream>>>(
-      xt, static_cast<int8_t*>(xq), n, part, s_static, dynamic, ws, vec);
+  act_quant_write<T><<<(unsigned)gx, kThreads, 0, stream>>>(xt, q, n, part, s_static, dynamic,
+                                                            ws, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -341,17 +750,26 @@ int launch_quantize(const void* x, void* xq, float* ws, size_t n, float s_static
 // the device. sws: f32 [oc]; bias: f32 [oc] or null.
 // out: NHWC [n, oy, ox, oc] with oy = (H + 2*py - ky) / sy + 1 (ox alike), of
 // out_kind 0 f32, 1 bf16, 2 int8 (stored at clamp(rint(v * out_q), -127, 127)).
-// vec: 16-byte copies (C % 16 == 0, xq and wq 16-byte aligned). The caller
-// keeps K = ky*kx*C <= 2^31 / 127^2, every extent under 2^31 and oc <=
-// 65535 * 128. Returns the launch's cudaGetLastError().
+// va: bytes of one copy of xq (16, 8, 4 or 1; C % va == 0 and xq va-aligned);
+// vb: of wq (the same over K = ky*kx*C; 16: by TMA, wq 16-byte aligned).
+// full: the 128 x 128 output tiles (row-major over [M / 128, oc / 128],
+// a multiple of the tiles along oc) that run whole; the rest run in
+// `splits` K ranges each (splits > 1; ws: int32 [splits, M - m_split, oc]
+// with m_split = full / (tiles along oc) * 128 their first row, else
+// unused). grid: blocks of the persistent walk (at most one per SM). The
+// caller keeps K <= 2^31 / 127^2, every extent under 2^31 and splits <= the
+// K chunks. Returns the launches' cudaGetLastError(), or tma::kEncodeError +
+// the CUresult where a tensor map was refused.
 extern "C" int boda_qconv(const void* xq, const void* wq, const void* s_act, const void* sws,
-                          const void* bias, void* out, int n, int H, int W,
-                          int C, int oc, int ky, int kx, int sy, int sx, int py, int px, int relu,
-                          int out_kind, float out_q, int vec, void* stream) {
+                          const void* bias, void* out, void* ws, int n, int H, int W, int C,
+                          int oc, int ky, int kx, int sy, int sx, int py, int px, int relu,
+                          int out_kind, float out_q, int va, int vb, int full, int splits,
+                          int grid, void* stream) {
   QShape s;
   s.H = H;
   s.W = W;
   s.C = C;
+  s.ky = ky;
   s.kx = kx;
   s.sy = sy;
   s.sx = sx;
@@ -362,25 +780,49 @@ extern "C" int boda_qconv(const void* xq, const void* wq, const void* s_act, con
   s.M = n * s.oy * s.ox;
   s.N = oc;
   s.K = ky * kx * C;
+  s.chunks = (s.K + kRowBytes - 1) / kRowBytes;
+  s.tiles_n = (s.N + kTile - 1) / kTile;
+  s.tiles = ((s.M + kTile - 1) / kTile) * s.tiles_n;
+  s.full = splits > 1 ? full : s.tiles;
+  s.splits = splits;
+  s.va = va;
+  s.vb = vb;
+  Outs o;
+  o.s_act = static_cast<const float*>(s_act);
+  o.sws = static_cast<const float*>(sws);
+  o.bias = static_cast<const float*>(bias);
+  o.out = out;
+  o.ws = static_cast<int*>(ws);
+  o.m_split = s.full / s.tiles_n * kTile;
+  o.relu = relu;
+  o.out_q = out_q;
+  const int8_t* x = static_cast<const int8_t*>(xq);
+  const int8_t* w = static_cast<const int8_t*>(wq);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (out_kind == 0)
-    return launch_vec<float>(vec, xq, wq, s_act, sws, bias, out, s, relu, out_q, st);
-  if (out_kind == 1)
-    return launch_vec<__nv_bfloat16>(vec, xq, wq, s_act, sws, bias, out, s, relu, out_q, st);
-  return launch_vec<int8_t>(vec, xq, wq, s_act, sws, bias, out, s, relu, out_q, st);
+  if (out_kind == 0) return launch_qconv<float>(x, w, o, s, grid, st);
+  if (out_kind == 1) return launch_qconv<__nv_bfloat16>(x, w, o, s, grid, st);
+  return launch_qconv<int8_t>(x, w, o, s, grid, st);
 }
 
-// () -> floats of boda_act_quantize's workspace: ws[0] holds s_act when the
-// launches end, ws[4..] the partial maxima.
-extern "C" int boda_act_quantize_ws_floats() { return 4 + kParts; }
+// Floats of boda_act_quantize's workspace for x of [A, B, Cc]: per_chan: the
+// Cc scales, then the per-channel partial maxima; else s_act at ws[0], the
+// partial maxima from ws[4].
+extern "C" int boda_act_quantize_ws_floats(long long A, long long B, long long Cc, int per_chan) {
+  return per_chan ? (int)(Cc + (long long)colmax_parts(A * B, Cc) * Cc) : 4 + kParts;
+}
 
-// x: n elements, f32 or bf16 (in_bf16); xq: n int8. s_static > 0: the static
-// scale, one launch; dynamic != 0: two launches. Returns cudaGetLastError()
-// after the launches.
-extern "C" int boda_act_quantize(const void* x, void* xq, void* ws, long long n, int in_bf16,
-                                 float s_static, int dynamic, void* stream) {
+// x: [A, B, Cc] elements, f32 or bf16 (in_bf16); xq: as many int8, [A, B, Cc]
+// or, where transpose, [Cc, B, A]. s_static > 0: the static scale, one
+// launch; dynamic != 0: two launches. per_chan (with transpose and dynamic):
+// one dynamic scale per channel c of the last dim, written to ws[0 .. Cc).
+// Returns cudaGetLastError() after the launches.
+extern "C" int boda_act_quantize(const void* x, void* xq, void* ws, long long A, long long B,
+                                 long long Cc, int in_bf16, float s_static, int dynamic,
+                                 int transpose, int per_chan, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* wsf = static_cast<float*>(ws);
-  return in_bf16 ? launch_quantize<__nv_bfloat16>(x, xq, wsf, (size_t)n, s_static, dynamic, st)
-                 : launch_quantize<float>(x, xq, wsf, (size_t)n, s_static, dynamic, st);
+  return in_bf16 ? launch_quantize<__nv_bfloat16>(x, xq, wsf, A, B, Cc, s_static, dynamic,
+                                                  transpose, per_chan, st)
+                 : launch_quantize<float>(x, xq, wsf, A, B, Cc, s_static, dynamic, transpose,
+                                          per_chan, st);
 }

@@ -64,13 +64,14 @@ ENTRY_POINTS = {
     "boda_quantize_int8": [_P] * 5 + [_I] * 3 + [_P],
     # () -> floats of boda_quantize_int8's workspace
     "boda_quantize_ws_floats": [],
-    # xq, wq, s_act, sws, bias, out, n, H, W, C, oc, ky, kx, sy, sx, py, px,
-    # relu, out_kind, out_q, vec, stream
-    "boda_qconv": [_P] * 6 + [_I] * 13 + [_F, _I, _P],
-    # x, xq, ws, n, in_bf16, s_static, dynamic, stream
-    "boda_act_quantize": [_P] * 3 + [_LL, _I, _F, _I, _P],
-    # () -> floats of boda_act_quantize's workspace
-    "boda_act_quantize_ws_floats": [],
+    # xq, wq, s_act, sws, bias, out, ws, n, H, W, C, oc, ky, kx, sy, sx, py,
+    # px, relu, out_kind, out_q, va, vb, full, splits, grid, stream
+    "boda_qconv": [_P] * 7 + [_I] * 13 + [_F] + [_I] * 5 + [_P],
+    # x, xq, ws, A, B, Cc, in_bf16, s_static, dynamic, transpose, per_chan,
+    # stream
+    "boda_act_quantize": [_P] * 3 + [_LL] * 3 + [_I, _F, _I, _I, _I, _P],
+    # A, B, Cc, per_chan -> floats of boda_act_quantize's workspace
+    "boda_act_quantize_ws_floats": [_LL] * 3 + [_I],
 }
 
 
@@ -137,8 +138,17 @@ def load_kernels() -> ctypes.CDLL:
     return lib
 
 
+# codes from this value up: a TMA tensor map that cuTensorMapEncodeTiled
+# refused, its CUresult added (csrc/tma_pipe.cuh kEncodeError)
+ENCODE_ERROR = 10000
+
+
 def check_launch(rc: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code (a refused launch never
-    runs, and only cudaGetLastError reports it)."""
+    runs, and only cudaGetLastError reports it), or an entry point could
+    not encode a TMA tensor map."""
+    if rc >= ENCODE_ERROR:
+        raise RtErr(f"{what}: TMA tensor map encode failed with CUresult "
+                    f"{rc - ENCODE_ERROR}")
     if rc != 0:
         raise RtErr(f"{what}: kernel launch failed with cudaError {rc}")

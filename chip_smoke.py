@@ -29,11 +29,20 @@ Phases, run in order, each fatal on failure (all of them by default):
            quantize pass and the product alone) and at ragged shapes (K=50,
            K=3, K=4099, N=129, an all-zero A); qconv (B6) and its
            activation quantize bit-equal to their plain versions at the
-           int8 preset's nine distinct b32 conv shapes (timed on the card
-           alone through a CUDA graph, beside the wrapper's call) and at
-           edges (C = 24, ragged M and oc, stride 2 with padding, a 5x5
-           filter, an int8 output edge, f32 out, an int8 input, a dynamic
-           scale, a NaN in x, no bias).
+           int8 preset's nine distinct b32 conv shapes and two at b128
+           (timed on the card alone through a CUDA graph, beside the
+           wrapper's call and the quantize pass's byte bound; each case's
+           plan: tiles, K chunks and splits, grid, copy widths) and at
+           edges (C = 24, 20 and 3: 8-byte, 4-byte and element copies,
+           ragged M and oc, stride 2 with padding, a 5x5 filter, an int8
+           output edge, f32 out, an int8 input, a dynamic scale, a NaN in
+           x, no bias, and K splits over ragged chunks, into an int8 output,
+           under a NaN dynamic scale and at K = 133120 with every product
+           127 * 127); B6 in its weight-gradient role at the grad_q8
+           preset's four b32 shapes (kernel, quantize passes and wgrad_q8
+           bit-equal and timed beside bf16 cuDNN's weight gradient) and at
+           two strided sites; then B6 alone by K split count (`qconv
+           splits` lines, what qconv_plan's split rule rests on).
            Each timed case also prints its bound (the larger of its FLOPs
            over the card's peak in its precision and its bytes, each input
            read and each output written once, over HBM bandwidth;
@@ -194,11 +203,12 @@ Phases, run in order, each fatal on failure (all of them by default):
            per-blob mrd printed), every distinct bf16 cuDNN grad conv of
            its backward held against its FP32 plain form (mrd 5e-3); the
            grad_q8 preset (tune/presets.RESNET_GRAD_Q8_SITE_PATS) on the
-           same batch: B6 and act_quantize launched once per planned int8
-           weight gradient, each distinct wgrad call bit-equal to
+           same batch: B6, act_quantize and cotangent_quantize (its
+           per-channel form) launched once per planned int8 weight
+           gradient, each distinct wgrad call bit-equal to
            wgrad_q8_plain, dx at every grad_q8 site bit-equal to the bf16
            VJP's; cnet_train three steps under the headline tune (no hand
-           kernel) and under the preset (B6 and act_quantize launches over
+           kernel) and under the preset (B6 and both quantize launches over
            the run = steps x the plan's count, counts zeroed just before),
            finite losses; a training forward under (), the fused tune
            and quant8 raises naming its first step with no backward,
@@ -212,7 +222,8 @@ Phases, run in order, each fatal on failure (all of them by default):
            torch.cuda.max_memory_allocated; B6 in its wgrad role at the
            preset's four b32 site shapes (bit-equal; the kernel alone
            through a CUDA graph beside its plain version, its bound, bf16
-           cuDNN's weight gradient and the wgrad_q8 wrapper)
+           cuDNN's weight gradient, the quantize passes and the wgrad_q8
+           wrapper; the kernels phase's readings where that phase ran)
   bench    the bench twin, python3 -m boda_tpu_torch.bench, in this
            process: bench.py's JSON line for its two plans at batch 128
            (the headline tune, and the int8 preset on the trained weights
@@ -244,6 +255,8 @@ engine batch in "launches_by_tune" as "serve:<tune>:<wire>:<clients>")
 and the pyra phase's ("pyra"; per forward as "pyra:<tune>:<pack>"),
 the train phase's ("train"; B6's wgrad role is the kernel entry
 "qconv_wgrad", its launches those of the grad_q8 preset's cnet_train run,
+with its quantize kernels' as "quantize_launches" and
+"cotangent_quantize_launches",
 per step of each train_bench row as "train_bench:<tune>");
 and {"ok": true,
 "device": {...}}. Without a CUDA device, or outside a checkout of the
@@ -294,7 +307,7 @@ B128_TUNES = ("headline", INT8)
 # exact kernel launches per ResNet-50 forward under each tune
 UNFUSED_LAUNCHES = {"matmul_ext": 40, "tconv": 13, "fused_stem": 0,
                     "resblock": 0, "sgemm_int8": 0, "quantize": 0,
-                    "qconv": 0, "act_quantize": 0}
+                    "qconv": 0, "act_quantize": 0, "cotangent_quantize": 0}
 FUSED_LAUNCHES = {**UNFUSED_LAUNCHES, "matmul_ext": 14, "tconv": 3,
                   "fused_stem": 1, "resblock": 12}
 VENDOR_LAUNCHES = dict.fromkeys(UNFUSED_LAUNCHES, 0)
@@ -883,10 +896,15 @@ def _qconv_cases():
     scale; a single conv stored bf16, with ReLU where the plan has it; a
     sibling pair concatenated on N and stored f32 before its members'
     ReLUs, as the xla_conv2 template runs it), timed; two of them at batch
-    128, the bench's, checked; then edges, checked:
-    C = 24 (element staging), ragged M and oc, stride 2 with padding, an
-    int8 output edge, an f32 output, an input that arrives int8 (s_act by
-    value), a dynamic scale, a NaN in x (dynamic and static), no bias."""
+    128, the bench's, timed; then edges, checked:
+    C = 24 (8-byte copies), C = 20 (4-byte), C = 3 (element staging),
+    ragged M and oc, stride 2 with padding, an int8 output edge, an f32
+    output, an input that arrives int8 (s_act by value), a dynamic scale,
+    a NaN in x (dynamic and static), no bias; and K splits the plan makes:
+    over chunks the splits do not divide, into an int8 output, under a NaN
+    dynamic scale, and at K = 133120, just under K_MAX, with every product
+    127 * 127 (the int32 sum 2147092480). `split` / `ragged` cases check
+    that the plan splits (over a chunk count the splits do not divide)."""
     def c(n, H, C, oc, k=1, s=1, p=0, relu=True, **kw):
         return dict(n=n, H=H, W=kw.pop("W", H), C=C, oc=oc, k=k, s=s, p=p,
                     relu=relu, **kw)
@@ -904,9 +922,9 @@ def _qconv_cases():
         ("res5 1x1 n=32 7^2 512->2048", c(32, 7, 512, 2048, relu=False),
          True),
         ("res5 1x1 n=32 7^2 2048->512", c(32, 7, 2048, 512), True),
-        ("res3 3x3 n=128 28^2 128->128", c(128, 28, 128, 128, 3, p=1), False),
+        ("res3 3x3 n=128 28^2 128->128", c(128, 28, 128, 128, 3, p=1), True),
         ("res4a pair 1x1/s2 n=128 28^2 512->1280",
-         c(128, 28, 512, 1280, s=2, relu=False, out="f32"), False),
+         c(128, 28, 512, 1280, s=2, relu=False, out="f32"), True),
         ("edge C=24 3x3 n=2 9x7 oc=40", c(2, 9, 24, 40, 3, p=1, W=7), False),
         ("edge C=24 1x1/s2 n=3 11^2 oc=130", c(3, 11, 24, 130, s=2), False),
         ("edge ragged n=3 13x11 C=64 oc=72", c(3, 13, 64, 72, 3, p=1, W=11),
@@ -929,6 +947,18 @@ def _qconv_cases():
          c(2, 14, 256, 64, nan=True), False),
         ("edge no bias f32 x 1x1 n=2 7^2 C=512 oc=2048",
          c(2, 7, 512, 2048, bias=False, x32=True), False),
+        ("edge C=20 3x3 n=2 9x7 oc=40", c(2, 9, 20, 40, 3, p=1, W=7), False),
+        ("edge C=3 3x3/s2 pad 1 n=2 15^2 oc=64", c(2, 15, 3, 64, 3, s=2, p=1),
+         False),
+        ("edge split ragged 3x3 n=1 7^2 C=528 oc=512",
+         c(1, 7, 528, 512, 3, p=1, split=True, ragged=True), False),
+        ("edge split out_q8 3x3 n=2 7^2 C=512 oc=256",
+         c(2, 7, 512, 256, 3, p=1, out="int8", split=True), False),
+        ("edge split NaN dynamic 3x3 n=2 7^2 C=512 oc=256",
+         c(2, 7, 512, 256, 3, p=1, dynamic=True, nan=True, split=True),
+         False),
+        ("edge split K=133120 all 127 1x1 n=1 2^2 oc=64",
+         c(1, 2, 133120, 64, const=True, split=True), False),
     ]
 
 
@@ -969,9 +999,84 @@ def _check_qconv(stats: dict, dev, gen, peaks) -> None:
     import torch
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     s = stats["qconv"] = _stats("qconv")
-    s["quantize_ms"] = 0.0
+    s["quantize_ms"] = s["quantize_bound_ms"] = 0.0
     for label, kw, timed in _qconv_cases():
         _qconv_case(s, label, kw, timed, dev, gen, peaks, sms)
+
+
+def _qconv_plan_str(plan) -> str:
+    """B6's plan as the smoke prints it: tiles (those run whole), K chunks
+    and the split tiles' splits, the persistent grid, the copy widths of A
+    and B."""
+    return (f"128x128 tiles {plan.blocks} (whole "
+            f"{plan.full}) chunks {plan.chunks} splits {plan.splits} grid "
+            f"{plan.grid} copy "
+            f"A {'tma' if plan.tma_a else plan.copy} "
+            f"B {'tma' if plan.tma_b else plan.copy_b}")
+
+
+# B6 alone by K split count, the shapes where qconv_plan's split rule
+# decides (the preset's sites at b32, the four grad_q8 weight gradients as
+# wgrad_q8 hands them to B6): (label, n, H, C, oc, k, stride, pad)
+QCONV_SPLIT_SHAPES = [
+    ("res3 3x3 b32", 32, 28, 128, 128, 3, 1, 1),
+    ("res4 3x3 b32", 32, 14, 256, 256, 3, 1, 1),
+    ("res4 1x1 1024->256 b32", 32, 14, 1024, 256, 1, 1, 0),
+    ("res5a pair b32", 32, 14, 1024, 2560, 1, 2, 0),
+    ("res5 3x3 b32", 32, 7, 512, 512, 3, 1, 1),
+    ("res5 1x1 2048->512 b32", 32, 7, 2048, 512, 1, 1, 0),
+    ("res5 3x3 b128", 128, 7, 512, 512, 3, 1, 1),
+    ("wgrad res3 3x3", 128, 28, 32, 128, 28, 1, 1),
+    ("wgrad res4 3x3", 256, 14, 32, 256, 14, 1, 1),
+    ("wgrad res5 3x3", 512, 7, 32, 512, 7, 1, 1),
+    ("wgrad res5 1x1", 512, 7, 32, 2048, 7, 1, 0)]
+
+
+def _qconv_splits(dev, gen) -> None:
+    """B6 alone (through the C entry point, one CUDA graph of 20 calls)
+    timed by K split count at QCONV_SPLIT_SHAPES: every tile in 1, 2, 3,
+    4, 6, 8, 12 and 16 splits (at most the chunk count), and the plan's
+    own split where it keeps full waves whole, each result bit-equal to the
+    unsplit one, for qconv_plan's split rule."""
+    import torch
+    from boda_tpu_torch.ops.cuda.qconv import launch_qconv, qconv_plan
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for label, n, H, C, oc, k, st, p in QCONV_SPLIT_SHAPES:
+        xq = torch.randint(-127, 128, (n, H, H, C), device=dev,
+                           generator=gen, dtype=torch.int8)
+        wq = torch.randint(-127, 128, (oc, k, k, C), device=dev,
+                           generator=gen, dtype=torch.int8)
+        s_act = torch.full((1,), 0.02, device=dev)
+        sws = torch.rand(oc, device=dev, generator=gen) * 1e-3
+        bias = torch.randn(oc, device=dev, generator=gen)
+        plan = qconv_plan(n, H, H, C, oc, k, k, (st, st), (p, p), sms)
+        oy = (H + 2 * p - k) // st + 1
+        odt = torch.float32 if label.startswith("wgrad") else torch.bfloat16
+        outs = {}
+        row = []
+        runs = [(0, sp) for sp in (1, 2, 3, 4, 6, 8, 12, 16)
+                if sp <= plan.chunks]
+        if 0 < plan.full < plan.blocks:
+            runs.append((plan.full, plan.splits))
+        for full, sp in runs:
+            out = torch.empty(n, oy, oy, oc, device=dev, dtype=odt)
+            grid = min(full + (plan.blocks - full) * sp, sms)
+
+            def run():
+                launch_qconv(xq, wq, s_act, sws, bias, out, (st, st), (p, p),
+                             True, 0.0, full, sp, grid)
+            run()
+            outs[(full, sp)] = out
+            row.append(f"{sp}{f' past {full} whole' if full else ''}: "
+                       f"{graph_ms(run):.4f}")
+        torch.cuda.synchronize()
+        check(all(bit_equal(o, outs[(0, 1)]) for o in outs.values()),
+              f"qconv splits {label}: a split result differs from the "
+              f"unsplit one")
+        print(f"qconv splits {label}: tiles {plan.blocks} chunks "
+              f"{plan.chunks}, planned {plan.splits} past {plan.full} whole "
+              f"on {sms} SMs; ms by splits " + ", ".join(row)
+              + "; bit-equal", flush=True)
 
 
 def _qconv_case(s: dict, label: str, kw: dict, timed: bool, dev, gen, peaks,
@@ -986,14 +1091,17 @@ def _qconv_case(s: dict, label: str, kw: dict, timed: bool, dev, gen, peaks,
     n, H, W, C, oc, k = (kw[key] for key in ("n", "H", "W", "C", "oc", "k"))
     st, pd = (kw["s"], kw["s"]), (kw["p"], kw["p"])
     x = torch.randn(n, H, W, C, device=dev, generator=gen)
+    if kw.get("const"):
+        x = torch.full_like(x, 2.0)
     if not kw.get("x32"):
         x = x.bfloat16()
     if kw.get("nan"):
         x[n // 2, H // 2, W // 3, C // 3] = float("nan")
     # a static scale that clips the largest few values, as calibration
-    # on other inputs does
+    # on other inputs does (every value on code 127 where const)
     absmax = 0.0 if kw.get("dynamic") else \
-        0.8 * float(x.float().nan_to_num(0.0).abs().max())
+        (1.0 if kw.get("const") else 0.8) \
+        * float(x.float().nan_to_num(0.0).abs().max())
     q_got, q_want = act_quantize(x, absmax), act_quantize_plain(x, absmax)
     torch.cuda.synchronize()
     check(all(bit_equal(g, w) for g, w in zip(q_got, q_want)),
@@ -1004,6 +1112,9 @@ def _qconv_case(s: dict, label: str, kw: dict, timed: bool, dev, gen, peaks,
         if kw.get("in_q8") else q_got[1]
     wq = torch.randint(-127, 128, (oc, k, k, C), device=dev,
                        generator=gen, dtype=torch.int8)
+    if kw.get("const"):
+        check(bool((xq == 127).all()), f"qconv {label}: x not on code 127")
+        wq.fill_(127)
     sws = torch.rand(oc, device=dev, generator=gen) * 2e-3 + 1e-4
     bias = torch.randn(oc, device=dev, generator=gen) \
         if kw.get("bias", True) else None
@@ -1022,11 +1133,16 @@ def _qconv_case(s: dict, label: str, kw: dict, timed: bool, dev, gen, peaks,
     plan = qconv_plan(n, H, W, C, oc, k, k, st, pd, sms)
     print(f"kernel qconv {str(x.dtype)[6:]}->{str(odt)[6:]:8s} "
           f"{label:44s} bit-equal={bit_equal(got, want)} (quantize "
-          f"bit-equal) max_abs={abs_err:.3e} plan {plan.route} "
-          f"{plan.tile_m}x{plan.tile_n}"
-          f"{'' if plan.vec else ' element-staged'}", end="")
+          f"bit-equal) max_abs={abs_err:.3e} plan {_qconv_plan_str(plan)}",
+          end="")
     check(bit_equal(got, want), f"qconv {label}: differs from its plain "
                                 f"version (max abs {abs_err:.3e})")
+    if kw.get("split"):
+        check(plan.splits > 1, f"qconv {label}: the plan does not split K")
+    if kw.get("ragged"):
+        check(plan.chunks % plan.splits != 0,
+              f"qconv {label}: {plan.chunks} chunks in {plan.splits} even "
+              f"splits")
     if kw.get("nan") and kw.get("dynamic"):
         check(bool(got.isnan().all()), f"qconv {label}: a NaN scale "
                                        f"left finite outputs")
@@ -1039,6 +1155,8 @@ def _qconv_case(s: dict, label: str, kw: dict, timed: bool, dev, gen, peaks,
     ms = graph_ms(lambda: qconv(*args))
     call_ms = cuda_ms(lambda: qconv(*args), 20)
     quant_ms = graph_ms(lambda: act_quantize(x, absmax))
+    # the quantize reads x once (twice where dynamic) and writes xq
+    quant_bound, _ = bound(peaks, "int8", 0, _nbytes(x, xq))
     plain_ms = cuda_ms(lambda: qconv_plain(*args), 3)
     M = got.numel() // oc
     work = 2 * M * oc * k * k * C
@@ -1061,13 +1179,16 @@ def _qconv_case(s: dict, label: str, kw: dict, timed: bool, dev, gen, peaks,
         lib_ms = None
     print(f" kernel {ms:.4f} ms ({work / ms / 1e9:.1f} TOPS; the "
           f"wrapper's call {call_ms:.4f}) plain "
-          f"{plain_ms:.4f} ms; quantize pass {quant_ms:.4f} ms; bound "
+          f"{plain_ms:.4f} ms; quantize pass {quant_ms:.4f} ms (bound "
+          f"{quant_bound:.4f}, bytes); bound "
           f"{bound_ms:.4f} ms ({bound_by}); library _int_mm + epilogue "
           f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
     s["quantize_ms"] += quant_ms
+    s["quantize_bound_ms"] += quant_bound
     _add_case(s, {"case": label, "dtype": "int8", "mrd": 0.0, "ms": ms,
                   "call_ms": call_ms, "plain_ms": plain_ms,
-                  "quantize_ms": quant_ms,
+                  "quantize_ms": quant_ms, "quantize_bound_ms": quant_bound,
+                  "plan": _qconv_plan_str(plan),
                   "tops": work / ms / 1e9, "bound_ms": bound_ms,
                   "bound_by": bound_by, "library_ms": lib_ms,
                   "library": "call: torch._int_mm (im2col'd int8 "
@@ -1090,6 +1211,8 @@ def phase_kernels(ctx: dict) -> None:
         _check_qsgemm(stats, dev, gen, peaks)
     if wanted("qconv"):
         _check_qconv(stats, dev, gen, peaks)
+        ctx["wgrad"] = _wgrad_times(dev, peaks)
+        _qconv_splits(dev, gen)
     timed = {c[0] for c in _kernel_cases()}
     for label, kname, kw in _kernel_cases() + _edge_cases():
         if not wanted(kname):
@@ -1692,8 +1815,11 @@ def phase_agree(ctx: dict) -> None:
 
 def _wrappers() -> dict:
     """Each kernel's wrapper, whose `launches` counts its launches
-    ("quantize": sgemm_int8's quantize kernel; "act_quantize": qconv's)."""
-    from boda_tpu_torch.ops.cuda.qconv import act_quantize, qconv
+    ("quantize": sgemm_int8's quantize kernel; "act_quantize": qconv's;
+    "cotangent_quantize": its per-channel form, in the int8 weight
+    gradient)."""
+    from boda_tpu_torch.ops.cuda.qconv import act_quantize, \
+        cotangent_quantize, qconv
     from boda_tpu_torch.ops.cuda.qsgemm import quantize_operands, sgemm_int8
     from boda_tpu_torch.ops.cuda.resblock import resblock
     from boda_tpu_torch.ops.cuda.sgemm import matmul_ext
@@ -1702,7 +1828,8 @@ def _wrappers() -> dict:
     return {"matmul_ext": matmul_ext, "tconv": tconv,
             "fused_stem": fused_stem, "resblock": resblock,
             "sgemm_int8": sgemm_int8, "quantize": quantize_operands,
-            "qconv": qconv, "act_quantize": act_quantize}
+            "qconv": qconv, "act_quantize": act_quantize,
+            "cotangent_quantize": cotangent_quantize}
 
 
 def _op_label(op) -> str:
@@ -2816,15 +2943,15 @@ def _zoo_qconv(z: dict, dev, gen, peaks) -> None:
     import torch
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     s = _stats("qconv")
-    s["quantize_ms"] = 0.0
+    s["quantize_ms"] = s["quantize_bound_ms"] = 0.0
     for label, kw in ZOO_QCONV:
         _qconv_case(s, label, kw, True, dev, gen, peaks, sms)
-    z["qconv_googlenet"] = {k: s[k] for k in ("ms", "plain_ms", "bound_ms",
-                                              "library_ms", "quantize_ms",
-                                              "max_abs_err")}
+    z["qconv_googlenet"] = {k: s[k] for k in (
+        "ms", "plain_ms", "bound_ms", "library_ms", "quantize_ms",
+        "quantize_bound_ms", "max_abs_err")}
     z["qconv_googlenet"]["cases"] = [
         {k: c[k] for k in ("case", "ms", "call_ms", "plain_ms", "tops",
-                           "bound_ms", "bound_by", "library_ms")}
+                           "bound_ms", "bound_by", "library_ms", "plan")}
         for c in s["cases"]]
 
 
@@ -3849,10 +3976,12 @@ def _train_grads(t: dict, dev) -> None:
                                           xb, lb)
         torch.cuda.synchronize()
     planned, planned_convs = _planned_wgrad(plan_q, TRAIN_BATCH)
-    got = (wrappers["qconv"].launches, wrappers["act_quantize"].launches)
-    check(planned > 0 and got == (planned_convs, planned)
+    got = (wrappers["qconv"].launches, wrappers["act_quantize"].launches,
+           wrappers["cotangent_quantize"].launches)
+    check(planned > 0 and got == (planned_convs, planned, planned)
           and len(rec_q["wgrad_q8"]) == planned,
-          f"train: grad_q8 step launched B6 / act_quantize {got}, recorded "
+          f"train: grad_q8 step launched B6 / act_quantize / "
+          f"cotangent_quantize {got}, recorded "
           f"{len(rec_q['wgrad_q8'])} wgrad calls; the plan has "
           f"{planned_convs} / {planned}")
     held, wgrad_abs = {}, 0.0
@@ -3883,8 +4012,8 @@ def _train_grads(t: dict, dev) -> None:
     least_q, least_site = min(cos_q, key=cos_q.get), \
         min(q_blobs, key=cos_q.get)
     print(f"  grad_q8: step-1 loss {loss_q:.6f}; {planned} int8 weight "
-          f"gradients on B6 ({got[0]} qconv + {got[1]} act_quantize "
-          f"launches, as the plan says); {len(held)} distinct wgrad calls "
+          f"gradients on B6 ({got[0]} qconv + {got[1]} act_quantize + "
+          f"{got[2]} cotangent_quantize launches, as the plan says); {len(held)} distinct wgrad calls "
           f"bit-equal to wgrad_q8_plain; dx at the {len(q8_sites)} sites "
           f"bit-equal to the bf16 VJP's; gradients against the f32 tune's: "
           f"relative L2 {l2_q:.3e} (gate {TRAIN_Q8_L2:g}), least cosine "
@@ -3987,7 +4116,9 @@ def _train_runs(t: dict, launches: dict) -> None:
             sites, convs = _planned_wgrad(hm._plan, TRAIN_BATCH)
             check(sites > 0 and counts["qconv"] == convs * TRAIN_STEPS
                   and counts["act_quantize"] == sites * TRAIN_STEPS
-                  and sum(counts.values()) == (sites + convs) * TRAIN_STEPS,
+                  and counts["cotangent_quantize"] == sites * TRAIN_STEPS
+                  and sum(counts.values())
+                  == (2 * sites + convs) * TRAIN_STEPS,
                   f"train grad_q8: launches {counts}, the plan's "
                   f"{sites} wgrads ({convs} qconv) over {TRAIN_STEPS} steps")
         else:
@@ -4055,7 +4186,8 @@ def _train_bench_rows(t: dict, launches: dict, smi: str) -> None:
         per = {k: v // hm.steps for k, v in counts.items()}
         sites, convs = _planned_wgrad(hm.plan, TRAIN_BATCH)
         check(counts["qconv"] == convs * hm.steps
-              and counts["act_quantize"] == sites * hm.steps,
+              and counts["act_quantize"] == sites * hm.steps
+              and counts["cotangent_quantize"] == sites * hm.steps,
               f"train_bench {label}: launches {counts} over {hm.steps} "
               f"steps, {convs} qconv and {sites} act_quantize each")
         launches[f"train_bench:{label}"] = per
@@ -4081,24 +4213,29 @@ def _train_bench_rows(t: dict, launches: dict, smi: str) -> None:
         torch.cuda.empty_cache()
 
 
-def _wgrad_times(t: dict, dev, peaks) -> dict:
+def _wgrad_times(dev, peaks) -> dict:
     """B6 in its wgrad role at the preset's four b32 site shapes: the
-    wrapper (both quantize passes, the layout glue, the kernel) and the
-    kernel alone bit-equal to their plain versions; the kernel alone timed
-    through a CUDA graph beside its plain version, its bound and bf16
-    cuDNN's weight gradient (aten.convolution_backward, the weight only);
-    the wrapper's time beside it; then the wrapper bit-equal at the
-    strided sites of WGRAD_STRIDED. Returns the kernel-line entry."""
+    wrapper (both quantize passes, the layout glue, the kernel), the
+    kernel alone and both quantize passes bit-equal to their plain
+    versions; the kernel alone timed through a CUDA graph beside its plain
+    version, its plan, its bound and bf16 cuDNN's weight gradient
+    (aten.convolution_backward, the weight only); the two quantize passes
+    (x stored transposed, the cotangent per channel into B6's filter)
+    timed the same way beside their byte bound; the wrapper's time beside
+    them; then the wrapper bit-equal at the strided sites of
+    WGRAD_STRIDED. Returns the kernel-line entry."""
     import torch
-    from boda_tpu_torch.ops.cuda.qconv import act_quantize, qconv, \
-        qconv_plain, quantize_filter, wgrad_q8, wgrad_q8_plain
+    from boda_tpu_torch.ops.cuda.qconv import act_quantize, \
+        act_quantize_plain, cotangent_quantize, cotangent_quantize_plain, \
+        qconv, qconv_plain, qconv_plan, wgrad_q8, wgrad_q8_plain
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(12)
     entry = {"name": "qconv_wgrad", "route": "cuda",
              "source": "boda_tpu_torch/csrc/qconv.cu",
              "replaces": "boda_tpu/ops/mxu_grad.py:170",
              "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
              "bound_by": None, "library_ms": 0.0, "wrapper_ms": 0.0,
-             "cases": []}
+             "quantize_ms": 0.0, "quantize_bound_ms": 0.0, "cases": []}
     cl = torch.channels_last
     for label, n, hw, ci, co, k in WGRAD_SHAPES:
         p = k // 2
@@ -4111,22 +4248,30 @@ def _wgrad_times(t: dict, dev, peaks) -> dict:
         want = wgrad_q8_plain(x, w, g, (1, 1), (p, p))
         check(bit_equal(got, want),
               f"wgrad {label}: differs from wgrad_q8_plain")
-        xq, s_x = act_quantize(x)
-        xt = xq.permute(3, 1, 2, 0).contiguous()
-        gq, s_g = quantize_filter(g.permute(3, 1, 2, 0))
-        gq = gq.contiguous()
+        xt, s_x = act_quantize(x, 0.0, True)
+        gq, s_g = cotangent_quantize(g)
+        torch.cuda.synchronize()
+        check(all(bit_equal(a, b) for a, b in zip(
+            (xt, s_x, gq, s_g), (*act_quantize_plain(x, 0.0, True),
+                                 *cotangent_quantize_plain(g)))),
+              f"wgrad {label}: a quantize pass differs from its plain "
+              f"version")
         args = (xt, gq, s_x, s_g, None, (1, 1), (p, p), False,
                 torch.float32, 0.0)
         out = qconv(*args)
         out_plain = qconv_plain(*args)
         check(bit_equal(out, out_plain),
               f"wgrad {label}: B6 differs from qconv_plain")
+        plan = qconv_plan(ci, hw, hw, n, co, hw, hw, (1, 1), (p, p), sms)
         entry["max_abs_err"] = max(
             entry["max_abs_err"], float((got - want).abs().max()),
             float((out - out_plain).abs().max()))
         ms = graph_ms(lambda: qconv(*args))
         plain_ms = cuda_ms(lambda: qconv_plain(*args), 3)
         wrapper_ms = cuda_ms(lambda: wgrad_q8(x, w, g, (1, 1), (p, p)), 20)
+        q_ms = graph_ms(lambda: (act_quantize(x, 0.0, True),
+                                 cotangent_quantize(g)))
+        q_bound, _ = bound(peaks, "int8", 0, _nbytes(x, xt, g, gq, s_g))
         xc, gc = x.permute(0, 3, 1, 2), g.to(torch.bfloat16).permute(
             0, 3, 1, 2)
         wc = w.contiguous(memory_format=cl)
@@ -4138,17 +4283,22 @@ def _wgrad_times(t: dict, dev, peaks) -> dict:
                            _nbytes(xt, gq, out))
         case = {"case": label, "gemm": [M, N, K], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "library_ms": lib_ms, "wrapper_ms": wrapper_ms}
-        print(f"  wgrad {label} (B6 M x N x K = {M} x {N} x {K}): kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f}, bound {b_ms:.4f} "
-              f"({b_by}), bf16 cuDNN wgrad {lib_ms:.4f}; wgrad_q8 with its "
-              f"quantize passes {wrapper_ms:.4f} ms; bit-equal")
-        for kk in ("ms", "plain_ms", "bound_ms", "library_ms", "wrapper_ms"):
+                "library_ms": lib_ms, "wrapper_ms": wrapper_ms,
+                "quantize_ms": q_ms, "quantize_bound_ms": q_bound,
+                "plan": _qconv_plan_str(plan)}
+        print(f"  wgrad {label} (B6 M x N x K = {M} x {N} x {K}; plan "
+              f"{case['plan']}): kernel {ms:.4f} ms, plain {plain_ms:.4f}, "
+              f"bound {b_ms:.4f} ({b_by}), bf16 cuDNN wgrad {lib_ms:.4f}; "
+              f"quantize passes (x transposed, the cotangent per channel) "
+              f"{q_ms:.4f} ms, bound {q_bound:.4f} (bytes); wgrad_q8 with "
+              f"them {wrapper_ms:.4f} ms; bit-equal")
+        for kk in ("ms", "plain_ms", "bound_ms", "library_ms", "wrapper_ms",
+                   "quantize_ms", "quantize_bound_ms"):
             entry[kk] += case[kk]
         if all(b_ms >= c["bound_ms"] for c in entry["cases"]):
             entry["bound_by"] = b_by
         entry["cases"].append(case)
-        del x, g, xq, xt, gq, out, out_plain, got, want
+        del x, g, xt, gq, out, out_plain, got, want
     for label, n, hw, ci, co, k, st in WGRAD_STRIDED:
         p, oy = k // 2, (hw + 2 * (k // 2) - k) // st + 1
         x = torch.relu(torch.randn(n, hw, hw, ci, device=dev,
@@ -4168,10 +4318,6 @@ def _wgrad_times(t: dict, dev, peaks) -> dict:
               f"phase of the stride, K = {n * oy * oy} each; bit-equal")
         del x, g, got, want
     torch.cuda.empty_cache()
-    # and the distinct wgrad calls of the grad_q8 training step
-    entry["max_abs_err"] = max(entry["max_abs_err"],
-                               t["grad_q8"]["wgrad_max_abs_err"])
-    t["wgrad"] = entry
     return entry
 
 
@@ -4202,7 +4348,12 @@ def phase_train(ctx: dict) -> None:
     _train_guard(t, dev)
     _train_runs(t, launches)
     _train_bench_rows(t, launches, ctx["smi"])
-    _wgrad_times(t, dev, peaks)
+    # B6's wgrad cases (timed in the kernels phase where it ran), and the
+    # distinct wgrad calls of the grad_q8 training step
+    entry = ctx.pop("wgrad", None) or _wgrad_times(dev, peaks)
+    entry["max_abs_err"] = max(entry["max_abs_err"],
+                               t["grad_q8"]["wgrad_max_abs_err"])
+    t["wgrad"] = entry
     gc.unfreeze()
     t["s"] = time.perf_counter() - t0
     print(f"  train: the card {ctx['smi']}")
@@ -4283,6 +4434,8 @@ def main() -> int:
     q8_run = ctx["launches"]["train:grad_q8"]
     kernels.append({**wg, "launches": q8_run["qconv"],
                     "quantize_launches": q8_run["act_quantize"],
+                    "cotangent_quantize_launches":
+                        q8_run["cotangent_quantize"],
                     "launches_by_tune": {
                         t: c["qconv"] for t, c in ctx["launches"].items()
                         if t.startswith("train")}})

@@ -301,13 +301,16 @@ def test_qconv_plain_sums_exactly_and_applies_the_epilogue_in_f32():
 
 
 def test_qconv_plan_and_refusals():
-    # channels in whole 16-byte copies, else element staging; 128 x 128
-    # tiles of the int8 tensor-core route; never a K split
+    # channels in whole 16-byte copies, B by TMA; 128 x 128 tiles of 128-byte
+    # K chunks; a grid of whole waves and too many tiles in its last takes
+    # no K split
     p = qc.qconv_plan(32, 14, 14, 1024, 2560, 1, 1, (2, 2), (0, 0), 132)
-    assert (p.route, p.vec, p.tile_m, p.tile_n, p.bk, p.splits) == \
-        ("mma", True, 128, 128, 128, 1)
-    assert p.blocks == 13 * 20
-    assert not qc.qconv_plan(2, 8, 8, 24, 32, 3, 3, (1, 1), (1, 1), 132).vec
+    assert (p.copy, p.tma_a, p.tma_b, p.chunks, p.splits, p.full) == \
+        (16, False, True, 8, 1, 13 * 20)
+    assert p.blocks == 13 * 20 and p.grid == 132
+    # C = 24: 8-byte copies of A and B, no TMA
+    p = qc.qconv_plan(2, 8, 8, 24, 32, 3, 3, (1, 1), (1, 1), 132)
+    assert (p.copy, p.copy_b, p.tma_a, p.tma_b) == (8, 8, False, False)
     xq = torch.zeros(1, 4, 4, 16, dtype=torch.int8)
     wq = torch.zeros(8, 3, 3, 16, dtype=torch.int8)
     sws, one = torch.ones(8), torch.ones(1)
@@ -332,6 +335,243 @@ def test_plain_versions_count_no_launch():
     xq, s = qc.act_quantize(x)
     qc.qconv(xq, torch.ones(8, 1, 1, 16, dtype=torch.int8), s, torch.ones(8))
     assert (qc.qconv.launches, qc.act_quantize.launches) == before
+
+
+# the ResNet-50 shapes B6 runs at batch 32: (label, n, H, C, oc, k, s, p);
+# forward convs as the int8 preset gives them, and the four weight
+# gradients of the grad_q8 preset as wgrad_q8 hands them over (x as [I, H,
+# W, N], the cotangent as an [O, OH, OW, N] filter, the output [I, k, k, O])
+FWD_B32 = [("res3 3x3", 32, 28, 128, 128, 3, 1, 1),
+           ("res4a pair", 32, 28, 512, 1280, 1, 2, 0),
+           ("res4 3x3", 32, 14, 256, 256, 3, 1, 1),
+           ("res4 1x1 256->1024", 32, 14, 256, 1024, 1, 1, 0),
+           ("res4 1x1 1024->256", 32, 14, 1024, 256, 1, 1, 0),
+           ("res5a pair", 32, 14, 1024, 2560, 1, 2, 0),
+           ("res5 3x3", 32, 7, 512, 512, 3, 1, 1),
+           ("res5 1x1 512->2048", 32, 7, 512, 2048, 1, 1, 0),
+           ("res5 1x1 2048->512", 32, 7, 2048, 512, 1, 1, 0)]
+WGRAD_B32 = [("wgrad res3 3x3", 128, 28, 32, 128, 28, 1, 1),
+             ("wgrad res4 3x3", 256, 14, 32, 256, 14, 1, 1),
+             ("wgrad res5 3x3", 512, 7, 32, 512, 7, 1, 1),
+             ("wgrad res5 1x1", 512, 7, 32, 2048, 7, 1, 0)]
+
+
+def _plan(case, sms=132):
+    _label, n, H, C, oc, k, s, p = case
+    return qc.qconv_plan(n, H, H, C, oc, k, k, (s, s), (p, p), sms)
+
+
+@pytest.mark.parametrize("case", FWD_B32 + WGRAD_B32, ids=lambda c: c[0])
+def test_qconv_plan_splits_where_the_tiles_do_not_fill_the_card(case):
+    plan = _plan(case)
+    label = case[0]
+    tiles_n = -(-case[4] // 128)
+    units = plan.full + (plan.blocks - plan.full) * plan.splits
+    # the card's 132 SMs each walk one unit (a tile, or a K range of one)
+    # at a time
+    assert plan.grid == min(units, 132)
+    if plan.splits == 1:
+        assert plan.full == plan.blocks
+    elif plan.blocks < 132:
+        # fewer tiles than SMs: every tile split, one wave of units
+        assert plan.full == 0 and units <= 132
+    else:
+        # the full waves' tiles whole, the last wave's split into one wave
+        assert plan.full == plan.blocks // 132 * 132 // tiles_n * tiles_n
+        assert plan.full % tiles_n == 0 \
+            and (plan.blocks - plan.full) * plan.splits <= 132
+    # res5 3x3 (52 tiles of 36 chunks), res5's 2048->512 (52 of 16) and the
+    # weight gradients with fewer tiles than SMs (9 tiles of 196 chunks, 36
+    # of 49, 64 of 13) split every tile; res3 3x3 (196 tiles) and the res5
+    # 3x3 gradient (144) split their last wave's 64 and 12; the 98-tile
+    # res4 sites would take a second wave of units, and the other sites'
+    # last waves are too many tiles or too few chunks to split
+    split = {"res5 3x3": (2, 0), "res5 1x1 2048->512": (2, 0),
+             "wgrad res3 3x3": (14, 0), "wgrad res4 3x3": (3, 0),
+             "wgrad res5 1x1": (2, 0), "res3 3x3": (2, 132),
+             "wgrad res5 3x3": (3, 132)}
+    assert (plan.splits, plan.full) == split.get(label, (1, plan.blocks))
+    if plan.splits > 1:
+        assert plan.chunks // plan.splits >= 4
+    # the filter by TMA at every ResNet-50 site; A by TMA at the 1x1
+    # stride-1 convs (a row-major [M, C] matrix), else in 16-byte copies
+    assert (plan.copy, plan.tma_b) == (16, True)
+    _label, _n, _H, _C, _oc, k, st, p = case
+    assert plan.tma_a == (k == 1 and st == 1 and p == 0)
+
+
+def test_qconv_plan_leaves_full_waves_whole():
+    # at batch 128 every site of the preset gives at least a tile per SM:
+    # no tile of a full wave is split, and a last wave is split only where
+    # its split units fit one wave (res5a's 60 tiles, res5's 64)
+    split = {}
+    for case in FWD_B32:
+        label, _n, *rest = case
+        plan = _plan((label, 128, *rest))
+        assert plan.blocks >= 132 and plan.grid == 132, label
+        assert plan.full >= plan.blocks // 132 * 132 - 20, label
+        if plan.splits > 1:
+            split[label] = (plan.blocks - plan.full, plan.splits)
+    assert split == {"res5a pair": (60, 2), "res5 3x3": (64, 2),
+                     "res5 1x1 2048->512": (64, 2)}
+    # and fewer SMs fill sooner: res5 3x3 at b32 on 26 SMs (two waves)
+    plan = _plan(FWD_B32[6], sms=26)
+    assert (plan.full, plan.splits) == (plan.blocks, 1)
+    # a lone tile of a K just under K_MAX splits into one unit per SM
+    plan = qc.qconv_plan(1, 2, 2, 133120, 64, 1, 1, (1, 1), (0, 0), 132)
+    assert (plan.blocks, plan.chunks, plan.splits, plan.full) \
+        == (1, 1040, 132, 0)
+
+
+@pytest.mark.parametrize("chunks", [1, 2, 9, 13, 36, 49, 196, 1040])
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 7, 8, 16])
+def test_split_ranges_cover_k_exactly_once(chunks, splits):
+    if splits > chunks:
+        return
+    ranges = qc.split_ranges(chunks, splits)
+    assert len(ranges) == splits
+    assert [r[0] for r in ranges[1:]] == [r[1] for r in ranges[:-1]]
+    assert ranges[0][0] == 0 and ranges[-1][1] == chunks
+    sizes = [b - a for a, b in ranges]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+
+
+@pytest.mark.parametrize("C, width", [(64, 16), (24, 8), (20, 4), (3, 1),
+                                      (16, 16), (40, 8), (12, 4)])
+def test_copy_width_follows_the_channels(C, width):
+    plan = qc.qconv_plan(2, 9, 9, C, 40, 3, 3, (1, 1), (1, 1), 132)
+    assert plan.copy == width == qc.copy_width(C)
+    # B's rows are ky*kx*C long: 16-byte rows go by TMA
+    assert plan.copy_b == qc.copy_width(9 * C)
+    assert plan.tma_b == (plan.copy_b == 16)
+    # a misaligned operand narrows the copy
+    assert qc.copy_width(C, 4) == min(width, 4)
+
+
+def _split_sums(xq, wq, stride, pad, ranges, chunk=128):
+    """The conv of int8 xq and wq as int64 partial sums over the K ranges
+    (chunks of 128 int8 values of the tap-major, channel-minor K), added:
+    the design's exact int32 split-K on the CPU."""
+    n, H, W, C = xq.shape
+    oc, ky, kx, _ = wq.shape
+    (sy, sx), (py, px) = stride, pad
+    oy, ox = (H + 2 * py - ky) // sy + 1, (W + 2 * px - kx) // sx + 1
+    xp = np.pad(xq.astype(np.int64), ((0, 0), (py, py), (px, px), (0, 0)))
+    cols = np.concatenate([xp[:, yy:yy + (oy - 1) * sy + 1:sy,
+                              xx:xx + (ox - 1) * sx + 1:sx, :]
+                           for yy in range(ky) for xx in range(kx)], axis=3)
+    wk = wq.reshape(oc, -1).astype(np.int64)
+    total = np.zeros((n, oy, ox, oc), np.int64)
+    for kc0, kc1 in ranges:
+        k0, k1 = kc0 * chunk, min(kc1 * chunk, ky * kx * C)
+        part = np.einsum("nhwk,ok->nhwo", cols[..., k0:k1], wk[:, k0:k1])
+        assert np.abs(part).max(initial=0) < 2 ** 31   # an int32 partial
+        total += part
+    return total
+
+
+SPLIT_CASES = [  # (n, H, W, C, oc, k, stride, pad, splits)
+    (2, 7, 7, 64, 40, 3, 1, 1, 2),     # 5 chunks: ragged 2 + 3
+    (1, 9, 8, 48, 72, 5, 2, 2, 3),     # 10 chunks: 3 + 3 + 4
+    (2, 5, 5, 256, 24, 1, 1, 0, 2),    # 2 chunks: 1 + 1
+    (1, 6, 6, 24, 16, 3, 1, 1, 2),     # C = 24, 2 chunks
+]
+
+
+@pytest.mark.parametrize("out", ["f32", "bf16", "int8", "nan"])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_k_partials_through_the_epilogue_equal_qconv_plain(case, out):
+    n, H, W, C, oc, k, s, p, splits = case
+    rng = np.random.RandomState(11)
+    xq = rng.randint(-127, 128, (n, H, W, C)).astype(np.int8)
+    wq = rng.randint(-127, 128, (oc, k, k, C)).astype(np.int8)
+    sws = torch.from_numpy((rng.rand(oc) * 1e-3 + 1e-5).astype(np.float32))
+    bias = torch.from_numpy(rng.randn(oc).astype(np.float32))
+    s_act = torch.tensor([np.float32(0.0213)])
+    if out == "nan":
+        # a dynamic scale of an x holding a NaN: every output NaN
+        x = torch.from_numpy(rng.randn(n, H, W, C).astype(np.float32))
+        x[0, 0, 0, 0] = float("nan")
+        s_act = qc.act_quantize_plain(x)[1]
+        assert s_act.isnan().all()
+    odt = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8,
+           "nan": torch.float32}[out]
+    chunks = -(-k * k * C // 128)
+    ranges = qc.split_ranges(chunks, splits)
+    acc = torch.from_numpy(_split_sums(xq, wq, (s, s), (p, p), ranges))
+    xt, wt = torch.from_numpy(xq), torch.from_numpy(wq)
+    absmax = 0.0
+    if odt == torch.int8:
+        absmax = 0.6 * float(qc.qconv_plain(xt, wt, s_act, sws, bias, (s, s),
+                                            (p, p), True).abs().max())
+    want = qc.qconv_plain(xt, wt, s_act, sws, bias, (s, s), (p, p), True,
+                          odt, absmax)
+    got = qc.qconv_epilogue(acc.to(torch.int32), s_act, sws, bias, True, odt,
+                            absmax)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0))
+    if out == "nan":
+        assert got.isnan().all()
+
+
+@pytest.mark.parametrize("scale", ["static", "dynamic", "nan"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_act_quantize_transposed_store_is_quantize_then_permute(scale,
+                                                                dtype):
+    # half-way values round to the even code in either layout, and a NaN
+    # (dynamic: a NaN scale, every code 0; static: that element 0)
+    rng = np.random.RandomState(5)
+    x = rng.randn(3, 4, 5, 6).astype(np.float32) * 40
+    x.reshape(-1)[:HALF_WAY.size] = HALF_WAY
+    absmax = 127.0 if scale == "static" else 0.0
+    if scale == "nan":
+        x[1, 2, 3, 4] = np.nan
+        absmax = 127.0
+    xt = torch.from_numpy(x).to(dtype)
+    q, s = qc.act_quantize_plain(xt, absmax)
+    qt, st = qc.act_quantize_plain(xt, absmax, transpose=True)
+    assert qt.shape == (6, 4, 5, 3) and qt.is_contiguous()
+    assert torch.equal(qt, q.permute(3, 1, 2, 0)) and torch.equal(s, st)
+    # the wrapper takes its plain version for a CPU tensor
+    qw, sw = qc.act_quantize(xt, absmax, transpose=True)
+    assert torch.equal(qw, qt) and torch.equal(sw, st)
+    if scale == "nan":
+        assert qt[4, 2, 3, 1] == 0
+    if scale == "static" and dtype == torch.float32:
+        assert q.reshape(-1)[:HALF_WAY.size].tolist() == \
+            [0, 2, 2, 0, -2, -2, 126, 126, 127, -126, 127, -127, 0, 3]
+    # dynamic with a NaN: the scale is NaN, every code 0
+    if scale == "dynamic":
+        xn = xt.clone()
+        xn[0, 0, 0, 0] = float("nan")
+        qn, sn = qc.act_quantize_plain(xn, 0.0, transpose=True)
+        assert sn.isnan().all() and not qn.any()
+
+
+def test_cotangent_quantize_is_quantize_filter_of_the_swapped_cotangent():
+    rng = np.random.RandomState(6)
+    g = rng.randn(4, 3, 5, 7).astype(np.float32) * 1e-2
+    g[2, 1, 3, 5] = np.nan      # channel 5's scale is NaN, its codes 0
+    gt = torch.from_numpy(g)
+    gq, sg = qc.cotangent_quantize_plain(gt)
+    want_q, want_s = qc.quantize_filter(gt.permute(3, 1, 2, 0))
+    assert gq.shape == (7, 3, 5, 4) and gq.is_contiguous()
+    assert torch.equal(gq, want_q) and sg.dtype == torch.float32
+    assert torch.equal(sg.isnan(), want_s.isnan())
+    assert torch.equal(sg.nan_to_num(0.0), want_s.nan_to_num(0.0))
+    assert sg[5].isnan() and not gq[5].any()
+    # the JAX weight quantize of the same "filter"
+    jq, js = _q8_weight(np.ascontiguousarray(g.transpose(3, 1, 2, 0)))
+    np.testing.assert_array_equal(gq.numpy(), jq)
+    np.testing.assert_array_equal(sg.numpy(), js)
+    assert torch.equal(qc.cotangent_quantize(gt)[0], gq)
+
+
+def test_cotangent_quantize_counts_no_launch_on_the_cpu():
+    before = qc.cotangent_quantize.launches
+    qc.cotangent_quantize(torch.randn(2, 3, 3, 4))
+    assert qc.cotangent_quantize.launches == before
 
 
 # ------------------------------------------------------ presets and engine
