@@ -1,8 +1,8 @@
-"""torch_rtc_test: the backend smoke test on the port.
+"""rtc_test: the backend smoke test on the port.
 
 Port of boda_tpu/backend/modes.py (rtc_test): create three vars, copy two
 inputs in, run the `dot` template (c = a * b) through the port's Codegen,
-sync, copy c out and check it. Registered as torch_rtc_test.
+sync, copy c out and check it.
 """
 
 from __future__ import annotations
@@ -18,9 +18,9 @@ from ..ops.registry import Codegen
 from .iface import Backend
 
 
-@mode("torch_rtc_test", help="backend smoke test on the port: run the 'dot' "
-                             "kernel and verify")
-class TorchRtcTest(HasMain):
+@mode("rtc_test", help="backend smoke test on the port: run the 'dot' "
+                       "kernel and verify")
+class RtcTest(HasMain):
     rtc = Attr(Backend, default="torch",
                help="backend to test: be=torch (device=cuda by default) or "
                     "be=interp")

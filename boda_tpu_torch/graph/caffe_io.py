@@ -11,6 +11,8 @@ support, no caffe dependency):
     (copy_matching_layer_blobs_from_param_to_pipe :593),
   * export back to prototxt + caffemodel (as_net_param; net-surgery writes
     caffepb.cc:773-779): cnet_train's trained-weights outputs,
+  * net surgery: InnerProduct→Convolution (cnet_fc_to_conv :888), conv
+    kernel resampling (resize_kernel :677),
   * BatchNorm+Scale deploy-time folding into the preceding Convolution
     (the reference predates BN-heavy nets; resnet prototxts import to
     conv-only graphs this way).
@@ -18,10 +20,10 @@ support, no caffe dependency):
 Field numbers in _F are wire-format facts of the public caffe schema.
 
 The port's copy of boda_tpu/graph/caffe_io.py up to its writers
-(pipe_to_net_param, write_prototxt, write_caffemodel: the same bytes). The
-net-surgery helpers (fc_to_conv, resize_kernel, create_upsamp_layer_
-weights) serve the JAX package's net-surgery modes and upsampled nets,
-which the port leaves out.
+(pipe_to_net_param, write_prototxt, write_caffemodel: the same bytes) and
+the two net-surgery helpers its net modes use (graph/modes.py).
+create_upsamp_layer_weights serves the JAX package's upsampled nets, which
+the port leaves out.
 """
 
 from __future__ import annotations
@@ -612,3 +614,56 @@ def write_caffemodel(pipe: ConvPipe, path, name: str = "net") -> None:
             lb += enc_field_bytes(_F.l_blobs, bytes(bb))
         out += enc_field_bytes(_F.net_layer, bytes(lb))
     Path(path).write_bytes(bytes(out))
+
+
+# ---- net surgery ----
+
+def fc_to_conv(pipe: ConvPipe) -> ConvPipe:
+    """Convert InnerProduct ops to equivalent Convolution ops (ref:
+    cnet_fc_to_conv caffepb.cc:888): kernel = input spatial size for the
+    first fc, 1x1 for subsequent ones; weights reshape accordingly."""
+    for op in list(pipe.ops.values()):
+        if op.type != "InnerProduct":
+            continue
+        in_dims = pipe.must_get_node(op.bots[0]).dims
+        if in_dims is None:
+            raise RtErr("fc_to_conv: run calc_dims first")
+        ky, kx = in_dims["y"], in_dims["x"]
+        op.str_vals["type"] = "InnerProduct"  # keep identity until rewrite
+        new = ConvOp("Convolution", op.tag, op.bots, op.tops,
+                     {"out_chans": op.get_u32("out_chans"),
+                      "kern_sz": (ky, kx), "stride": (1, 1), "in_pad": (0, 0)})
+        new.str_vals["caffe_name"] = op.str_vals.get("caffe_name", op.tag)
+        pipe.ops[op.tag] = new
+        w = pipe.op_params.get(op.bots[1])
+        if w is not None:
+            oc = new.get_u32("out_chans")
+            arr = w.v.reshape(oc, in_dims["chan"], ky, kx)
+            pipe.op_params[op.bots[1]] = NDA.from_array(arr, ["out_chan", "in_chan", "y", "x"])
+            fnode = pipe.must_get_node(op.bots[1])
+            fnode.dims = pipe.op_params[op.bots[1]].dims
+    return pipe
+
+
+def resize_kernel(w: np.ndarray, new_ky: int, new_kx: int) -> np.ndarray:
+    """Bilinear-resample conv kernels to a new spatial size, preserving the
+    filter's integral (ref: resize_kernel caffepb.cc:677)."""
+    oc, ic, ky, kx = w.shape
+    if (ky, kx) == (new_ky, new_kx):
+        return w.copy()
+    ys = np.linspace(0, ky - 1, new_ky)
+    xs = np.linspace(0, kx - 1, new_kx)
+    y0 = np.clip(np.floor(ys).astype(int), 0, ky - 1)
+    y1 = np.clip(y0 + 1, 0, ky - 1)
+    x0 = np.clip(np.floor(xs).astype(int), 0, kx - 1)
+    x1 = np.clip(x0 + 1, 0, kx - 1)
+    fy = (ys - y0).reshape(-1, 1)
+    fx = (xs - x0).reshape(1, -1)
+    out = (w[:, :, y0][:, :, :, x0] * (1 - fy) * (1 - fx)
+           + w[:, :, y1][:, :, :, x0] * fy * (1 - fx)
+           + w[:, :, y0][:, :, :, x1] * (1 - fy) * fx
+           + w[:, :, y1][:, :, :, x1] * fy * fx)
+    ssum = w.sum(axis=(2, 3), keepdims=True)
+    nsum = out.sum(axis=(2, 3), keepdims=True)
+    scale = np.where(np.abs(nsum) > 1e-12, ssum / np.where(nsum == 0, 1, nsum), 1.0)
+    return (out * scale).astype(w.dtype)

@@ -1,5 +1,5 @@
 """bwai: the bandwidth probe template (the reference's test/rtc/bwai.cucl),
-profiled by torch_ops_prof like any op, which gives the card's achievable
+profiled by ops_prof like any op, which gives the card's achievable
 memory rates:
 
   bw_op=copy   out[i] = in[i]: read and write streaming rate

@@ -2,7 +2,7 @@
 Concat and Split lowerings), relu, ZeroIfNonPos (ReLU's backward), eltwise
 (SUM, MAX, PROD), scale (per-channel scale and bias), dropout (inference
 and both train-mode masks), and dot (c = a * b, the kernel of the
-torch_rtc_test smoke mode).
+rtc_test smoke mode).
 
 Port of boda_tpu/ops/pallas/elementwise.py, which computes these outside
 Pallas too. Each works on NCHW or NHWC storage alike, in the tensors' own

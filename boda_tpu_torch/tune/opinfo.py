@@ -12,9 +12,6 @@ prec annotation defaults to bf16, the TPU's matrix-unit precision. The
 port runs such an op in full FP32 on the CUDA cores, so it is scored
 against the FP32 peak (67 TF/s on an H100 SXM), not the bf16 tensor-core
 peak (989 TF/s), which would put every f32 op 15x further from its roof.
-
-The modes keep the names torch_cnn_op_info and torch_cnn_prof they had
-when they shared the JAX package's process-global mode registry.
 """
 
 from __future__ import annotations
@@ -70,9 +67,9 @@ def plan_mixed_peak(plan, device_kind: str) -> tuple[float, float]:
     return tot, (tot / t_min if t_min else 0.0)
 
 
-@mode("torch_cnn_op_info", help="cnn_op_info on the port: per-op flops/AI/"
-                                "roofline report (+optional run)")
-class TorchCnnOpInfo(HasMain):
+@mode("cnn_op_info", help="cnn_op_info on the port: per-op flops/AI/"
+                          "roofline report (+optional run)")
+class CnnOpInfo(HasMain):
     ops_fn = Attr(str, req=True, help="op-sig list file")
     rtc = Attr(Backend, default="torch",
                help="backend: be=torch (device=cuda by default) or be=interp")
@@ -164,9 +161,9 @@ class TorchCnnOpInfo(HasMain):
         print(f"wrote latex table to {self.latex_fn}")
 
 
-@mode("torch_cnn_prof", help="cnn_prof on the port: per-op profile of a "
-                             "NET's ops (no sig file needed)")
-class TorchCnnProf(TorchCnnOpInfo):
+@mode("cnn_prof", help="cnn_prof on the port: per-op profile of a "
+                       "NET's ops (no sig file needed)")
+class CnnProf(CnnOpInfo):
     """cnn_prof (opinfo.py:157-191) on the port: the same report over the
     conv and fc ops of a zoo model or prototxt, deduplicated by sig."""
 

@@ -119,7 +119,7 @@ Phases, run in order, each fatal on failure (all of them by default):
            held-out images written as an LMDB (top-1 >= 0.90); wisdom_fn
            (tests/data/wisdom-resnet50-b32.wis) at b32: the CPU's plan, one
            timed forward
-  ops_prof the per-op path (mode torch_ops_prof, be=torch): the vendor
+  ops_prof the per-op path (mode ops_prof, be=torch): the vendor
            sgemm under prec=bf16 returns the unrounded f32 product; the six
            square SGEMMs of tests/data/ops/sgemm-baseline.txt (128^3-4096^3) under
            the tunes kg (cuBLAS FP32), hand (B1) and int8 (B3, mrd 5e-2 vs
@@ -129,14 +129,14 @@ Phases, run in order, each fatal on failure (all of them by default):
            6 x run_iter sgemm_int8 launches (and as many quantize kernel
            launches) in the int8 sweep, wisdom under
            build/ops_prof/, a table of ms, TF/s (TOPS) and % of the card's
-           own-precision peak per op and tune; then torch_rtc_test
+           own-precision peak per op and tune; then rtc_test
   zoo      the rest of the zoo (build/zoo_smoke): the zoo's templates at
            zoo shapes on the card against their float64 references (lrn
            at AlexNet's norm1, b128, f32 NCHW mrd 1e-5 and bf16 NHWC 5e-3;
            copy as GoogLeNet's inception_3b/output concat at b128,
            bit-equal and in place; deconv at deconv-tiny's layer and a 2x
            upsample of 256 channels at 56^2, b8; scale, xpose, xpose_filts,
-           reduce, bwai), bwai's memory rates through torch_ops_prof
+           reduce, bwai), bwai's memory rates through ops_prof
            (tests/data/ops/bwai.txt, bwai-tiny.txt); B6 bit-equal at
            GoogLeNet's int8 shapes (the 5x5s with C = 16, 24, 32, 48, the
            3x3 with C = 96; timed); test_compute_multi at b1 on
@@ -224,6 +224,40 @@ Phases, run in order, each fatal on failure (all of them by default):
            through a CUDA graph beside its plain version, its bound, bf16
            cuDNN's weight gradient, the quantize passes and the wgrad_q8
            wrapper; the kernels phase's readings where that phase ran)
+  tune     the tuning and profiling surface, each through its mode in
+           this process: ops_prof at the conv-baseline op (3x3, 384->384,
+           13^2, b5, ReLU) under cuDNN FP32, the vendor conv in bf16, B2 and
+           B1 (im2col) in bf16 (mrd 5e-3 against cuDNN FP32) and B6 (5e-2),
+           each hand kernel launched once per timed call, us, TF/s and %
+           of the own-precision peak per tune; the wisdom flow at ResNet-50
+           b32: ops_prof over the net's 21 conv sigs under the vendor base
+           (use_culibs=1,prec=bf16,layout=nhwc,s2d=0) and the hand tune
+           (prec=bf16,layout=nhwc), fusion_penalty on that wisdom (8
+           sites: a verdict line each, `<plat>@net` rows in records pinned
+           to the sites), then cnet_bench with the merged wisdom against
+           the vendor base in turns (vendor, wisdom, wisdom, vendor): each
+           WINS site runs the template of its one-site net and each losing
+           site the vendor one, launches per forward as the plan says, each
+           distinct B1 and B2 call of one more forward held against its
+           plain version; cnet_tune at ResNet-50 b32 over (), bf16 NHWC,
+           the fused bf16 tune and the headline tune (one row each, one
+           best: line, the winner file; the run's launches those of the
+           rows' plans; each row with B1 or B2 held call by call);
+           cnet_stage_probe under the fused bf16 tune (B4 in stem, B5 in
+           s2-s5) and the headline tune, and bwd=1 under the headline tune
+           (each stage's output against the whole net's value of its
+           out_node, mrd 5e-3, bit-equal expected), bwd=1 under () refused
+           by the inference-only guard before any launch; cnet_xprof (5
+           steps) under (), the int8 preset and, bwd=1, the headline tune:
+           each hand kernel's device kernels (its __global__ names in the
+           trace) called as often as the plan's steps launch it (B1 40 and
+           B2 13 a step under (), B6 31 and its quantize 31 under int8),
+           the device total per step beside one forward's busy time; the
+           per-model grid at b64 (cnet_bench on ResNet-101, ResNet-152,
+           VGG-19 and VGG-16 under the headline tune and their int8 site
+           sets with static scales: every entry of each scales file
+           applied, launches per forward as the plan says, each int8 row's
+           distinct B6 calls bit-equal to their plain versions)
   bench    the bench twin, python3 -m boda_tpu_torch.bench, in this
            process: bench.py's JSON line for its two plans at batch 128
            (the headline tune, and the int8 preset on the trained weights
@@ -257,7 +291,10 @@ the train phase's ("train"; B6's wgrad role is the kernel entry
 "qconv_wgrad", its launches those of the grad_q8 preset's cnet_train run,
 with its quantize kernels' as "quantize_launches" and
 "cotangent_quantize_launches",
-per step of each train_bench row as "train_bench:<tune>");
+per step of each train_bench row as "train_bench:<tune>"), the tune
+phase's ("tune": the conv-baseline rows, the wisdom flow's verdicts and
+cnet_bench rows, cnet_tune's rows, the stage tables, cnet_xprof's
+device totals and top kernels, the b64 grid);
 and {"ok": true,
 "device": {...}}. Without a CUDA device, or outside a checkout of the
 repo, it exits non-zero and prints no result. It imports neither jax nor
@@ -340,7 +377,7 @@ SOURCES = {
               "boda_tpu/ops/pallas/conv.py:187"),
 }
 F32_MRD, BF16_MRD = 1e-4, 5e-3
-# the per-op path: torch_ops_prof calls (op-sig file, tunes, tolerances).
+# the per-op path: ops_prof calls (op-sig file, tunes, tolerances).
 # bf16 runs in calls of its own, since its tolerance is wider than the f32
 # tunes' (func_mrd_toler keys by func name, and f32 and bf16 are both sgemm)
 OPS_RUN_ITER = 5
@@ -1848,9 +1885,10 @@ def _tune_specs(tunes: str) -> dict[str, str]:
     return dict(re.findall(r"(\w+)=(\((?:[^()]|\([^()]*\))*\))", tunes[1:-1]))
 
 
-def _ops_prof_table(text: str, tunes: str, peaks) -> list[str]:
-    """One row per OP line of a torch_ops_prof run: ms, TF/s (TOPS for
-    int8) and % of the card's peak in the op's own precision."""
+def _ops_prof_table(text: str, tunes: str, peaks,
+                    us: bool = False) -> list[str]:
+    """One row per OP line of an ops_prof run: ms (us: microseconds), TF/s
+    (TOPS for int8) and % of the card's peak in the op's own precision."""
     from boda_tpu_torch.ops.cnn_variants import add_codegen_annotations, \
         make_op_tune
     from boda_tpu_torch.ops.op_base import OpBase
@@ -1866,7 +1904,8 @@ def _ops_prof_table(text: str, tunes: str, peaks) -> list[str]:
         prec = op_prec(top, tune.prec)
         tfs = float(m[5]) / 1e3
         rows.append(f"  {_op_label(op):34s} {m[2]:5s} {m[3]:10s} "
-                    f"{float(m[4]) * 1e3:9.4f} ms {tfs:8.2f} "
+                    f"{float(m[4]) * (1e6 if us else 1e3):9.4f} "
+                    f"{'us' if us else 'ms'} {tfs:8.2f} "
                     f"{'TOPS ' if prec == 'int8' else 'TF/s '}"
                     f"{100 * tfs * 1e12 / peaks.flops(prec):6.2f}% of {prec} "
                     f"peak")
@@ -1901,8 +1940,8 @@ def _check_vendor_sgemm_bf16(dev) -> None:
 
 
 def phase_ops_prof(ctx: dict) -> None:
-    """The per-op path: torch_ops_prof on be=torch over the SGEMM sizes and
-    the ResNet-50 b32 conv sigs, then torch_rtc_test, each in-process
+    """The per-op path: ops_prof on be=torch over the SGEMM sizes and
+    the ResNet-50 b32 conv sigs, then rtc_test, each in-process
     through the mode a user runs (python -m boda_tpu_torch <mode>)."""
     import torch
     from boda_tpu_torch.core.has_main import create_and_run_has_main
@@ -1920,7 +1959,7 @@ def phase_ops_prof(ctx: dict) -> None:
         try:
             with contextlib.redirect_stdout(buf):
                 create_and_run_has_main(
-                    f"(mode=torch_ops_prof,ops_fn={DATA / 'ops' / ops_fn},"
+                    f"(mode=ops_prof,ops_fn={DATA / 'ops' / ops_fn},"
                     f"op_tunes={tunes},run_iter={OPS_RUN_ITER},"
                     f"{tol + ',' if tol else ''}boda_output_dir={out_dir},"
                     f"wisdom_out_fn={name}.wis)", {})
@@ -1933,31 +1972,31 @@ def phase_ops_prof(ctx: dict) -> None:
         torch.cuda.synchronize()
         counts = {k: w.launches for k, w in wrappers.items()}
         n_ok = len(re.findall(r"^OP .* ok$", text, re.M))
-        print(f"torch_ops_prof {name} ({ops_fn}, {tunes} {tol}): {n_ok} runs "
+        print(f"ops_prof {name} ({ops_fn}, {tunes} {tol}): {n_ok} runs "
               f"ok, launches {counts} ({time.perf_counter() - t0:.1f} s)")
         for row in _ops_prof_table(text, tunes, peaks):
             print(row)
         n_ops = len((DATA / "ops" / ops_fn).read_text().split())  # 1 per line
         n_tunes = len(_tune_specs(tunes))
         check(n_ok == n_ops * n_tunes,
-              f"torch_ops_prof {name}: {n_ok} runs ok of {n_ops * n_tunes}")
+              f"ops_prof {name}: {n_ok} runs ok of {n_ops * n_tunes}")
         plats = {p for w in read_wisdom_file(out_dir / f"{name}.wis")
                  for t in w.tunes.values() for p in t.runs}
         check(plats == {f"torch:cuda:{torch.cuda.get_device_name(0)}"},
-              f"torch_ops_prof {name}: wisdom plat tags {plats}")
+              f"ops_prof {name}: wisdom plat tags {plats}")
         if name == "sgemm":
             for k in ("sgemm_int8", "quantize"):
                 check(counts[k] == OPS_INT8_LAUNCHES,
-                      f"torch_ops_prof {name}: {counts[k]} {k} launches != "
+                      f"ops_prof {name}: {counts[k]} {k} launches != "
                       f"{OPS_INT8_LAUNCHES}")
             ctx.setdefault("launches", {})["ops_prof"] = counts
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        create_and_run_has_main("(mode=torch_rtc_test,n=1048576)", {})
+        create_and_run_has_main("(mode=rtc_test,n=1048576)", {})
     line = buf.getvalue().splitlines()[0]
     print(line)
-    check(line.startswith("torch_rtc_test PASSED plat=torch:cuda:"),
-          f"torch_rtc_test: {line}")
+    check(line.startswith("rtc_test PASSED plat=torch:cuda:"),
+          f"rtc_test: {line}")
     print(f"  on [{ctx['smi']}]")
 
 
@@ -1990,19 +2029,25 @@ def _device_busy_ms(fn) -> tuple[float, list[tuple[str, int, float]]]:
     """Milliseconds the card spends in kernels and copies during one call of
     fn: the sum of the device events of torch.profiler's trace (one stream,
     so they do not overlap); and the six device kernels that took the most
-    of it, as (name, calls, ms)."""
+    of it, as (name, calls, ms). One call before it runs in the trace as
+    the profiler's warm-up, whose events it drops: late in a long process
+    CUPTI missed about a tenth of a forward's first kernels without it
+    (cnet_xprof's per-step total against this function's, on an H100)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from boda_tpu_torch.tune.xprof import aggregate_profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(
+            wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    rows = aggregate_profile(prof, device=True)
+    busy = sum(r["total_ns"] for r in rows) / 1e6
     check(busy > 0, "torch.profiler recorded no device time")
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    return busy, [(e.key[:48], e.count, e.self_device_time_total / 1e3)
-                  for e in top]
+    return busy, [(r["op"][:48], r["count"], r["total_ns"] / 1e6)
+                  for r in rows[:6]]
 
 
 def phase_full(ctx: dict) -> None:
@@ -2895,7 +2940,7 @@ def _zoo_small_templates(z: dict, dev, gen, peaks) -> None:
 
 
 def _zoo_bwai_rates(z: dict, peaks) -> None:
-    """bwai through torch_ops_prof (be=torch on the card) on
+    """bwai through ops_prof (be=torch on the card) on
     tests/data/ops/bwai.txt (67M f32 elements: 256 MiB in, and out but for
     read) and bwai-tiny.txt: each op's best time of 5 calls and its memory
     rate (the bytes it moves over it: bytes_accessed, twice that for scale's
@@ -2909,7 +2954,7 @@ def _zoo_bwai_rates(z: dict, peaks) -> None:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             create_and_run_has_main(
-                f"(mode=torch_ops_prof,ops_fn={DATA / 'ops' / ops_fn},"
+                f"(mode=ops_prof,ops_fn={DATA / 'ops' / ops_fn},"
                 f"op_tunes=(t=()),run_iter=5,boda_output_dir={ZOO_OUT},"
                 f"wisdom_out_fn=bwai.wis)", {})
         text = buf.getvalue()
@@ -2917,7 +2962,7 @@ def _zoo_bwai_rates(z: dict, peaks) -> None:
                           r"secs=(\S+) .* ok$", text, re.M)
         check(len(rows) == 3 and "COMP_FAIL" not in text
               and "ERROR" not in text,
-              f"torch_ops_prof {ops_fn}: {len(rows)} bwai runs ok")
+              f"ops_prof {ops_fn}: {len(rows)} bwai runs ok")
         for sig, secs in rows:
             op = OpBase.from_lexp(sig)
             nb = bwai.bytes_accessed(bwai.check_args(op))
@@ -4359,11 +4404,442 @@ def phase_train(ctx: dict) -> None:
     print(f"  train: the card {ctx['smi']}")
 
 
+# ---------------------------------------------------------------- tune
+
+TUNE_OUT = ROOT / "build" / "tune_smoke"
+# the vendor base of fusion_penalty and cnet_stage_probe, and the hand tune
+# whose standalone wins fusion_penalty puts to the test inside the net
+VENDOR_BASE = "(use_culibs=1,prec=bf16,layout=nhwc,s2d=0)"
+HAND_BF16 = "(prec=bf16,layout=nhwc)"
+# ops_prof at the conv-baseline op (3x3, 384->384, 13^2, b5, ReLU: the
+# reference's published conv row): cuDNN FP32 (kg), the vendor conv in
+# bf16, B2 and B1 (im2col) in bf16, then B6; the vendor forms share the
+# func name xla_conv, so each tolerance has a call of its own. Each entry:
+# (name, tunes, tolerance, {tune: the hand kernel it launches})
+BASELINE_RUNS = [
+    ("baseline", "(kg=(use_culibs=1),vendor=(use_culibs=1,prec=bf16),"
+                 "tconv=(prec=bf16),conv=(prec=bf16,tconv=0))",
+     "mrd_toler=5e-3", {"tconv": "tconv", "conv": "matmul_ext"}),
+    ("baseline_int8", "(kg=(use_culibs=1),int8=(use_culibs=1,prec=bf16,"
+                      "quant8=1))",
+     "mrd_toler=5e-2", {"int8": "qconv"}),
+]
+TUNE_RUN_ITER = 3
+FP_MAX_SITES = 8
+TUNE_ITERS = 10
+# cnet_tune's grid at ResNet-50 b32: (), bf16 NHWC, the fused bf16 tune and
+# the headline tune
+TUNE_GRID = ("f32", "bf16_nhwc", "fused_bf16_nhwc", "headline")
+XPROF_STEPS = 5
+# each hand kernel's device kernels (csrc/*.cu __global__ names; their
+# split-K reduce and max passes, which run only where a plan asks, are
+# left out), as cnet_xprof's by-kind rows name them
+DEVICE_KERNELS = {"matmul_ext": ("matmul_wgmma", "matmul_ffma"),
+                  "tconv": ("tconv_bf16_kernel", "tconv_f32_kernel"),
+                  "fused_stem": ("stem_mma", "stem_ffma"),
+                  "resblock": ("resblock_mma", "resblock_ffma"),
+                  "qconv": ("qconv_kernel",),
+                  "act_quantize": ("act_quant_write",)}
+# the per-model grid at b64 (docs/PERF.md:80-90's rows): model, its int8
+# site regex (None: tune/presets.RESNET_INT8_SITE_PATS) and static scales
+GRID_BATCH = 64
+GRID_ITERS = 5
+GRID = [("resnet-101", None, DATA / "resnet101-b64-int8-scales.lexp"),
+        ("resnet-152", None, DATA / "resnet152-b64-int8-scales.lexp"),
+        ("vgg-19", r"conv[345]_.*|fc[67]-conv",
+         DATA / "vgg19-b64-int8-fc-scales.lexp"),
+        ("vgg16-conv", r"conv[345]_.*|fc[67]-conv",
+         DATA / "vgg16-b64-int8-fc-scales.lexp")]
+
+
+def _run_mode_err(spec: str) -> tuple[str, str, object]:
+    """create_and_run_has_main(spec) with its stdout and stderr captured."""
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        out, hm = _run_mode(spec)
+    return out, err.getvalue(), hm
+
+
+def _ops_prof_run(name: str, ops_fn: str, tunes: str, extra: str,
+                  wrappers: dict, run_iter: int) -> tuple[str, dict]:
+    """ops_prof (be=torch) over an op-sig file, its wisdom written to
+    TUNE_OUT/<name>.wis; every run must pass (no COMP_FAIL, ERROR or
+    digest failure: the mode raises on any). Returns (its output, the hand
+    kernels' launches)."""
+    import torch
+    _counts_reset(wrappers)
+    out, _ = _run_mode(f"(mode=ops_prof,ops_fn={DATA / 'ops' / ops_fn},"
+                       f"op_tunes={tunes},run_iter={run_iter},{extra},"
+                       f"boda_output_dir={TUNE_OUT},wisdom_out_fn={name}.wis)")
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    n_ok = len(re.findall(r"^OP .* ok$", out, re.M))
+    n_ops = len((DATA / "ops" / ops_fn).read_text().split())
+    check(n_ok == n_ops * len(_tune_specs(tunes)),
+          f"ops_prof {name}: {n_ok} runs ok of "
+          f"{n_ops * len(_tune_specs(tunes))}")
+    return out, counts
+
+
+def _tune_baseline(t: dict, wrappers: dict, peaks) -> None:
+    """ops_prof at the conv-baseline op: every tune checked against cuDNN
+    FP32, each hand kernel launched once per timed call."""
+    for name, tunes, tol, kernels in BASELINE_RUNS:
+        out, counts = _ops_prof_run(name, "conv-baseline.txt", tunes, tol,
+                                    wrappers, OPS_RUN_ITER)
+        rows = _ops_prof_table(out, tunes, peaks, us=True)
+        print(f"ops_prof conv-baseline ({tunes}, {tol}): launches "
+              f"{ {k: v for k, v in counts.items() if v} } on "
+              f"[{t['smi']}]")
+        for r in rows:
+            print(r)
+        t.setdefault("baseline", []).extend(r.strip() for r in rows)
+        for tune, k in kernels.items():
+            check(counts[k] == OPS_RUN_ITER,
+                  f"ops_prof {name}: {counts[k]} {k} launches for tune "
+                  f"{tune} != {OPS_RUN_ITER}")
+
+
+def _tune_wisdom(t: dict, wrappers: dict) -> None:
+    """The wisdom flow at ResNet-50 b32: ops_prof over the net's own conv
+    sigs (vendor base and the hand bf16 tune), fusion_penalty on that
+    wisdom, then cnet_bench with the merged wisdom against the vendor base
+    in turns (vendor, wisdom, wisdom, vendor): each WINS site runs the hand
+    template and each losing site the vendor one, the launches per forward
+    are the plan's, and each distinct B1 and B2 call of one more forward
+    is held against its plain version."""
+    import torch
+    from boda_tpu_torch.tune.wisdom import NET_PLAT_SUFFIX, read_wisdom_file
+    w = t["wisdom"] = {}
+    t0 = time.perf_counter()
+    _ops_prof_run("rn50_b32", "resnet50-convs.txt",
+                  f"(base={VENDOR_BASE},hand={HAND_BF16})",
+                  "kg_tune_tag=base,mrd_toler=5e-3", wrappers,
+                  TUNE_RUN_ITER)
+    w["ops_prof_s"] = time.perf_counter() - t0
+    print(f"ops_prof resnet50-convs.txt (base {VENDOR_BASE}, hand "
+          f"{HAND_BF16}): 42 runs ok ({w['ops_prof_s']:.1f} s)")
+    merged_fn = TUNE_OUT / "rn50_b32_net.wis"
+    out, hm = _run_mode(
+        f"(mode=fusion_penalty,model=resnet-50,batch=32,"
+        f"wisdom_fn={TUNE_OUT / 'rn50_b32.wis'},"
+        f"wisdom_out_fn={merged_fn.name},max_sites={FP_MAX_SITES},"
+        f"iters={TUNE_ITERS},reps=3,boda_output_dir={TUNE_OUT})")
+    print(out.rstrip())
+    verdicts = hm.verdicts
+    check(len(hm.sites) >= 1, "fusion_penalty: no candidate site")
+    check(len(verdicts) == len(hm.sites) and all(
+        re.search(rf"^{re.escape(v['site'])} .*(WINS|loses)", out, re.M)
+        for v in verdicts), "fusion_penalty: a site without a verdict line")
+    net_plat = hm.plat + NET_PLAT_SUFFIX
+    recs = {r.site: r for r in read_wisdom_file(merged_fn) if r.site}
+    check(set(recs) == {v["site"] for v in verdicts},
+          f"fusion_penalty: site records {sorted(recs)}")
+    for v in verdicts:
+        runs = recs[v["site"]].tunes
+        check(net_plat in runs[v["tune"]].runs
+              and net_plat in runs[VENDOR_BASE].runs,
+              f"fusion_penalty: {v['site']} has no {net_plat} rows")
+    w["plat"], w["verdicts"] = net_plat, verdicts
+    w["vendor_net_ms"] = hm.vendor_ms
+    del hm
+    torch.cuda.empty_cache()
+    w["cnet_bench"] = []
+    vendor_func = None
+    for which in ("vendor", "wisdom", "wisdom", "vendor"):
+        spec = f"op_tune={VENDOR_BASE}" + (
+            f",wisdom_fn={merged_fn}" if which == "wisdom" else "")
+        _counts_reset(wrappers)
+        out, hm = _run_mode(f"(mode=cnet_bench,model=resnet-50,batch=32,"
+                            f"iters={TUNE_ITERS},reps=3,{spec})")
+        torch.cuda.synchronize()
+        counts = {k: wr.launches for k, wr in wrappers.items()}
+        planned = _planned_launches(hm.eng.plan, counts)
+        per = {k: v // hm.forwards for k, v in counts.items()}
+        check(all(counts[k] == planned[k] * hm.forwards for k in counts),
+              f"cnet_bench {which}: launches {counts} over {hm.forwards} "
+              f"forwards != the plan's {planned} each")
+        funcs = {s.call_tag: s.func_name for s in hm.eng.plan.steps}
+        line = out.strip().splitlines()[-1]
+        print(f"  {which}: {line}; launches per forward "
+              f"{ {k: v for k, v in per.items() if v} }")
+        w["cnet_bench"].append({"which": which, "step_ms": hm.step_ms,
+                                "launches_per_forward": per})
+        if which == "vendor":
+            vendor_func = vendor_func or funcs
+        elif "held" not in w:
+            for v in verdicts:
+                want = v["func"] if v["wins"] else vendor_func[v["site"]]
+                check(funcs.get(v["site"]) == want,
+                      f"wisdom plan: site {v['site']} runs "
+                      f"{funcs.get(v['site'])}, not {want} "
+                      f"({'WINS' if v['wins'] else 'loses'})")
+            check(per["matmul_ext"] + per["tconv"] > 0 or not any(
+                v["wins"] for v in verdicts),
+                "wisdom plan: a winning hand site launches no B1 or B2")
+            if per["matmul_ext"] + per["tconv"]:
+                w["held"] = _hold_row("cnet_bench wisdom", hm.eng, per,
+                                      wrappers)
+            else:
+                w["held"] = None
+        del hm
+        torch.cuda.empty_cache()
+
+
+def _tune_search(t: dict, wrappers: dict) -> None:
+    """cnet_tune at ResNet-50 b32 over TUNE_GRID: a row per tune, one best:
+    line written to wisdom_out_fn, the launches of the whole run those of
+    each row's plan times its forwards, and each row that launches B1, B2
+    or B6 held call by call against the plain versions."""
+    import torch
+    from boda_tpu_torch.engine.iface import make_engine
+    from boda_tpu_torch.models.zoo import build_model
+    tunes = ",".join(TUNES[n] for n in TUNE_GRID)
+    _counts_reset(wrappers)
+    out, hm = _run_mode(f"(mode=cnet_tune,model=resnet-50,batch=32,"
+                        f"tunes=({tunes}),iters={TUNE_ITERS},reps=3,"
+                        f"wisdom_out_fn=best.txt,boda_output_dir={TUNE_OUT})")
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    print(out.rstrip())
+    rows = [ln for ln in out.splitlines() if re.match(r"b\d+ tune ", ln)]
+    best = [ln for ln in out.splitlines() if ln.startswith("best: ")]
+    check(len(rows) == len(TUNE_GRID) and len(best) == 1,
+          f"cnet_tune: {len(rows)} rows, {len(best)} best lines")
+    _ips, b, tune = hm.best
+    check((TUNE_OUT / "best.txt").read_text()
+          == f"(model=resnet-50,batch={b},tune={tune})\n",
+          "cnet_tune: the winner file")
+    want = dict.fromkeys(counts, 0)
+    for r in hm.rows:
+        for k, v in _planned_launches(r["plan"], counts).items():
+            want[k] += v * r["forwards"]
+    check(counts == want, f"cnet_tune: launches {counts} != the rows' "
+                          f"plans {want}")
+    t["cnet_tune"] = {"rows": [{k: v for k, v in r.items() if k != "plan"}
+                               for r in hm.rows],
+                      "best": {"batch": b, "tune": tune}}
+    pipe = build_model("resnet-50", batch=32)
+    for name, r in zip(TUNE_GRID, hm.rows):
+        per = _planned_launches(r["plan"], counts)
+        if not any(per[k] for k in HELD):
+            continue
+        eng = make_engine(f"(engine=torch,op_tune={TUNES[name]})")
+        eng.init(pipe)
+        t["cnet_tune"]["rows"][TUNE_GRID.index(name)]["held"] = _hold_row(
+            f"cnet_tune {name}", eng, per, wrappers)
+        del eng
+        torch.cuda.empty_cache()
+    del hm
+    torch.cuda.empty_cache()
+
+
+def _tune_stages(t: dict, wrappers: dict) -> None:
+    """cnet_stage_probe at ResNet-50 b32 under the fused bf16 tune (B4 in
+    stem, B5 in s2-s5) and the headline tune, then bwd=1 under the headline
+    tune: each stage's output equal to the whole net's value of its
+    out_node; bwd=1 under () refused by the inference-only guard."""
+    import torch
+    from boda_tpu_torch.core.error import RtErr
+    from boda_tpu_torch.engine.torch_fwd import _storage_in
+    st = t["stage_probe"] = {}
+    for name, bwd in (("fused_bf16_nhwc", 0), ("headline", 0),
+                      ("headline", 1)):
+        label = f"{name}{' bwd' if bwd else ''}"
+        out, hm = _run_mode(f"(mode=cnet_stage_probe,model=resnet-50,"
+                            f"batch=32,op_tune={TUNES[name]},bwd={bwd},"
+                            f"iters={TUNE_ITERS},reps=3)")
+        print(f"cnet_stage_probe {label} on [{t['smi']}]:")
+        print(out.rstrip())
+        plan = hm.plan
+        funcs = {ps.name: {s.func_name for s in ps.steps}
+                 for ps in hm.segments}
+        if name == "fused_bf16_nhwc":
+            check("fused_stem" in funcs["stem"] and all(
+                "resblock" in funcs[s] for s in ("s2", "s3", "s4", "s5")),
+                f"cnet_stage_probe {label}: stage templates {funcs}")
+        errs = {}
+        with torch.inference_mode():
+            for ps in hm.segments:
+                got = ps.fn(hm.stage_inputs[ps.name],
+                            *[hm.weights[w] for w in ps.weight_names])
+                want = _storage_in(hm.node_vals[ps.out_node],
+                                   plan.node_dims[ps.out_node], plan)
+                errs[ps.name] = mrd(got, want)
+        toler = BF16_MRD if plan.edge_prec == "bf16" else F32_MRD
+        print(f"  each stage's output against the whole net's "
+              f"keep_all_nodes value of its out_node: mrd {errs} "
+              f"(<= {toler:g})")
+        check(max(errs.values()) <= toler,
+              f"cnet_stage_probe {label}: stage outputs {errs}")
+        st[label] = {"rows": [{"stage": n, "steps": k, "ms": ms,
+                               "gflops": fl / 1e9}
+                              for n, k, ms, fl in hm.rows],
+                     "whole_ms": hm.whole_ms, "stage_mrd": errs}
+        del hm
+        torch.cuda.empty_cache()
+    _counts_reset(wrappers)
+    try:
+        _run_mode("(mode=cnet_stage_probe,model=resnet-50,batch=32,"
+                  "op_tune=(),bwd=1,iters=1,reps=1)")
+        refused = ""
+    except RtErr as e:
+        refused = str(e)
+    print(f"cnet_stage_probe () bwd=1: {refused or 'not refused'}")
+    check("which has no backward" in refused
+          and not any(w.launches for w in wrappers.values()),
+          "cnet_stage_probe bwd=1 under (): the guard did not refuse it "
+          "before any hand kernel launched")
+
+
+def _tune_xprof(t: dict, wrappers: dict) -> None:
+    """cnet_xprof at ResNet-50 b32 under (), under the int8 preset and, with
+    bwd=1, under the headline tune: each hand kernel's device kernels are
+    called as often as the plan's steps launch it, and the device total
+    per step stands beside one forward's busy time."""
+    import torch
+    xp = t["xprof"] = {}
+    for name, bwd in (("f32", 0), (INT8, 0), ("headline", 1)):
+        label = f"{name}{' bwd' if bwd else ''}"
+        _counts_reset(wrappers)
+        out, hm = _run_mode(f"(mode=cnet_xprof,model=resnet-50,batch=32,"
+                            f"steps={XPROF_STEPS},bwd={bwd},top_k=8,"
+                            f"{engine_spec(name)})")
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        planned = _planned_launches(hm.eng.plan, counts)
+        print(f"cnet_xprof {label}:")
+        print(out.rstrip())
+        # the mode's forward outside the trace and its profiler warm-up,
+        # then the traced steps
+        check(counts == {k: v * (2 + XPROF_STEPS)
+                         for k, v in planned.items()},
+              f"cnet_xprof {label}: launches {counts}, the plan's "
+              f"{planned} per step")
+        calls = {k: sum(r["count"] for r in hm.kinds if r["kind"] in names)
+                 for k, names in DEVICE_KERNELS.items()}
+        print(f"  device kernel calls per hand kernel over {XPROF_STEPS} "
+              f"steps: {calls}")
+        check(all(calls[k] == planned[k] * XPROF_STEPS for k in calls),
+              f"cnet_xprof {label}: device kernel calls {calls} != the "
+              f"plan's {planned} x {XPROF_STEPS}")
+        if name == "f32":
+            check(calls["matmul_ext"] == 40 * XPROF_STEPS
+                  and calls["tconv"] == 13 * XPROF_STEPS,
+                  f"cnet_xprof f32: {calls}")
+        if name == INT8:
+            check(calls["qconv"] == 31 * XPROF_STEPS
+                  and calls["act_quantize"] == 31 * XPROF_STEPS,
+                  f"cnet_xprof int8: {calls}")
+        per_step = hm.total_ns / 1e6 / XPROF_STEPS
+        row = {"device_ms_per_step": per_step, "kernel_calls": calls,
+               "top": [{"kernel": r["kind"], "calls": r["count"],
+                        "ms_per_step": r["total_ns"] / 1e6 / XPROF_STEPS}
+                       for r in hm.kinds[:8]]}
+        if not bwd:
+            eng = hm.eng
+            data = eng.pipe.data_img_node_names[0]
+            x = torch.randn(tuple(eng.pipe.get_data_img_dims().shape),
+                            device=eng.dev) * 0.1
+            with torch.inference_mode():
+                busy, _ = _device_busy_ms(lambda: eng.fwd({data: x},
+                                                          eng.weights))
+            row["busy_ms_one_forward"] = busy
+            print(f"  device total {per_step:.3f} ms per step; "
+                  f"_device_busy_ms of one forward {busy:.3f} ms")
+        xp[label] = row
+        del hm
+        torch.cuda.empty_cache()
+
+
+def _tune_grid(t: dict, wrappers: dict) -> None:
+    """cnet_bench at b64 on ResNet-101, ResNet-152, VGG-19 and VGG-16 under
+    the headline tune and under their int8 site sets with static scales:
+    every entry of each scales file applied, launches per forward as the
+    plan says, each int8 row's distinct B6 calls bit-equal to their plain
+    versions."""
+    import torch
+    from boda_tpu_torch.bench import int8_engine_spec
+    rows = t["grid"] = []
+    for model, pats, scales in GRID:
+        for tune_name in ("headline", INT8):
+            if tune_name == "headline":
+                spec = f"op_tune={TUNES['headline']}"
+            elif pats is None:
+                spec = int8_engine_spec(TUNES["headline"], scales)
+            else:
+                spec = _int8_spec(pats, scales)
+            _counts_reset(wrappers)
+            out, err, hm = _run_mode_err(
+                f"(mode=cnet_bench,model={model},batch={GRID_BATCH},"
+                f"iters={GRID_ITERS},reps=3,{spec})")
+            torch.cuda.synchronize()
+            counts = {k: w.launches for k, w in wrappers.items()}
+            per = {k: v // hm.forwards for k, v in counts.items()}
+            planned = _planned_launches(hm.eng.plan, counts)
+            line = out.strip().splitlines()[-1]
+            applied = ""
+            if tune_name == INT8:
+                m = re.search(r"applied (\d+)/(\d+) site\(s\)", err)
+                n_file = sum(1 for ln in scales.read_text().splitlines()
+                             if ln.strip())
+                applied = f"applied {m[1]}/{m[2]}" if m else "no scales"
+                check(m is not None and int(m[1]) == n_file,
+                      f"cnet_bench {model} int8: {applied} of the "
+                      f"{n_file} entries of {scales.name}")
+                check(per["qconv"] > 0, f"cnet_bench {model} int8: no qconv")
+            print(f"{line}; {applied + '; ' if applied else ''}launches per "
+                  f"forward { {k: v for k, v in per.items() if v} } on "
+                  f"[{t['smi']}]")
+            check(all(counts[k] == planned[k] * hm.forwards for k in counts),
+                  f"cnet_bench {model} {tune_name}: launches {counts} over "
+                  f"{hm.forwards} forwards != the plan's {planned} each")
+            stats = dict(re.findall(r"(\w+)=(\S+)", line))
+            row = {"model": model, "tune": tune_name, "batch": GRID_BATCH,
+                   "step_ms": hm.step_ms,
+                   "imgs_per_sec": GRID_BATCH / hm.step_ms * 1e3,
+                   "tflops": hm.tflops,
+                   "frac_bf16_peak": float(stats["frac_roofline"]),
+                   "launches_per_forward": per}
+            if applied:
+                row["scales"] = applied
+            if any(per[k] for k in HELD):
+                row["held"] = _hold_row(f"cnet_bench {model} {tune_name}",
+                                        hm.eng, per, wrappers)
+            rows.append(row)
+            del hm
+            torch.cuda.empty_cache()
+
+
+def phase_tune(ctx: dict) -> None:
+    """The tuning and profiling surface: ops_prof at the conv-baseline op,
+    the wisdom flow (ops_prof, fusion_penalty, cnet_bench --wisdom_fn),
+    cnet_tune, cnet_stage_probe, cnet_xprof and the per-model grid at b64,
+    each through the mode a user runs."""
+    import torch
+    from boda_tpu_torch.core.machine import card_peaks
+    TUNE_OUT.mkdir(parents=True, exist_ok=True)
+    t = ctx["tune"] = {"smi": ctx["smi"]}
+    wrappers = _wrappers()
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    for step in (lambda: _tune_baseline(t, wrappers, peaks),
+                 lambda: _tune_wisdom(t, wrappers),
+                 lambda: _tune_search(t, wrappers),
+                 lambda: _tune_stages(t, wrappers),
+                 lambda: _tune_xprof(t, wrappers),
+                 lambda: _tune_grid(t, wrappers)):
+        t0 = time.perf_counter()
+        step()
+        print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+    del t["smi"]
+
+
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
           "vendor": phase_vendor, "digests": phase_digests,
           "agree": phase_agree, "full": phase_full, "engine": phase_engine,
           "ops_prof": phase_ops_prof, "zoo": phase_zoo, "serve": phase_serve,
-          "pyra": phase_pyra, "train": phase_train, "bench": phase_bench}
+          "pyra": phase_pyra, "train": phase_train, "tune": phase_tune,
+          "bench": phase_bench}
 
 
 def main() -> int:
@@ -4449,7 +4925,8 @@ def main() -> int:
                       "engine": ctx["engine"],
                       "vendor_conv_ms_b32": ctx["vendor_ms"],
                       "zoo": ctx["zoo"], "serve": ctx["serve"],
-                      "pyra": ctx["pyra"], "train": ctx["train"]}))
+                      "pyra": ctx["pyra"], "train": ctx["train"],
+                      "tune": ctx["tune"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
 """The port's Backend (be=torch, backend/torch_be.py) on the Backend
 contract of its backend/iface.py (the copy of boda_tpu/backend/iface.py),
-its Codegen and gen_data template, and torch_rtc_test; on device=cpu, the
+its Codegen and gen_data template, and rtc_test; on device=cpu, the
 only device here.
 
 gen_data vars are compared with the JAX XlaBackend's bit for bit: both
@@ -123,21 +123,21 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
                                     "available"):
         be.ensure_init()
     with pytest.raises(RtErr, match="CUDA is not available"):
-        create_and_run_has_main("(mode=torch_rtc_test,n=8)", {})
+        create_and_run_has_main("(mode=rtc_test,n=8)", {})
 
 
 def test_port_modes_refuse_the_jax_backend():
     # the port registers no be=xla: its config refuses the name
     with pytest.raises(RtErr, match="unknown be 'xla' for Backend"):
-        create_and_run_has_main("(mode=torch_rtc_test,rtc=xla,n=8)", {})
+        create_and_run_has_main("(mode=rtc_test,rtc=xla,n=8)", {})
 
 
 @pytest.mark.parametrize("rtc", ["(be=torch,device=cpu)", "interp"])
 def test_torch_rtc_test(capsys, rtc):
-    create_and_run_has_main(f"(mode=torch_rtc_test,rtc={rtc},n=100)", {})
+    create_and_run_has_main(f"(mode=rtc_test,rtc={rtc},n=100)", {})
     out = capsys.readouterr().out
     tag = "torch:cpu:cpu" if "torch" in rtc else "interp:numpy"
-    assert f"torch_rtc_test PASSED plat={tag} n=100" in out
+    assert f"rtc_test PASSED plat={tag} n=100" in out
 
 
 @pytest.mark.parametrize("mode", [0, 1, 2, 3, 4])

@@ -6,8 +6,9 @@ the port is imported, mini is built, lowered and run on the CPU through
 the port's make_engine and build_model and through the CLI entry point
 (python -m boda_tpu_torch run_cnet), ResNet-50 runs under the fused tune
 (fused_stem, resblock), cnet_bench runs GoogLeNet (its concat and LRN
-templates) on the CPU, the per-op modes torch_rtc_test and torch_ops_prof
-(with sgemm_int8), test_compute_multi (engine=ref, the fused and the
+templates) on the CPU, the per-op modes rtc_test and ops_prof
+(with sgemm_int8), cnet_tune, cnet_xprof, cnet_stage_probe, wis_ana and
+cnet_ana, test_compute_multi (engine=ref, the fused and the
 per-call executors against the `mini` TPU digests), test_lmdb (the
 per-call executor over tests/data/lmdb-tiny) and aio_cls_selfcheck (the
 serving path: three clients coalesced into one batch) run through the
@@ -42,19 +43,28 @@ sys.meta_path.insert(0, _NoJax())
 # the port's modes: `help` lists these and no other
 PORT_MODES = {"run_cnet", "cnet_predict", "cnet_bench", "cls_agree",
               "test_lmdb", "test_compute_multi", "comp_ndas",
-              "torch_rtc_test", "torch_ops_prof", "torch_cnn_op_info",
-              "torch_cnn_prof", "aio_cls_server", "serve_bench",
+              "rtc_test", "ops_prof", "cnn_op_info",
+              "cnn_prof", "aio_cls_server", "serve_bench",
               "aio_cls_selfcheck", "blf_pack", "conv_pyra", "pyra_bench",
               "zmq_hello_server", "zmq_hello_client", "zmq_det_stub_server",
               "zmq_cls_server", "zmq_det_server", "zmq_det_client",
-              "cnet_train", "train_bench"}
+              "cnet_train", "train_bench",
+              # the tuning and profiling surface, the plots, the wisdom
+              # tools and the net-analysis and net-surgery modes
+              "cnet_tune", "fusion_penalty", "cnet_stage_probe",
+              "cnet_xprof", "wis_merge", "wis_ana", "roofline_plot",
+              "wis_plot", "op_eff_plot", "conv_ana", "cnet_ana", "cnet_copy",
+              "cnet_fc_to_conv", "cnet_resize_conv", "cnet_bpt_dump",
+              "cnet_util"}
 # the serving, dense-inference and training modules: the source scan must
 # cover them
 SLICE_MODULES = ["parallel/transport.py", "io/device_preproc.py",
                  "apps/aio_serve.py", "models/upsamp.py", "apps/predict.py",
                  "apps/pyra.py", "apps/zmq_serve.py", "apps/stream_infer.py",
                  "apps/train.py", "ops/mxu_grad.py", "ops/cuda/bck.py",
-                 "engine/segments.py"]
+                 "engine/segments.py", "apps/cnet_bench.py",
+                 "graph/modes.py", "graph/caffe_io.py", "tune/xprof.py",
+                 "tune/plots.py", "tune/wisdom_modes.py"]
 
 RUN_MINI = BLOCK_JAX + """
 import runpy
@@ -82,7 +92,7 @@ out = eng.run_fwd({"data": NDA(d, gen_test_nda(d, 0, 0.1))}, ["prob"])
 assert out["prob"].v.shape == (1, 1000, 1, 1)
 for argv in (["help"],
              ["run_cnet", "--model=mini", "--conv_fwd=(engine=torch,device=cpu)"],
-             ["torch_rtc_test", "--rtc=(be=torch,device=cpu)"],
+             ["rtc_test", "--rtc=(be=torch,device=cpu)"],
              ["test_compute_multi", "--model=mini", "--all_vars=1",
               "--write_digests=0",
               "--engines=(ref=(engine=ref),fused=(engine=torch,device=cpu),"
@@ -95,7 +105,7 @@ for argv in (["help"],
              ["cnet_bench", "--model=googlenet_conv_lrn", "--batch=1",
               "--model_opts=(ysz=64,xsz=64)",
               "--conv_fwd=(engine=torch,device=cpu)", "--iters=1", "--reps=1"],
-             ["torch_ops_prof", "--ops_fn=tests/data/ops/sgemm-tiny.txt",
+             ["ops_prof", "--ops_fn=tests/data/ops/sgemm-tiny.txt",
               "--rtcs=(t=(be=torch,device=cpu),ref=(be=interp))",
               "--op_tunes=(kg=(use_culibs=1),hand=(),int8=(prec=int8))",
               "--func_mrd_toler=(sgemm_int8=5e-2)", "--run_iter=1"],
@@ -104,7 +114,17 @@ for argv in (["help"],
              ["cnet_train", "--model=mini", "--batch=2", "--steps=2",
               "--device=cpu", "--optimizer=momentum"],
              ["train_bench", "--model=mini", "--batch=2", "--device=cpu",
-              "--iters=1", "--reps=1"]):
+              "--iters=1", "--reps=1"],
+             ["cnet_tune", "--model=mini", "--device=cpu", "--iters=1",
+              "--reps=1", "--tunes=((),(prec=bf16,layout=nhwc))"],
+             ["cnet_xprof", "--model=mini", "--steps=1",
+              "--conv_fwd=(engine=torch,device=cpu)"],
+             ["cnet_stage_probe", "--model=mini", "--device=cpu",
+              "--iters=1", "--reps=1",
+              "--stages=stem:conv1|rest:cccp1+conv2+cat2+pool+drop+fc-conv"
+              "+gpool+prob"],
+             ["wis_ana", "--wisdom_in_fn=tests/data/wisdom-sgemm-baseline.wis"],
+             ["cnet_ana", "--model=mini"]):
     sys.argv = ["boda_tpu_torch", *argv]
     try:
         runpy.run_module("boda_tpu_torch", run_name="__main__")
@@ -122,7 +142,7 @@ def test_port_runs_without_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
     assert "run_cnet: out node 'prob'" in r.stdout
-    assert "torch_rtc_test PASSED plat=torch:cpu:cpu" in r.stdout
+    assert "rtc_test PASSED plat=torch:cpu:cpu" in r.stdout
     assert "kg digests vs percall: PASS" in r.stdout
     assert "top_1_acc=0 num_pos=0 num_test=8" in r.stdout
     assert "cnet_bench googlenet_conv_lrn b1 bf16 storage=nhwc: step_ms=" \
@@ -132,6 +152,10 @@ def test_port_runs_without_jax():
     assert "cnet_train mini b2 opt=momentum lr=0.01: loss " in r.stdout
     assert "train_bench mini b2 bf16 storage=nhwc opt=sgd lr=0.01: " \
         "step_ms=" in r.stdout
+    assert "best: batch=1 tune=(" in r.stdout
+    assert "cnet_xprof mini b1 steps=1 device=cpu" in r.stdout
+    assert "(isolated-sum / whole = " in r.stdout
+    assert "TOTAL: " in r.stdout
     for bad in ("COMP_FAIL", "ERROR"):
         assert bad not in r.stdout
     assert "NOJAX_OK" in r.stdout
@@ -141,6 +165,7 @@ def test_port_runs_without_jax():
             break  # the end of the list (the timers table follows)
         listed.append(ln.split()[0])
     assert set(listed) == PORT_MODES
+    assert not [m for m in listed if m.startswith("torch_")]
 
 
 RUN_BENCH = BLOCK_JAX + """

@@ -1,5 +1,5 @@
-"""The port's per-op tuning path: torch_ops_prof, profile_rcg_call,
-torch_cnn_op_info / torch_cnn_prof and the machine model, on device=cpu
+"""The port's per-op tuning path: ops_prof, profile_rcg_call,
+cnn_op_info / cnn_prof and the machine model, on device=cpu
 beside the numpy reference backend (be=interp), and against wisdom written
 by the JAX package's own ops_prof.
 
@@ -42,7 +42,7 @@ RN50_CONVS = read_op_sigs(OPS / "resnet50-convs.txt")
 def _ops_prof(ops_fn, rtcs, tunes, extra="", out=None):
     o = f",boda_output_dir={out},wisdom_out_fn=out.wis" if out else ""
     create_and_run_has_main(
-        f"(mode=torch_ops_prof,ops_fn={ops_fn},rtcs=({rtcs}),op_tunes={tunes},"
+        f"(mode=ops_prof,ops_fn={ops_fn},rtcs=({rtcs}),op_tunes={tunes},"
         f"run_iter=2{o}{',' if extra else ''}{extra})", {})
 
 
@@ -101,7 +101,7 @@ def test_ops_prof_takes_the_jax_packages_kg_digests(tmp_path, capsys, ops_fn,
     bad = re.sub(r"cnt=(\d+)", "cnt=99", wis)
     assert bad != wis
     (tmp_path / "bad.wis").write_text(bad)
-    with pytest.raises(RtErr, match="torch_ops_prof: 4 errors"):
+    with pytest.raises(RtErr, match="ops_prof: 4 errors"):
         _ops_prof(OPS / ops_fn, CPU, "(kg=(use_culibs=1),hand=())",
                   f"wisdom_in_fn={tmp_path / 'bad.wis'}")
     assert "KG_DIGEST_FAIL: var" in capsys.readouterr().out
@@ -170,7 +170,7 @@ def test_cnn_op_info_scores_each_op_against_its_own_precision(capsys,
                              ("()", "f32", 67e12), ("(prec=bf16)", "bf16",
                                                     989e12)):
         create_and_run_has_main(
-            f"(mode=torch_cnn_op_info,ops_fn={OPS / 'sgemm-tiny.txt'},run=1,"
+            f"(mode=cnn_op_info,ops_fn={OPS / 'sgemm-tiny.txt'},run=1,"
             f"run_iter=1,rtc=(be=torch,device=cpu),op_tune={tune})", {})
         rows = [ln.split() for ln in capsys.readouterr().out.splitlines()
                 if ln.startswith("(type=sgemm")]
@@ -183,13 +183,13 @@ def test_cnn_op_info_scores_each_op_against_its_own_precision(capsys,
     # the CPU is no card of the machine model: no made-up peak
     with pytest.raises(RtErr, match="no peaks known for device 'cpu'"):
         create_and_run_has_main(
-            f"(mode=torch_cnn_op_info,ops_fn={OPS / 'sgemm-tiny.txt'},run=1,"
+            f"(mode=cnn_op_info,ops_fn={OPS / 'sgemm-tiny.txt'},run=1,"
             f"rtc=(be=torch,device=cpu))", {})
 
 
 def test_cnn_prof_over_a_net(tmp_path, capsys):
     create_and_run_has_main(
-        f"(mode=torch_cnn_prof,model=mini,run=1,run_iter=1,"
+        f"(mode=cnn_prof,model=mini,run=1,run_iter=1,"
         f"rtc=(be=torch,device=cpu),peak_flops=1e12,comp_tune=(use_culibs=1),"
         f"boda_output_dir={tmp_path},latex_fn=t.tex)", {})
     out = capsys.readouterr().out
@@ -229,13 +229,14 @@ def test_the_jax_modes_keep_their_names():
     assert jreg["cnn_op_info"] is CnnOpInfo
     assert jreg["cnn_prof"] is CnnProf
     assert jreg["rtc_test"] is RtcTest
+    # the port registers the per-op modes under the same names, as classes
+    # of its own, and no mode under a torch_ prefix
     reg = Config.registered(HasMain)
-    ports = ("torch_ops_prof", "torch_cnn_op_info", "torch_cnn_prof",
-             "torch_rtc_test")
-    for name in ports:
+    for name in ("ops_prof", "cnn_op_info", "cnn_prof", "rtc_test"):
         assert reg[name].__module__.startswith("boda_tpu_torch.")
-        assert name not in jreg
-    assert not {"ops_prof", "cnn_op_info", "cnn_prof", "rtc_test"} & set(reg)
+        assert reg[name] is not jreg[name]
+        assert reg[name].__name__ == jreg[name].__name__
+    assert not [n for n in reg if n.startswith("torch_")]
 
 
 def test_ops_prof_refuses_the_jax_backend():

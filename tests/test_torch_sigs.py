@@ -161,6 +161,83 @@ def test_zoo_plans_agree(model, tune, monkeypatch):
     assert plan.storage_nhwc == ("layout=nhwc" in tune)
 
 
+def test_per_site_wisdom_records_agree(tmp_path):
+    """fusion_penalty's per-site records: for every conv site of ResNet-50
+    b32 (the smoke's wisdom flow), a record pinned to the site is written
+    alike by both packages, keyed alike, and an index over it resolves
+    each site (and no other same-sig site) alike."""
+    pipe, jpipe = build_model("resnet-50", batch=32), \
+        jbuild_model("resnet-50", batch=32)
+    plat = "torch:cuda:NVIDIA H100 80GB HBM3" + wisdom.NET_PLAT_SUFFIX
+    ws, jws = [], []
+    for op in pipe.ops.values():
+        if op.type != "Convolution":
+            continue
+        jop = jpipe.get_op(op.tag)
+        for mod, o, out in ((wisdom, op, ws), (jwisdom, jop, jws)):
+            w = mod.OpWisdom(o.copy(), site=o.tag)
+            w.tune("(prec=bf16,layout=nhwc)").add_run(plat, 1e-4)
+            w.tune("(use_culibs=1,prec=bf16,layout=nhwc,s2d=0)").add_run(
+                plat, 2e-4 if len(o.tag) % 2 else 5e-5)
+            out.append(w)
+        assert wisdom.site_key(wisdom.wisdom_key(op), op.tag) == \
+            jwisdom.site_key(jwisdom.wisdom_key(jop), jop.tag)
+    assert len(ws) == 54
+    f, jf = io.StringIO(), io.StringIO()
+    for w, jw in zip(ws, jws):
+        wisdom.write_op_wisdom(w, f)
+        jwisdom.write_op_wisdom(jw, jf)
+    assert f.getvalue() == jf.getvalue()
+    back = list(wisdom.read_wisdom_stream(io.StringIO(f.getvalue())))
+    assert [w.site for w in back] == [w.site for w in ws]
+    (tmp_path / "s.wis").write_text(f.getvalue())
+    base = plat[:-len(wisdom.NET_PLAT_SUFFIX)]
+    idx = wisdom.load_tune_index(tmp_path / "s.wis", base)
+    assert idx == jwisdom.load_tune_index(tmp_path / "s.wis", base)
+    picks = {op.tag: wisdom.lookup_tune(idx, op) for op in pipe.ops.values()
+             if op.type == "Convolution"}
+    assert picks == {op.tag: jwisdom.lookup_tune(idx, op)
+                     for op in jpipe.ops.values() if op.type == "Convolution"}
+    assert set(picks.values()) == {"(prec=bf16,layout=nhwc)",
+                                   "(use_culibs=1,prec=bf16,layout=nhwc,"
+                                   "s2d=0)"}
+
+
+def test_every_port_mode_has_its_jax_name():
+    """Every mode the port registers is registered under the same name by
+    the JAX package (the port adds no mode of its own and renames none),
+    as a class of the port's, with the JAX class's name."""
+    from boda_tpu import modes as jmodes  # noqa: F401  (the JAX modes)
+    from boda_tpu.core import config as jconfig
+    from boda_tpu.core import has_main as jhas_main
+    from boda_tpu_torch import modes  # noqa: F401  (the port's modes)
+    from boda_tpu_torch.core.config import Config
+    from boda_tpu_torch.core.has_main import HasMain
+    jreg = jconfig.Config.registered(jhas_main.HasMain)
+    reg = Config.registered(HasMain)
+    assert len(reg) >= 40
+    assert sorted(set(reg) - set(jreg)) == []
+    for name, cls in reg.items():
+        assert cls.__module__.startswith("boda_tpu_torch."), name
+        assert cls.__name__ == jreg[name].__name__, name
+
+    def attrs(cls):
+        return {k for c in cls.__mro__ for k, v in vars(c).items()
+                if type(v).__name__ == "Attr"}
+    # the tuning, profiling, plot, wisdom and net modes take the JAX modes'
+    # attributes (compiler_options, a TPU compiler's, excepted) and add at
+    # most where they run (device=, or cnet_bench's conv_fwd)
+    for name in ("cnet_tune", "fusion_penalty", "cnet_stage_probe",
+                 "cnet_xprof", "wis_merge", "wis_ana", "roofline_plot",
+                 "wis_plot", "op_eff_plot", "conv_ana", "cnet_ana",
+                 "cnet_copy", "cnet_fc_to_conv", "cnet_resize_conv",
+                 "cnet_bpt_dump", "cnet_util", "ops_prof", "cnn_op_info",
+                 "cnn_prof", "rtc_test"):
+        a, ja = attrs(reg[name]), attrs(jreg[name])
+        assert ja - a <= {"compiler_options"}, name
+        assert a - ja <= {"device", "conv_fwd"}, name
+
+
 def test_templates_match_the_jax_package():
     ported = all_templates()
     jax_all = jall_templates()
