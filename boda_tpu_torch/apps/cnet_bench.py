@@ -525,6 +525,8 @@ class CnetBench(_NetMode):
         secs = ms / 1e3
         prec = self.op_tune.prec or "f32"
         fl, _ = pipe.total_flops_and_bytes()
+        # the card's name is printed with '_' for its spaces: each field of
+        # the line stays one space-separated key=value token
         kind = torch.cuda.get_device_name(eng.dev) if on_card else "cpu"
         frac = f"{fl / secs / peak_flops(kind, 'bf16'):.4f}" if on_card \
             else "n/a"
@@ -534,7 +536,8 @@ class CnetBench(_NetMode):
               f"storage={'nhwc' if eng.plan.storage_nhwc else 'nchw'}: "
               f"step_ms={ms:.3f} imgs_per_sec={d['img'] / secs:.1f} "
               f"tflops={self.tflops:.2f} frac_roofline={frac} "
-              f"compile_s={compile_s:.1f} device={kind}", flush=True)
+              f"compile_s={compile_s:.1f} "
+              f"device={kind.replace(' ', '_')}", flush=True)
 
 
 @mode("pyra_bench", help="conv_pyra throughput: pyramid pack (host or card) "
@@ -693,7 +696,8 @@ class PyraBench(_NetMode):
               f"pack_ms={pack_s * 1e3:.3f} fwd_ms={ms:.3f}{dp} "
               f"frames_per_sec={serial:.1f} overlapped={overlap:.1f} "
               f"tflops={fl / secs / 1e12:.2f} frac_roofline={frac} "
-              f"compile_s={compile_s:.1f} device={kind}", flush=True)
+              f"compile_s={compile_s:.1f} "
+              f"device={kind.replace(' ', '_')}", flush=True)
 
 
 @mode("train_bench", help="training-step benchmark: fwd + bwd + update "
@@ -874,6 +878,6 @@ class TrainBench(_NetMode):
               f"imgs_per_sec={d['img'] / secs:.1f} "
               f"tflops={self.tflops:.2f} (3x-fwd est) "
               f"frac_roofline={frac} "
-              f"compile_s={compile_s:.1f} device={kind} "
+              f"compile_s={compile_s:.1f} device={kind.replace(' ', '_')} "
               f"nondet_step_ms={self.nondet_step_ms:.3f} "
               f"max_mem_mb={mem} first_loss={loss:.5f}", flush=True)

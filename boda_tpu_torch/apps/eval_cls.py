@@ -5,8 +5,8 @@ labeled sources `labeled-npy-src`, `shapes-src` (the procedural dataset of
 io/synth.py) and `lmdb-src` (caffe Datums, read by the real `lmdb` module
 when installed, else by utils/lmdbmini.py) with `encode_datum`; and the
 modes `test_lmdb` (reference: lmdb_caffe_io.cc:36-62) and `cls_agree`,
-whose default engines are engine=torch. The JAX package's lmdb_* and
-display modes are not on the port's paths and are left out.
+whose default engines are engine=torch; and the LMDB modes
+`lmdb_parse_datums`, `lmdb_bench`, `display_lmdb` and `gen_lmdb`.
 
 Labeled block convention: block.nda = one image (chan,y,x float32,
 already preprocessed) and a named subblock 'label' holding a 1-elem
@@ -20,7 +20,7 @@ import numpy as np
 from ..core.config import Attr, register
 from ..core.dims import NDA, Dims
 from ..core.error import RtErr
-from ..core.has_main import mode
+from ..core.has_main import HasMain, mode
 from ..core.timers import timer
 from ..engine.iface import ConvFwd
 from ..io.data_stream import DataBlock, DataStream
@@ -311,3 +311,144 @@ class ClsAgree(RunCnetBase):
               f"top_5_overlap={top5_overlap / n:g} "
               f"num_pos_a={num_pos_a} num_pos_b={num_pos_b} "
               f"num_test={num_test}")
+
+
+@mode("lmdb_parse_datums", help="parse caffe Datums from an LMDB, one line each")
+class LmdbParseDatums(HasMain):
+    """Reference: lmdb_parse_datums (lmdb_caffe_io.H:14) — cursor over the
+    DB parsing each Datum; here each record prints a summary line (the
+    reference's verbose path) so the scan is goldenable."""
+
+    db_fn = Attr(str, req=True, help="input lmdb dir")
+    num_to_read = Attr(int, default=10, help="read this many records (0: all)")
+
+    def main(self):
+        from ..graph.pbwire import decode_wire
+        n = 0
+        for key, raw in open_lmdb_kv_iter(self.db_fn):
+            if self.num_to_read and n >= self.num_to_read:
+                break
+            d = decode_wire(raw)
+            ks = key.decode("utf-8", "replace") if isinstance(key, bytes) else key
+            print(f"datum {n}: key={ks} label={d.varint(5, 0)} "
+                  f"chan={d.varint(1, 0)} y={d.varint(2, 0)} "
+                  f"x={d.varint(3, 0)} bytes={len(d.bytes_field(4) or b'')}")
+            n += 1
+        print(f"lmdb_parse_datums: read {n} datums from {self.db_fn}")
+
+
+@mode("lmdb_bench", help="scan an LMDB: count entries/bytes, datum stats")
+class LmdbBench(HasMain):
+    """Reference: lmdb_bench_t (lmdbif.cc:13-38 — full-scan read bench)."""
+
+    fn = Attr(str, req=True, help="lmdb directory (or data.mdb file)")
+    parse_datums = Attr(bool, default=True, help="also decode caffe Datums")
+    max_entries = Attr(int, default=0, help="stop after N (0: all)")
+
+    def main(self):
+        import time
+        from ..graph.pbwire import decode_wire
+        t0 = time.perf_counter()
+        n = 0
+        key_bytes = val_bytes = 0
+        label_hist: dict[int, int] = {}
+        dims_seen = set()
+        for k, v in open_lmdb_kv_iter(self.fn):
+            n += 1
+            key_bytes += len(k)
+            val_bytes += len(v)
+            if self.parse_datums:
+                d = decode_wire(v)
+                dims_seen.add((d.varint(1, 0), d.varint(2, 0), d.varint(3, 0)))
+                lab = d.varint(5, 0)
+                label_hist[lab] = label_hist.get(lab, 0) + 1
+            if self.max_entries and n >= self.max_entries:
+                break
+        dt = time.perf_counter() - t0
+        print(f"lmdb_bench: entries={n} key_bytes={key_bytes} "
+              f"val_bytes={val_bytes}")
+        if self.parse_datums:
+            print(f"datum dims (chan,y,x): {sorted(dims_seen)}; "
+                  f"labels: {len(label_hist)} distinct")
+        print(f"scan took {dt:.3f}s "
+              f"({(key_bytes + val_bytes) / max(dt, 1e-9) / 1e6:.1f} MB/s)")
+
+
+@mode("display_lmdb", help="render LMDB datums to a montage image")
+class DisplayLmdb(HasMain):
+    """Reference: lmdb_caffe_disp.cc:14 (display datums as they stream);
+    file-backed here (no display stack on a headless host): first N datums are
+    tiled into one PNG."""
+
+    fn = Attr(str, req=True, help="lmdb directory")
+    num_imgs = Attr(int, default=16)
+    out_fn = Attr(str, default="lmdb_montage.png")
+
+    def main(self):
+        from ..graph.pbwire import decode_wire
+        from ..io.disp import make_montage
+        from ..io.img import save_img
+        imgs = []
+        for _k, v in open_lmdb_kv_iter(self.fn):
+            d = decode_wire(v)
+            c, y, x = d.varint(1, 0), d.varint(2, 0), d.varint(3, 0)
+            u8 = np.frombuffer(d.bytes_field(4), np.uint8).reshape(c, y, x)
+            imgs.append(np.transpose(u8, (1, 2, 0)))
+            if len(imgs) >= self.num_imgs:
+                break
+        if not imgs:
+            raise RtErr(f"display_lmdb: no datums in '{self.fn}'")
+        out = self.out_path(self.out_fn)
+        save_img(out, make_montage(imgs))
+        print(f"display_lmdb: wrote {len(imgs)} datums to {self.out_fn}")
+
+
+@mode("gen_lmdb", help="generate a labeled test-pattern Datum LMDB")
+class GenLmdb(HasMain):
+    """Fixture generator (the role scripts filled upstream by converting
+    ImageNet with caffe's convert_imageset): deterministic test-pattern
+    images + labels, written via the built-in LMDB writer."""
+
+    out_dir = Attr(str, req=True, help="lmdb env directory to create")
+    num_imgs = Attr(int, default=16)
+    chan = Attr(int, default=3)
+    ysz = Attr(int, default=32)
+    xsz = Attr(int, default=32)
+    num_classes = Attr(int, default=10)
+    seed = Attr(int, default=42)
+    kind = Attr(str, default="pattern",
+                help="pattern = label-banded noise (fast fixture); "
+                     "shapes = the procedural shape-classification "
+                     "dataset (io/synth.py — same pixels shapes-src "
+                     "serves, so a net trained on shapes-src evaluates "
+                     "against this LMDB through test_lmdb)")
+    start_ix = Attr(int, default=0,
+                    help="first dataset index (kind=shapes split base)")
+
+    def main(self):
+        from ..utils.lmdbmini import write_lmdb
+        rng = np.random.RandomState(self.seed)
+        kvs = []
+        if self.kind == "shapes":
+            if self.chan != 3:
+                raise RtErr("gen_lmdb: kind=shapes renders chan=3 images")
+            from ..io.synth import render_shapes
+            imgs, labels = render_shapes(
+                range(self.start_ix, self.start_ix + self.num_imgs),
+                self.ysz, self.xsz, self.num_classes, self.seed)
+            kvs = [(b"%08d" % i, encode_datum(imgs[i], int(labels[i])))
+                   for i in range(self.num_imgs)]
+        elif self.kind != "pattern":
+            raise RtErr(f"gen_lmdb: unknown kind '{self.kind}' "
+                        f"(pattern | shapes)")
+        for i in range(len(kvs), self.num_imgs):
+            label = i % self.num_classes
+            img = rng.randint(0, 256, size=(self.chan, self.ysz, self.xsz),
+                              dtype=np.uint8)
+            # bias a band by the label so accuracy isn't pure chance for
+            # nets trained on the same generator
+            img[:, label % self.ysz, :] = 255
+            kvs.append((b"%08d" % i, encode_datum(img, label)))
+        st = write_lmdb(self.out_path(self.out_dir), kvs)
+        print(f"gen_lmdb: wrote {st['entries']} datums "
+              f"(depth={st['depth']}, last_pg={st['last_pg']}) to {self.out_dir}")

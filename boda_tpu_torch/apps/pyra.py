@@ -17,10 +17,10 @@ CLI modes: blf_pack (placement math only), conv_pyra (full pipeline).
 
 The port's copy of boda_tpu/apps/pyra.py, on engine=torch. conv_pyra packs
 on the host (PIL), as in the JAX package; pyra_bench (apps/cnet_bench.py)
-also packs on the card (io/device_preproc.make_device_pyra_pack). Left
-out: blf_place's native placement core (utils/cpplib.cpp_blf_place;
-impl=cpp raises) and conv_pyra's annotated image (anno_fn, which needs
-the display module io/disp; the config refuses it as an unused value).
+also packs on the card (io/device_preproc.make_device_pyra_pack).
+blf_place's native placement core is the port's host core
+(utils/cpplib.cpp_blf_place, impl=cpp); conv_pyra's annotated image
+(anno_fn) is drawn by io/disp.
 """
 
 from __future__ import annotations
@@ -75,13 +75,21 @@ def blf_place(sizes: list[Pt], bin_sz: Pt, pad: Pt,
     (bin_ix, box) per input rect (in input order). Each placed rect
     reserves `pad` on its +y/+x sides (support padding so net receptive
     fields don't mix scales). impl: 'auto' and 'py' are this Python
-    placement; 'cpp' (the JAX package's native core, csrc/blf_pack.cc) is
-    not ported and raises."""
+    placement; 'cpp' the native placement core (csrc/host/blf_pack.cc,
+    built at first use; raises where it cannot be), whose placements the
+    differential tests pin to these."""
     if impl == "cpp":
-        raise RtErr("blf_place: impl=cpp (the native placement core) is not "
-                    "ported; use impl=py (ROADMAP A10)")
+        from ..utils.cpplib import cpp_blf_place
+        for sz in sizes:
+            if sz.y > bin_sz.y or sz.x > bin_sz.x:
+                raise RtErr(f"blf_place: rect {sz} larger than bin {bin_sz}")
+        _nb, flat = cpp_blf_place([(s.y, s.x) for s in sizes],
+                                  (bin_sz.y, bin_sz.x), (pad.y, pad.x))
+        return [(int(bi), Box(Pt(int(y), int(x)),
+                              Pt(int(y) + sizes[i].y, int(x) + sizes[i].x)))
+                for i, (bi, y, x) in enumerate(flat)]
     if impl not in ("auto", "py"):
-        raise RtErr(f"blf_place: unknown impl '{impl}' (auto, py)")
+        raise RtErr(f"blf_place: unknown impl '{impl}' (auto, py, cpp)")
     order = sorted(range(len(sizes)), key=lambda i: (-sizes[i].y * sizes[i].x, i))
     bins: list[list[Box]] = []  # placed (padded) boxes per bin
     cands: list[list[Pt]] = []  # candidate corners per bin
@@ -232,6 +240,7 @@ class ConvPyra(_NetMode):
                                   "conv; conv_pyra.cc upsamp octave)")
     conv_fwd_upsamp = Attr(ConvFwd, default="(engine=torch,keep_all_nodes=1)")
     label_fn = Attr(str, default="", help="label names, one per line")
+    anno_fn = Attr(str, default="", help="write box-annotated input image")
     filt_show_thresh = Attr(float, default=0.02)
     filt_drop_thresh = Attr(float, default=0.005)
     max_num_disp = Attr(int, default=20)
@@ -340,8 +349,18 @@ class ConvPyra(_NetMode):
                         csi_upsamp=ucsi,
                         upsamp_feat_sz=(Pt(fv_up.shape[2], fv_up.shape[3])
                                         if fv_up is not None else None))
-                self.annos = predictor.do_predict(fv, fv_up,
-                                                  print_to_terminal=True)
+                annos = self.annos = predictor.do_predict(
+                    fv, fv_up, print_to_terminal=True)
+                if self.anno_fn and frame == self.frames - 1:
+                    from ..io.disp import annotate_img
+                    from ..io.img import save_img
+                    h, w = img.shape[0], img.shape[1]
+                    draw = [(tuple(np.clip(a.box, 0, [h, w, h, w])),
+                             a.str.splitlines()[0] if a.str else "")
+                            for a in annos]
+                    save_img(self.out_path(self.anno_fn),
+                             annotate_img(img, draw))
+                    print(f"wrote {len(annos)} annos to {self.anno_fn}")
             if frame == 0:
                 self.per_scale = per_scale
                 print(f"conv_pyra: {len(pp.scales)} scales in {pp.num_bins} "

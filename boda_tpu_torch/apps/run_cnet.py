@@ -9,9 +9,8 @@ cnet_predict's dense path (dense: scale infos, NMS grid and annotations,
 apps/predict.py).
 
 The port's copy of boda_tpu/apps/run_cnet.py, whose default engines are
-engine=torch. Left out: cnet_predict's annotated image (anno_fn), which
-needs the JAX package's display module (io/disp); the config refuses it
-as an unused value.
+engine=torch; cnet_predict's annotated image (anno_fn) is drawn by
+io/disp.
 """
 
 from __future__ import annotations
@@ -102,6 +101,9 @@ class CnetPredict(RunCnetBase):
     top_k = Attr(int, default=5)
     filt_rate = Attr(float, default=0.0,
                      help="temporal prob filtering rate (streaming use)")
+    anno_fn = Attr(str, default="", help="write the input image annotated "
+                   "with the top-1 label here (reference: cnet_predict "
+                   "annotated output, caffeif.H:159-160)")
     dense = Attr(bool, default=False,
                  help="use the dense prediction path (scale_infos + NMS "
                       "grid + per-region annos; reference default — "
@@ -166,8 +168,26 @@ class CnetPredict(RunCnetBase):
         img = load_img(self.img_fn) if self.img_fn else make_test_pattern_img(d["y"], d["x"])
         out = self.run_one_blob_in_one_blob_out(img_to_batch(img, d))
         if self.dense:
-            self.annos = self.do_predict_dense(pipe, out)
+            annos = self.annos = self.do_predict_dense(pipe, out)
+            if self.anno_fn:
+                from ..io.disp import annotate_img
+                from ..io.img import save_img
+                h, w = img.shape[0], img.shape[1]
+                draw = [(tuple(np.clip(a.box, 0, [h, w, h, w])),
+                         a.str.splitlines()[0] if a.str else "")
+                        for a in annos]
+                save_img(self.out_path(self.anno_fn), annotate_img(img, draw))
+                print(f"wrote {len(annos)} annos to {self.anno_fn}")
             return
         preds = self.do_predict(out.v[0])
         for rank, (idx, p, lbl) in enumerate(preds, 1):
             print(f"#{rank}: {lbl} (class {idx}) p={p:.5f}")
+        if self.anno_fn and preds:
+            from ..io.disp import annotate_img
+            from ..io.img import save_img
+            idx, p, lbl = preds[0]
+            h, w = img.shape[0], img.shape[1]
+            anno = annotate_img(img, [((2, 2, h - 3, w - 3),
+                                       f"{lbl} {p:.3f}")])
+            save_img(self.out_path(self.anno_fn), anno)
+            print(f"wrote annotated image to {self.anno_fn}")

@@ -11,9 +11,8 @@ The engine is the same ConvFwd used by run_cnet (`engine=torch` on the
 card by default, `engine=ref` float64 numpy), with frames
 resized/mean-subtracted through io.img.img_to_batch.
 
-The port's copy of the cnet-infer stage of boda_tpu/apps/stream_infer.py.
-Left out: feats_node's channel-map montage, which needs the display
-module io/disp (the config refuses it as an unused value).
+The port's copy of the cnet-infer stage of boda_tpu/apps/stream_infer.py;
+feats_node's channel-map montage is drawn by io/disp.
 """
 
 from __future__ import annotations
@@ -45,6 +44,13 @@ class CnetInferStream(DataStream):
     pred_tag = Attr(str, default="pred",
                     help="named-subblock tag for the (top_k,2) "
                          "[class,prob] result nda")
+    feats_node = Attr(str, default="",
+                      help="also fetch this node's feature maps and "
+                           "attach a per-channel montage image as an "
+                           "'img' subblock (capture_feats role, "
+                           "cap_app.cc:298)")
+    feats_max_chans = Attr(int, default=64,
+                           help="montage at most this many channels")
     preprocessed = Attr(str, default="auto",
                         help="float-block handling: 1 = blocks are "
                              "already net-input preprocessed (lmdb-src "
@@ -126,8 +132,13 @@ class CnetInferStream(DataStream):
             if is_float:
                 img = np.clip(img, 0, 255).astype(np.uint8)
             blob = img_to_batch(img, dims)
-        out = self.conv_fwd.run_fwd({self._data_node: blob},
-                                    [self._top])[self._top]
+        want = [self._top]
+        if self.feats_node:
+            want.append(self.feats_node)
+        outs = self.conv_fwd.run_fwd({self._data_node: blob}, want)
+        out = outs[self._top]
+        if self.feats_node:
+            db = self._attach_feats(db, outs[self.feats_node])
         p = np.asarray(out.v[0], np.float32).reshape(-1)
         k = min(self.top_k, p.size)
         top = np.argsort(p)[::-1][:k]
@@ -141,3 +152,23 @@ class CnetInferStream(DataStream):
 
     def get_pos_info_str(self) -> str:
         return f"cnet-infer[{self.model or self.ptt_fn}->{self._top}]"
+
+    def _attach_feats(self, db: DataBlock, feats: NDA) -> DataBlock:
+        """Montage the first feats_max_chans channel maps into one image
+        subblock tagged 'img' (the capture_feats display, file-backed)."""
+        from ..io.disp import make_montage, nda_to_img
+        v = np.asarray(feats.v, np.float32)
+        if v.ndim == 4:          # (img, chan, y, x) — first image
+            v = v[0]
+        if v.ndim != 3:
+            raise RtErr(f"cnet-infer: feats node '{self.feats_node}' is "
+                        f"not a (chan,y,x) map: dims {feats.dims.pretty()}")
+        tiles = [nda_to_img(v[c]) for c in
+                 range(min(v.shape[0], self.feats_max_chans))]
+        img = make_montage(tiles)
+        dims = Dims([("y", img.shape[0]), ("x", img.shape[1]),
+                     ("chan", 3)], tn="uint8_t")
+        sdb = DataBlock(NDA(dims, img), tag="img", meta="image",
+                        frame_ix=db.frame_ix, timestamp_ns=db.timestamp_ns)
+        db.set_sdb(sdb)
+        return db

@@ -12,12 +12,13 @@ Capability parity with the reference's rtc_compute_t (rtc_compute.H:35): a
 plus host<->device copies (incl. whole-map variants :79-94) and a platform tag used as the wisdom/tuning-record key (get_plat_tag).
 
 Concrete backends (selected polymorphically by `be=`, like the reference's
-NESI factory): `torch` (one torch device — backend/torch_be.py) and `interp`
-(numpy reference — backend/interp.py).
+NESI factory): `torch` (one torch device — backend/torch_be.py), `interp`
+(numpy reference — backend/interp.py) and `ipc` (a worker process running
+one of those — backend/ipc.py).
 
-The port's copy of boda_tpu/backend/iface.py, without the XLA backend, the
-remote-worker proxy (be=xla, be=ipc) and their options (gen_src, and the
-_block_on hook that waits for an asynchronous XLA result: be=interp runs
+The port's copy of boda_tpu/backend/iface.py, without the XLA backend
+(be=xla) and its options (gen_src, the profiler hooks, and the _block_on
+hook that waits for an asynchronous XLA result: be=interp runs
 synchronously, and be=torch times with CUDA events).
 """
 
@@ -281,7 +282,7 @@ class Backend(Config):
 
 def make_backend(spec: Union[str, dict, None] = None) -> Backend:
     """Factory: make_backend('torch') or make_backend('(be=torch,device=cpu)')."""
-    from . import interp, torch_be  # noqa: F401  (register backends)
+    from . import interp, ipc, torch_be  # noqa: F401  (register backends)
     if spec is None:
         spec = "torch"
     if isinstance(spec, dict):

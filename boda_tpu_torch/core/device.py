@@ -4,6 +4,12 @@ Counterpart of boda_tpu/core/features.py and of the device part of
 boda_tpu/backend/xla.py (XlaBackend.init / get_plat_tag). A device is asked
 for by name ('cuda', 'cuda:0', 'cpu'); asking for CUDA where there is none
 raises. Nothing falls back to the CPU.
+
+The caller may ask for the CPU for a whole run, the processes it spawns
+included (the be=ipc worker, stream-src), by setting BODA_TORCH_DEVICE=cpu
+in the environment: every device name then resolves to the CPU. This is
+the port's counterpart of JAX_PLATFORMS=cpu, and the only place that reads
+it. Unset, names resolve as they read.
 """
 
 from __future__ import annotations
@@ -18,6 +24,18 @@ from .error import RtErr
 
 # the CUDA toolkit's own default root, where CUDA_HOME names none
 _CUDA_DEFAULT_ROOT = "/usr/local/cuda"
+
+# the environment variable by which a caller asks for the CPU for a run
+DEVICE_ENV = "BODA_TORCH_DEVICE"
+
+
+def _run_device() -> str:
+    """'cpu' where the caller asked for the CPU for the whole run, else ''."""
+    v = os.environ.get(DEVICE_ENV, "")
+    if v not in ("", "cpu"):
+        raise RtErr(f"{DEVICE_ENV}={v!r}: the only value is 'cpu' (unset: "
+                    "devices resolve as named)")
+    return v
 
 
 def nvcc_path() -> str:
@@ -50,8 +68,11 @@ def is_feature_enabled(name: str) -> bool:
 
 
 def get_device(name: str) -> torch.device:
-    """torch.device for `name`, checked: CUDA must exist when asked for."""
+    """torch.device for `name`, checked: CUDA must exist when asked for.
+    Under BODA_TORCH_DEVICE=cpu every valid name is the CPU."""
     dev = torch.device(name)
+    if dev.type in ("cuda", "cpu") and _run_device() == "cpu":
+        return torch.device("cpu")
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RtErr(f"device '{name}' requested but CUDA is not available")

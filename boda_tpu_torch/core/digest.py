@@ -7,9 +7,8 @@ against another digest with a max-relative-difference tolerance
 (`self_cmp_mrd`), so GPU/TPU-vs-reference correctness is testable without
 shipping full tensors.
 
-The port's copy of boda_tpu/core/digest.py, without the native digest
-(impl='cpp', utils/cpplib): the Python digest is the one the golden files
-were written with.
+The port's copy of boda_tpu/core/digest.py, without impl='cpp': the
+Python digest is the one the golden files were written with.
 """
 
 from __future__ import annotations

@@ -14,9 +14,8 @@ The syntax itself is the compatibility surface (op-sig `.txt` files and
 wisdom files are written in it), so this is a fresh implementation of the
 same grammar, not a translation of lexp.cc.
 
-The port's copy of boda_tpu/core/lexp.py, without the native parser for
-long inputs (utils/cpplib): the Python parser is the one both use below
-4 KB, with the same grammar and errors.
+The port's copy of boda_tpu/core/lexp.py, without the switch to the native
+parser for long inputs: the port parses in Python.
 """
 
 from __future__ import annotations

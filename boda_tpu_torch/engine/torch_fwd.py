@@ -11,7 +11,9 @@ one of two executors on its device, as the JAX engine does:
   pass, runs one call per step through the backend `rtc` (be=torch on the
   engine's device by default) and ops/registry.Codegen, each call timed by
   the backend (CUDA events on a card); per_call_fn writes the per-layer
-  report (tag, instance, seconds), boda's per-layer profile.
+  report (tag, instance, seconds), boda's per-layer profile. Under
+  rtc=(be=ipc,...) every call runs in a worker process on the worker's
+  device, and the engine holds none itself.
 
 Both take per-op tunes by tag regex (op_tunes_pat) and from a wisdom file
 (wisdom_fn), calibrated static int8 activation scales (act_scales_fn), the
@@ -34,7 +36,7 @@ import time
 import numpy as np
 import torch
 
-from ..backend import interp, torch_be  # noqa: F401  (register be=)
+from ..backend import interp, ipc, torch_be  # noqa: F401  (register be=)
 from ..backend.iface import Backend, RtcFuncCall, make_backend
 from ..core.config import Attr, register
 from ..core.device import get_device, plat_tag
@@ -320,7 +322,9 @@ class TorchFwd(ConvFwd):
 
     def init(self, pipe: ConvPipe) -> None:
         self.pipe = pipe
-        self.dev = get_device(self.device)
+        # a remote backend (be=ipc) runs every call in its worker, on the
+        # worker's device: the engine itself then holds no device
+        self.dev = None if self._remote() else get_device(self.device)
         self._info_log: list[str] = []
         with timer("torch_fwd_init"):
             self.plan = lower_pipe(pipe, self.op_tune,
@@ -341,12 +345,18 @@ class TorchFwd(ConvFwd):
                 self._init_per_call()
         self.stats: dict[str, NDA] = {}
 
+    def _remote(self) -> bool:
+        return not self.fuse and self.rtc is not None \
+            and self.rtc.kind == "remote"
+
     # ---- per-op tunes: wisdom, then tag regexes, then static scales ----
     def _wisdom_tunes(self, pipe: ConvPipe):
         """wisdom file -> per-op-tag tune overrides: the best tune recorded
         for this device's platform tag, else the best of any platform."""
         from ..tune.wisdom import load_tune_index, lookup_tune
-        idx = load_tune_index(self.wisdom_fn, plat_tag(self.dev))
+        plat = self.rtc.get_plat_tag() if self._remote() \
+            else plat_tag(self.dev)
+        idx = load_tune_index(self.wisdom_fn, plat)
         idx_any = load_tune_index(self.wisdom_fn, "")
         out = {}
         for op in pipe.ops.values():
@@ -515,7 +525,9 @@ class TorchFwd(ConvFwd):
             self.rtc = make_backend(f"(be=torch,device={self.device})")
         be = self.rtc
         be.ensure_init()
-        if be.kind != "ref" and be.dev != self.dev:
+        if hasattr(self, "fwd_calls"):
+            be.release_all_vars()  # re-init on another net: start clean
+        if be.kind == "torch" and be.dev != self.dev:
             raise RtErr(f"rtc: the backend runs on {be.dev}, the engine on "
                         f"{self.dev}; give both the same device")
         self.codegen = Codegen(be)

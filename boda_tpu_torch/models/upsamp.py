@@ -4,12 +4,19 @@ Capability parity with the reference (caffeif.cc:185-236 upsampled net
 construction; caffepb.cc create_upsamp_layer_weights :795-820; validated
 by test_upsamp, test_dense.cc:145): clone the net, halve the first conv
 layer's kern_sz/stride/in_pad (ceil for kernel+pad; stride must be even),
-and fold the original filters 2x2 (w'[o,i,y>>1,x>>1] += w[o,i,y,x]).
-Running the companion on image I then equals running the original net on
+and fold the original filters 2x2 (w'[o,i,(y+py)>>1,(x+px)>>1] +=
+w[o,i,y,x], py/px the parity of the first conv's pad). Running the
+companion on image I then equals running the original net on
 nearest-neighbor-2x-upsampled I — one extra pyramid octave without paying
 for 4x input pixels.
 
-The port's copy of boda_tpu/models/upsamp.py.
+The port's copy of boda_tpu/models/upsamp.py, with one repair (ROADMAP
+C7): the JAX package folds tap y into y>>1 whatever the pad, which is
+right only for an even pad. Under an odd pad p, tap y of output o reads
+upsampled pixel 2o - p + y, that is original pixel o - (p+1)/2 +
+((y+1)>>1): the fold shifts by the pad's parity, and the folded kernel
+is (k+2)//2 wide (ResNet's 7x7/2 conv1 with pad 3: 4x4 with pad 2, where
+the JAX fold is half a pixel off). For even pads nothing changes.
 """
 
 from __future__ import annotations
@@ -51,14 +58,17 @@ def first_conv_op(pipe: ConvPipe) -> ConvOp:
     raise RtErr("no non-data layers in net")
 
 
-def fold_filters_2x(w: np.ndarray) -> np.ndarray:
-    """(oc,ic,ky,kx) → (oc,ic,ceil(ky/2),ceil(kx/2)) by 2x2 summation
-    (reference: create_upsamp_layer_weights, caffepb.cc:812-819)."""
+def fold_filters_2x(w: np.ndarray, py: int = 0, px: int = 0) -> np.ndarray:
+    """(oc,ic,ky,kx) → (oc,ic,(ky+py+1)//2,(kx+px+1)//2) by 2x2 summation,
+    tap y into (y+py)>>1 (reference: create_upsamp_layer_weights,
+    caffepb.cc:812-819, where py = px = 0); py, px: the parity of the
+    conv's pad in y and x."""
     oc, ic, ky, kx = w.shape
-    out = np.zeros((oc, ic, (ky + 1) // 2, (kx + 1) // 2), dtype=w.dtype)
+    out = np.zeros((oc, ic, (ky + py + 1) // 2, (kx + px + 1) // 2),
+                   dtype=w.dtype)
     for y in range(ky):
         for x in range(kx):
-            out[:, :, y >> 1, x >> 1] += w[:, :, y, x]
+            out[:, :, (y + py) >> 1, (x + px) >> 1] += w[:, :, y, x]
     return out
 
 
@@ -76,7 +86,8 @@ def make_upsamp_pipe(pipe: ConvPipe, in_dims: Dims = None) -> ConvPipe:
                     "know how to create upsampled network")
     up = clone_pipe(pipe, in_dims=in_dims)
     uop = up.get_op(src_op.tag)
-    uop._set_param("kern_sz", ((ks.y + 1) // 2, (ks.x + 1) // 2))
+    py, px = pd.y % 2, pd.x % 2
+    uop._set_param("kern_sz", ((ks.y + py + 1) // 2, (ks.x + px + 1) // 2))
     uop._set_param("stride", (st.y // 2, st.x // 2))
     uop._set_param("in_pad", ((pd.y + 1) // 2, (pd.x + 1) // 2))
     up.calc_dims()
@@ -84,7 +95,7 @@ def make_upsamp_pipe(pipe: ConvPipe, in_dims: Dims = None) -> ConvPipe:
     # fold weights; biases unchanged
     filts_node = src_op.bots[1]
     w = pipe.op_params[filts_node]
-    fw = fold_filters_2x(w.v)
+    fw = fold_filters_2x(w.v, py, px)
     up.op_params = dict(pipe.op_params)
     up.op_params[filts_node] = NDA(up.must_get_node(filts_node).dims, fw)
     return up

@@ -63,6 +63,35 @@ def use_kernel(*tensors) -> bool:
     raise RtErr(f"no kernel for device '{dev}' (cuda or cpu)")
 
 
+def kernel_wrappers() -> dict:
+    """Each hand kernel's wrapper by name; a wrapper's `launches` counts
+    its kernel's launches ("quantize": sgemm_int8's quantize kernel;
+    "act_quantize": qconv's; "cotangent_quantize": its per-channel form in
+    the int8 weight gradient)."""
+    from .qconv import act_quantize, cotangent_quantize, qconv
+    from .qsgemm import quantize_operands, sgemm_int8
+    from .resblock import resblock
+    from .sgemm import matmul_ext
+    from .stem import fused_stem
+    from .tconv import tconv
+    return {"matmul_ext": matmul_ext, "tconv": tconv,
+            "fused_stem": fused_stem, "resblock": resblock,
+            "sgemm_int8": sgemm_int8, "quantize": quantize_operands,
+            "qconv": qconv, "act_quantize": act_quantize,
+            "cotangent_quantize": cotangent_quantize}
+
+
+def launch_counts(reset: bool = False) -> dict[str, int]:
+    """Every hand kernel's launches in this process so far (zeroed after
+    the read where reset): what the be=ipc worker reports to its master."""
+    ws = kernel_wrappers()
+    counts = {n: w.launches for n, w in ws.items()}
+    if reset:
+        for w in ws.values():
+            w.launches = 0
+    return counts
+
+
 def forbid_autograd(name: str, *tensors) -> None:
     """The guard of an inference-only kernel's wrapper (ops/mxu_grad.
     INFERENCE_ONLY): raise where a forward under autograd reaches it, on the

@@ -196,10 +196,7 @@ class Codegen:
         # one backend (a counter would collide with previously-compiled funcs)
         inst = f"{tname}__{hashlib.sha256(repr(key).encode()).hexdigest()[:12]}"
         with timer("gen_func"):
-            if self.backend.kind == "ref":
-                fn = _bind_ref(tmpl, rfs)
-            else:
-                fn = tmpl.build(rfs)
+            fn = bind_template(tmpl, rfs, self.backend)
         cf = CompiledFunc(inst, fn, tmpl.in_args(), tmpl.out_args(),
                           tmpl.io_args(), flops=tmpl.flops(rfs))
         cf.sig_meta = (tname, rfs)
@@ -254,7 +251,15 @@ class Codegen:
         return f"{op.func_name}:{h}"
 
 
-def _bind_ref(tmpl: type[KernelTemplate], rfs: OpBase):
-    def fn(*args):
-        return tmpl.ref_impl(rfs, *args)
-    return fn
+def bind_template(tmpl: type[KernelTemplate], rfs: OpBase, backend: Backend):
+    """The function a backend runs for one instance: the template's numpy
+    ref_impl on a backend of kind "ref" (be=interp), nothing on a remote
+    one (be=ipc: its worker binds the template for its own backend), else
+    the template's build (the torch function)."""
+    if backend.kind == "ref":
+        def fn(*args):
+            return tmpl.ref_impl(rfs, *args)
+        return fn
+    if backend.kind == "remote":
+        return None
+    return tmpl.build(rfs)

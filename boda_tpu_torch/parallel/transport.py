@@ -1,4 +1,6 @@
-"""Framed byte streams: the wire of the serving path (apps/aio_serve.py).
+"""Framed byte streams: the wire of the remote-execution backend
+(backend/ipc.py), of stream-src/stream-sink and of the serving path
+(apps/aio_serve.py).
 
 The port's copy of boda_tpu/parallel/transport.py (Stream, make_stream):
 a minimal stream over inherited fds (`fds:R:W`), named fifos
@@ -7,9 +9,10 @@ a minimal stream over inherited fds (`fds:R:W`), named fifos
 stream_util.cc:43-95, with u32 length-prefixed frames (u32 length +
 payload), the reference's bwrite/bread convention.
 
-Only the Python implementation is ported: impl='auto' means 'py', and
-impl='cpp' (the JAX package's native csrc/stream.cc) raises. The native
-stream and the be=ipc backend it serves are not ported (ROADMAP A10).
+impl='auto' and 'py' are this Python implementation; impl='cpp' is the
+native stream of the port's host core (csrc/host/stream.cc through
+utils/cpplib, built at first use): the same wire, so mixed peers
+interoperate.
 """
 
 from __future__ import annotations
@@ -97,14 +100,14 @@ def make_stream(addr: str, is_server: bool = False, impl: str = "auto"):
     """Open a stream by address string (reference syntax family):
     fds:R:W | fns:rfifo:wfifo | tcp:host:port | tcp-listen:port
 
-    impl: 'auto' and 'py' are the Python implementation; 'cpp' (the
-    native stream) is not ported and raises."""
-    if impl == "cpp":
-        raise RtErr("make_stream: impl=cpp (the native stream, csrc/"
-                    "stream.cc) is not ported; use impl=py (ROADMAP A10)")
-    if impl not in ("auto", "py"):
-        raise RtErr(f"make_stream: unknown impl '{impl}' (auto, py)")
+    impl: 'auto' and 'py' are the Python implementation; 'cpp' the native
+    stream (raises where the host core cannot be built)."""
+    if impl not in ("auto", "py", "cpp"):
+        raise RtErr(f"make_stream: unknown impl '{impl}' (auto, py, cpp)")
     method, _, rest = addr.partition(":")
+    if impl == "cpp" and method in ("fds", "fns", "tcp", "tcp-listen"):
+        from ..utils.cpplib import CppStream
+        return CppStream(addr, is_server=is_server)
     if method == "fds":
         r, w = rest.split(":")
         return Stream(rfd=int(r), wfd=int(w))

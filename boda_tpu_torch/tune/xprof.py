@@ -187,7 +187,7 @@ class CnetXprof(CnetBench):
         total_ns = self.total_ns = sum(r["total_ns"] for r in rows)
         kind = torch.cuda.get_device_name(eng.dev) if on_card else "cpu"
         print(f"cnet_xprof {name} b{d['img']} steps={self.steps} "
-              f"device={kind} compile_s={compile_s:.1f} "
+              f"device={kind.replace(' ', '_')} compile_s={compile_s:.1f} "
               f"planes={[act.name]}")
         print(f"device total: {total_ns / 1e6 / self.steps:.3f} ms/step "
               f"over {len(rows)} {'kernels' if on_card else 'ops'}")

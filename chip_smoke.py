@@ -258,6 +258,20 @@ Phases, run in order, each fatal on failure (all of them by default):
            sets with static scales: every entry of each scales file
            applied, launches per forward as the plan says, each int8 row's
            distinct B6 calls bit-equal to their plain versions)
+  cli      the rest of the CLI: ResNet-50 b32 224^2 under () per call
+           through a worker process that owns the card
+           (rtc=(be=ipc,worker_be=torch)), bit-equal to the in-process
+           per-call forward, the worker's launches B1 40 and B2 13 read
+           over the protocol, both forwards timed; cs_test_master on the
+           card; ops_prof over be=ipc beside be=torch at the conv-baseline
+           op and the 21 ResNet-50 conv sigs (every row agreeing with the
+           in-process kg row, the worker's launches this process's);
+           test_dense and test_upsamp on ResNet-50 at 224^2 (under () at
+           5e-5 and 2e-4, under bf16 NHWC at 5e-3); the JAX package's
+           golden suites through `python -m boda_tpu_torch test_all` in a
+           process of their own, started once the forwards are timed and
+           run beside ops_prof and the dense modes, held to
+           tests/test_torch_golden.py's closed list and value checks
   bench    the bench twin, python3 -m boda_tpu_torch.bench, in this
            process: bench.py's JSON line for its two plans at batch 128
            (the headline tune, and the int8 preset on the trained weights
@@ -294,7 +308,11 @@ with its quantize kernels' as "quantize_launches" and
 per step of each train_bench row as "train_bench:<tune>"), the tune
 phase's ("tune": the conv-baseline rows, the wisdom flow's verdicts and
 cnet_bench rows, cnet_tune's rows, the stage tables, cnet_xprof's
-device totals and top kernels, the b64 grid);
+device totals and top kernels, the b64 grid), the cli phase's ("cli":
+the per-call forward times in process and over be=ipc, test_dense's and
+test_upsamp's lines, the suites' summaries; the worker's launches in
+"launches_by_tune" as "cli:ipc", "cli:ops_prof_ipc:<file>" and
+"cli:<mode>:<tune>");
 and {"ok": true,
 "device": {...}}. Without a CUDA device, or outside a checkout of the
 repo, it exits non-zero and prints no result. It imports neither jax nor
@@ -1852,21 +1870,11 @@ def phase_agree(ctx: dict) -> None:
 
 def _wrappers() -> dict:
     """Each kernel's wrapper, whose `launches` counts its launches
-    ("quantize": sgemm_int8's quantize kernel; "act_quantize": qconv's;
-    "cotangent_quantize": its per-channel form, in the int8 weight
-    gradient)."""
-    from boda_tpu_torch.ops.cuda.qconv import act_quantize, \
-        cotangent_quantize, qconv
-    from boda_tpu_torch.ops.cuda.qsgemm import quantize_operands, sgemm_int8
-    from boda_tpu_torch.ops.cuda.resblock import resblock
-    from boda_tpu_torch.ops.cuda.sgemm import matmul_ext
-    from boda_tpu_torch.ops.cuda.stem import fused_stem
-    from boda_tpu_torch.ops.cuda.tconv import tconv
-    return {"matmul_ext": matmul_ext, "tconv": tconv,
-            "fused_stem": fused_stem, "resblock": resblock,
-            "sgemm_int8": sgemm_int8, "quantize": quantize_operands,
-            "qconv": qconv, "act_quantize": act_quantize,
-            "cotangent_quantize": cotangent_quantize}
+    (ops/cuda/util.kernel_wrappers: "quantize" is sgemm_int8's quantize
+    kernel, "act_quantize" qconv's, "cotangent_quantize" its per-channel
+    form in the int8 weight gradient)."""
+    from boda_tpu_torch.ops.cuda.util import kernel_wrappers
+    return kernel_wrappers()
 
 
 def _op_label(op) -> str:
@@ -4834,12 +4842,256 @@ def phase_tune(ctx: dict) -> None:
     del t["smi"]
 
 
+# ---------------------------------------------------------------- cli
+
+CLI_OUT = ROOT / "build" / "cli_smoke"
+# the per-call forward over be=ipc: a worker process owns the card
+IPC_SPEC = "(engine=torch,fuse=0,op_tune=(),rtc=(be=ipc,worker_be=torch))"
+CLI_BATCH = 32
+# test_dense and test_upsamp on ResNet-50 at 224^2, pruned to a node of
+# finite support, under the f32 tune at the modes' own tolerances (5e-5,
+# 2e-4) and under bf16 NHWC at 5e-3: (mode, tune name, tune, node, extra
+# args). test_dense's window is 192 (res4a_branch2c's support is 131, so
+# the default 112 would hold no valid output). Under bf16 the upsampled
+# companion's folded conv1 filter rounds to bf16 once where the original's
+# four taps round apart, and the two nets drift apart with depth (on the
+# CPU: 3.8e-3 at conv1, 4.7e-3 at res2a_branch2c, 8.8e-3 at
+# res3a_branch2c, 1.1e-2 at res4a_branch2c): its bf16 run stops at
+# res2a_branch2c
+CLI_DENSE_RUNS = [
+    ("test_dense", "f32", "()", "res4a_branch2c", "win_sz=192"),
+    ("test_dense", "bf16_nhwc", "(prec=bf16,layout=nhwc)", "res4a_branch2c",
+     "win_sz=192,mrd_toler=5e-3"),
+    ("test_upsamp", "f32", "()", "res4a_branch2c", ""),
+    ("test_upsamp", "bf16_nhwc", "(prec=bf16,layout=nhwc)", "res2a_branch2c",
+     "mrd_toler=5e-3"),
+]
+
+
+def _golden():
+    """tests/test_torch_golden.py: the golden suites' closed list and its
+    checks, which the card's run is held to as the CPU's is."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_golden", ROOT / "tests" / "test_torch_golden.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclass looks itself up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _cli_ipc_forward(c: dict, wrappers: dict) -> None:
+    """ResNet-50 b32 224^2 under () per call, once in this process and once
+    through a worker process over be=ipc: bit-equal on prob and interior
+    nodes, the worker's launches B1 40 and B2 13 per forward (none in this
+    process), both forwards timed; then cs_test_master on the card."""
+    import numpy as np
+    import torch
+    from boda_tpu_torch.core.dims import NDA
+    from boda_tpu_torch.engine.iface import make_engine
+    from boda_tpu_torch.engine.torch_fwd import produced_nodes
+    from boda_tpu_torch.models.zoo import build_model
+    batch = CLI_BATCH
+    pipe = build_model("resnet-50", batch=batch)
+    local = make_engine("(engine=torch,fuse=0,op_tune=())")
+    local.init(pipe)
+    remote = make_engine(IPC_SPEC)
+    remote.init(pipe)
+    worker = remote.rtc
+    try:
+        d = pipe.get_data_img_dims()
+        data = pipe.data_img_node_names[0]
+        x = NDA(d, np.random.RandomState(1).randn(*d.shape).astype(np.float32))
+        nodes = [n for n in _nodes_to_get(pipe)
+                 if n in produced_nodes(local.plan)]
+        want = nodes[:-1][::max(1, len(nodes) // 10)] + ["prob"]
+        outs_l = local.run_fwd({data: x}, want)
+        remote.run_fwd({data: x}, ["prob"])  # builds the worker's kernels
+        worker.launches(reset=True)
+        _counts_reset(wrappers)
+        outs_r = remote.run_fwd({data: x}, want)
+        counts = worker.launches(reset=True)
+        here = {k: w.launches for k, w in wrappers.items() if w.launches}
+        c["launches"]["cli:ipc"] = counts
+        print(f"per-call resnet-50 b{batch} () over be=ipc: worker launches "
+              f"{ {k: v for k, v in counts.items() if v} }, in this process "
+              f"{here}")
+        check(counts == UNFUSED_LAUNCHES and not here,
+              f"be=ipc: worker launches {counts} != {UNFUSED_LAUNCHES} "
+              f"(here {here})")
+        unequal = [n for n in want
+                   if not np.array_equal(outs_l[n].v, outs_r[n].v)]
+        print(f"  in-process vs be=ipc: {len(want)} nodes, bit-unequal: "
+              f"{unequal}")
+        check(len(want) >= 6 and not unequal,
+              f"be=ipc: nodes not bit-equal to the in-process forward: "
+              f"{unequal}")
+        p = outs_r["prob"].v
+        check(p.shape == (batch, 1000, 1, 1) and np.isfinite(p).all(),
+              "be=ipc prob: bad shape or non-finite")
+        times = {}
+        for name, eng in (("local", local), ("ipc", remote)):
+            wall, dev = [], []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                eng.run_fwd({data: x}, ["prob"])
+                wall.append((time.perf_counter() - t0) * 1e3)
+                dev.append(eng.last_run_secs * 1e3)
+            times[name] = {"wall_ms": sorted(wall)[1],
+                           "calls_span_ms": sorted(dev)[1]}
+        print(f"  run_fwd (median of 3; wall / first call's start to last "
+              f"call's end on the card): in-process "
+              f"{times['local']['wall_ms']:.3f} / "
+              f"{times['local']['calls_span_ms']:.3f} ms, be=ipc "
+              f"{times['ipc']['wall_ms']:.3f} / "
+              f"{times['ipc']['calls_span_ms']:.3f} ms on [{c['smi']}]")
+        c["ipc_forward_ms"] = times
+    finally:
+        worker.quit_worker()
+        local.rtc.release_all_vars()
+        del local, remote
+        torch.cuda.empty_cache()
+    out, _ = _run_mode("(mode=cs_test_master,worker_be=torch,n=1048576)")
+    print(out.strip())
+    check("rtc_test PASSED plat=ipc:torch:cuda:" in out
+          and "cs_test_master PASSED" in out, f"cs_test_master: {out}")
+
+
+def _cli_ops_prof(c: dict, wrappers: dict) -> None:
+    """ops_prof over be=ipc beside be=torch in this process: every row of
+    both backends checked by the mode against the in-process kg row (mrd
+    5e-4), the worker's hand-kernel launches equal to this process's."""
+    import torch
+    for ops_fn in ("conv-baseline.txt", "resnet50-convs.txt"):
+        tunes = "(kg=(use_culibs=1),hand=())"
+        _counts_reset(wrappers)
+        t0 = time.perf_counter()
+        out, hm = _run_mode(
+            f"(mode=ops_prof,ops_fn={DATA / 'ops' / ops_fn},op_tunes={tunes},"
+            f"rtcs=(t=(be=torch),ipc=(be=ipc,worker_be=torch)),run_iter=1,"
+            f"write_kgs=0,"
+            f"boda_output_dir={CLI_OUT},wisdom_out_fn=ipc_{ops_fn}.wis)")
+        worker = hm.rtcs["ipc"]
+        try:
+            remote = worker.launches()
+        finally:
+            worker.quit_worker()
+        torch.cuda.synchronize()
+        here = {k: w.launches for k, w in wrappers.items()}
+        n_ops = len((DATA / "ops" / ops_fn).read_text().split())
+        rows = re.findall(r"^OP .* be=(t|ipc) func=(\w+) .* (\S+)$", out,
+                          re.M)
+        n_ok = {b: sum(1 for be, _f, st in rows if be == b and st == "ok")
+                for b in ("t", "ipc")}
+        c["launches"][f"cli:ops_prof_ipc:{ops_fn}"] = remote
+        print(f"ops_prof {ops_fn} {tunes} over be=torch and be=ipc: rows ok "
+              f"{n_ok} of {2 * n_ops} each, launches here "
+              f"{ {k: v for k, v in here.items() if v} }, in the worker "
+              f"{ {k: v for k, v in remote.items() if v} } "
+              f"({time.perf_counter() - t0:.1f} s)")
+        check(n_ok == {"t": 2 * n_ops, "ipc": 2 * n_ops},
+              f"ops_prof over be=ipc ({ops_fn}): rows ok {n_ok}")
+        check(remote == here and remote["matmul_ext"] + remote["tconv"] > 0,
+              f"ops_prof over be=ipc ({ops_fn}): worker launches {remote} "
+              f"!= here {here}")
+
+
+def _cli_dense(c: dict, wrappers: dict) -> None:
+    """test_dense and test_upsamp on ResNet-50 at 224^2 (CLI_DENSE_RUNS):
+    each passes at its tolerance, on a non-empty region, through B1."""
+    import torch
+    for mode, tune_name, tune, node, extra in CLI_DENSE_RUNS:
+        _counts_reset(wrappers)
+        t0 = time.perf_counter()
+        out, _ = _run_mode(
+            f"(mode={mode},model=resnet-50,"
+            f"in_dims=(dims=(img=1,chan=3,y=224,x=224)),out_node={node},"
+            f"conv_fwd=(engine=torch,keep_all_nodes=1,op_tune={tune})"
+            f"{',' + extra if extra else ''})")
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items() if w.launches}
+        c["launches"][f"cli:{mode}:{tune_name}"] = \
+            {k: w.launches for k, w in wrappers.items()}
+        line = out.strip().splitlines()[0]
+        print(f"{line} [{tune_name}, launches {counts}, "
+              f"{time.perf_counter() - t0:.1f} s]")
+        c.setdefault("dense", []).append(f"{line} [{tune_name}]")
+        check(f"{mode} PASSED" in out, f"{mode} {tune_name}: {out}")
+        box = re.search(r"out_box_full=\[\((\d+),(\d+)\):\((\d+),(\d+)\)\]|"
+                        r"cmp=\((\d+),(\d+)\)", line)
+        v = [int(g) for g in box.groups() if g is not None]
+        size = (v[2] - v[0], v[3] - v[1]) if len(v) == 4 else tuple(v)
+        check(min(size) > 0, f"{mode} {tune_name}: empty region {size}")
+        check(counts.get("matmul_ext", 0) > 0,
+              f"{mode} {tune_name}: no B1 launch ({counts})")
+
+
+def _cli_suites_start() -> tuple:
+    """Start the JAX package's golden suites through `python -m
+    boda_tpu_torch test_all` (test_cmds over each) on the card, in their
+    own process beside the steps that follow; _cli_suites waits for it."""
+    g = _golden()
+    root = CLI_OUT / "golden"
+    if root.exists():
+        shutil.rmtree(root)
+    root.mkdir(parents=True)
+    return g, root, g.start_all(root, cpu=False), time.perf_counter()
+
+
+def _cli_suites(c: dict, started: tuple) -> None:
+    """The suites' run held to tests/test_torch_golden.py's closed list with
+    its value checks; specs gated on a feature this machine lacks skip (the
+    plot specs without matplotlib too)."""
+    g, root, proc, t0 = started
+    stdout = g.finish_all(proc)
+    print(f"golden suites through test_all ({time.perf_counter() - t0:.1f} "
+          f"s since their start, beside ops_prof and the dense modes):")
+    summaries = re.findall(r"^test_cmds: .*$", stdout, re.M)
+    fails = g.failures(stdout)
+    for suite, summary in zip(g.CHECKED_IN + g.GENERATED, summaries):
+        errs = g.check_suite(suite, stdout, root)
+        listed = sorted(set(fails) & set(g.CLOSED)
+                        & g.suite_names(suite, root))
+        print(f"  {suite}: {summary}; listed {listed}; skipped by feature "
+              f"{sorted(g.feature_skips(suite))}")
+        for e in errs:
+            print(f"    {e}")
+        check(not errs, f"golden {suite}: {len(errs)} problem(s)")
+        c.setdefault("suites", {})[suite] = summary
+
+
+def phase_cli(ctx: dict) -> None:
+    """The rest of the CLI on the card: the per-call forward and ops_prof
+    over be=ipc (a worker process owns the card), cs_test_master,
+    test_dense and test_upsamp at full width, and the JAX package's golden
+    suites through the port."""
+    CLI_OUT.mkdir(parents=True, exist_ok=True)
+    wrappers = _wrappers()
+    c = {"smi": ctx["smi"], "launches": ctx.setdefault("launches", {})}
+    t0 = time.perf_counter()
+    _cli_ipc_forward(c, wrappers)  # timed: nothing else on the card yet
+    print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+    suites = _cli_suites_start()
+    try:
+        for step in (lambda: _cli_ops_prof(c, wrappers),
+                     lambda: _cli_dense(c, wrappers),
+                     lambda: _cli_suites(c, suites)):
+            t0 = time.perf_counter()
+            step()
+            print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+    finally:
+        if suites[2].poll() is None:
+            suites[2].kill()
+            suites[2].communicate()
+    ctx["cli"] = {k: v for k, v in c.items() if k not in ("smi", "launches")}
+
+
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
           "vendor": phase_vendor, "digests": phase_digests,
           "agree": phase_agree, "full": phase_full, "engine": phase_engine,
           "ops_prof": phase_ops_prof, "zoo": phase_zoo, "serve": phase_serve,
           "pyra": phase_pyra, "train": phase_train, "tune": phase_tune,
-          "bench": phase_bench}
+          "cli": phase_cli, "bench": phase_bench}
 
 
 def main() -> int:
@@ -4926,7 +5178,7 @@ def main() -> int:
                       "vendor_conv_ms_b32": ctx["vendor_ms"],
                       "zoo": ctx["zoo"], "serve": ctx["serve"],
                       "pyra": ctx["pyra"], "train": ctx["train"],
-                      "tune": ctx["tune"]}))
+                      "tune": ctx["tune"], "cli": ctx["cli"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -10,8 +10,12 @@ package's, native when built), the host pack, the trash mask, the dense
 annotations' boxes and labels on the same feature maps, per-scale feature
 shapes and pyra_bench's geometry fields. Within 1e-4: the upsampled net's
 forward, annotation confidences of the modes, and the feature digests.
+Under an odd first-conv pad (ResNet-50's stem), conv_pyra's upsampled
+octave is held to the original net on the 2x-upsampled bins instead: the
+JAX fold is half a pixel off there (ROADMAP C7).
 """
 
+import copy
 import re
 
 import jax
@@ -78,8 +82,12 @@ def test_blf_place_equal_box_for_box(seed, jimpl):
 def test_blf_place_refusals():
     with pytest.raises(RtErr, match="larger than bin"):
         pyra.blf_place([Pt(300, 300)], Pt(256, 256), Pt(0, 0))
-    with pytest.raises(RtErr, match="impl=cpp .* is not ported"):
-        pyra.blf_place([Pt(3, 3)], Pt(256, 256), Pt(0, 0), impl="cpp")
+    # impl=cpp (the native host core) refuses the same rect, before it is
+    # built; an unknown impl is refused
+    with pytest.raises(RtErr, match="larger than bin"):
+        pyra.blf_place([Pt(300, 300)], Pt(256, 256), Pt(0, 0), impl="cpp")
+    with pytest.raises(RtErr, match="unknown impl 'rust'"):
+        pyra.blf_place([Pt(3, 3)], Pt(256, 256), Pt(0, 0), impl="rust")
 
 
 @pytest.mark.parametrize("cfg", [((128, 128), (256, 256), 2, 32, (8, 8)),
@@ -280,7 +288,70 @@ def test_conv_pyra_predict_against_jax(tmp_path, capsys, anno_recorder,
             assert got[k].comp(want[k], TOL) is None, k
 
 
-def test_cnet_predict_dense_against_jax(capsys, anno_recorder):
+@pytest.mark.parametrize("node", ["pool1", "res2a_branch2c"])
+def test_conv_pyra_upsamp_octave_under_an_odd_pad(node, tmp_path, capsys,
+                                                  monkeypatch):
+    """ROADMAP C7 through conv_pyra predict=1,enable_upsamp_net=1, on
+    ResNet-50's stem (conv1 7x7/2, pad 3): the companion's planes equal, in
+    every upsampled scale's feature box, the original net's planes of the
+    packed bins upsampled 2x nearest-neighbour (within 1e-4); and the
+    annotations equal those the same predictor gives with those planes in
+    the companion's place."""
+    seen = {}
+    pack = pyra.ImgPyraPack.scale_and_pack_img_into_bins
+    pred = predict.DensePredictor.do_predict
+
+    def packed(self, *a, **k):
+        seen["packed"] = out = pack(self, *a, **k)
+        return out
+
+    def predicted(self, fv, fv_up=None, **k):
+        seen.update(predictor=self, fresh=copy.deepcopy(self), fv=fv,
+                    fv_up=fv_up)
+        return pred(self, fv, fv_up, **k)
+    monkeypatch.setattr(pyra.ImgPyraPack, "scale_and_pack_img_into_bins",
+                        packed)
+    monkeypatch.setattr(predict.DensePredictor, "do_predict", predicted)
+    eng = "(engine=torch,device=cpu,keep_all_nodes=1)"
+    hm = create_and_run_has_main(
+        f"(mode=conv_pyra,model=resnet-50,in_dims=(dims=(img=1,chan=3,"
+        f"y=64,x=64)),out_node={node},bin_sz=160 160,interval=2,min_sz=32,"
+        f"predict=1,filt_show_thresh=0.05,enable_upsamp_net=1,"
+        f"conv_fwd={eng},conv_fwd_upsamp={eng},boda_output_dir={tmp_path})",
+        {})
+    capsys.readouterr()
+    ups = [si for si in seen["predictor"].scale_infos if si.from_upsamp_net]
+    assert len(ups) == 2
+    from boda_tpu_torch.io.img import img_to_chw
+    bins = np.stack([img_to_chw(b) for b in seen["packed"]])
+    nb, _, by, bx = bins.shape
+    ref = zoo.build_model("resnet-50", batch=nb, ysz=2 * by,
+                          xsz=2 * bx).pruned_to(node)
+    ref.op_params = hm.conv_fwd.pipe.op_params
+    e = make_engine(CPU)
+    e.init(ref)
+    up = upsamp.upsample_2x_nn(bins)
+    want = e.run_fwd({"data": NDA(ref.get_data_img_dims(), up)},
+                     [node])[node].v
+    got = seen["fv_up"]
+    scale = np.abs(want).max()
+    for si in ups:
+        b = si.feat_box
+        assert b.p1.y <= want.shape[2] and b.p1.x <= want.shape[3]
+        g = got[si.bix, :, b.p0.y:b.p1.y, b.p0.x:b.p1.x]
+        w = want[si.bix, :, b.p0.y:b.p1.y, b.p0.x:b.p1.x]
+        assert np.abs(g - w).max() <= TOL * scale, si
+    # the original net's planes in the companion's place: the same annos
+    aligned = np.zeros_like(got)
+    ny, nx = (min(a, c) for a, c in zip(got.shape[2:], want.shape[2:]))
+    aligned[:, :, :ny, :nx] = want[:, :, :ny, :nx]
+    annos = pred(seen["fresh"], seen["fv"], aligned)
+    assert hm.annos
+    assert [(a.box, a.str) for a in annos] == \
+        [(a.box, a.str) for a in hm.annos]
+
+
+def test_cnet_predict_dense_against_jax(tmp_path, capsys, anno_recorder):
     jhas_main.create_and_run_has_main(
         "(mode=cnet_predict,model=mini,dense=1)", {})
     jout = capsys.readouterr().out
@@ -296,11 +367,15 @@ def test_cnet_predict_dense_against_jax(capsys, anno_recorder):
     assert labels == [ln.split()[0] for ln in jout.split("---- frame -----")[1]
                       .split("---- end frame -----")[0].splitlines()
                       if ln.strip()]
-    # the annotated image needs the display module: refused as unused
-    with pytest.raises(Exception, match="anno_fn"):
-        create_and_run_has_main(
-            f"(mode=cnet_predict,model=mini,dense=1,conv_fwd={CPU},"
-            f"anno_fn=a.png)", {})
+    # the annotated image (io/disp): the same file as the JAX mode's
+    jhas_main.create_and_run_has_main(
+        f"(mode=cnet_predict,model=mini,dense=1,anno_fn=a.png,"
+        f"boda_output_dir={tmp_path}/j)", {})
+    create_and_run_has_main(
+        f"(mode=cnet_predict,model=mini,dense=1,conv_fwd={CPU},"
+        f"anno_fn=a.png,boda_output_dir={tmp_path}/p)", {})
+    assert (tmp_path / "p" / "a.png").read_bytes() == \
+        (tmp_path / "j" / "a.png").read_bytes()
 
 
 def test_blf_pack_mode_equal(tmp_path, capsys):

@@ -11,8 +11,14 @@ templates) on the CPU, the per-op modes rtc_test and ops_prof
 cnet_ana, test_compute_multi (engine=ref, the fused and the
 per-call executors against the `mini` TPU digests), test_lmdb (the
 per-call executor over tests/data/lmdb-tiny) and aio_cls_selfcheck (the
-serving path: three clients coalesced into one batch) run through the
-CLI, `help` lists only the port's modes,
+serving path: three clients coalesced into one batch), and the rest of
+the CLI (cs_test_master and a per-call run_cnet over be=ipc, whose worker
+is the port's CLI in a process of its own, test_dense, test_upsamp,
+scan_data_stream with a spawned stream-src, score, lmdb_bench,
+test_velo_crc, blf_pack) run through
+the CLI, the native host core builds from the port's own sources
+(csrc/host) and places like the Python placement, `help` lists only the
+port's modes,
 and chip_smoke.py's imports are exercised too; the bench twin (python3 -m
 boda_tpu_torch.bench) runs under the same hook and, without a card, exits
 non-zero with one line of error and no JSON. A static check finds no import
@@ -21,6 +27,8 @@ statement of boda_tpu in the port's sources or chip_smoke.py.
 
 import ast
 import os
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -55,7 +63,16 @@ PORT_MODES = {"run_cnet", "cnet_predict", "cnet_bench", "cls_agree",
               "cnet_xprof", "wis_merge", "wis_ana", "roofline_plot",
               "wis_plot", "op_eff_plot", "conv_ana", "cnet_ana", "cnet_copy",
               "cnet_fc_to_conv", "cnet_resize_conv", "cnet_bpt_dump",
-              "cnet_util"}
+              "cnet_util",
+              # the rest of the CLI: remote execution, the harness, the
+              # streams, scoring, the LMDB tools and the displays
+              "ipc_compute_worker", "cs_test_master", "test_cmds",
+              "test_all", "test_dense", "test_upsamp",
+              "gen_test_compute_tests", "gen_ops_prof_tests",
+              "scan_data_stream", "lmdb_parse_datums", "lmdb_bench",
+              "display_lmdb", "gen_lmdb", "display_test", "display_pil",
+              "display_raw_vid", "ds_test", "test_velo_crc", "load_pil",
+              "score", "score_files", "ham_ana"}
 # the serving, dense-inference and training modules: the source scan must
 # cover them
 SLICE_MODULES = ["parallel/transport.py", "io/device_preproc.py",
@@ -64,10 +81,19 @@ SLICE_MODULES = ["parallel/transport.py", "io/device_preproc.py",
                  "apps/train.py", "ops/mxu_grad.py", "ops/cuda/bck.py",
                  "engine/segments.py", "apps/cnet_bench.py",
                  "graph/modes.py", "graph/caffe_io.py", "tune/xprof.py",
-                 "tune/plots.py", "tune/wisdom_modes.py"]
+                 "tune/plots.py", "tune/wisdom_modes.py",
+                 "backend/ipc.py", "core/features.py", "testing/modes.py",
+                 "io/data_stream.py", "io/disp.py", "io/render.py",
+                 "io/video.py", "io/pcap.py", "io/velodyne.py",
+                 "io/rosbag.py", "apps/score.py", "apps/eval_cls.py",
+                 "utils/cpplib.py"]
+# the native host core's sources: the port's own copies, which include only
+# the C++ and system libraries
+HOST_SOURCES = ["blf_pack.cc", "stream.cc"]
 
 RUN_MINI = BLOCK_JAX + """
 import runpy
+import tempfile
 from boda_tpu_torch.core.dims import NDA
 from boda_tpu_torch.engine.iface import make_engine
 from boda_tpu_torch.models.zoo import build_model
@@ -124,12 +150,41 @@ for argv in (["help"],
               "--stages=stem:conv1|rest:cccp1+conv2+cat2+pool+drop+fc-conv"
               "+gpool+prob"],
              ["wis_ana", "--wisdom_in_fn=tests/data/wisdom-sgemm-baseline.wis"],
-             ["cnet_ana", "--model=mini"]):
+             ["cnet_ana", "--model=mini"],
+             # be=ipc: the worker is the port's CLI, under the same hook
+             ["cs_test_master", "--worker_be=(be=torch,device=cpu)",
+              "--n=64"],
+             ["run_cnet", "--model=mini",
+              "--conv_fwd=(engine=torch,fuse=0,"
+              "rtc=(be=ipc,worker_be=(be=torch,device=cpu)))"],
+             ["test_dense", "--model=mini", "--out_node=conv2",
+              "--in_dims=(dims=(img=1,chan=3,y=48,x=48))",
+              "--conv_fwd=(engine=torch,device=cpu,keep_all_nodes=1)"],
+             ["test_upsamp", "--model=mini",
+              "--conv_fwd=(engine=torch,device=cpu,keep_all_nodes=1)"],
+             ["scan_data_stream",
+              "--stream=(mode=pipe,stages=(_0=(mode=stream-src,spawn=("
+              "mode=test-gen,num=2,sz=4)),_1=(mode=pass)))"],
+             ["score", "--imgset_fn=tests/data/voc/imgset.txt",
+              "--ann_dir=tests/data/voc/ann",
+              "--res_fns=(dog=tests/data/voc/results/dog_test.txt)"],
+             ["lmdb_bench", "--fn=tests/data/lmdb-tiny"],
+             ["test_velo_crc", "--boda_output_dir=" + tempfile.mkdtemp()],
+             ["blf_pack", "--in_sz=(y=64,x=48)", "--bin_sz=(y=128,x=128)"]):
     sys.argv = ["boda_tpu_torch", *argv]
     try:
         runpy.run_module("boda_tpu_torch", run_name="__main__")
     except SystemExit as e:
         assert e.code in (0, None), (argv, e.code)
+# the native host core, built from the port's own sources
+from boda_tpu_torch.apps.pyra import blf_place
+from boda_tpu_torch.core.geom import Pt
+from boda_tpu_torch.utils.cpplib import cpp_available
+if cpp_available():
+    sizes = [Pt(40, 30), Pt(20, 15), Pt(10, 8)]
+    assert blf_place(sizes, Pt(64, 64), Pt(2, 2), impl="cpp") == \
+        blf_place(sizes, Pt(64, 64), Pt(2, 2), impl="py")
+    print("HOST_CORE_OK")
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "boda_tpu")
                for m in sys.modules)
 print("NOJAX_OK")
@@ -156,6 +211,14 @@ def test_port_runs_without_jax():
     assert "cnet_xprof mini b1 steps=1 device=cpu" in r.stdout
     assert "(isolated-sum / whole = " in r.stdout
     assert "TOTAL: " in r.stdout
+    assert "rtc_test PASSED plat=ipc:torch:cpu:cpu n=64" in r.stdout
+    assert "test_dense PASSED" in r.stdout
+    assert "test_upsamp PASSED" in r.stdout
+    assert "scan-data-stream: 2 blocks" in r.stdout
+    assert "test_velo_crc: calc=9411 expected=9411 OK" in r.stdout
+    assert "dog: AP=0.6667 (3 dets)" in r.stdout
+    if shutil.which(os.environ.get("CXX") or "g++"):
+        assert "HOST_CORE_OK" in r.stdout
     for bad in ("COMP_FAIL", "ERROR"):
         assert bad not in r.stdout
     assert "NOJAX_OK" in r.stdout
@@ -216,6 +279,19 @@ def test_no_source_of_the_port_imports_boda_tpu():
         {str(f.relative_to(ROOT)) for f in files}
     assert [f"{f.relative_to(ROOT)}:{b}" for f in files
             for b in _boda_tpu_imports(f)] == []
+
+
+def test_host_core_sources_are_the_ports_own():
+    """csrc/host holds the port's copies of the native host core: each
+    source includes only the C++ and system libraries, never the JAX
+    package's csrc/ nor another file."""
+    host = ROOT / "boda_tpu_torch" / "csrc" / "host"
+    assert sorted(p.name for p in host.iterdir()) == HOST_SOURCES
+    for p in host.iterdir():
+        text = p.read_text()
+        quoted = re.findall(r'^#include "([^"]+)"', text, re.M)
+        assert quoted == [], (p.name, quoted)
+        assert "boda_tpu/" not in text.replace("boda_tpu_torch/", ""), p.name
 
 
 def test_the_static_check_finds_a_nested_import(tmp_path):
