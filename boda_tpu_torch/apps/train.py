@@ -91,7 +91,7 @@ def build_train_step(fwd, data_node: str, top: str, *, lr: float,
                      optimizer: str = "sgd", momentum: float = 0.9,
                      from_logits: bool = False, clip_gradients: float = 0.0,
                      weight_decay: float = 0.0, seed_node: str = "",
-                     param_mults: dict = None):
+                     param_mults: dict = None, grad_reduce=None):
     """Shared fwd+bwd+update step (used by cnet_train and train_bench):
     step(w, vel, xb, labels[, lr_t[, seed_t]]) -> (loss, new_w, new_vel),
     on tensors of one device: w {name: f32 master weight}, vel
@@ -107,7 +107,11 @@ def build_train_step(fwd, data_node: str, top: str, *, lr: float,
     (lr_mult, decay_mult)}. `lr_t` (an f32 tensor or number) overrides lr
     per call (schedules); `seed_t`, the global step index, feeds the
     dropout seed input `seed_node` of a plan lowered train_dropout=1.
-    Returns the loss as a 0-d tensor (not read back)."""
+    `grad_reduce({name: grad}) -> {name: grad}`, where given, runs on the
+    raw gradients first: under a mesh over several processes (fwd a
+    mesh forward, parallel/mesh.sum_over_ranks) it sums each process's
+    share, as GSPMD's psum did. Returns the loss as a 0-d tensor (not read
+    back)."""
     import torch
 
     if optimizer not in OPTIMIZERS:
@@ -132,6 +136,8 @@ def build_train_step(fwd, data_node: str, top: str, *, lr: float,
         with torch.no_grad():
             grads = {k: torch.zeros_like(w[k]) if g is None else g
                      for k, g in zip(names, gl)}
+            if grad_reduce is not None:
+                grads = grad_reduce(grads)
             if clip_gradients:
                 gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
                                        for g in grads.values()))

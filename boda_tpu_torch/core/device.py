@@ -10,6 +10,13 @@ included (the be=ipc worker, stream-src), by setting BODA_TORCH_DEVICE=cpu
 in the environment: every device name then resolves to the CPU. This is
 the port's counterpart of JAX_PLATFORMS=cpu, and the only place that reads
 it. Unset, names resolve as they read.
+
+A process's device list is N *slots* of one device (local_devices): the
+counterpart of the XLA virtual devices that --xla_force_host_platform_
+device_count gives the JAX package. A mesh (parallel/mesh.py) may hold one
+device several times, each slot running its own share of the work. The
+caller sets N for a run, spawned processes included, with
+BODA_TORCH_LOCAL_DEVICES=N (default 1), read here only.
 """
 
 from __future__ import annotations
@@ -27,6 +34,9 @@ _CUDA_DEFAULT_ROOT = "/usr/local/cuda"
 
 # the environment variable by which a caller asks for the CPU for a run
 DEVICE_ENV = "BODA_TORCH_DEVICE"
+# the environment variable that sets how many slots a process's device list
+# holds
+LOCAL_DEVICES_ENV = "BODA_TORCH_LOCAL_DEVICES"
 
 
 def _run_device() -> str:
@@ -84,6 +94,22 @@ def get_device(name: str) -> torch.device:
     elif dev.type != "cpu":
         raise RtErr(f"unsupported device '{name}' (cuda or cpu)")
     return dev
+
+
+def local_device_count() -> int:
+    """The slots of this process's device list (BODA_TORCH_LOCAL_DEVICES,
+    default 1)."""
+    v = os.environ.get(LOCAL_DEVICES_ENV, "") or "1"
+    if not v.isdigit() or int(v) < 1:
+        raise RtErr(f"{LOCAL_DEVICES_ENV}={v!r}: a count of slots >= 1")
+    return int(v)
+
+
+def local_devices(name: str = "cuda") -> list[torch.device]:
+    """This process's device list: local_device_count() slots of the device
+    `name` (get_device: the CPU under the CPU ask)."""
+    dev = get_device(name)
+    return [dev] * local_device_count()
 
 
 def plat_tag(dev: torch.device) -> str:

@@ -38,6 +38,8 @@ names, in this order):
     cnet_stage_probe, cnet_bench,
     pyra_bench, train_bench
   cnet_train                         apps/train.py
+  mh_test                            parallel/multihost.py
+  pp_test                            parallel/pp_modes.py
   ops_prof                           tune/prof.py
   roofline_plot, wis_plot,           tune/plots.py
     op_eff_plot
@@ -55,8 +57,7 @@ names, in this order):
 
 plus the engines engine=torch (engine/torch_fwd.py) and engine=ref
 (engine/ref_fwd.py) and the backends be=torch (backend/torch_be.py) and
-be=interp (backend/interp.py). The JAX registry's parallel/multihost
-(mh_test) and parallel/pp_modes (pp_test) are not ported yet.
+be=interp (backend/interp.py).
 """
 
 from .backend import modes as _backend_modes, ipc  # noqa: F401
@@ -66,6 +67,7 @@ from .io import data_stream  # noqa: F401
 from .apps import zmq_serve, stream_infer, aio_serve, eval_cls  # noqa: F401
 from .io import disp, video, pcap, velodyne, render, rosbag  # noqa: F401
 from .apps import cnet_bench, train  # noqa: F401
+from .parallel import multihost, pp_modes  # noqa: F401
 from .tune import prof, plots, wisdom_modes, opinfo, xprof  # noqa: F401
 from .apps import pyra, score  # noqa: F401
 from .testing import modes as _testing_modes  # noqa: F401

@@ -272,6 +272,29 @@ Phases, run in order, each fatal on failure (all of them by default):
            process of their own, started once the forwards are timed and
            run beside ops_prof and the dense modes, held to
            tests/test_torch_golden.py's closed list and value checks
+  parallel parallel and multi-process on slots of the one card
+           (BODA_TORCH_LOCAL_DEVICES): the engine's 2x2 mesh (mesh_dp=2,
+           mesh_mp=2) at ResNet-50 b32 224^2 under (), bf16 NHWC and the
+           int8 preset against the same forward without a mesh (mrd 1e-4,
+           5e-3, 5e-2), B1/B2/B6 launched four times a forward's (every
+           slot runs every step), the steps by route (column-parallel, on
+           the whole weight), both forwards timed; mh_test with two gloo
+           ranks launched here with --spawn=0 (one slot each; ResNet-50
+           b32 224^2 forward, then one training step): identical digests,
+           the forward's prob within 1e-4 of one slot's; then the
+           gradient check over two ranks (mh_logits_run: the same model,
+           input and labels, the forward's logits under () and one SGD
+           step from the logits' softmax-CE under the f32 vendor tune,
+           whose gradients do not vanish where the softmax saturates):
+           identical on both ranks, the logits within 1e-4 and every
+           weight's update within 1e-3 of the same run on one slot in
+           this process, each rank's step and collectives ms; mh_test
+           --num-processes=1; pp_test at ResNet-50 224^2, pp=4, M=6, both
+           schedules; gpipe_plan_forward under () at the same cut within
+           1e-5 of the sequential segments, B1/B2 six forwards' worth;
+           dryrun_multichip(8) on 8 slots.
+           Every rank and child has a timeout; one that runs past it is
+           killed and fails the phase
   bench    the bench twin, python3 -m boda_tpu_torch.bench, in this
            process: bench.py's JSON line for its two plans at batch 128
            (the headline tune, and the int8 preset on the trained weights
@@ -312,7 +335,12 @@ device totals and top kernels, the b64 grid), the cli phase's ("cli":
 the per-call forward times in process and over be=ipc, test_dense's and
 test_upsamp's lines, the suites' summaries; the worker's launches in
 "launches_by_tune" as "cli:ipc", "cli:ops_prof_ipc:<file>" and
-"cli:<mode>:<tune>");
+"cli:<mode>:<tune>"), the parallel phase's ("parallel": the mesh forwards
+by tune with their mrd, ms beside the unsharded ms, routes and launches
+per slot, mh_test's ms and collectives ms per rank, pp_test's lines,
+the gradient check's, gpipe_plan_forward's, the dry run's; per mesh forward as
+"parallel:mesh_<tune>", "parallel:gpipe_forward" and "parallel:dryrun" in
+"launches_by_tune");
 and {"ok": true,
 "device": {...}}. Without a CUDA device, or outside a checkout of the
 repo, it exits non-zero and prints no result. It imports neither jax nor
@@ -5086,12 +5114,499 @@ def phase_cli(ctx: dict) -> None:
     ctx["cli"] = {k: v for k, v in c.items() if k not in ("smi", "launches")}
 
 
+# the engine's mesh: ResNet-50 b32 224^2 on a 2x2 mesh of 4 slots of the
+# card, each tune held to its forward without a mesh at its mrd
+PAR_MESH = (2, 2)
+PAR_BATCH = 32
+PAR_TUNES = {"f32": F32_MRD, "bf16_nhwc": BF16_MRD, INT8: 5e-2}
+# slots of the card the phase's in-process paths see
+PAR_SLOTS = 8
+# each rank or child process of the phase is killed after this long
+PAR_TIMEOUT_S = 300
+# the pipelines on the card: pp_test's ResNet-50 at 224^2 (its default
+# stages, batch 2 per microbatch) and gpipe_plan_forward under () with the
+# same cut, M microbatches
+PP_STAGES = 4
+PP_MICROBATCHES = 6
+PP_ARGS = ["pp_test", "--model=resnet-50", f"--pp={PP_STAGES}",
+           f"--microbatches={PP_MICROBATCHES}", "--schedule=both"]
+MH_ARGS_MODEL = "resnet-50"
+MH_HW = 224
+MH_ARGS = [f"--model={MH_ARGS_MODEL}", f"--ysz={MH_HW}",
+           f"--batch={PAR_BATCH}"]
+# the tolerances of the two-rank gradient check against one slot: the
+# forward's logits at the f32 forward's, and each weight's update (lr times
+# the summed gradient) at 1e-3, rounding of two half-batch sums against one
+# whole-batch sum through ResNet-50's depth (a missing or doubled rank's
+# share is off by O(1))
+MH_LOGITS_MRD = F32_MRD
+MH_UPDATE_MRD = 1e-3
+# one rank of the gradient check (mh_logits_run over the two ranks' mesh);
+# argv: coordinator, rank
+MH_GRADS_RANK = r"""
+import json, sys
+import chip_smoke
+from boda_tpu_torch.parallel.mesh import global_devices, make_mesh
+from boda_tpu_torch.parallel.multihost import init_multihost, \
+    shutdown_multihost
+init_multihost(sys.argv[1], 2, int(sys.argv[2]))
+try:
+    res = chip_smoke.mh_logits_run(make_mesh(devices=global_devices()))
+    print("MH_GRADS " + json.dumps(res))
+finally:
+    shutdown_multihost()
+"""
+
+
+@contextlib.contextmanager
+def _slots(n: int):
+    """BODA_TORCH_LOCAL_DEVICES=n for the block, restored after it."""
+    import os
+    from boda_tpu_torch.core.device import LOCAL_DEVICES_ENV
+    old = os.environ.get(LOCAL_DEVICES_ENV)
+    os.environ[LOCAL_DEVICES_ENV] = str(n)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(LOCAL_DEVICES_ENV, None)
+        else:
+            os.environ[LOCAL_DEVICES_ENV] = old
+
+
+def _run_procs(cmds: list, what: str, env=None,
+               timeout_s: float = PAR_TIMEOUT_S) -> list[tuple[int, str]]:
+    """Start every command at once (stdout and stderr to a file of its own,
+    so that no process blocks on a full pipe while its peers wait on it),
+    wait for each within timeout_s, and kill every one still running after
+    that; a timeout fails the phase. [(exit code, output)]."""
+    import os
+    import tempfile
+    env = {**os.environ, "PYTHONPATH": str(ROOT), **(env or {})}
+    env = {k: v for k, v in env.items() if v is not None}
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in cmds]
+    procs = [subprocess.Popen(c, cwd=ROOT, env=env, stdout=lg,
+                              stderr=subprocess.STDOUT, text=True)
+             for c, lg in zip(cmds, logs)]
+    deadline = time.perf_counter() + timeout_s
+    out = []
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                raise SmokeFailure(f"{what}: a process still ran after "
+                                   f"{timeout_s} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, lg in zip(procs, logs):
+        lg.seek(0)
+        out.append((p.returncode, lg.read()))
+        lg.close()
+    return out
+
+
+def _par_mesh_engine(p: dict, wrappers: dict) -> None:
+    """The engine on a 2x2 mesh of slots: ResNet-50 b32 224^2 under (), the
+    bf16 NHWC tune and the int8 preset (static scales of the trained
+    snapshot) against the same forward without a mesh; B1, B2 and B6
+    launched as every slot runs every step once (4x the plan's launches),
+    the routes of the steps that read a split weight, both forwards timed."""
+    import numpy as np
+    import torch
+    from boda_tpu_torch.core.device import get_device
+    from boda_tpu_torch.engine.iface import make_engine
+    from boda_tpu_torch.models.zoo import build_model
+    dp, mp = PAR_MESH
+    n = dp * mp
+    pipe = build_model("resnet-50", batch=PAR_BATCH)
+    x = torch.from_numpy(np.random.RandomState(1).randn(
+        *pipe.get_data_img_dims().shape).astype(np.float32)).to(
+            get_device("cuda"))
+    for tune, tol in PAR_TUNES.items():
+        spec = engine_spec(tune, "trained")
+        one = make_engine(f"(engine=torch,{spec})")
+        one.init(pipe)
+        msh = make_engine(f"(engine=torch,{spec},mesh_dp={dp},mesh_mp={mp})")
+        msh.init(pipe)
+        with torch.no_grad():
+            want = one.fwd({"data": x}, one.weights)["prob"]
+            msh.fwd({"data": x}, msh.weights)  # builds the column sigs' plans
+            torch.cuda.synchronize()
+            _counts_reset(wrappers)
+            got = msh.fwd({"data": x}, msh.weights)["prob"]
+            torch.cuda.synchronize()
+            counts = {k: w.launches for k, w in wrappers.items()}
+            ms = cuda_ms(lambda: msh.fwd({"data": x}, msh.weights), 5)
+            ms1 = cuda_ms(lambda: one.fwd({"data": x}, one.weights), 5)
+        p["launches"][f"parallel:mesh_{tune}"] = counts
+        planned = {k: n * v
+                   for k, v in _planned_launches(one.plan, counts).items()}
+        err = mrd(got.float(), want.float())
+        nz = {k: v for k, v in counts.items() if v}
+        print(f"mesh {dp}x{mp} resnet-50 b{PAR_BATCH} {tune}: mrd {err:.3g} "
+              f"(<= {tol:g}) vs no mesh; {ms:.3f} ms vs {ms1:.3f} ms; "
+              f"routes {msh.fwd.routes}; launches {nz} "
+              f"({ {k: v / n for k, v in nz.items()} } per slot) "
+              f"on [{p['smi']}]")
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"mesh {tune}: bad or non-finite prob")
+        check(err <= tol, f"mesh {tune}: mrd {err:.3g} > {tol:g}")
+        check(counts == planned, f"mesh {tune}: launches {nz} != planned "
+              f"{ {k: v for k, v in planned.items() if v} }")
+        check(counts["matmul_ext"] + counts["qconv"] > 0,
+              f"mesh {tune}: no B1 or B6 launch")
+        p["mesh"][tune] = {"mrd": err, "ms": ms, "ms_unsharded": ms1,
+                           "routes": dict(msh.fwd.routes),
+                           "launches": nz,
+                           "launches_per_slot": {k: v / n
+                                                 for k, v in nz.items()}}
+        del one, msh, got, want
+        torch.cuda.empty_cache()
+
+
+def _logits_node(plan) -> str:
+    """The node the plan's last output (the softmax's prob) is computed
+    from."""
+    top = plan.output_nodes[-1]
+    for s in plan.steps:
+        if s.arg_nodes.get("out") == top:
+            return s.arg_nodes["in"]
+    raise SmokeFailure(f"no step writes {top}")
+
+
+def mh_logits_run(mesh) -> dict:
+    """mh_test's ResNet-50 b32 224^2, on its input (randn * 0.1, seed 0) and
+    labels (seed 1), over `mesh` (every rank's slots, or one slot): the
+    forward under () and one SGD step (lr 0.01) under the f32 vendor tune
+    (dryrun.TRAIN_TUNE) whose loss is the softmax-CE of the logits, the
+    node under the softmax (its gradient does not vanish where the softmax
+    saturates, as mh_test's log(prob) does at random weights). Over several
+    ranks the step sums the ranks' gradients (sum_over_ranks), as mh_test
+    --train=1 does. {"prob", "logits": the forward's digests, "loss",
+    "step_ms", "collectives_ms", "updates": {weight: digest of w - w'}};
+    digests as lexp text."""
+    import numpy as np
+    import torch
+    from boda_tpu_torch.apps.train import build_train_step
+    from boda_tpu_torch.core.digest import nda_digest
+    from boda_tpu_torch.core.timers import global_timer_log
+    from boda_tpu_torch.engine.torch_fwd import build_forward
+    from boda_tpu_torch.parallel.dryrun import TRAIN_TUNE, _fused_for
+    from boda_tpu_torch.parallel.mesh import COLLECTIVE_TIMER, \
+        sum_over_ranks
+    dev = mesh.device(mesh.local_positions()[0])
+    res = {}
+    for tune in ("", TRAIN_TUNE):
+        pipe, plan, _f, w = _fused_for(MH_ARGS_MODEL, tune=tune, device=dev,
+                                       batch=PAR_BATCH, ysz=MH_HW,
+                                       xsz=MH_HW)
+        fwd = build_forward(plan, mesh=mesh)
+        top, logits = plan.output_nodes[-1], _logits_node(plan)
+        x = torch.from_numpy(np.random.RandomState(0).randn(
+            *pipe.get_data_img_dims().shape).astype(np.float32) * 0.1).to(dev)
+        if not tune:
+            with torch.no_grad():
+                o = fwd({"data": x}, w, out_nodes=[logits])
+            res["prob"] = str(nda_digest(o[top].cpu().numpy()))
+            res["logits"] = str(nda_digest(o[logits].cpu().numpy()))
+            continue
+        labels = torch.from_numpy(np.random.RandomState(1).randint(
+            0, plan.node_dims[top].shape[1], size=(PAR_BATCH,)).astype(
+                np.int32)).to(dev)
+        step = build_train_step(
+            lambda ins, ww: fwd(ins, ww, out_nodes=[logits]), "data",
+            logits, lr=0.01,
+                                from_logits=True,
+                                grad_reduce=lambda g: sum_over_ranks(mesh, g))
+        step(w, {}, x, labels)  # builds the kernels, warms the libraries
+        torch.cuda.synchronize()
+        c0 = global_timer_log.tags.get(COLLECTIVE_TIMER, (0, 0.0))[1]
+        t0 = time.perf_counter()
+        loss, new_w, _vel = step(w, {}, x, labels)
+        torch.cuda.synchronize()
+        res["step_ms"] = (time.perf_counter() - t0) * 1e3
+        res["collectives_ms"] = (global_timer_log.tags.get(
+            COLLECTIVE_TIMER, (0, 0.0))[1] - c0) * 1e3
+        res["loss"] = float(loss)
+        res["updates"] = {k: str(nda_digest((w[k] - new_w[k]).cpu().numpy()))
+                          for k in sorted(new_w)}
+    return res
+
+
+def _digest_rd(a: str, b: str) -> float:
+    """The largest difference of two digests' statistics (vmin, vmax, avg,
+    rms) relative to their largest magnitude: what Digest.comp holds to
+    its mrd_toler."""
+    from boda_tpu_torch.core.digest import Digest
+    da, db = Digest.from_lexp(a), Digest.from_lexp(b)
+    scale = max(abs(da.vmin), abs(da.vmax), abs(db.vmin), abs(db.vmax),
+                1e-30)
+    return max(abs(getattr(da, k) - getattr(db, k)) / scale
+               for k in ("vmin", "vmax", "avg", "rms"))
+
+
+def _par_mh_test(p: dict) -> None:
+    """mh_test on the card: two ranks launched here with --spawn=0 (one
+    slot of the card each, gloo between them), the forward and then one
+    training step, the two ranks' digests identical and the forward's prob
+    within 1e-4 (mrd) of one slot's; then the gradient check
+    (mh_logits_run) over two ranks against one slot in this process; then
+    a mesh of one through the CLI's own spawn path."""
+    import json
+    import torch
+    from boda_tpu_torch.core.device import LOCAL_DEVICES_ENV, get_device
+    from boda_tpu_torch.core.digest import Digest
+    from boda_tpu_torch.parallel.mesh import Mesh
+    from boda_tpu_torch.parallel.multihost import free_port
+    env = {LOCAL_DEVICES_ENV: None}  # one slot per rank
+    t0 = time.perf_counter()
+    ref = mh_logits_run(Mesh([[get_device("cuda")]], ("dp", "mp")))
+    torch.cuda.empty_cache()
+    print(f"  one slot: loss {ref['loss']:.6f}, step {ref['step_ms']:.3f} ms "
+          f"({time.perf_counter() - t0:.1f} s)")
+    # mh_test's forward and its training step; at random weights its
+    # log(prob) loss saturates (loss = -log 1e-30) and passes no gradient,
+    # so the step's digest holds the ranks to each other only
+    for key, train in (("forward", 0), ("train", 1)):
+        coord = f"localhost:{free_port()}"
+        t0 = time.perf_counter()
+        outs = _run_procs(
+            [[sys.executable, "-m", "boda_tpu_torch", "mh_test",
+              f"--coordinator={coord}", "--num-processes=2",
+              f"--process-id={r}", "--spawn=0", *MH_ARGS,
+              f"--train={train}"] for r in range(2)],
+            f"mh_test {key}", env)
+        wall = time.perf_counter() - t0
+        lines = []
+        for r, (rc, out) in enumerate(outs):
+            check(rc == 0, f"mh_test rank {r} {key}: exit {rc}: "
+                           f"{out[-1500:]}")
+            dl = [ln for ln in out.splitlines() if "digest (" in ln]
+            tl = [ln for ln in out.splitlines() if "collectives_ms=" in ln]
+            check(len(dl) == 1 and len(tl) == 1,
+                  f"mh_test rank {r}: no digest/timing line: {out[-1500:]}")
+            lines.append((tl[0], dl[0]))
+            print(f"  {tl[0]}")
+        digests = [d.split("digest ", 1)[1] for _t, d in lines]
+        print(f"  {lines[0][1][:200]}...")
+        check(digests[0] == digests[1],
+              f"mh_test {key}: the ranks' digests differ:\n"
+              f"{digests[0]}\n{digests[1]}")
+        tms = [float(re.search(r" ms=([0-9.]+)", t).group(1))
+               for t, _d in lines]
+        cms = [float(re.search(r"collectives_ms=([0-9.]+)", t).group(1))
+               for t, _d in lines]
+        p["mh_test"][key] = {"ms": tms, "collectives_ms": cms,
+                             "collective_share": [c / t for c, t in
+                                                  zip(cms, tms)],
+                             "wall_s": wall, "digest_line": lines[0][1]}
+        if key == "forward":
+            cmp = Digest.from_lexp(ref["prob"]).comp(
+                Digest.from_lexp(digests[0]), mrd_toler=F32_MRD)
+            print(f"  two ranks' prob vs one slot's: "
+                  f"{cmp or f'within mrd {F32_MRD:g}'}")
+            check(cmp is None, f"mh_test forward vs one slot: {cmp}")
+        print(f"mh_test 2 ranks {key}: identical digests; rank ms "
+              f"{tms}, collectives ms {cms} ({wall:.1f} s wall) on "
+              f"[{p['smi']}]")
+    coord = f"localhost:{free_port()}"
+    t0 = time.perf_counter()
+    outs = _run_procs([[sys.executable, "-c", MH_GRADS_RANK, coord, str(r)]
+                       for r in range(2)], "gradient check", env)
+    wall = time.perf_counter() - t0
+    ranks = []
+    for r, (rc, out) in enumerate(outs):
+        got = [ln for ln in out.splitlines() if ln.startswith("MH_GRADS ")]
+        check(rc == 0 and len(got) == 1,
+              f"gradient check rank {r}: exit {rc}: {out[-1500:]}")
+        ranks.append(json.loads(got[0].split(" ", 1)[1]))
+    same = {k: ranks[0][k] == ranks[1][k]
+            for k in ("prob", "logits", "loss", "updates")}
+    check(all(same.values()), f"gradient check: the ranks differ in "
+          f"{[k for k, v in same.items() if not v]}")
+    got = ranks[0]
+    errs = []
+    cmp = Digest.from_lexp(ref["logits"]).comp(
+        Digest.from_lexp(got["logits"]), mrd_toler=MH_LOGITS_MRD)
+    if cmp:
+        errs.append(f"logits: {cmp}")
+    rd_logits = _digest_rd(ref["logits"], got["logits"])
+    rd_updates = max(_digest_rd(d, got["updates"][k])
+                     for k, d in ref["updates"].items()
+                     if k in got["updates"])
+    if abs(got["loss"] - ref["loss"]) > 1e-5 * abs(ref["loss"]):
+        errs.append(f"loss {got['loss']} != {ref['loss']}")
+    check(sorted(got["updates"]) == sorted(ref["updates"]),
+          "gradient check: the ranks update other weights than one slot")
+    moved = 0
+    for k, d in ref["updates"].items():
+        want = Digest.from_lexp(d)
+        moved += want.rms > 0
+        cmp = want.comp(Digest.from_lexp(got["updates"][k]),
+                        mrd_toler=MH_UPDATE_MRD)
+        if cmp:
+            errs.append(f"{k}: {cmp}")
+    n = len(ref["updates"])
+    print(f"gradient check, 2 ranks vs one slot: loss {got['loss']:.6f} "
+          f"({ref['loss']:.6f}), logits rd {rd_logits:.3g} (<= "
+          f"{MH_LOGITS_MRD:g}), {moved}/{n} weights moved, largest update "
+          f"rd {rd_updates:.3g} (<= {MH_UPDATE_MRD:g}): "
+          f"{'ok' if not errs else errs[:4]}; rank step "
+          f"{got['step_ms']:.3f} ms (one slot {ref['step_ms']:.3f} ms), "
+          f"collectives {got['collectives_ms']:.3f} ms ({wall:.1f} s wall) "
+          f"on [{p['smi']}]")
+    check(not errs, f"gradient check: {errs[:6]}")
+    check(moved == n, f"gradient check: {n - moved} of {n} weights have a "
+          f"zero update on one slot")
+    p["mh_test"]["grads"] = {
+        "loss": got["loss"], "loss_one_slot": ref["loss"],
+        "logits_rd": rd_logits, "largest_update_rd": rd_updates,
+        "weights_moved": moved, "weights": n,
+        "step_ms": [r["step_ms"] for r in ranks],
+        "step_ms_one_slot": ref["step_ms"],
+        "collectives_ms": [r["collectives_ms"] for r in ranks],
+        "collective_share": [r["collectives_ms"] / r["step_ms"]
+                             for r in ranks], "wall_s": wall}
+    t0 = time.perf_counter()
+    (rc, out), = _run_procs([[sys.executable, "-m", "boda_tpu_torch",
+                              "mh_test", "--num-processes=1", *MH_ARGS]],
+                            "mh_test --num-processes=1", env)
+    check(rc == 0 and "mh_test PASSED ranks=1" in out
+          and "global_devices=1" in out,
+          f"mh_test --num-processes=1: exit {rc}: {out[-1500:]}")
+    print(f"mh_test --num-processes=1: PASSED "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def _par_pipelines(p: dict, wrappers: dict) -> None:
+    """pp_test through the CLI on 4 slots of the card (ResNet-50 224^2, both
+    schedules, tol 1e-4 under the f32 vendor tune), then gpipe_plan_forward
+    under () in this process: within 1e-5 of the sequential segments, B1
+    and B2 launched once per step per microbatch."""
+    import numpy as np
+    import torch
+    from boda_tpu_torch.engine.lower import lower_pipe
+    from boda_tpu_torch.engine.segments import build_plan_segments
+    from boda_tpu_torch.engine.torch_fwd import _storage_in, weights_to_torch
+    from boda_tpu_torch.models.zoo import build_model
+    from boda_tpu_torch.parallel.dryrun import RESNET_STAGES
+    from boda_tpu_torch.parallel.mesh import Mesh
+    from boda_tpu_torch.parallel.pipeline import gpipe_plan_forward
+    from boda_tpu_torch.core.device import LOCAL_DEVICES_ENV, get_device
+    t0 = time.perf_counter()
+    (rc, out), = _run_procs([[sys.executable, "-m", "boda_tpu_torch",
+                              *PP_ARGS]], "pp_test",
+                            {LOCAL_DEVICES_ENV: str(PP_STAGES)})
+    wall = time.perf_counter() - t0
+    passed = re.findall(r"^pp_test \S+ .*PASSED.*$", out, re.M)
+    for ln in passed:
+        print(f"  {ln}")
+    check(rc == 0 and len(passed) == 2,
+          f"pp_test: exit {rc}: {out[-2000:]}")
+    p["pp_test"] = {"lines": passed, "wall_s": wall}
+    print(f"{' '.join(PP_ARGS)} on {PP_STAGES} slots: both schedules "
+          f"PASSED ({wall:.1f} s wall)")
+
+    dev = get_device("cuda")
+    pipe = build_model("resnet-50", batch=2)
+    plan = lower_pipe(pipe)
+    w = weights_to_torch(plan, pipe.op_params, dev)
+    segs = build_plan_segments(plan, w, RESNET_STAGES + "+prob", dev)
+    mesh = Mesh([dev] * PP_STAGES, ("pp",))
+    x_mb = (np.random.RandomState(0).randn(
+        PP_MICROBATCHES, *pipe.get_data_img_dims().shape) * 0.1
+            ).astype(np.float32)
+    gpipe_plan_forward(plan, segs, w, x_mb, mesh)  # warm
+    torch.cuda.synchronize()
+    _counts_reset(wrappers)
+    t0 = time.perf_counter()
+    got = gpipe_plan_forward(plan, segs, w, x_mb, mesh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = {k: wk.launches for k, wk in wrappers.items()}
+    p["launches"]["parallel:gpipe_forward"] = counts
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        want = []
+        for xm in x_mb:
+            v = _storage_in(torch.from_numpy(xm).to(dev),
+                            plan.node_dims["data"], plan)
+            for s in segs:
+                v = s.fn(v, *[w[n] for n in s.weight_names])
+            want.append(v)
+        want = torch.stack(want)
+    torch.cuda.synchronize()
+    ms_seq = (time.perf_counter() - t0) * 1e3
+    err = mrd(got.float(), want.float())
+    nz = {k: v for k, v in counts.items() if v}
+    planned = {k: PP_MICROBATCHES * v for k, v in UNFUSED_LAUNCHES.items()
+               if v}
+    print(f"gpipe_plan_forward resnet-50 224^2 b2 () pp={PP_STAGES} "
+          f"M={PP_MICROBATCHES}: mrd {err:.3g} vs sequential; launches {nz}; "
+          f"{ms:.3f} ms vs {ms_seq:.3f} ms sequential (host clock) on "
+          f"[{p['smi']}]")
+    check(err <= 1e-5, f"gpipe_plan_forward: mrd {err:.3g} > 1e-5")
+    check(nz == planned, f"gpipe_plan_forward: launches {nz} != {planned}")
+    p["gpipe_forward"] = {"mrd": err, "ms": ms, "ms_sequential": ms_seq,
+                          "launches": nz}
+
+
+def _par_dryrun(p: dict, wrappers: dict) -> None:
+    """dryrun_multichip(8) on 8 slots of the card."""
+    import torch
+    from boda_tpu_torch.parallel.dryrun import dryrun_multichip
+    _counts_reset(wrappers)
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dryrun_multichip(PAR_SLOTS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: w.launches for k, w in wrappers.items()}
+    p["launches"]["parallel:dryrun"] = counts
+    lines = buf.getvalue().strip().splitlines()
+    for ln in lines:
+        print(f"  {ln}")
+    check(len([ln for ln in lines if "dryrun_multichip OK" in ln]) == 6,
+          f"dryrun_multichip: {lines}")
+    check(counts["matmul_ext"] > 0 and counts["tconv"] > 0,
+          f"dryrun_multichip: no B1/B2 launch ({counts})")
+    p["dryrun"] = {"lines": lines, "wall_s": wall,
+                   "launches": {k: v for k, v in counts.items() if v}}
+    print(f"dryrun_multichip({PAR_SLOTS}) on {PAR_SLOTS} slots: {wall:.1f} s, "
+          f"launches { {k: v for k, v in counts.items() if v} }")
+
+
+def phase_parallel(ctx: dict) -> None:
+    """Parallel and multi-process on the card, every path at 224^2 on slots
+    of the one card: the engine's 2x2 mesh, mh_test's ranks, pp_test and
+    gpipe_plan_forward, and dryrun_multichip(8)."""
+    wrappers = _wrappers()
+    p = {"smi": ctx["smi"], "launches": ctx.setdefault("launches", {}),
+         "mesh": {}, "mh_test": {}}
+    with _slots(PAR_SLOTS):
+        for step in (lambda: _par_mesh_engine(p, wrappers),
+                     lambda: _par_mh_test(p),
+                     lambda: _par_pipelines(p, wrappers),
+                     lambda: _par_dryrun(p, wrappers)):
+            t0 = time.perf_counter()
+            step()
+            print(f"  ({time.perf_counter() - t0:.1f} s)", flush=True)
+    ctx["parallel"] = {k: v for k, v in p.items()
+                       if k not in ("smi", "launches")}
+
+
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
           "vendor": phase_vendor, "digests": phase_digests,
           "agree": phase_agree, "full": phase_full, "engine": phase_engine,
           "ops_prof": phase_ops_prof, "zoo": phase_zoo, "serve": phase_serve,
           "pyra": phase_pyra, "train": phase_train, "tune": phase_tune,
-          "cli": phase_cli, "bench": phase_bench}
+          "cli": phase_cli, "parallel": phase_parallel,
+          "bench": phase_bench}
 
 
 def main() -> int:
@@ -5178,7 +5693,8 @@ def main() -> int:
                       "vendor_conv_ms_b32": ctx["vendor_ms"],
                       "zoo": ctx["zoo"], "serve": ctx["serve"],
                       "pyra": ctx["pyra"], "train": ctx["train"],
-                      "tune": ctx["tune"], "cli": ctx["cli"]}))
+                      "tune": ctx["tune"], "cli": ctx["cli"],
+                      "parallel": ctx["parallel"]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,9 +6,10 @@ generated ones (gen_test_compute_tests, gen_ops_prof_tests), in one process
 on the CPU (BODA_TORCH_DEVICE=cpu: every engine spec that names no device would
 otherwise ask for the card), and diffs each spec's outputs against the
 unchanged archives in tests/good_tr. Every spec must pass the byte diff,
-except those of one closed list, CLOSED, each with its class and reason:
+except those of one closed list, CLOSED, each with its class and reason
+(class (a), a mode the port did not register yet, is empty since mh_test
+and pp_test were ported):
 
-  (a) the mode waits for ROADMAP item 9 (parallel/multihost: mh_test);
   (b) the archive names a JAX engine by its JAX name (engine=rtc, the
       engine's digest file digest-rtc.boda): the spec's files are held to
       the archive's with the port's name put back (byte-equal text, digests
@@ -212,11 +213,6 @@ class Closed:
     check: Callable[[Path, Path, str], list[str]]  # (out, good, fail text)
 
 
-def _waits_for_item_9(out: Path, good: Path, fail: str) -> list[str]:
-    ok = "unknown mode 'mh_test'" in fail
-    return [] if ok else [f"not the unported mode's error: {fail[:200]}"]
-
-
 def exact(got: str, want: str, tol: float) -> list[str]:
     return [] if got == want else [f"{got!r} != {want!r}"]
 
@@ -229,12 +225,6 @@ def _by_value(tol: float, **kw):
 
 # the closed list: spec name -> its class, its reason, and how it is held
 CLOSED: dict[str, Closed] = {
-    "err_mh_bad_rank": Closed(
-        "a", "mh_test (parallel/multihost) is ROADMAP item 9, not ported",
-        _waits_for_item_9),
-    "err_mh_spawn_real_dev": Closed(
-        "a", "mh_test (parallel/multihost) is ROADMAP item 9, not ported",
-        _waits_for_item_9),
     "gen_compute_spec": Closed(
         "b", "the generated spec names the port's engines (engine=torch) "
              "where the archive names the JAX package's (engine=rtc)",
@@ -473,14 +463,14 @@ def test_suite_fails_only_the_closed_list(suite, run):
 
 def test_the_closed_list_is_closed():
     """Each entry names a spec of the suites (checked-in or generated, with
-    an archive), carries a class of (a)-(c) and a reason; class (a) holds
-    exactly the two mh_test specs."""
+    an archive), carries a class of (a)-(c) and a reason; class (a), the
+    modes not yet ported, holds none: the two mh_test specs pass."""
     checked_in = {n for s in CHECKED_IN for n, _ in spec_names(s, True)}
     for name, c in CLOSED.items():
         assert name in checked_in or (GOOD / name).is_dir(), name
         assert c.cls in ("a", "b", "c") and c.reason, name
-    assert {n for n, c in CLOSED.items() if c.cls == "a"} == \
-        {"err_mh_bad_rank", "err_mh_spawn_real_dev"}
+    assert {n for n, c in CLOSED.items() if c.cls == "a"} == set()
+    assert not {"err_mh_bad_rank", "err_mh_spawn_real_dev"} & set(CLOSED)
 
 
 def test_value_checks_catch_a_change(tmp_path):

@@ -72,7 +72,9 @@ PORT_MODES = {"run_cnet", "cnet_predict", "cnet_bench", "cls_agree",
               "scan_data_stream", "lmdb_parse_datums", "lmdb_bench",
               "display_lmdb", "gen_lmdb", "display_test", "display_pil",
               "display_raw_vid", "ds_test", "test_velo_crc", "load_pil",
-              "score", "score_files", "ham_ana"}
+              "score", "score_files", "ham_ana",
+              # parallel and multi-process
+              "mh_test", "pp_test"}
 # the serving, dense-inference and training modules: the source scan must
 # cover them
 SLICE_MODULES = ["parallel/transport.py", "io/device_preproc.py",
@@ -86,7 +88,10 @@ SLICE_MODULES = ["parallel/transport.py", "io/device_preproc.py",
                  "io/data_stream.py", "io/disp.py", "io/render.py",
                  "io/video.py", "io/pcap.py", "io/velodyne.py",
                  "io/rosbag.py", "apps/score.py", "apps/eval_cls.py",
-                 "utils/cpplib.py"]
+                 "utils/cpplib.py", "parallel/mesh.py",
+                 "parallel/multihost.py", "parallel/_pipe_plan.py",
+                 "parallel/pipeline.py", "parallel/pp_modes.py",
+                 "parallel/dryrun.py", "engine/mesh_fwd.py"]
 # the native host core's sources: the port's own copies, which include only
 # the C++ and system libraries
 HOST_SOURCES = ["blf_pack.cc", "stream.cc"]
@@ -170,7 +175,12 @@ for argv in (["help"],
               "--res_fns=(dog=tests/data/voc/results/dog_test.txt)"],
              ["lmdb_bench", "--fn=tests/data/lmdb-tiny"],
              ["test_velo_crc", "--boda_output_dir=" + tempfile.mkdtemp()],
-             ["blf_pack", "--in_sz=(y=64,x=48)", "--bin_sz=(y=128,x=128)"]):
+             ["blf_pack", "--in_sz=(y=64,x=48)", "--bin_sz=(y=128,x=128)"],
+             # last: --local-devices puts this process on the CPU ask
+             ["pp_test", "--model=mini", "--microbatches=2",
+              "--local-devices=4"],
+             ["mh_test", "--num-processes=2", "--local-devices=2",
+              "--model=mini", "--batch=4"]):
     sys.argv = ["boda_tpu_torch", *argv]
     try:
         runpy.run_module("boda_tpu_torch", run_name="__main__")
@@ -217,6 +227,8 @@ def test_port_runs_without_jax():
     assert "scan-data-stream: 2 blocks" in r.stdout
     assert "test_velo_crc: calc=9411 expected=9411 OK" in r.stdout
     assert "dog: AP=0.6667 (3 dets)" in r.stdout
+    assert "pp_test 1f1b model=mini pp=4 M=2: PASSED" in r.stdout
+    assert "mh_test PASSED ranks=2 model=mini" in r.stdout
     if shutil.which(os.environ.get("CXX") or "g++"):
         assert "HOST_CORE_OK" in r.stdout
     for bad in ("COMP_FAIL", "ERROR"):

@@ -1,9 +1,10 @@
 """The port registers the JAX package's CLI: every mode and every stream
 stage under the same name, with the JAX mode's attributes.
 
-The exceptions are closed lists that may only shrink: the modes of ROADMAP
-item 9 (mh_test, pp_test), and three attributes that name a TPU compiler's
-options (ROADMAP item 11, not carried into the port).
+The exceptions are closed lists that may only shrink: the modes not ported
+yet (none since ROADMAP item 9 brought mh_test and pp_test), and three
+attributes that name a TPU compiler's options (ROADMAP item 11, not carried
+into the port).
 """
 
 import boda_tpu.modes  # noqa: F401  (register the JAX package's modes)
@@ -15,8 +16,8 @@ from boda_tpu_torch.core.config import Config
 from boda_tpu_torch.core.has_main import HasMain
 from boda_tpu_torch.io.data_stream import DataStream
 
-# JAX modes the port does not register yet (ROADMAP item 9)
-NOT_PORTED_MODES = {"mh_test", "pp_test"}
+# JAX modes the port does not register yet
+NOT_PORTED_MODES = set()
 # JAX attributes the port leaves out (ROADMAP item 11: TPU compiler options)
 NOT_PORTED_ATTRS = {("cnet_bench", "compiler_options"),
                     ("cnet_xprof", "compiler_options"),
