@@ -71,7 +71,14 @@
 // division. A static s_act (float32(act_absmax / 127) rounded on the host from
 // the double quotient) takes one launch; a dynamic one, s_act = max|x| / 127 +
 // 1e-30 in f32, two: sgemm_int8's partial maxima (quant.cuh, NaN kept), then
-// every block reduces them, computes s_act and quantizes. The weight gradient
+// every block reduces them, computes s_act and quantizes. Under a dp split
+// (engine/mesh_fwd.py) a slot holds only its rows of the batch whose absmax
+// sets the scale, so the dynamic form comes apart: `boda_act_absmax` gives the
+// slot's max|x| as a device scalar (the same partial maxima, then one block
+// folds them), the engine takes the max over the dp group on the device, and
+// the quantize reads that max from device memory and computes s_act from it
+// with the same two f32 operations: the scale of the whole batch, bit for bit,
+// since a max does not depend on order. The weight gradient
 // takes x transposed, [N, H, W, I] stored as [I, H, W, N] (the batch as B6's
 // channels): the transposing form writes that layout through a shared tile in
 // the same pass. Its per-channel form quantizes the cotangent [N, OH, OW, O]
@@ -563,18 +570,41 @@ int launch_qconv(const int8_t* x, const int8_t* w, const Outs& o, const QShape& 
 
 // ---------------------------------------------------------------- quantize
 
+// Where the quantize's s_act comes from: the static scale; the partial maxima
+// of quant_amax (a dynamic scale, one slot's batch); or a max|x| in device
+// memory (a dp group's, from boda_act_absmax and the engine's max).
+enum ScaleFrom { kStaticScale = 0, kPartMaxima = 1, kDeviceMax = 2 };
+
+// s_act of a max: max / 127 + 1e-30 in f32, each operation rounded once
+__device__ __forceinline__ float scale_of_max(float m) {
+  return __fadd_rn(__fdiv_rn(m, 127.f), 1e-30f);
+}
+
+// s_act as `from` says, in every thread of the block (kPartMaxima reduces
+// part's kParts values over the block; kDeviceMax reads part[0])
+__device__ __forceinline__ float act_scale(const float* part, float s_static, int from) {
+  if (from == kPartMaxima) return scale_of_max(block_max(part[threadIdx.x]));
+  if (from == kDeviceMax) return scale_of_max(part[0]);
+  return s_static;
+}
+
+// out[0] = the max of quant_amax's kParts partial maxima (NaN kept): one block.
+__global__ void __launch_bounds__(kThreads)
+    quant_amax_fold(const float* __restrict__ part, float* __restrict__ out) {
+  const float m = block_max(part[threadIdx.x]);
+  if (threadIdx.x == 0) *out = m;
+}
+
 // xq = q8(x, s_act) over n elements of x (f32 or bf16), in 16-byte runs where
-// vec (x 16-byte aligned); s_act the static scale, or, where dynamic, max|x| /
-// 127 + 1e-30 from quant_amax's partial maxima, each block reducing them
-// itself. Block 0 writes s_act to s_out.
+// vec (x 16-byte aligned); s_act as act_scale gives it from `from`, each block
+// reducing the partial maxima itself. Block 0 writes s_act to s_out.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     act_quant_write(const T* __restrict__ x, int8_t* __restrict__ xq, size_t n,
-                    const float* __restrict__ part, float s_static, int dynamic,
+                    const float* __restrict__ part, float s_static, int from,
                     float* __restrict__ s_out, int vec) {
   constexpr int kPer = 16 / sizeof(T);
-  float s = s_static;
-  if (dynamic) s = __fadd_rn(__fdiv_rn(block_max(part[threadIdx.x]), 127.f), 1e-30f);
+  const float s = act_scale(part, s_static, from);
   if (blockIdx.x == 0 && threadIdx.x == 0) *s_out = s;
   const size_t stride = (size_t)gridDim.x * kThreads;
   const size_t t0 = (size_t)blockIdx.x * kThreads + threadIdx.x;
@@ -615,12 +645,12 @@ constexpr int kXB = 8;   // and the b a block of it walks
 // tile and writes 32 rows of 32 bytes of the transpose. kPerChan: s = s_c[c],
 // from the per-channel partial maxima part[p * Cc + c] (p < nparts), max / 127
 // + 1e-30, written to s_out[c] by the blocks of b tile 0 and a tile 0; else s
-// is the static scale or the dynamic one (act_quant_write's), written to
-// s_out[0] by the first block.
+// is act_scale's from `from` (act_quant_write's), written to s_out[0] by the
+// first block.
 template <typename T, bool kPerChan>
 __global__ void __launch_bounds__(kThreads)
     act_quant_xpose(const T* __restrict__ x, int8_t* __restrict__ xq, int A, int B, int Cc,
-                    const float* __restrict__ part, int nparts, float s_static, int dynamic,
+                    const float* __restrict__ part, int nparts, float s_static, int from,
                     float* __restrict__ s_out) {
   __shared__ int8_t tile[kXT][kXT + 4];
   __shared__ float sc[kXT];
@@ -637,12 +667,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int off = 1; off < 8; off <<= 1) m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
     if (q == 0) {
-      sc[cl] = __fadd_rn(__fdiv_rn(m, 127.f), 1e-30f);
+      sc[cl] = scale_of_max(m);
       if (first && c < Cc) s_out[c] = sc[cl];
     }
     __syncthreads();
   } else {
-    if (dynamic) s = __fadd_rn(__fdiv_rn(block_max(part[threadIdx.x]), 127.f), 1e-30f);
+    s = act_scale(part, s_static, from);
     if (first && blockIdx.y == 0 && threadIdx.x == 0) *s_out = s;
   }
   const float s_c = kPerChan ? sc[lane] : s;
@@ -704,9 +734,9 @@ inline int colmax_parts(long long rows, long long) {
 }
 
 template <typename T>
-int launch_quantize(const void* x, void* xq, float* ws, long long A, long long B, long long Cc,
-                    float s_static, int dynamic, int transpose, int per_chan,
-                    cudaStream_t stream) {
+int launch_quantize(const void* x, void* xq, float* ws, const float* amax, long long A,
+                    long long B, long long Cc, float s_static, int from, int transpose,
+                    int per_chan, cudaStream_t stream) {
   const T* xt = static_cast<const T*>(x);
   int8_t* q = static_cast<int8_t*>(xq);
   const size_t n = (size_t)(A * B * Cc);
@@ -725,22 +755,36 @@ int launch_quantize(const void* x, void* xq, float* ws, long long A, long long B
     return static_cast<int>(cudaGetLastError());
   }
   float* part = ws + 4;
-  if (dynamic) {
+  if (from == kPartMaxima) {
     quant_amax<T><<<dim3(kParts, 1), kThreads, 0, stream>>>(xt, n, vec, xt, 0, 0, part);
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
   }
+  const float* src = from == kDeviceMax ? amax : part;
   if (transpose) {
-    act_quant_xpose<T, false><<<tiles, kThreads, 0, stream>>>(xt, q, (int)A, (int)B, (int)Cc, part,
-                                                              kParts, s_static, dynamic, ws);
+    act_quant_xpose<T, false><<<tiles, kThreads, 0, stream>>>(xt, q, (int)A, (int)B, (int)Cc, src,
+                                                              kParts, s_static, from, ws);
     return static_cast<int>(cudaGetLastError());
   }
   // about 8 16-byte runs a thread, at most 2048 blocks
   const size_t per = (size_t)kThreads * 8 * (16 / sizeof(T));
   size_t gx = (n + per - 1) / per;
   gx = gx < 1 ? 1 : (gx < 2048 ? gx : 2048);
-  act_quant_write<T><<<(unsigned)gx, kThreads, 0, stream>>>(xt, q, n, part, s_static, dynamic,
-                                                            ws, vec);
+  act_quant_write<T><<<(unsigned)gx, kThreads, 0, stream>>>(xt, q, n, src, s_static, from, ws,
+                                                            vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ws[0] = max|x| over n elements of x: quant_amax's partial maxima into ws + 4,
+// then quant_amax_fold.
+template <typename T>
+int launch_absmax(const void* x, float* ws, size_t n, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  const int vec = reinterpret_cast<size_t>(x) % 16 == 0;
+  quant_amax<T><<<dim3(kParts, 1), kThreads, 0, stream>>>(xt, n, vec, xt, 0, 0, ws + 4);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  quant_amax_fold<<<1, kThreads, 0, stream>>>(ws + 4, ws);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -812,17 +856,30 @@ extern "C" int boda_act_quantize_ws_floats(long long A, long long B, long long C
 }
 
 // x: [A, B, Cc] elements, f32 or bf16 (in_bf16); xq: as many int8, [A, B, Cc]
-// or, where transpose, [Cc, B, A]. s_static > 0: the static scale, one
-// launch; dynamic != 0: two launches. per_chan (with transpose and dynamic):
-// one dynamic scale per channel c of the last dim, written to ws[0 .. Cc).
-// Returns cudaGetLastError() after the launches.
-extern "C" int boda_act_quantize(const void* x, void* xq, void* ws, long long A, long long B,
-                                 long long Cc, int in_bf16, float s_static, int dynamic,
-                                 int transpose, int per_chan, void* stream) {
+// or, where transpose, [Cc, B, A]. scale_from (ScaleFrom): 0, the static scale
+// s_static > 0, one launch; 1, a dynamic scale, two launches; 2, the scale of
+// the max at amax (f32 [1] in device memory), one launch. per_chan (with
+// transpose and scale_from 1): one dynamic scale per channel c of the last
+// dim, written to ws[0 .. Cc). s_act goes to ws[0]. Returns
+// cudaGetLastError() after the launches.
+extern "C" int boda_act_quantize(const void* x, void* xq, void* ws, const void* amax, long long A,
+                                 long long B, long long Cc, int in_bf16, float s_static,
+                                 int scale_from, int transpose, int per_chan, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* wsf = static_cast<float*>(ws);
-  return in_bf16 ? launch_quantize<__nv_bfloat16>(x, xq, wsf, A, B, Cc, s_static, dynamic,
+  const float* m = static_cast<const float*>(amax);
+  return in_bf16 ? launch_quantize<__nv_bfloat16>(x, xq, wsf, m, A, B, Cc, s_static, scale_from,
                                                   transpose, per_chan, st)
-                 : launch_quantize<float>(x, xq, wsf, A, B, Cc, s_static, dynamic, transpose,
-                                          per_chan, st);
+                 : launch_quantize<float>(x, xq, wsf, m, A, B, Cc, s_static, scale_from,
+                                          transpose, per_chan, st);
+}
+
+// ws[0] = max|x| (NaN where x holds one) over the n f32 or bf16 (in_bf16)
+// elements of x; ws holds boda_act_quantize_ws_floats(1, 1, n, 0) floats. Two
+// launches; returns cudaGetLastError() after them.
+extern "C" int boda_act_absmax(const void* x, void* ws, long long n, int in_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* wsf = static_cast<float*>(ws);
+  return in_bf16 ? launch_absmax<__nv_bfloat16>(x, wsf, (size_t)n, st)
+                 : launch_absmax<float>(x, wsf, (size_t)n, st);
 }

@@ -27,11 +27,15 @@ the pieces it does that with:
 fwd.routes counts the steps that read a split weight, by route. Under
 autograd the column-parallel gather is differentiable within a process;
 where an mp group spans processes, steps take the gathered route instead.
-A dp split is refused where a slot would see a different function of its
-images than of the whole batch: a dropout step in train mode (its mask is
-made over the batch's positions) and an int8 step with a dynamic
-activation scale (the batch's absmax); GSPMD reduced those over the
-global batch.
+Two steps compute a function of the whole batch that GSPMD reduced over
+the global batch, and under a dp split each slot takes its part of it
+(slot_kwargs): a dropout step in train mode draws its mask over the
+batch's flat positions, so each slot passes its first row (row0=, where
+the step's function has takes_row0) and gets its rows of the whole mask;
+an int8 step with a dynamic activation scale quantizes at the batch's
+absmax, so each slot takes its own (the function's slot_absmax), pmax
+over the dp group gives the batch's, and every slot quantizes at it
+(amax=). Both then equal the unsharded forward bit for bit.
 """
 
 from __future__ import annotations
@@ -40,7 +44,7 @@ import torch
 
 from ..core.dims import NDA, Dims
 from ..core.error import RtErr
-from ..parallel.mesh import Mesh, all_gather, exchange
+from ..parallel.mesh import Mesh, all_gather, exchange, pmax
 from .lower import Plan, Step
 
 # templates that compute one conv or fc from (in, filts[, filts_scale]
@@ -105,18 +109,21 @@ def chan_axis(plan: Plan, dims: Dims) -> int:
     return 3 if plan.storage_nhwc and len(dims) == 4 else 1
 
 
-def refuse_dp_split(plan: Plan) -> None:
-    for s in plan.steps:
-        if s.func_name == "dropout" \
-                and s.sig.str_vals.get("drop_mode", "infer") != "infer":
-            raise RtErr(f"mesh: step {s.call_tag} draws a dropout mask over "
-                        f"the batch's positions, which a dp slot sees only "
-                        f"a slice of: no dp split with train_dropout")
-        if s.sig.get_u32_or("quant8", 0) and "act_scale" not in s.sig.nda_vals:
-            raise RtErr(f"mesh: step {s.call_tag} quantizes its input at a "
-                        f"dynamic scale (the batch's absmax), which a dp slot "
-                        f"takes over its own images: give the int8 sites "
-                        f"static scales (act_scales_fn) to split the batch")
+def slot_kwargs(mesh: Mesh, f, ins: dict, local_batch: int) -> dict:
+    """{local position: the keyword arguments that make step function f,
+    run on that slot's inputs ins[position] under a dp split, compute its
+    part of the whole batch's function}: row0 (the slot's first row of the
+    batch) where f.takes_row0, amax (pmax over the dp group of each slot's
+    f.slot_absmax) where f has one; else {}."""
+    kw = {p: {} for p in ins}
+    if getattr(f, "takes_row0", False):
+        for p in ins:
+            kw[p]["row0"] = mesh.coord(p, "dp") * local_batch
+    if hasattr(f, "slot_absmax"):
+        m = pmax(mesh, {p: f.slot_absmax(*v) for p, v in ins.items()}, "dp")
+        for p in ins:
+            kw[p]["amax"] = m[p]
+    return kw
 
 
 class _GatherRows(torch.autograd.Function):

@@ -58,7 +58,7 @@ from .lower import DROP_SEED_NODE, Plan, Step, lower_pipe, \
     resolve_plan_weights
 from .mesh_fwd import COL_TEMPLATES, COL_WEIGHT_ARGS, chan_axis, \
     column_sig, gather_mp, gather_rows, plan_at_batch, plan_batch, \
-    refuse_dp_split
+    slot_kwargs
 
 
 def weights_to_torch(plan: Plan, op_params: dict, device: torch.device,
@@ -262,8 +262,8 @@ def build_forward(plan: Plan, device: torch.device | None = None,
     split = any("dp" in sh.spec for sh in in_sh.values())
     lplan = plan
     if split:
-        refuse_dp_split(plan)
         lplan = plan_at_batch(plan, plan_batch(plan) // mesh.shape["dp"])
+    local_batch = plan_batch(lplan) if split else 0
     w_split = {n for n, sh in w_sh.items() if "mp" in sh.spec}
     node_dims = plan.node_dims
     weight_set = set(plan.weight_nodes)
@@ -295,6 +295,7 @@ def build_forward(plan: Plan, device: torch.device | None = None,
         steps.append((fn, col_fn, col_ix, tmpl, s, step_has_backward(s.sig),
                       reads, out_to, writes))
     mp_local = all(mesh.group_is_local(p, "mp") for p in local)
+    no_kwargs = dict.fromkeys(local, {})
 
     def fwd(inputs: dict, weights: dict, out_nodes=(), step_hook=None,
             write_hook=None) -> dict:
@@ -317,6 +318,7 @@ def build_forward(plan: Plan, device: torch.device | None = None,
                 in steps:
             col = col_fn is not None and col_ok
             f = col_fn if col else fn
+            slot_ins = {}
             for env, p, d in zip(envs, local, devs):
                 try:
                     ins = [env[n] for n in reads]
@@ -327,11 +329,15 @@ def build_forward(plan: Plan, device: torch.device | None = None,
                         ins[i] = shard_of(ins[i], w_sh[n], p)
                 if grad and not has_bwd and any(v.requires_grad for v in ins):
                     check_trainable([s], "build_forward")
+                slot_ins[p] = ins
+            kws = slot_kwargs(mesh, f, slot_ins, local_batch) if split \
+                else no_kwargs
+            for env, p in zip(envs, local):
                 if step_hook is None:
-                    outs = f(*ins)
+                    outs = f(*slot_ins[p], **kws[p])
                 else:
                     with step_hook(s):
-                        outs = f(*ins)
+                        outs = f(*slot_ins[p], **kws[p])
                 if not isinstance(outs, (tuple, list)):
                     outs = (outs,)
                 for n, v in zip(out_to, outs):

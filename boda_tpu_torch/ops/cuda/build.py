@@ -67,9 +67,11 @@ ENTRY_POINTS = {
     # xq, wq, s_act, sws, bias, out, ws, n, H, W, C, oc, ky, kx, sy, sx, py,
     # px, relu, out_kind, out_q, va, vb, full, splits, grid, stream
     "boda_qconv": [_P] * 7 + [_I] * 13 + [_F] + [_I] * 5 + [_P],
-    # x, xq, ws, A, B, Cc, in_bf16, s_static, dynamic, transpose, per_chan,
-    # stream
-    "boda_act_quantize": [_P] * 3 + [_LL] * 3 + [_I, _F, _I, _I, _I, _P],
+    # x, xq, ws, amax, A, B, Cc, in_bf16, s_static, scale_from, transpose,
+    # per_chan, stream
+    "boda_act_quantize": [_P] * 4 + [_LL] * 3 + [_I, _F, _I, _I, _I, _P],
+    # x, ws, n, in_bf16, stream
+    "boda_act_absmax": [_P, _P, _LL, _I, _P],
     # A, B, Cc, per_chan -> floats of boda_act_quantize's workspace
     "boda_act_quantize_ws_floats": [_LL] * 3 + [_I],
 }

@@ -41,8 +41,8 @@ from ...core.error import RtErr
 from ..mxu_grad import grad_q8_site, mxu_conv, relu_store
 from ..op_base import OpBase
 from ..registry import IN, OUT, KernelTemplate, adecl, template
-from .qconv import act_quantize, qconv, quantize_filter, static_act_scale, \
-    store_int8
+from .qconv import absmax, act_quantize, qconv, quantize_filter, \
+    static_act_scale, store_int8
 from .sgemm import matmul_ext
 from .util import compute_dtype, storage_io, store_dtype
 
@@ -330,10 +330,16 @@ def int8_conv(stride, pad, relu: bool, odt, io_nhwc: bool, prequant: bool,
     under in_q8, at the static act_absmax); the activation quantize runs
     on the layout it arrives in, and an NCHW int8 copy is permuted to NHWC
     for the kernel (a quarter of the f32 bytes). Returns the step's output
-    in the storage form, of odt (int8: stored at out_absmax)."""
+    in the storage form, of odt (int8: stored at out_absmax).
+
+    Where the scale is dynamic, conv.slot_absmax(x, ...) is x's max|x| on
+    the device, and conv(x, ..., amax=m) quantizes at the scale of the max m
+    (an f32 [1] tensor on x's device) in place of x's own: under a dp split
+    (engine/mesh_fwd.py) m is the dp group's, so each slot's scale is the
+    whole batch's, as GSPMD reduces the JAX template's max (conv.py:58)."""
     s_in = {}  # in_q8: the static s_act, one f32 [1] tensor per device
 
-    def conv(x, w, *rest):
+    def conv(x, w, *rest, amax=None):
         sws, rest = (rest[0], rest[1:]) if prequant else (None, rest)
         b = rest[0] if rest else None
         wq, sws = (w, sws) if prequant else quantize_filter(w)
@@ -343,7 +349,7 @@ def int8_conv(stride, pad, relu: bool, odt, io_nhwc: bool, prequant: bool,
                 s_act = s_in[x.device] = torch.full(
                     (1,), static_act_scale(act_absmax), device=x.device)
         else:
-            xq, s_act = act_quantize(x.contiguous(), act_absmax)
+            xq, s_act = act_quantize(x.contiguous(), act_absmax, amax=amax)
         if not io_nhwc:
             xq = xq.permute(0, 2, 3, 1)
         y = qconv(xq.contiguous(), wq.permute(0, 2, 3, 1).contiguous(), s_act,
@@ -351,6 +357,8 @@ def int8_conv(stride, pad, relu: bool, odt, io_nhwc: bool, prequant: bool,
                   None if b is None else b.float().contiguous(), stride, pad,
                   relu, odt, out_absmax)
         return y if io_nhwc else y.permute(0, 3, 1, 2).contiguous()
+    if not in_q8 and not act_absmax:
+        conv.slot_absmax = lambda x, *_: absmax(x.contiguous())
     return conv
 
 

@@ -145,8 +145,9 @@ class XlaConv2(KernelTemplate):
             q = int8_conv(stride, padding, False, torch.float32, io_nhwc,
                           prequant, _scale_of(rfs, "act_scale"), False)
 
-            def conv(x, w, b, sws):
-                y = q(x, w, sws, b) if prequant else q(x, w, b)
+            def conv(x, w, b, sws, amax=None):
+                y = q(x, w, sws, b, amax=amax) if prequant \
+                    else q(x, w, b, amax=amax)
                 return y.permute(0, 3, 1, 2) if io_nhwc else y
         else:
             vconv = vendor_conv(stride, padding, compute_dtype(rfs), io_nhwc,
@@ -155,7 +156,7 @@ class XlaConv2(KernelTemplate):
             def conv(x, w, b, _sws):
                 return vconv(x, w, b)
 
-        def fn(x, *wbs):
+        def fn(x, *wbs, **kw):
             # the members' operands in declared order: filts, biases where
             # the member has them, and the int8 filters' scales
             it = iter(wbs)
@@ -170,11 +171,14 @@ class XlaConv2(KernelTemplate):
                 if prequant:
                     ss.append(next(it))
             y = conv(x, torch.cat(ws, dim=0), torch.cat(bs, dim=0),
-                     torch.cat(ss, dim=0) if prequant else None)
+                     torch.cat(ss, dim=0) if prequant else None, **kw)
             outs, off = [], 0
             for n_i, relu_i, dt_i in zip(ns, relus, out_dts):
                 outs.append(vendor_store(y[:, off:off + n_i], relu_i, dt_i,
                                          io_nhwc))
                 off += n_i
             return tuple(outs)
+        if quant8 and hasattr(q, "slot_absmax"):
+            # a dynamic scale: fn(x, ..., amax=m) as int8_conv's conv
+            fn.slot_absmax = q.slot_absmax
         return fn

@@ -243,9 +243,17 @@ class Dropout(KernelTemplate):
       template's own code) once per storage shape and uploaded.
     - `_mask32`, per step: a uint32 murmur3 fmix on (flat index, seed),
       the seed a fed input node (train_dropout lowering). It runs on the
-      seed's device in int64, each product wrapped and masked to 32 bits
-      and each shift taken of a non-negative value; `_mask32_np` is its
-      numpy twin, the JAX template's.
+      seed's device in int64: the index wrapped to 32 bits first, as the
+      JAX template's uint32 arange wraps it, each product taken mod 2^32 in
+      16-bit halves (no int64 overflow) and each shift of a non-negative
+      value; `_mask32_np` is its numpy twin, the JAX template's.
+
+    The flat index is the whole batch's: under a dp split
+    (engine/mesh_fwd.py) a slot's rows start at row0 of the batch, and the
+    train-mode functions take row0= (fn.takes_row0), so that a slot's mask
+    is its rows of the whole batch's mask, as GSPMD computes the JAX
+    template's over the global index (elementwise.py:223-270). Batch is
+    dim 0 of the storage form, NCHW or NHWC alike.
     """
 
     name = "dropout"
@@ -256,10 +264,17 @@ class Dropout(KernelTemplate):
     sig_str_keys = ["drop_mode"]
     _FMIX = (2654435761, 0x9E3779B9, 0x85EB_CA6B, 0xC2B2_AE35)
 
+    @staticmethod
+    def _first_index(shape, row0: int) -> int:
+        """The flat index of row row0's first element in a batch whose
+        rows are shape[1:]."""
+        return row0 * int(np.prod(shape[1:]))
+
     @classmethod
-    def _mask(cls, rfs: OpBase, shape):
+    def _mask(cls, rfs: OpBase, shape, row0: int = 0):
         seed = rfs.get_u32_or("det_drop_seed", 0)
-        idx = np.arange(int(np.prod(shape)), dtype=np.uint64)
+        i0 = cls._first_index(shape, row0)
+        idx = np.arange(i0, i0 + int(np.prod(shape)), dtype=np.uint64)
         h = (idx * np.uint64(6364136223846793005)
              + np.uint64(seed * 2654435761 + 1442695040888963407))
         h ^= h >> np.uint64(33)
@@ -284,18 +299,27 @@ class Dropout(KernelTemplate):
             .reshape(shape)
 
     @classmethod
-    def _mask32(cls, seed: torch.Tensor, shape) -> torch.Tensor:
-        """The per-step mask (f32, values k / 2^24) on seed's device."""
+    def _mask32(cls, seed: torch.Tensor, shape,
+                row0: int = 0) -> torch.Tensor:
+        """The per-step mask (f32, values k / 2^24) on seed's device, of the
+        rows from row0 on."""
         m32 = 0xFFFFFFFF
         c1, c2, c3, c4 = cls._FMIX
-        idx = torch.arange(int(np.prod(shape)), dtype=torch.int64,
-                           device=seed.device)
+
+        def mul32(h, c):
+            # h * c mod 2^32 for 0 <= h < 2^32: c's 16-bit halves keep every
+            # product under 2^49
+            return (h * (c & 0xFFFF)
+                    + (((h * (c >> 16)) & 0xFFFF) << 16)) & m32
+        idx = (torch.arange(int(np.prod(shape)), dtype=torch.int64,
+                            device=seed.device)
+               + cls._first_index(shape, row0)) & m32
         s = seed.reshape(()).to(torch.int64) & m32
-        h = (idx * c1 + s * c2) & m32
+        h = (mul32(idx, c1) + mul32(s, c2)) & m32
         h = h ^ (h >> 16)
-        h = (h * c3) & m32
+        h = mul32(h, c3)
         h = h ^ (h >> 13)
-        h = (h * c4) & m32
+        h = mul32(h, c4)
         h = h ^ (h >> 16)
         u = (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
         return u.reshape(shape)
@@ -307,19 +331,21 @@ class Dropout(KernelTemplate):
         scale_kept = _scale_kept(_ratio(rfs))
         if "seed" in rfs.nda_vals:
             # per-step seeded mask; arg order is in_args then io_args
-            def fn_seeded(seed, x):
-                return scale_kept(x, cls._mask32(seed, x.shape))
+            def fn_seeded(seed, x, row0=0):
+                return scale_kept(x, cls._mask32(seed, x.shape, row0))
+            fn_seeded.takes_row0 = True
             return fn_seeded
         masks: dict = {}
 
-        def fn(x):
+        def fn(x, row0=0):
             # the static mask, in x's dtype as the JAX template bakes it,
-            # made once per storage shape, dtype and device
-            key = (tuple(x.shape), x.dtype, x.device)
+            # made once per storage shape, first row, dtype and device
+            key = (tuple(x.shape), row0, x.dtype, x.device)
             if key not in masks:
-                masks[key] = torch.from_numpy(cls._mask(rfs, x.shape)) \
+                masks[key] = torch.from_numpy(cls._mask(rfs, x.shape, row0)) \
                     .to(x.dtype).to(x.device)
             return scale_kept(x, masks[key])
+        fn.takes_row0 = True
         return fn
 
     @classmethod

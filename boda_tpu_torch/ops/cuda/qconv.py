@@ -12,10 +12,14 @@ fed by a warp-specialized TMA / mbarrier ring, with an exact int32 K split
 and its reduce where the tiles do not fill the card, and `act_quantize`,
 one launch for a static scale and two for a dynamic one, which can store
 its result transposed for the weight gradient. `qconv_plan` is the
-kernel's plan (tiles and K splits on util.gemm_plan, the copy width);
-`qconv_plain` and `act_quantize_plain` are the same functions in plain
-PyTorch. Each wrapper runs the plain version for CPU tensors and the kernel
-for CUDA tensors.
+kernel's plan (tiles and K splits on util.gemm_plan, the copy width).
+Under a dp split the dynamic scale comes apart (engine/mesh_fwd.py):
+`absmax`, the first launch and a fold of its partial maxima, gives a
+slot's max|x| as a device scalar, and `act_quantize(x, amax=m)` quantizes
+at the scale of a max m read from device memory, the dp group's.
+`qconv_plain`, `act_quantize_plain` and `absmax_plain` are the same
+functions in plain PyTorch. Each wrapper runs the plain version for CPU
+tensors and the kernel for CUDA tensors.
 
 The arithmetic is the JAX template's, operation for operation, each one f32
 rounding: s_act = float32(act_absmax / 127) from the double quotient (a
@@ -129,20 +133,69 @@ def _swap_ends(t: torch.Tensor) -> torch.Tensor:
     return t.transpose(0, -1).contiguous()
 
 
+def _check_amax(x: torch.Tensor, act_absmax: float, amax) -> None:
+    if amax is None:
+        return
+    if act_absmax:
+        raise RtErr("act_quantize: a static act_absmax and a device amax")
+    if not isinstance(amax, torch.Tensor) or amax.dtype != torch.float32 \
+            or tuple(amax.shape) != (1,) or amax.device != x.device:
+        raise RtErr(f"act_quantize: amax must be an f32 [1] tensor on "
+                    f"{x.device}")
+
+
+def _scale_of_max(m: torch.Tensor) -> torch.Tensor:
+    """s_act = m / 127 + 1e-30 in f32, as an f32 [1] tensor (tensor divisors:
+    IEEE division on a card too)."""
+    return (m / torch.full((), 127.0, device=m.device)
+            + torch.full((), 1e-30, device=m.device)).reshape(1)
+
+
 def act_quantize_plain(x: torch.Tensor, act_absmax: float = 0.0,
-                       transpose: bool = False):
+                       transpose: bool = False, amax=None):
     """Plain PyTorch act_quantize: (xq int8 of x's shape, or of x's with its
     first and last dims swapped where transpose, s_act as an f32 [1] tensor
     on x's device)."""
     _check_x(x, transpose)
+    _check_amax(x, act_absmax, amax)
     xf = x.float()
     if act_absmax:
         s = torch.full((1,), static_act_scale(act_absmax), device=x.device)
     else:
-        s = (xf.abs().amax() / torch.full((), 127.0, device=x.device)
-             + torch.full((), 1e-30, device=x.device)).reshape(1)
+        s = _scale_of_max(xf.abs().amax() if amax is None else amax)
     xq = torch.round(xf / s).clamp_(-127, 127).to(torch.int8)
     return (_swap_ends(xq) if transpose else xq), s
+
+
+def absmax_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch absmax: max|x| as an f32 [1] tensor on x's device."""
+    _check_x(x)
+    return x.float().abs().amax().reshape(1)
+
+
+def absmax(x: torch.Tensor) -> torch.Tensor:
+    """max|x| of an f32 or bf16 tensor (contiguous, any layout) as an f32
+    [1] tensor on x's device, NaN where x holds one: what one slot of a dp
+    split takes before the max over its dp group (parallel/mesh.pmax), whose
+    result act_quantize's `amax` then reads. On CUDA tensors act_quantize's
+    dynamic first launch (the partial maxima) and a one-block fold of them,
+    asynchronous on the current stream (counted once in absmax.launches)."""
+    _check_x(x)
+    forbid_autograd("absmax", x)
+    if not use_kernel(x):
+        return absmax_plain(x)
+    lib = load_kernels()
+    ws = torch.empty(lib.boda_act_quantize_ws_floats(1, 1, x.numel(), 0),
+                     dtype=torch.float32, device=x.device)
+    rc = lib.boda_act_absmax(x.data_ptr(), ws.data_ptr(), x.numel(),
+                             int(x.dtype == torch.bfloat16),
+                             cuda_stream(x.device))
+    check_launch(rc, "absmax")
+    absmax.launches += 1
+    return ws[:1]
+
+
+absmax.launches = 0
 
 
 def _ends(x: torch.Tensor) -> tuple[int, int, int]:
@@ -152,24 +205,26 @@ def _ends(x: torch.Tensor) -> tuple[int, int, int]:
 
 
 def act_quantize(x: torch.Tensor, act_absmax: float = 0.0,
-                 transpose: bool = False):
+                 transpose: bool = False, amax=None):
     """xq = clamp(rint(x / s_act), -127, 127) of an f32 or bf16 tensor, any
     layout (contiguous), and s_act: float32(act_absmax / 127) where a static
-    act_absmax is given, else max|x| / 127 + 1e-30 computed on the card.
-    Returns (xq int8, s_act as an f32 [1] tensor on x's device); xq has x's
-    shape, or x's with its first and last dims swapped where transpose (the
-    weight gradient's [N, H, W, I] -> [I, H, W, N], stored so by the same
-    pass).
+    act_absmax is given, else m / 127 + 1e-30 computed on the card, m the max
+    in `amax` (an f32 [1] tensor on x's device: a dp group's, see absmax)
+    where given, else max|x|. Returns (xq int8, s_act as an f32 [1] tensor
+    on x's device); xq has x's shape, or x's with its first and last dims
+    swapped where transpose (the weight gradient's [N, H, W, I] -> [I, H,
+    W, N], stored so by the same pass).
 
-    On CUDA tensors the launches (one static, two dynamic; counted once in
-    act_quantize.launches) are asynchronous on the current stream: the host
-    never waits for a dynamic scale, which qconv reads from device memory. A
-    NaN in x gives a NaN dynamic scale; an element whose quotient is NaN
-    quantizes to 0."""
+    On CUDA tensors the launches (one static or at `amax`, two dynamic;
+    counted once in act_quantize.launches) are asynchronous on the current
+    stream: the host never waits for a dynamic scale, which qconv reads from
+    device memory. A NaN in x gives a NaN dynamic scale; an element whose
+    quotient is NaN quantizes to 0."""
     _check_x(x, transpose)
+    _check_amax(x, act_absmax, amax)
     forbid_autograd("act_quantize", x)
     if not use_kernel(x):
-        return act_quantize_plain(x, act_absmax, transpose)
+        return act_quantize_plain(x, act_absmax, transpose, amax)
     lib = load_kernels()
     a, b, c = _ends(x) if transpose else (1, 1, x.numel())
     shape = tuple(x.shape)
@@ -179,10 +234,12 @@ def act_quantize(x: torch.Tensor, act_absmax: float = 0.0,
     ws = torch.empty(lib.boda_act_quantize_ws_floats(a, b, c, 0),
                      dtype=torch.float32, device=x.device)
     rc = lib.boda_act_quantize(
-        x.data_ptr(), xq.data_ptr(), ws.data_ptr(), a, b, c,
+        x.data_ptr(), xq.data_ptr(), ws.data_ptr(),
+        None if amax is None else amax.data_ptr(), a, b, c,
         int(x.dtype == torch.bfloat16),
         static_act_scale(act_absmax) if act_absmax else 0.0,
-        int(not act_absmax), int(transpose), 0, cuda_stream(x.device))
+        0 if act_absmax else (1 if amax is None else 2), int(transpose), 0,
+        cuda_stream(x.device))
     check_launch(rc, "act_quantize")
     act_quantize.launches += 1
     return xq, ws[:1]
@@ -219,7 +276,7 @@ def cotangent_quantize(g: torch.Tensor):
     ws = torch.empty(lib.boda_act_quantize_ws_floats(a, b, c, 1),
                      dtype=torch.float32, device=g.device)
     rc = lib.boda_act_quantize(
-        g.data_ptr(), gq.data_ptr(), ws.data_ptr(), a, b, c,
+        g.data_ptr(), gq.data_ptr(), ws.data_ptr(), None, a, b, c,
         int(g.dtype == torch.bfloat16), 0.0, 1, 1, 1, cuda_stream(g.device))
     check_launch(rc, "cotangent_quantize")
     cotangent_quantize.launches += 1

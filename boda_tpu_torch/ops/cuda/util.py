@@ -66,9 +66,10 @@ def use_kernel(*tensors) -> bool:
 def kernel_wrappers() -> dict:
     """Each hand kernel's wrapper by name; a wrapper's `launches` counts
     its kernel's launches ("quantize": sgemm_int8's quantize kernel;
-    "act_quantize": qconv's; "cotangent_quantize": its per-channel form in
-    the int8 weight gradient)."""
-    from .qconv import act_quantize, cotangent_quantize, qconv
+    "act_quantize": qconv's; "absmax": its first pass alone, a dp slot's
+    max; "cotangent_quantize": its per-channel form in the int8 weight
+    gradient)."""
+    from .qconv import absmax, act_quantize, cotangent_quantize, qconv
     from .qsgemm import quantize_operands, sgemm_int8
     from .resblock import resblock
     from .sgemm import matmul_ext
@@ -77,7 +78,7 @@ def kernel_wrappers() -> dict:
     return {"matmul_ext": matmul_ext, "tconv": tconv,
             "fused_stem": fused_stem, "resblock": resblock,
             "sgemm_int8": sgemm_int8, "quantize": quantize_operands,
-            "qconv": qconv, "act_quantize": act_quantize,
+            "qconv": qconv, "act_quantize": act_quantize, "absmax": absmax,
             "cotangent_quantize": cotangent_quantize}
 
 

@@ -11,16 +11,17 @@ every rank's slots, rank-major. The named-dims tables are the JAX package's:
   * named dims -> PartitionSpec is a table lookup (spec_for_dims returns
     the same per-dimension axis tuple as JAX's PartitionSpec).
 
-What GSPMD and shard_map inserted for free is written out here as three
+What GSPMD and shard_map inserted for free is written out here as four
 collectives over the slots of a mesh axis: all_gather (concatenate the
-shards), psum (sum them) and ppermute (shift values along the axis). A
-value laid out over a mesh is a dict {mesh position: tensor} holding this
-process's positions. Between slots of one process a collective is a tensor
-move, a concatenation or a sum. Between processes it is one
-torch.distributed all_gather (gloo) of every slot's value, through an
-explicit copy to the host and back; sum_over_ranks is one all_reduce, also
-through the host. Not DTensor: its sharding propagation cannot see the
-kernels' ctypes calls, and it holds one device per rank, not several slots.
+shards), psum (sum them), pmax (their max) and ppermute (shift values
+along the axis). A value laid out over a mesh is a dict {mesh position:
+tensor} holding this process's positions. Between slots of one process a
+collective is a tensor move, a concatenation, a sum or a max. Between
+processes it is one torch.distributed all_gather (gloo) of every slot's
+value, through an explicit copy to the host and back; pmax and
+sum_over_ranks are one all_reduce each, also through the host. Not
+DTensor: its sharding propagation cannot see the kernels' ctypes calls,
+and it holds one device per rank, not several slots.
 """
 
 from __future__ import annotations
@@ -311,6 +312,53 @@ def psum(mesh: Mesh, vals: dict, axis: str) -> dict:
             acc = acc + v
         out[p] = acc
     return out
+
+
+def pmax(mesh: Mesh, vals: dict, axis: str) -> dict:
+    """{local position: the elementwise max of its `axis` group's values,
+    NaN where one holds NaN} (lax.pmax). Within one process one
+    torch.maximum chain per group on its first slot's device, with no host
+    wait. Across processes one gloo all_reduce(MAX) through an explicit
+    host copy: each rank puts its positions' values into a [positions,
+    numel] buffer of -inf, beside a NaN flag for each value (gloo's max
+    does not keep NaN), and reads its groups' maxima from the reduced
+    buffer. Calls counted in pmax.calls."""
+    pmax.calls += 1
+    local = mesh.local_positions()
+    if not mesh.spans_ranks():
+        out = {}
+        for p in local:
+            if p not in out:
+                grp = mesh.group(p, axis)
+                dev = mesh.device(grp[0])
+                acc = vals[grp[0]]
+                for q in grp[1:]:
+                    acc = torch.maximum(acc, vals[q].to(dev))
+                out.update({q: acc.to(mesh.device(q)) for q in grp})
+        return out
+    import torch.distributed as dist
+    ref = vals[local[0]]
+    pos = mesh.positions()
+    dev = mesh.device(local[0])
+    _finish(dev)
+    with timer(COLLECTIVE_TIMER):
+        buf = torch.full((len(pos), 2, ref.numel()), float("-inf"),
+                         dtype=torch.float64)
+        for p in local:
+            v = vals[p].detach().reshape(-1).double().cpu()
+            buf[pos.index(p), 0] = v.nan_to_num(nan=float("-inf"))
+            buf[pos.index(p), 1] = v.isnan().double()
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX)
+        out = {}
+        for p in local:
+            g = buf[[pos.index(q) for q in mesh.group(p, axis)]].amax(0)
+            m = torch.where(g[1] > 0, float("nan"), g[0])
+            out[p] = m.reshape(ref.shape).to(device=mesh.device(p),
+                                             dtype=ref.dtype)
+    return out
+
+
+pmax.calls = 0
 
 
 def ppermute(mesh: Mesh, vals: dict, axis: str, perm) -> dict:

@@ -75,6 +75,49 @@ def aggregate_profile(prof, device: bool) -> list[dict]:
     return sorted(rows, key=lambda r: -r["total_ns"])
 
 
+# idle seconds the recorded window of traced_steps holds before its first
+# traced step and after its last. The profiler keeps a device event only
+# inside the window, which it takes on the host's clock; late in a long
+# process on an H100 the card's events came up to 134 ms away from where
+# the host's clock put their launches (scripts/profiler_empty_traces.py),
+# and a read without the margin lost part of a forward (2 of 60 reads)
+PROFILE_MARGIN_S = 0.25
+
+
+def traced_steps(step, steps: int, on_card: bool,
+                 margin_s: float | None = None):
+    """torch.profiler (the card's activity where on_card, else the host's)
+    over one call of step() as the profiler's warm-up, whose events it
+    drops, then `steps` recorded calls, each followed by a sync; returns
+    the finished profile. The recorded window holds margin_s seconds of
+    idle time (PROFILE_MARGIN_S by default) before the first recorded call
+    and after the last, so that every device event of the calls lies
+    inside it."""
+    import time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    margin = PROFILE_MARGIN_S if margin_s is None else margin_s
+    act = ProfilerActivity.CUDA if on_card else ProfilerActivity.CPU
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+    with profile(activities=[act], schedule=schedule(
+            wait=0, warmup=1, active=steps, repeat=1)) as prof:
+        step()
+        sync()
+        prof.step()
+        time.sleep(margin)
+        for i in range(steps):
+            step()
+            sync()
+            if i == steps - 1:
+                time.sleep(margin)
+            prof.step()
+    return prof
+
+
 def rollup_kinds(rows):
     """Aggregate per-op rows by kind."""
     by_kind: dict[str, dict] = {}
@@ -117,7 +160,6 @@ class CnetXprof(CnetBench):
         import time
 
         import torch
-        from torch.profiler import ProfilerActivity, profile, schedule
 
         from ..apps.train import train_forward, train_top
         from ..ops.cuda.util import full_fp32
@@ -155,16 +197,10 @@ class CnetXprof(CnetBench):
             step()  # kernel builds and first-call work outside the trace
             sync()
             compile_s = time.perf_counter() - t0
-            act = ProfilerActivity.CUDA if on_card else ProfilerActivity.CPU
             # one more step as the profiler's warm-up, whose events it drops:
             # CUPTI can miss the first kernels of a trace it has just
             # started (2 of 200 launches seen missing on an H100)
-            with profile(activities=[act], schedule=schedule(
-                    wait=0, warmup=1, active=self.steps, repeat=1)) as prof:
-                for _ in range(1 + self.steps):
-                    step()
-                    sync()
-                    prof.step()
+            prof = traced_steps(step, self.steps, on_card)
 
         rows = self.rows = aggregate_profile(prof, on_card)
         name = self.model or self.ptt_fn
@@ -188,7 +224,7 @@ class CnetXprof(CnetBench):
         kind = torch.cuda.get_device_name(eng.dev) if on_card else "cpu"
         print(f"cnet_xprof {name} b{d['img']} steps={self.steps} "
               f"device={kind.replace(' ', '_')} compile_s={compile_s:.1f} "
-              f"planes={[act.name]}")
+              f"planes={['CUDA' if on_card else 'CPU']}")
         print(f"device total: {total_ns / 1e6 / self.steps:.3f} ms/step "
               f"over {len(rows)} {'kernels' if on_card else 'ops'}")
         print(f"{'kernel':44s} {'calls':>6s} {'ms/step':>9s} {'%':>6s}")

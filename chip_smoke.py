@@ -28,7 +28,10 @@ Phases, run in order, each fatal on failure (all of them by default):
            their plain versions at 1024^3 and 4096^3 (timed, with the
            quantize pass and the product alone) and at ragged shapes (K=50,
            K=3, K=4099, N=129, an all-zero A); qconv (B6) and its
-           activation quantize bit-equal to their plain versions at the
+           activation quantize, with the dynamic form's two parts a dp
+           slot runs (absmax; the quantize at a max read from device
+           memory, also bit-equal to the dynamic form at x's own max),
+           bit-equal to their plain versions at the
            int8 preset's nine distinct b32 conv shapes and two at b128
            (timed on the card alone through a CUDA graph, beside the
            wrapper's call and the quantize pass's byte bound; each case's
@@ -278,7 +281,16 @@ Phases, run in order, each fatal on failure (all of them by default):
            int8 preset against the same forward without a mesh (mrd 1e-4,
            5e-3, 5e-2), B1/B2/B6 launched four times a forward's (every
            slot runs every step), the steps by route (column-parallel, on
-           the whole weight), both forwards timed; mh_test with two gloo
+           the whole weight), both forwards timed; on the same mesh the
+           int8 preset with dynamic scales (no act_scales_fn): every
+           slot's s_act bit-equal to the one-slot quantize of the step's
+           whole batch (each slot's absmax, pmax over dp), and to the
+           one-slot forward's where that batch is bit-equal to its, the
+           logits within 5e-2, one absmax per slot and step beside one
+           forward's launches, one pmax per int8 step; GoogLeNet b32
+           224^2 under () with train_dropout=1 and a fed seed, the logits
+           within 1e-4 of one slot's, B1/B2 four times a forward's, the
+           mask live; mh_test with two gloo
            ranks launched here with --spawn=0 (one slot each; ResNet-50
            b32 224^2 forward, then one training step): identical digests,
            the forward's prob within 1e-4 of one slot's; then the
@@ -339,8 +351,10 @@ test_upsamp's lines, the suites' summaries; the worker's launches in
 by tune with their mrd, ms beside the unsharded ms, routes and launches
 per slot, mh_test's ms and collectives ms per rank, pp_test's lines,
 the gradient check's, gpipe_plan_forward's, the dry run's; per mesh forward as
-"parallel:mesh_<tune>", "parallel:gpipe_forward" and "parallel:dryrun" in
-"launches_by_tune");
+"parallel:mesh_<tune>", "parallel:mesh_int8_dynamic",
+"parallel:mesh_train_dropout", "parallel:gpipe_forward" and
+"parallel:dryrun" in "launches_by_tune"; B6's entry adds its dp split's
+launches and pmax calls);
 and {"ok": true,
 "device": {...}}. Without a CUDA device, or outside a checkout of the
 repo, it exits non-zero and prints no result. It imports neither jax nor
@@ -390,7 +404,8 @@ B128_TUNES = ("headline", INT8)
 # exact kernel launches per ResNet-50 forward under each tune
 UNFUSED_LAUNCHES = {"matmul_ext": 40, "tconv": 13, "fused_stem": 0,
                     "resblock": 0, "sgemm_int8": 0, "quantize": 0,
-                    "qconv": 0, "act_quantize": 0, "cotangent_quantize": 0}
+                    "qconv": 0, "act_quantize": 0, "absmax": 0,
+                    "cotangent_quantize": 0}
 FUSED_LAUNCHES = {**UNFUSED_LAUNCHES, "matmul_ext": 14, "tconv": 3,
                   "fused_stem": 1, "resblock": 12}
 VENDOR_LAUNCHES = dict.fromkeys(UNFUSED_LAUNCHES, 0)
@@ -1081,10 +1096,20 @@ def _check_qconv(stats: dict, dev, gen, peaks) -> None:
     the wrapper's call as the engine makes it is call_ms."""
     import torch
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    s = stats["qconv"] = _stats("qconv")
-    s["quantize_ms"] = s["quantize_bound_ms"] = 0.0
+    s = stats["qconv"] = _qconv_stats()
     for label, kw, timed in _qconv_cases():
         _qconv_case(s, label, kw, timed, dev, gen, peaks, sms)
+
+
+def _qconv_stats() -> dict:
+    """B6's stats, with the sums _qconv_case adds its timed readings to
+    at 0."""
+    s = _stats("qconv")
+    for k in ("quantize_ms", "quantize_bound_ms", "absmax_ms",
+              "absmax_plain_ms", "absmax_bound_ms", "absmax_library_ms",
+              "quantize_at_max_ms", "quantize_at_max_plain_ms"):
+        s[k] = 0.0
+    return s
 
 
 def _qconv_plan_str(plan) -> str:
@@ -1167,8 +1192,9 @@ def _qconv_case(s: dict, label: str, kw: dict, timed: bool, dev, gen, peaks,
     """One case of _check_qconv (the case's dict as _qconv_cases makes
     it), its timed readings summed into the stats `s`."""
     import torch
-    from boda_tpu_torch.ops.cuda.qconv import act_quantize, \
-        act_quantize_plain, qconv, qconv_plain, qconv_plan, static_act_scale
+    from boda_tpu_torch.ops.cuda.qconv import absmax as absmax_k, \
+        absmax_plain, act_quantize, act_quantize_plain, qconv, qconv_plain, \
+        qconv_plan, static_act_scale
     out_dt = {"bf16": torch.bfloat16, "f32": torch.float32,
               "int8": torch.int8}
     n, H, W, C, oc, k = (kw[key] for key in ("n", "H", "W", "C", "oc", "k"))
@@ -1190,6 +1216,20 @@ def _qconv_case(s: dict, label: str, kw: dict, timed: bool, dev, gen, peaks,
     check(all(bit_equal(g, w) for g, w in zip(q_got, q_want)),
           f"qconv {label}: the quantize kernel differs from "
           f"act_quantize_plain")
+    # the dynamic form in a dp slot's two parts: its absmax, then the
+    # quantize at a max read from device memory, each bit-equal to its plain
+    # version, and at x's own max to the dynamic form
+    m = absmax_k(x)
+    q_dyn = act_quantize_plain(x)
+    q_at = act_quantize(x, amax=m)
+    torch.cuda.synchronize()
+    check(bit_equal(m, absmax_plain(x)),
+          f"qconv {label}: the absmax kernel differs from absmax_plain")
+    check(all(bit_equal(g, w) for g, w in
+              zip(q_at, act_quantize_plain(x, amax=m)))
+          and all(bit_equal(g, w) for g, w in zip(q_at, q_dyn)),
+          f"qconv {label}: the quantize at a device max differs from "
+          f"act_quantize_plain or from the dynamic form")
     xq = q_got[0]
     s_act = torch.full((1,), static_act_scale(absmax), device=dev) \
         if kw.get("in_q8") else q_got[1]
@@ -1215,9 +1255,9 @@ def _qconv_case(s: dict, label: str, kw: dict, timed: bool, dev, gen, peaks,
     s["max_abs_err"] = max(s["max_abs_err"], abs_err)
     plan = qconv_plan(n, H, W, C, oc, k, k, st, pd, sms)
     print(f"kernel qconv {str(x.dtype)[6:]}->{str(odt)[6:]:8s} "
-          f"{label:44s} bit-equal={bit_equal(got, want)} (quantize "
-          f"bit-equal) max_abs={abs_err:.3e} plan {_qconv_plan_str(plan)}",
-          end="")
+          f"{label:44s} bit-equal={bit_equal(got, want)} (quantize, absmax "
+          f"and quantize at its max bit-equal) max_abs={abs_err:.3e} plan "
+          f"{_qconv_plan_str(plan)}", end="")
     check(bit_equal(got, want), f"qconv {label}: differs from its plain "
                                 f"version (max abs {abs_err:.3e})")
     if kw.get("split"):
@@ -1240,6 +1280,15 @@ def _qconv_case(s: dict, label: str, kw: dict, timed: bool, dev, gen, peaks,
     quant_ms = graph_ms(lambda: act_quantize(x, absmax))
     # the quantize reads x once (twice where dynamic) and writes xq
     quant_bound, _ = bound(peaks, "int8", 0, _nbytes(x, xq))
+    # a dp slot's parts: absmax reads x and writes 4 bytes; the library is
+    # one PyTorch call for max|x| in f32
+    amax_ms = graph_ms(lambda: absmax_k(x))
+    amax_plain_ms = graph_ms(lambda: absmax_plain(x))
+    amax_bound, _ = bound(peaks, "int8", 0, _nbytes(x, m))
+    amax_lib_ms = graph_ms(lambda: torch.linalg.vector_norm(
+        x, float("inf"), dtype=torch.float32))
+    at_ms = graph_ms(lambda: act_quantize(x, amax=m))
+    at_plain_ms = graph_ms(lambda: act_quantize_plain(x, amax=m))
     plain_ms = cuda_ms(lambda: qconv_plain(*args), 3)
     M = got.numel() // oc
     work = 2 * M * oc * k * k * C
@@ -1263,14 +1312,28 @@ def _qconv_case(s: dict, label: str, kw: dict, timed: bool, dev, gen, peaks,
     print(f" kernel {ms:.4f} ms ({work / ms / 1e9:.1f} TOPS; the "
           f"wrapper's call {call_ms:.4f}) plain "
           f"{plain_ms:.4f} ms; quantize pass {quant_ms:.4f} ms (bound "
-          f"{quant_bound:.4f}, bytes); bound "
+          f"{quant_bound:.4f}, bytes); absmax {amax_ms:.4f} ms (plain "
+          f"{amax_plain_ms:.4f}, bound {amax_bound:.4f}, bytes; library "
+          f"vector_norm {amax_lib_ms:.4f}), quantize at it {at_ms:.4f} ms "
+          f"(plain {at_plain_ms:.4f}); bound "
           f"{bound_ms:.4f} ms ({bound_by}); library _int_mm + epilogue "
           f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}")
     s["quantize_ms"] += quant_ms
     s["quantize_bound_ms"] += quant_bound
+    s["absmax_ms"] += amax_ms
+    s["absmax_plain_ms"] += amax_plain_ms
+    s["absmax_bound_ms"] += amax_bound
+    s["absmax_library_ms"] += amax_lib_ms
+    s["quantize_at_max_ms"] += at_ms
+    s["quantize_at_max_plain_ms"] += at_plain_ms
     _add_case(s, {"case": label, "dtype": "int8", "mrd": 0.0, "ms": ms,
                   "call_ms": call_ms, "plain_ms": plain_ms,
                   "quantize_ms": quant_ms, "quantize_bound_ms": quant_bound,
+                  "absmax_ms": amax_ms, "absmax_plain_ms": amax_plain_ms,
+                  "absmax_bound_ms": amax_bound,
+                  "absmax_library_ms": amax_lib_ms,
+                  "quantize_at_max_ms": at_ms,
+                  "quantize_at_max_plain_ms": at_plain_ms,
                   "plan": _qconv_plan_str(plan),
                   "tops": work / ms / 1e9, "bound_ms": bound_ms,
                   "bound_by": bound_by, "library_ms": lib_ms,
@@ -2061,24 +2124,23 @@ def _template_ms(eng, inputs: dict, top: str) -> dict:
     return per
 
 
-def _device_busy_ms(fn) -> tuple[float, list[tuple[str, int, float]]]:
+def _device_busy_ms(fn, margin_s: float | None = None
+                    ) -> tuple[float, list[tuple[str, int, float]]]:
     """Milliseconds the card spends in kernels and copies during one call of
     fn: the sum of the device events of torch.profiler's trace (one stream,
     so they do not overlap); and the six device kernels that took the most
     of it, as (name, calls, ms). One call before it runs in the trace as
     the profiler's warm-up, whose events it drops: late in a long process
     CUPTI missed about a tenth of a forward's first kernels without it
-    (cnet_xprof's per-step total against this function's, on an H100)."""
+    (cnet_xprof's per-step total against this function's, on an H100).
+    The traced call has margin_s of idle time (default
+    tune/xprof.PROFILE_MARGIN_S) inside each end of the recorded window
+    (tune/xprof.traced_steps); margin_s 0 is the reading before that, whose
+    empty reads scripts/profiler_empty_traces.py counts."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-    from boda_tpu_torch.tune.xprof import aggregate_profile
+    from boda_tpu_torch.tune.xprof import aggregate_profile, traced_steps
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(
-            wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for _ in range(2):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
+    prof = traced_steps(fn, 1, on_card=True, margin_s=margin_s)
     rows = aggregate_profile(prof, device=True)
     busy = sum(r["total_ns"] for r in rows) / 1e6
     check(busy > 0, "torch.profiler recorded no device time")
@@ -3023,8 +3085,7 @@ def _zoo_qconv(z: dict, dev, gen, peaks) -> None:
     (the kernels phase's case, _qconv_case, timed)."""
     import torch
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    s = _stats("qconv")
-    s["quantize_ms"] = s["quantize_bound_ms"] = 0.0
+    s = _qconv_stats()
     for label, kw in ZOO_QCONV:
         _qconv_case(s, label, kw, True, dev, gen, peaks, sms)
     z["qconv_googlenet"] = {k: s[k] for k in (
@@ -5119,6 +5180,9 @@ def phase_cli(ctx: dict) -> None:
 PAR_MESH = (2, 2)
 PAR_BATCH = 32
 PAR_TUNES = {"f32": F32_MRD, "bf16_nhwc": BF16_MRD, INT8: 5e-2}
+# GoogLeNet's train-mode dropout on the mesh against one slot, f32 under ()
+PAR_DROPOUT_MRD = F32_MRD
+PAR_DROPOUT_SEED = 5
 # slots of the card the phase's in-process paths see
 PAR_SLOTS = 8
 # each rank or child process of the phase is killed after this long
@@ -5266,6 +5330,229 @@ def _par_mesh_engine(p: dict, wrappers: dict) -> None:
                                                  for k, v in nz.items()}}
         del one, msh, got, want
         torch.cuda.empty_cache()
+
+
+def _int8_dynamic_spec() -> str:
+    """The int8 preset's engine attributes without act_scales_fn: every
+    int8 site of tune/presets.RESNET_INT8_SITE_PATS quantizes at its
+    batch's absmax."""
+    from boda_tpu_torch.tune.presets import RESNET_INT8_SITE_PATS
+    q = TUNES["headline"][:-1] + ",quant8=1)"
+    pats = ",".join(f"{p}={q}" for p in RESNET_INT8_SITE_PATS)
+    return f"op_tune={TUNES['headline']},op_tunes_pat=({pats})"
+
+
+@contextlib.contextmanager
+def _scales_seen():
+    """[(x, s_act)] of every int8 step's quantize in the block, in call
+    order (the engine's slots run each step in mesh order):
+    conv.int8_conv's act_quantize wrapped to keep its input and scale."""
+    from boda_tpu_torch.ops.cuda import conv
+    seen = []
+    real = conv.act_quantize
+
+    def act_quantize(x, *a, **kw):
+        xq, s_act = real(x, *a, **kw)
+        seen.append((x, s_act))
+        return xq, s_act
+    conv.act_quantize = act_quantize
+    try:
+        yield seen
+    finally:
+        conv.act_quantize = real
+
+
+def _mesh_pair(model: str, spec: str, seed: int | None = None):
+    """(one slot's engine, the PAR_MESH engine, inputs) of `model` at
+    PAR_BATCH 224^2 under engine attributes `spec`, the inputs random from a
+    seed and, where seed is given, the dropout seed node fed it."""
+    import numpy as np
+    import torch
+    from boda_tpu_torch.core.device import get_device
+    from boda_tpu_torch.engine.iface import make_engine
+    from boda_tpu_torch.engine.lower import DROP_SEED_NODE
+    from boda_tpu_torch.models.zoo import build_model
+    dp, mp = PAR_MESH
+    pipe = build_model(model, batch=PAR_BATCH)
+    dev = get_device("cuda")
+    inputs = {"data": torch.from_numpy(np.random.RandomState(1).randn(
+        *pipe.get_data_img_dims().shape).astype(np.float32)).to(dev)}
+    if seed is not None:
+        inputs[DROP_SEED_NODE] = torch.tensor([seed], dtype=torch.int32,
+                                              device=dev)
+    one = make_engine(f"(engine=torch,{spec})")
+    one.init(pipe)
+    msh = make_engine(f"(engine=torch,{spec},mesh_dp={dp},mesh_mp={mp})")
+    msh.init(pipe)
+    return one, msh, inputs
+
+
+def _par_mesh_int8_dynamic(p: dict, wrappers: dict) -> None:
+    """ResNet-50 b32 224^2 on the 2x2 mesh under the int8 preset with
+    dynamic scales (no act_scales_fn). Every slot of every int8 step
+    quantizes at the scale that the one-slot path's dynamic quantize gives
+    the step's whole batch (the dp rows' inputs, concatenated), bit for bit
+    (each slot's absmax, pmax over dp, the quantize at that max); at the
+    steps whose whole batch is bit-equal to the one-slot forward's, at that
+    forward's s_act (the vendor f32 convs upstream may round apart at b16
+    and out_chan/2: the rest are counted, with the scales' largest relative
+    difference). The logits (prob saturates at random weights) within the
+    int8 mesh gate of one slot's; per slot one forward's launches, plus one
+    absmax per int8 step; one pmax call per int8 step."""
+    import torch
+    from boda_tpu_torch.ops.cuda.qconv import act_quantize
+    from boda_tpu_torch.parallel import mesh as pmesh
+    dp, mp = PAR_MESH
+    n = dp * mp
+    tol = PAR_TUNES[INT8]
+    from boda_tpu_torch.engine.torch_fwd import step_writes
+    one, msh, inputs = _mesh_pair("resnet-50", _int8_dynamic_spec())
+    logits = _logits_node(one.plan)
+    # the nodes the float steps before the first int8 step write, in plan
+    # order: where the mesh's values first leave one slot's
+    first_q = next(i for i, st in enumerate(one.plan.steps)
+                   if st.sig.get_u32_or("quant8", 0))
+    early = [nd for st in one.plan.steps[:first_q] for nd in step_writes(st)]
+    local = msh.mesh.local_positions()
+    rows = [j for j, q in enumerate(local) if msh.mesh.coord(q, "mp") == 0]
+    with torch.no_grad():
+        _counts_reset(wrappers)
+        with _scales_seen() as q_one:
+            want = one.fwd(inputs, one.weights, out_nodes=[logits, *early])
+        torch.cuda.synchronize()
+        counts1 = {k: w.launches for k, w in wrappers.items()}
+        msh.fwd(inputs, msh.weights)  # builds the column sigs' plans
+        torch.cuda.synchronize()
+        _counts_reset(wrappers)
+        calls0 = pmesh.pmax.calls
+        with _scales_seen() as q_mesh:
+            got = msh.fwd(inputs, msh.weights, out_nodes=[logits, *early])
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        pmax_calls = pmesh.pmax.calls - calls0
+        sites = len(q_one)
+        whole = [torch.cat([q_mesh[n * i + j][0] for j in rows])
+                 for i in range(sites)]
+        s_whole = [act_quantize(x)[1] for x in whole]
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: msh.fwd(inputs, msh.weights), 5)
+        ms1 = cuda_ms(lambda: one.fwd(inputs, one.weights), 5)
+    p["launches"]["parallel:mesh_int8_dynamic"] = counts
+    slot_s = [[s for _, s in q_mesh[n * i:n * (i + 1)]] for i in range(sites)]
+    at_whole = [all(torch.equal(v, s_whole[i]) for v in slot_s[i])
+                for i in range(sites)]
+    same_in = [torch.equal(whole[i], q_one[i][0]) for i in range(sites)]
+    at_one = [all(torch.equal(v, q_one[i][1]) for v in slot_s[i])
+              for i in range(sites)]
+    s_rd = max(float(((s_whole[i] - q_one[i][1]).abs() / q_one[i][1])
+                     .max()) for i in range(sites))
+    err = mrd(got[logits].float(), want[logits].float())
+    err_prob = mrd(got["prob"].float(), want["prob"].float())
+    apart = next(((nd, mrd(got[nd].float(), want[nd].float()))
+                  for nd in early if not torch.equal(got[nd], want[nd])),
+                 None)
+    apart_s = "none" if apart is None else f"{apart[0]} (mrd {apart[1]:.3g})"
+    nz = {k: v for k, v in counts.items() if v}
+    print(f"mesh {dp}x{mp} resnet-50 b{PAR_BATCH} int8 dynamic scales: "
+          f"s_act at the whole batch's at {sum(at_whole)} of {sites} sites "
+          f"x {n} slots; at one slot's at {sum(at_one)} (inputs bit-equal "
+          f"to one slot's at {sum(same_in)}; the first float node before "
+          f"them off one slot's: {apart_s}; largest scale rd "
+          f"{s_rd:.3g}); logits mrd {err:.3g} (<= {tol:g}), prob "
+          f"{err_prob:.3g} vs one slot; {ms:.3f} ms vs {ms1:.3f} ms; routes "
+          f"{msh.fwd.routes}; launches {nz} "
+          f"({ {k: v / n for k, v in nz.items()} } per slot; one slot "
+          f"{ {k: v for k, v in counts1.items() if v} }); absmax "
+          f"{counts['absmax']}, act_quantize {counts['act_quantize']}, pmax "
+          f"{pmax_calls} calls on [{p['smi']}]")
+    check(sites == 31 and len(q_mesh) == n * sites and all(at_whole),
+          f"mesh int8 dynamic: s_act is not the whole batch's at "
+          f"{at_whole.count(False)} site(s)")
+    check(all(o for o, i in zip(at_one, same_in) if i),
+          "mesh int8 dynamic: a site whose whole batch is bit-equal to one "
+          "slot's quantizes at another scale")
+    check(got[logits].shape == want[logits].shape
+          and bool(torch.isfinite(got[logits]).all()),
+          "mesh int8 dynamic: bad or non-finite logits")
+    check(err <= tol, f"mesh int8 dynamic: logits mrd {err:.3g} > {tol:g}")
+    check(counts1 == {**INT8_LAUNCHES, "qconv": sites,
+                      "act_quantize": sites},
+          f"mesh int8 dynamic: one slot launched {counts1}")
+    check(counts == {k: n * v + (n * sites if k == "absmax" else 0)
+                     for k, v in counts1.items()} and pmax_calls == sites,
+          f"mesh int8 dynamic: launches {nz}, pmax {pmax_calls} calls; "
+          f"planned per slot {counts1} + {sites} absmax, {sites} pmax")
+    p["mesh"]["int8_dynamic"] = {
+        "logits_mrd": err, "prob_mrd": err_prob, "ms": ms,
+        "ms_unsharded": ms1, "s_act_whole_batch_sites": sum(at_whole),
+        "s_act_one_slot_sites": sum(at_one),
+        "inputs_one_slot_sites": sum(same_in), "s_act_max_rd": s_rd,
+        "first_float_node_apart": apart_s,
+        "routes": dict(msh.fwd.routes), "launches": nz,
+        "launches_per_slot": {k: v / n for k, v in nz.items()},
+        "pmax_calls": pmax_calls}
+    del one, msh, got, want, q_one, q_mesh, whole, s_whole
+    torch.cuda.empty_cache()
+
+
+def _par_mesh_train_dropout(p: dict, wrappers: dict) -> None:
+    """GoogLeNet (googlenet_conv, whose pool5/drop_7x7_s1 drops in train
+    mode) b32 224^2 on the 2x2 mesh under () with train_dropout=1 and a fed
+    seed, its logits (prob saturates at random weights) within
+    PAR_DROPOUT_MRD of one slot's; B1 and B2 launched as every slot runs
+    every step once; the mask live (another seed moves the logits)."""
+    import torch
+    from boda_tpu_torch.engine.lower import DROP_SEED_NODE
+    dp, mp = PAR_MESH
+    n = dp * mp
+    one, msh, inputs = _mesh_pair("googlenet_conv",
+                                  "op_tune=(),train_dropout=1",
+                                  seed=PAR_DROPOUT_SEED)
+    other = {**inputs, DROP_SEED_NODE: inputs[DROP_SEED_NODE] + 1}
+    logits = _logits_node(one.plan)
+    with torch.no_grad():
+        want = one.fwd(inputs, one.weights, out_nodes=[logits])
+        want2 = one.fwd(other, one.weights, out_nodes=[logits])[logits]
+        msh.fwd(inputs, msh.weights)  # builds the column sigs' plans
+        torch.cuda.synchronize()
+        _counts_reset(wrappers)
+        got = msh.fwd(inputs, msh.weights, out_nodes=[logits])
+        torch.cuda.synchronize()
+        counts = {k: w.launches for k, w in wrappers.items()}
+        ms = cuda_ms(lambda: msh.fwd(inputs, msh.weights), 5)
+        ms1 = cuda_ms(lambda: one.fwd(inputs, one.weights), 5)
+    p["launches"]["parallel:mesh_train_dropout"] = counts
+    planned = {k: n * v
+               for k, v in _planned_launches(one.plan, counts).items()}
+    err = mrd(got[logits].float(), want[logits].float())
+    err_prob = mrd(got["prob"].float(), want["prob"].float())
+    live = mrd(want2.float(), want[logits].float())
+    nz = {k: v for k, v in counts.items() if v}
+    print(f"mesh {dp}x{mp} googlenet_conv b{PAR_BATCH} () train_dropout "
+          f"seed {PAR_DROPOUT_SEED}: logits mrd {err:.3g} (<= "
+          f"{PAR_DROPOUT_MRD:g}), prob {err_prob:.3g} vs one slot (seed "
+          f"{PAR_DROPOUT_SEED + 1}: logits {live:.3g}); "
+          f"{ms:.3f} ms vs {ms1:.3f} ms; routes {msh.fwd.routes}; launches "
+          f"{nz} ({ {k: v / n for k, v in nz.items()} } per slot) on "
+          f"[{p['smi']}]")
+    check(got[logits].shape == want[logits].shape
+          and bool(torch.isfinite(got[logits]).all()),
+          "mesh train_dropout: bad or non-finite logits")
+    check(err <= PAR_DROPOUT_MRD,
+          f"mesh train_dropout: logits mrd {err:.3g} > {PAR_DROPOUT_MRD:g}")
+    check(live > PAR_DROPOUT_MRD, f"mesh train_dropout: another seed moved "
+                                  f"the output by {live:.3g} only")
+    check(counts == planned and counts["matmul_ext"] > 0
+          and counts["tconv"] > 0,
+          f"mesh train_dropout: launches {nz} != planned "
+          f"{ {k: v for k, v in planned.items() if v} }")
+    p["mesh"]["googlenet_train_dropout"] = {
+        "logits_mrd": err, "prob_mrd": err_prob, "other_seed_mrd": live,
+        "ms": ms, "ms_unsharded": ms1,
+        "routes": dict(msh.fwd.routes), "launches": nz,
+        "launches_per_slot": {k: v / n for k, v in nz.items()}}
+    del one, msh, got, want, want2
+    torch.cuda.empty_cache()
 
 
 def _logits_node(plan) -> str:
@@ -5583,13 +5870,16 @@ def _par_dryrun(p: dict, wrappers: dict) -> None:
 
 def phase_parallel(ctx: dict) -> None:
     """Parallel and multi-process on the card, every path at 224^2 on slots
-    of the one card: the engine's 2x2 mesh, mh_test's ranks, pp_test and
-    gpipe_plan_forward, and dryrun_multichip(8)."""
+    of the one card: the engine's 2x2 mesh (three tunes; the int8 preset
+    with dynamic scales; GoogLeNet's train-mode dropout), mh_test's ranks,
+    pp_test and gpipe_plan_forward, and dryrun_multichip(8)."""
     wrappers = _wrappers()
     p = {"smi": ctx["smi"], "launches": ctx.setdefault("launches", {}),
          "mesh": {}, "mh_test": {}}
     with _slots(PAR_SLOTS):
         for step in (lambda: _par_mesh_engine(p, wrappers),
+                     lambda: _par_mesh_int8_dynamic(p, wrappers),
+                     lambda: _par_mesh_train_dropout(p, wrappers),
                      lambda: _par_mh_test(p),
                      lambda: _par_pipelines(p, wrappers),
                      lambda: _par_dryrun(p, wrappers)):
@@ -5671,6 +5961,13 @@ def main() -> int:
         if name == "qconv":
             kernels[-1]["quantize_launches"] = \
                 ctx["launches"][INT8]["act_quantize"]
+            # its dynamic scale under a dp split: each slot's absmax, one
+            # pmax per step (the 2x2 mesh's forward)
+            dyn = ctx["launches"]["parallel:mesh_int8_dynamic"]
+            kernels[-1]["dp_split_launches"] = {
+                k: dyn[k] for k in ("qconv", "act_quantize", "absmax")}
+            kernels[-1]["dp_split_pmax_calls"] = \
+                ctx["parallel"]["mesh"]["int8_dynamic"]["pmax_calls"]
     # B6 in the training path's role: the int8 weight gradients of the
     # grad_q8 preset's cnet_train run
     wg = ctx["train"]["wgrad"]

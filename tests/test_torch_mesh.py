@@ -167,6 +167,12 @@ try:
         assert sh[(i, j)].tolist() == ([float(j)] * 2 if i else [0.0] * 2)
     r = pm.sum_over_ranks(m, {"w": torch.full((3,), rank + 1.0)})
     assert r["w"].tolist() == [3.0] * 3, r
+    mx = pm.pmax(m, {p: torch.tensor([10.0 * p[0] - p[1],
+                                      float("nan") if p == (1, 1) else 0.0])
+                     for p in m.local_positions()}, "dp")
+    for (i, j) in m.local_positions():
+        assert mx[(i, j)][0].item() == 10.0 - j, mx
+        assert mx[(i, j)][1].isnan().item() == (j == 1), mx
     print("collectives OK")
 finally:
     shutdown_multihost()
@@ -175,8 +181,8 @@ finally:
 
 def test_collectives_between_two_processes(tmp_path):
     """all_gather, psum and ppermute over the dp axis of a (2,2) mesh whose
-    rows are two gloo ranks (bf16 values, through the host), and
-    sum_over_ranks."""
+    rows are two gloo ranks (bf16 values, through the host),
+    sum_over_ranks, and pmax over dp (f32, a NaN kept)."""
     from boda_tpu_torch.parallel.multihost import free_port
     script = tmp_path / "coll.py"
     script.write_text(_COLLECTIVES_2RANKS)
@@ -283,11 +289,18 @@ def test_engine_mesh_refusals(cpu_slots):
     with pytest.raises(RtErr, match=r"dp\*mp = 4\*4 != 8 devices"):
         make_engine("(engine=torch,device=cpu,mesh_dp=4,mesh_mp=4)").init(
             pipe)
-    # a dynamic int8 scale is the batch's absmax: no dp split
-    e = make_engine("(engine=torch,device=cpu,mesh_dp=2,"
-                    "op_tune=(use_culibs=1,prec=bf16,layout=nhwc,quant8=1))")
-    with pytest.raises(RtErr, match="dynamic scale"):
+    # a dynamic int8 scale is the batch's absmax: a dp split takes it over
+    # the dp group (pmax), so its forward is one slot's
+    d = pipe.get_data_img_dims()
+    x = {"data": NDA(d, np.random.RandomState(0).randn(*d.shape)
+                     .astype(np.float32))}
+    tune = "op_tune=(use_culibs=1,prec=bf16,layout=nhwc,quant8=1)"
+    probs = []
+    for mesh in (",mesh_dp=2", ""):
+        e = make_engine(f"(engine=torch,device=cpu,{tune}{mesh})")
         e.init(pipe)
+        probs.append(e.run_fwd(x, ["prob"])["prob"].v)
+    np.testing.assert_array_equal(*probs)
     # mp alone leaves the batch whole, so the dynamic scale is the same
     e = make_engine("(engine=torch,device=cpu,mesh_dp=1,mesh_mp=2,"
                     "op_tune=(use_culibs=1,prec=bf16,layout=nhwc,quant8=1))")
