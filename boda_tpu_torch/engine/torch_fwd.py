@@ -45,7 +45,7 @@ from ..core.config import Attr, register
 from ..core.device import get_device, plat_tag
 from ..core.dims import NDA, Dims
 from ..core.error import RtErr
-from ..core.timers import timer
+from ..core.timers import global_timer_log, recording, timer
 from ..graph.pipe import ConvPipe
 from ..ops.cnn_variants import OpTune, make_op_tune
 from ..ops.cuda.util import torch_dtype
@@ -240,12 +240,14 @@ def build_forward(plan: Plan, device: torch.device | None = None,
     backward there (mxu_grad.step_has_backward) raises, naming the step.
     step_hook, when given, is called with each step (on each local slot)
     and returns a context manager that the step runs in (a per-step timer,
-    for instance). write_hook(node, value), when given, is called on every
+    for instance; `TorchFwd` passes `StepSpans` while a profiler records).
+    write_hook(node, value), when given, is called on every
     node a step writes, with its global value in storage form (the
     engine's stats and nan_check). An INOUT target that no step has written
     yet (a concat, which its members' copy steps fill in place) starts as
     zeros in storage form, made anew in each forward; a weight missing from
-    `weights` raises."""
+    `weights` raises. fwd, its input staging and its outputs are the
+    timers `fwd`, `fwd.inputs` and `fwd.outputs` (core/timers.py)."""
     if mesh is None:
         if device is None:
             raise RtErr("build_forward: give a device or a mesh")
@@ -299,79 +301,113 @@ def build_forward(plan: Plan, device: torch.device | None = None,
 
     def fwd(inputs: dict, weights: dict, out_nodes=(), step_hook=None,
             write_hook=None) -> dict:
-        check_inputs(inputs)
-        grad = torch.is_grad_enabled()
-        # an mp group across processes takes the gathered route under
-        # autograd (the exchange is not differentiable)
-        col_ok = not grad or mp_local
-        envs = [dict(weights) if d == dev0
-                else {n: w.to(d) for n, w in weights.items()} for d in devs]
-        for n, v in inputs.items():
-            if n in preprocs:
-                v = preprocs[n][0](v)
-                check_input(n, v, node_dims[n], "the plan's logical dims "
-                            "(the output of its input preprocessing)")
-            v = _storage_in(v, node_dims[n], plan)
-            for env, p, d in zip(envs, local, devs):
-                env[n] = shard_of(v, in_sh[n], p).to(d)
-        for fn, col_fn, col_ix, tmpl, s, has_bwd, reads, out_to, writes \
-                in steps:
-            col = col_fn is not None and col_ok
-            f = col_fn if col else fn
-            slot_ins = {}
-            for env, p, d in zip(envs, local, devs):
-                try:
-                    ins = [env[n] for n in reads]
-                except KeyError:
-                    ins = step_inputs(lplan, tmpl, s, env, d, weight_set)
-                if col:
-                    for i, n in col_ix:
-                        ins[i] = shard_of(ins[i], w_sh[n], p)
-                if grad and not has_bwd and any(v.requires_grad for v in ins):
-                    check_trainable([s], "build_forward")
-                slot_ins[p] = ins
-            kws = slot_kwargs(mesh, f, slot_ins, local_batch) if split \
-                else no_kwargs
-            for env, p in zip(envs, local):
-                if step_hook is None:
-                    outs = f(*slot_ins[p], **kws[p])
-                else:
-                    with step_hook(s):
-                        outs = f(*slot_ins[p], **kws[p])
-                if not isinstance(outs, (tuple, list)):
-                    outs = (outs,)
-                for n, v in zip(out_to, outs):
-                    if n is not None:
-                        env[n] = v
-            if col:
-                node = s.arg_nodes["out"]
-                got = gather_mp(mesh, {p: env[node]
-                                       for p, env in zip(local, envs)},
-                                chan_axis(lplan, lplan.node_dims[node]))
+        with timer("fwd"):
+            with timer("fwd.inputs"):
+                check_inputs(inputs)
+                grad = torch.is_grad_enabled()
+                # an mp group across processes takes the gathered route
+                # under autograd (the exchange is not differentiable)
+                col_ok = not grad or mp_local
+                envs = [dict(weights) if d == dev0
+                        else {n: w.to(d) for n, w in weights.items()}
+                        for d in devs]
+                for n, v in inputs.items():
+                    if n in preprocs:
+                        v = preprocs[n][0](v)
+                        check_input(n, v, node_dims[n], "the plan's logical "
+                                    "dims (the output of its input "
+                                    "preprocessing)")
+                    v = _storage_in(v, node_dims[n], plan)
+                    for env, p, d in zip(envs, local, devs):
+                        env[n] = shard_of(v, in_sh[n], p).to(d)
+            for fn, col_fn, col_ix, tmpl, s, has_bwd, reads, out_to, writes \
+                    in steps:
+                col = col_fn is not None and col_ok
+                f = col_fn if col else fn
+                slot_ins = {}
+                for env, p, d in zip(envs, local, devs):
+                    try:
+                        ins = [env[n] for n in reads]
+                    except KeyError:
+                        ins = step_inputs(lplan, tmpl, s, env, d, weight_set)
+                    if col:
+                        for i, n in col_ix:
+                            ins[i] = shard_of(ins[i], w_sh[n], p)
+                    if grad and not has_bwd \
+                            and any(v.requires_grad for v in ins):
+                        check_trainable([s], "build_forward")
+                    slot_ins[p] = ins
+                kws = slot_kwargs(mesh, f, slot_ins, local_batch) if split \
+                    else no_kwargs
                 for env, p in zip(envs, local):
-                    env[node] = got[p]
-            if write_hook is not None:
-                for node in writes:
-                    write_hook(node, gather_rows(
-                        mesh, {p: env[node] for p, env in zip(local, envs)},
-                        split))
-        env0 = envs[0]
-        names = list(plan.output_nodes)
-        if keep_all_nodes:
-            names += [n for n in env0 if n not in weights and n not in inputs
-                      and n in node_dims and n not in names]
-        names += [n for n in out_nodes if n not in names]
-        missing = [n for n in names if n not in env0]
-        if missing:
-            raise RtErr(f"build_forward: node(s) {missing} are not produced "
-                        f"by any step")
-        return {n: _storage_out(gather_rows(
-                    mesh, {p: env[n] for p, env in zip(local, envs)}, split),
-                    node_dims[n], plan)
-                for n in names}
+                    if step_hook is None:
+                        outs = f(*slot_ins[p], **kws[p])
+                    else:
+                        with step_hook(s):
+                            outs = f(*slot_ins[p], **kws[p])
+                    if not isinstance(outs, (tuple, list)):
+                        outs = (outs,)
+                    for n, v in zip(out_to, outs):
+                        if n is not None:
+                            env[n] = v
+                if col:
+                    node = s.arg_nodes["out"]
+                    got = gather_mp(mesh, {p: env[node]
+                                           for p, env in zip(local, envs)},
+                                    chan_axis(lplan, lplan.node_dims[node]))
+                    for env, p in zip(envs, local):
+                        env[node] = got[p]
+                if write_hook is not None:
+                    for node in writes:
+                        write_hook(node, gather_rows(
+                            mesh, {p: env[node]
+                                   for p, env in zip(local, envs)}, split))
+            with timer("fwd.outputs"):
+                env0 = envs[0]
+                names = list(plan.output_nodes)
+                if keep_all_nodes:
+                    names += [n for n in env0
+                              if n not in weights and n not in inputs
+                              and n in node_dims and n not in names]
+                names += [n for n in out_nodes if n not in names]
+                missing = [n for n in names if n not in env0]
+                if missing:
+                    raise RtErr(f"build_forward: node(s) {missing} are not "
+                                f"produced by any step")
+                return {n: _storage_out(gather_rows(
+                            mesh, {p: env[n] for p, env in zip(local, envs)},
+                            split), node_dims[n], plan)
+                        for n in names}
 
     fwd.routes = routes
     return fwd
+
+
+class StepSpans:
+    """build_forward's step_hook while a profiler records: each step on
+    each slot a `fwd.step` span (call_tag, func_name) in the timer log's
+    span list (core/timers.py), with no record_function range and no TIMERS
+    row, which would cost the step loop more than the host time it
+    measures. One instance per forward: it records into the span open at
+    its first step (the forward's `fwd`)."""
+
+    def __init__(self):
+        self.add = None
+
+    def __call__(self, s: Step) -> "StepSpans":
+        self.step = s
+        return self
+
+    def __enter__(self) -> None:
+        self.t0 = time.time_ns()
+
+    def __exit__(self, *exc) -> None:
+        end = time.time_ns()
+        if self.add is None:
+            self.add = global_timer_log.recorder("fwd.step")
+        s = self.step
+        self.add(self.t0, end, {"call_tag": s.call_tag,
+                                "func_name": s.func_name})
 
 
 def _stats_sig(dims: Dims) -> OpBase:
@@ -602,18 +638,25 @@ class TorchFwd(ConvFwd):
                                                        dtype=torch.float32)
 
         hooked = self.enable_stats or self.nan_check
-        with timer("run_fwd"):
-            inputs = {n: torch.from_numpy(np.ascontiguousarray(v.v))
-                      .to(self.dev) for n, v in to_set.items()}
-            if DROP_SEED_NODE in self.plan.input_nodes:
-                # an unfed seed is 0, the JAX engine's first-touch zero
-                inputs.setdefault(DROP_SEED_NODE, torch.zeros(
-                    1, dtype=torch.int32, device=self.dev))
+        # each step a span while a profiler records; else no hook at all
+        step_hook = StepSpans() if recording() else None
+        with timer("run_fwd", request=True):
+            with timer("run_fwd.upload",
+                       bytes=sum(v.v.nbytes for v in to_set.values())):
+                inputs = {n: torch.from_numpy(np.ascontiguousarray(v.v))
+                          .to(self.dev) for n, v in to_set.items()}
+                if DROP_SEED_NODE in self.plan.input_nodes:
+                    # an unfed seed is 0, the JAX engine's first-touch zero
+                    inputs.setdefault(DROP_SEED_NODE, torch.zeros(
+                        1, dtype=torch.int32, device=self.dev))
             t0 = time.perf_counter()
             with torch.no_grad():
                 outs = self.fwd(inputs, self.weights, out_nodes=want,
+                                step_hook=step_hook,
                                 write_hook=write_hook if hooked else None)
-            outs = {n: v.cpu().numpy() for n, v in outs.items()}
+            with timer("run_fwd.readback",
+                       bytes=sum(v.nbytes for v in outs.values())):
+                outs = {n: v.cpu().numpy() for n, v in outs.items()}
             self.last_run_secs = time.perf_counter() - t0
         if peaks:
             finite = torch.isfinite(torch.stack(list(peaks.values()))) \
@@ -712,7 +755,7 @@ class TorchFwd(ConvFwd):
     def _run_per_call(self, to_set: dict[str, NDA],
                       to_get: list[str]) -> dict[str, NDA]:
         be = self.rtc
-        with timer("run_fwd"), torch.no_grad():
+        with timer("run_fwd", request=True), torch.no_grad():
             be.copy_ndas_to_vars(to_set)
             call_ids = []
             for c in self.fwd_calls:

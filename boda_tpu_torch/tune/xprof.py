@@ -63,13 +63,15 @@ def kernel_kind(name: str) -> str:
 def aggregate_profile(prof, device: bool) -> list[dict]:
     """Rows of a torch.profiler run: [{op, kind, count, total_ns}] summed
     over calls, heaviest first. device: the card's events (each kernel's
-    self device time), else the host's (each op's self time). The
-    profiler's own step annotations (ProfilerStep*), which span whole
-    steps, are not rows."""
+    self device time), else the host's (each op's self time). Annotated
+    ranges, which span other rows' work, are not rows: the profiler's own
+    step annotations (ProfilerStep*) and the program's timer spans
+    (core/timers.py)."""
     rows = []
     for e in prof.key_averages():
         us = e.self_device_time_total if device else e.self_cpu_time_total
-        if us > 0 and not e.key.startswith("ProfilerStep"):
+        if us > 0 and not e.key.startswith("ProfilerStep") \
+                and not getattr(e, "is_user_annotation", False):
             rows.append({"op": e.key, "kind": kernel_kind(e.key),
                          "count": e.count, "total_ns": us * 1e3})
     return sorted(rows, key=lambda r: -r["total_ns"])
