@@ -40,8 +40,9 @@
 //     each split unit writes int32 partial sums to a workspace, and
 //     qconv_reduce adds them and runs the epilogue for the split tiles' rows.
 //     Splits that make a second wave of units measured slower than none.
-//  2. The pipeline. One block per SM, persistent over the (tile, split)
-//     units: two producer warpgroups keep a 4-stage ring of 32 KB stages full
+//  2. The pipeline (conv_ring.cuh, which B7's bf16 conv runs on too). One
+//     block per SM, persistent over the (tile, split) units: two producer
+//     warpgroups keep a 4-stage ring of 32 KB stages full
 //     (each stage's "full" and "empty" mbarriers, tma_pipe.cuh) while two
 //     consumer warpgroups each run wgmma m64n128k32 s32 on their 64 rows; the
 //     producers run on into the next unit while the consumers store a tile.
@@ -94,6 +95,7 @@
 
 #include <type_traits>
 
+#include "conv_ring.cuh"  // the ring, its loaders and the unit walk
 #include "hopper_gemm.cuh"
 #include "quant.cuh"  // quant_amax, block_max, nan_max, q8
 #include "tma_pipe.cuh"
@@ -101,124 +103,14 @@
 namespace {
 
 using namespace boda::hopper;
+using namespace boda::convring;
 namespace tma = boda::tma;
 
-constexpr int kTile = 128;                      // block tile: 128 pixels x 128 output channels
-constexpr int kRing = 4;                        // stages of the ring
-constexpr int kBytesA = kTile * kRowBytes;      // 16 KB of A per stage
-constexpr int kStageBytes = 2 * kBytesA;        // A then B
-constexpr int kProducers = 256;                 // warpgroups 0 and 1
-constexpr int kBlock = kProducers + 2 * 128;    // and two consumer warpgroups
+using QShape = ConvShape;
+using L = Layout<kTile>;                        // 128 x 128 tiles
 constexpr int kEpiStride = 128 * 4 + 32;        // bytes of a staged row of 4-byte results
 constexpr int kEpiBytes = 64 * kEpiStride;      // one consumer warpgroup's staging
-constexpr int kOffEpi = kRing * kStageBytes;
-constexpr int kOffPix = kOffEpi + 2 * kEpiBytes;
-constexpr int kOffBar = kOffPix + kTile * 16;
-constexpr int kSmem = kOffBar + 2 * kRing * 8 + 1024;  // and up to 1 KB to align
-
-struct QShape {
-  int M, N, K;     // GEMM rows (n*oy*ox), cols (oc), depth (ky*kx*C)
-  int H, W, C;     // input NHWC extents
-  int oy, ox;      // output extents
-  int ky, kx, sy, sx, py, px;
-  int chunks;      // K chunks of 128 bytes
-  int tiles_n;     // tiles along N
-  int tiles;       // tiles of the output
-  int full;        // tiles [0, full) run whole, each one unit (a multiple of tiles_n)
-  int splits;      // the rest, tiles [full, tiles), in this many K ranges each
-  int va, vb;      // bytes of one copy of A / of B (16, 8, 4 or 1; B by TMA where 16)
-};
-
-// Output pixel m's window: tap (yy, xx), channel c of it is the element
-// base + (yy*W + xx)*C + c, inside the image iff 0 <= iy0 + yy < H and
-// 0 <= ix0 + xx < W. A row past M gets iy0 far below 0 (never inside).
-__device__ __forceinline__ int4 pixel_of(const QShape& s, int m) {
-  if (m >= s.M) return make_int4(0, -(1 << 30), -(1 << 30), 0);
-  const int img = m / (s.oy * s.ox);
-  const int rem = m - img * (s.oy * s.ox);
-  const int oyy = rem / s.ox;
-  const int iy0 = oyy * s.sy - s.py;
-  const int ix0 = (rem - oyy * s.ox) * s.sx - s.px;
-  return make_int4(((img * s.H + iy0) * s.W + ix0) * s.C, iy0, ix0, 0);
-}
-
-// The tap (yy, xx) and channel c of depth k, advanced a chunk at a time.
-struct Tap {
-  int c, xx, yy;
-  __device__ __forceinline__ void at(const QShape& s, int k) {
-    const int tap = k / s.C;
-    c = k - tap * s.C;
-    yy = tap / s.kx;
-    xx = tap - yy * s.kx;
-  }
-  __device__ __forceinline__ void next_chunk(const QShape& s) {
-    c += kRowBytes;
-    while (c >= s.C) {
-      c -= s.C;
-      if (++xx == s.kx) xx = 0, ++yy;
-    }
-  }
-};
-
-// Byte offset of byte b of row r in a stage buffer: 16-byte chunk b / 16
-// XOR-swizzled by r % 8 (swz of hopper_gemm.cuh, which TMA's 128-byte
-// swizzle also writes).
-__device__ __forceinline__ uint32_t swz_byte(int r, int b) {
-  return (uint32_t)(r * kRowBytes + ((((b >> 4) ^ (r & 7)) << 4) | (b & 15)));
-}
-
-// Producer thread t's copies of A for one chunk, V bytes each: run j = t %
-// (128 / V) of the rows t / (128 / V) + RS * i, RS = kProducers / (128 /
-// V) rows a pass; tap the tap of its run. V = 1: element by element into
-// shared memory.
-template <int V>
-__device__ __forceinline__ void stage_a(const QShape& s, const int8_t* __restrict__ x,
-                                        const int4* pix, const Tap& tap, uint32_t sa,
-                                        uint8_t* sa_p) {
-  constexpr int R = kRowBytes / V;  // runs per row
-  constexpr int RS = kProducers / R;  // rows per pass
-  static_assert(kTile % RS == 0, "whole passes over the tile's rows");
-  const int t = threadIdx.x;
-  const int b = (t % R) * V;
-  const bool kin = tap.yy < s.ky;
-  const int toff = (tap.yy * s.W + tap.xx) * s.C + tap.c;
-#pragma unroll 8
-  for (int i = 0; i < kTile / RS; ++i) {
-    const int r = t / R + RS * i;
-    const int4 p = pix[r];
-    const bool ok = kin && (unsigned)(p.y + tap.yy) < (unsigned)s.H &&
-                    (unsigned)(p.z + tap.xx) < (unsigned)s.W;
-    if constexpr (V == 1) {
-      sa_p[swz_byte(r, b)] = ok ? (uint8_t)x[p.x + toff] : (uint8_t)0;
-    } else {
-      tma::cp_async<V>(sa + swz_byte(r, b), ok ? x + p.x + toff : x, ok);
-    }
-  }
-}
-
-// Producer thread t's copies of B (rows n0 .. n0 + 127 of the row-major [N,
-// K] filter) for chunk kc where B does not come by TMA.
-template <int V>
-__device__ __forceinline__ void stage_b(const QShape& s, const int8_t* __restrict__ w, int n0,
-                                        int kc, uint32_t sb, uint8_t* sb_p) {
-  constexpr int R = kRowBytes / V;
-  constexpr int RS = kProducers / R;
-  const int t = threadIdx.x;
-  const int b = (t % R) * V;
-  const int k = kc * kRowBytes + b;
-#pragma unroll 8
-  for (int i = 0; i < kTile / RS; ++i) {
-    const int r = t / R + RS * i;
-    const int n = n0 + r;
-    const bool ok = k < s.K && n < s.N;
-    const int8_t* src = ok ? w + (size_t)n * s.K + k : w;
-    if constexpr (V == 1) {
-      sb_p[swz_byte(r, b)] = ok ? (uint8_t)*src : (uint8_t)0;
-    } else {
-      tma::cp_async<V>(sb + swz_byte(r, b), src, ok);
-    }
-  }
-}
+constexpr int kSmem = L::kOffEpi + 2 * kEpiBytes + 1024;  // and up to 1 KB to align
 
 // The epilogue of one sum: f32(v) * (s_act * sws[n]) + bias[n], ReLU, each
 // step one rounding.
@@ -322,44 +214,27 @@ __device__ __forceinline__ void epilogue(const QShape& s, const Outs& o, const i
   }
 }
 
-// Unit u of the walk: tile (mt, nt) and its chunks [kc0, kc1). The first
-// `full` units are tiles 0 .. full - 1, each whole (z = -1); then split z
-// of every later tile, the chunks in `splits` ranges whose sizes differ by
-// at most one, split 0 of each first.
-struct Unit {
-  int z, m0, n0, kc0, kc1;
-  __device__ __forceinline__ Unit(const QShape& s, int u) {
-    int tile = u;
-    z = -1;
-    kc0 = 0;
-    kc1 = s.chunks;
-    if (u >= s.full) {
-      const int rest = s.tiles - s.full, v = u - s.full;
-      z = v / rest;
-      tile = s.full + (v - z * rest);
-      kc0 = z * s.chunks / s.splits;
-      kc1 = (z + 1) * s.chunks / s.splits;
-    }
-    m0 = (tile / s.tiles_n) * kTile;
-    n0 = (tile % s.tiles_n) * kTile;
+// The epilogue of a unit: a whole tile's results in T, a split's int32
+// partial sums into the workspace.
+template <typename T>
+struct QEpi {
+  const QShape& s;
+  const Outs& o;
+  uint8_t* smem;
+  struct State {};
+  __device__ __forceinline__ void operator()(const Unit<kTile>& un, int wg,
+                                             const int (&acc)[64], State&) const {
+    uint8_t* stg = smem + L::kOffEpi + wg * kEpiBytes;
+    if (un.z < 0)
+      epilogue<T>(s, o, acc, stg, wg, un.m0 + 64 * wg, un.n0, static_cast<T*>(o.out), 0);
+    else
+      epilogue<int>(s, o, acc, stg, wg, un.m0 + 64 * wg, un.n0,
+                    o.ws + (size_t)un.z * (s.M - o.m_split) * s.N, o.m_split);
   }
 };
 
-// The number of units: the whole tiles and every split of the rest.
-__host__ __device__ inline int units_of(const QShape& s) {
-  return s.full + (s.tiles - s.full) * s.splits;
-}
-
-// How a stage is filled: A and B by the producers' copies; B by TMA (s.vb
-// == 16); or both by TMA, where A is the row-major [M, C] matrix xq is (a
-// 1x1 conv of stride 1, no padding, s.va == 16).
-enum Fill { kCopies, kTmaB, kTmaAB };
-
-// One block per SM walks the units u = blockIdx.x, + gridDim.x, ...: the
-// two producer warpgroups fill the ring (one thread of them where both
-// operands come by TMA), the two consumer warpgroups multiply and store: a
-// whole tile's results in T, a split's int32 partial sums into the
-// workspace.
+// One block per SM walks the units (conv_ring.cuh's ring_conv): int8 wgmma
+// m64n128k32 into int32 sums, then QEpi.
 template <typename T, int kFill>
 __global__ void __launch_bounds__(kBlock, 1)
     qconv_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
@@ -367,127 +242,9 @@ __global__ void __launch_bounds__(kBlock, 1)
                  const __grid_constant__ CUtensorMap xmap, Outs o, QShape s, int units) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align_1024(smem_raw);
-  const uint32_t ring = smem_addr(smem);
-  int4* pix = reinterpret_cast<int4*>(smem + kOffPix);
-  const uint32_t full0 = smem_addr(smem + kOffBar), empty0 = full0 + 8 * kRing;
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < kRing; ++st) {
-      tma::mbar_init(full0 + 8 * st,
-                     kFill == kTmaAB ? 1 : kProducers + (kFill == kTmaB ? 1 : 0));
-      tma::mbar_init(empty0 + 8 * st, 8);  // one arrival per consumer warp
-    }
-    tma::fence_mbar_init();
-    if constexpr (kFill != kCopies) tma::prefetch_map(&wmap);
-    if constexpr (kFill == kTmaAB) tma::prefetch_map(&xmap);
-  }
-  __syncthreads();
-
-  int st = 0;
-  uint32_t phase = 0;
-  if (kFill == kTmaAB && threadIdx.x < kProducers) {
-    // ---- producer, both operands by TMA: one thread, two loads a chunk
-    if (threadIdx.x == 0) {
-      for (int u = blockIdx.x; u < units; u += gridDim.x) {
-        const Unit un(s, u);
-        for (int kc = un.kc0; kc < un.kc1; ++kc) {
-          const uint32_t full = full0 + 8 * st;
-          tma::mbar_wait(empty0 + 8 * st, phase ^ 1);
-          const uint32_t sa = ring + st * kStageBytes;
-          tma::mbar_expect_tx(full, kStageBytes);
-          tma::tma_load_2d(sa, &xmap, kc * kRowBytes, un.m0, full);
-          tma::tma_load_2d(sa + kBytesA, &wmap, kc * kRowBytes, un.n0, full);
-          if (++st == kRing) st = 0, phase ^= 1;
-        }
-      }
-    }
-  } else if (threadIdx.x < kProducers) {
-    // ---- producers: fill the ring, unit after unit
-    const int t = threadIdx.x;
-    for (int u = blockIdx.x; u < units; u += gridDim.x) {
-      const Unit un(s, u);
-      tma::named_sync(1, kProducers);  // the previous unit's copies are issued
-      if (t < kTile) pix[t] = pixel_of(s, un.m0 + t);
-      tma::named_sync(1, kProducers);
-      const int runs = kRowBytes / s.va;
-      Tap tap;
-      tap.at(s, un.kc0 * kRowBytes + (t % runs) * s.va);
-      for (int kc = un.kc0; kc < un.kc1; ++kc) {
-        const uint32_t full = full0 + 8 * st;
-        tma::mbar_wait(empty0 + 8 * st, phase ^ 1);
-        const uint32_t sa = ring + st * kStageBytes, sb = sa + kBytesA;
-        uint8_t* sa_p = smem + st * kStageBytes;
-        if constexpr (kFill == kTmaB) {
-          if (t == 0) {
-            tma::mbar_expect_tx(full, kBytesA);
-            tma::tma_load_2d(sb, &wmap, kc * kRowBytes, un.n0, full);
-          }
-        }
-        switch (s.va) {
-          case 16: stage_a<16>(s, x, pix, tap, sa, sa_p); break;
-          case 8: stage_a<8>(s, x, pix, tap, sa, sa_p); break;
-          case 4: stage_a<4>(s, x, pix, tap, sa, sa_p); break;
-          default: stage_a<1>(s, x, pix, tap, sa, sa_p); break;
-        }
-        if constexpr (kFill == kCopies) {
-          switch (s.vb) {
-            case 16: stage_b<16>(s, w, un.n0, kc, sb, sa_p + kBytesA); break;
-            case 8: stage_b<8>(s, w, un.n0, kc, sb, sa_p + kBytesA); break;
-            case 4: stage_b<4>(s, w, un.n0, kc, sb, sa_p + kBytesA); break;
-            default: stage_b<1>(s, w, un.n0, kc, sb, sa_p + kBytesA); break;
-          }
-        }
-        if (s.va == 1 || s.vb == 1) {
-          // element stores: every copy of this thread landed, then one
-          // release arrival (the writes visible to the async proxy first)
-          tma::cp_async_wait_all();
-          fence_proxy_async();
-          tma::mbar_arrive(full);
-        } else {
-          tma::cp_async_arrive(full);
-        }
-        tap.next_chunk(s);
-        if (++st == kRing) st = 0, phase ^= 1;
-      }
-    }
-    tma::cp_async_wait_all();
-  } else {
-    // ---- consumers: warpgroup wg multiplies rows 64 wg .. 64 wg + 63
-    const int wg = (threadIdx.x - kProducers) >> 7;
-    const bool lead = (threadIdx.x & 31) == 0;
-    uint8_t* stg = smem + kOffEpi + wg * kEpiBytes;
-    int acc[64];
-    for (int u = blockIdx.x; u < units; u += gridDim.x) {
-      const Unit un(s, u);
-#pragma unroll
-      for (int i = 0; i < 64; ++i) acc[i] = 0;
-      int prev = -1;
-      for (int kc = un.kc0; kc < un.kc1; ++kc) {
-        tma::mbar_wait(full0 + 8 * st, phase);
-        fence_proxy_async();  // the producers' copies, seen by wgmma's reads
-        const uint32_t sa = ring + st * kStageBytes;
-        const uint64_t da = smem_desc(sa + wg * 64 * kRowBytes);
-        const uint64_t db = smem_desc(sa + kBytesA);
-        fence_acc(acc);
-        wgmma_fence();
-#pragma unroll
-        for (int ks = 0; ks < kRowBytes / 32; ++ks) wgmma(acc, da + 2 * ks, db + 2 * ks);
-        wgmma_commit();
-        wgmma_wait<1>();  // the previous chunk's products are done: free its stage
-        fence_acc(acc);
-        if (prev >= 0 && lead) tma::mbar_arrive(empty0 + 8 * prev);
-        prev = st;
-        if (++st == kRing) st = 0, phase ^= 1;
-      }
-      wgmma_wait<0>();
-      fence_acc(acc);
-      if (prev >= 0 && lead) tma::mbar_arrive(empty0 + 8 * prev);
-      if (un.z < 0)
-        epilogue<T>(s, o, acc, stg, wg, un.m0 + 64 * wg, un.n0, static_cast<T*>(o.out), 0);
-      else
-        epilogue<int>(s, o, acc, stg, wg, un.m0 + 64 * wg, un.n0,
-                      o.ws + (size_t)un.z * (s.M - o.m_split) * s.N, o.m_split);
-    }
-  }
+  int acc[64];
+  ring_conv<int8_t, kTile, kFill>(x, w, &wmap, &xmap, s, units, smem, acc,
+                                  QEpi<T>{s, o, smem});
 }
 
 // out[m][n] = store(dequant(sum over z of ws[z][m - m_split][n])) for the
@@ -548,17 +305,8 @@ int launch_qconv(const int8_t* x, const int8_t* w, const Outs& o, const QShape& 
   memset(&wmap, 0, sizeof(wmap));
   memset(&xmap, 0, sizeof(xmap));
   int fill = kCopies;
-  if (s.vb == 16) {
-    const int rc = tma::encode_2d_u8(&wmap, w, s.N, s.K, kTile, kRowBytes);
-    if (rc != 0) return rc;
-    fill = kTmaB;
-    if (s.va == 16 && s.ky == 1 && s.kx == 1 && s.sy == 1 && s.sx == 1 && s.py == 0 &&
-        s.px == 0) {
-      const int rx = tma::encode_2d_u8(&xmap, x, s.M, s.C, kTile, kRowBytes);
-      if (rx != 0) return rx;
-      fill = kTmaAB;
-    }
-  }
+  const int re = fill_of(s, x, w, 1, kTile, &wmap, &xmap, &fill);
+  if (re != 0) return re;
   const int rc = launch_main<T>(x, w, wmap, xmap, fill, o, s, grid, stream);
   if (rc != 0 || s.full == s.tiles) return rc;
   const size_t MN = (size_t)(s.M - o.m_split) * s.N;
@@ -809,28 +557,8 @@ extern "C" int boda_qconv(const void* xq, const void* wq, const void* s_act, con
                           int oc, int ky, int kx, int sy, int sx, int py, int px, int relu,
                           int out_kind, float out_q, int va, int vb, int full, int splits,
                           int grid, void* stream) {
-  QShape s;
-  s.H = H;
-  s.W = W;
-  s.C = C;
-  s.ky = ky;
-  s.kx = kx;
-  s.sy = sy;
-  s.sx = sx;
-  s.py = py;
-  s.px = px;
-  s.oy = (H + 2 * py - ky) / sy + 1;
-  s.ox = (W + 2 * px - kx) / sx + 1;
-  s.M = n * s.oy * s.ox;
-  s.N = oc;
-  s.K = ky * kx * C;
-  s.chunks = (s.K + kRowBytes - 1) / kRowBytes;
-  s.tiles_n = (s.N + kTile - 1) / kTile;
-  s.tiles = ((s.M + kTile - 1) / kTile) * s.tiles_n;
-  s.full = splits > 1 ? full : s.tiles;
-  s.splits = splits;
-  s.va = va;
-  s.vb = vb;
+  const QShape s =
+      conv_shape(n, H, W, C, oc, ky, kx, sy, sx, py, px, 1, kTile, full, splits, va, vb);
   Outs o;
   o.s_act = static_cast<const float*>(s_act);
   o.sws = static_cast<const float*>(sws);

@@ -223,7 +223,9 @@ def build_forward(plan: Plan, device: torch.device | None = None,
     split): inputs and outputs stay global either way, on `device` or the
     mesh's first local slot's device. fwd.routes counts the steps that read
     a weight split over 'mp', by route ({'column_parallel': n, 'gathered':
-    m}; both 0 on one slot).
+    m}; both 0 on one slot). fwd.conv_routes gives each conv step's route
+    by call tag, as its built fn says ('b7', 'b6' or 'vendor': the kernel
+    or the vendor library its inference forward runs on).
 
     inputs: every node of plan.input_nodes, as logical (NCHW, node dtype)
     tensors on that device; names, shapes, dtypes and device are checked.
@@ -274,9 +276,12 @@ def build_forward(plan: Plan, device: torch.device | None = None,
 
     steps = []
     routes = {"column_parallel": 0, "gathered": 0}
+    conv_routes = {}
     for s in lplan.steps:
         tmpl = get_template(s.func_name)
         fn = tmpl.build(tmpl.check_args(s.sig))
+        if hasattr(fn, "route"):
+            conv_routes[s.call_tag] = fn.route
         reads = [s.arg_nodes[a] for a in tmpl.in_args() + tmpl.io_args()
                  if a in s.arg_nodes]
         col_fn, col_ix = None, []
@@ -380,19 +385,22 @@ def build_forward(plan: Plan, device: torch.device | None = None,
                         for n in names}
 
     fwd.routes = routes
+    fwd.conv_routes = conv_routes
     return fwd
 
 
 class StepSpans:
     """build_forward's step_hook while a profiler records: each step on
-    each slot a `fwd.step` span (call_tag, func_name) in the timer log's
-    span list (core/timers.py), with no record_function range and no TIMERS
-    row, which would cost the step loop more than the host time it
-    measures. One instance per forward: it records into the span open at
-    its first step (the forward's `fwd`)."""
+    each slot a `fwd.step` span (call_tag, func_name, and for a conv step
+    its `route` from `routes`, build_forward's fwd.conv_routes) in the
+    timer log's span list (core/timers.py), with no record_function range
+    and no TIMERS row, which would cost the step loop more than the host
+    time it measures. One instance per forward: it records into the span
+    open at its first step (the forward's `fwd`)."""
 
-    def __init__(self):
+    def __init__(self, routes: dict | None = None):
         self.add = None
+        self.routes = routes or {}
 
     def __call__(self, s: Step) -> "StepSpans":
         self.step = s
@@ -406,8 +414,11 @@ class StepSpans:
         if self.add is None:
             self.add = global_timer_log.recorder("fwd.step")
         s = self.step
-        self.add(self.t0, end, {"call_tag": s.call_tag,
-                                "func_name": s.func_name})
+        attrs = {"call_tag": s.call_tag, "func_name": s.func_name}
+        route = self.routes.get(s.call_tag)
+        if route is not None:
+            attrs["route"] = route
+        self.add(self.t0, end, attrs)
 
 
 def _stats_sig(dims: Dims) -> OpBase:
@@ -639,7 +650,8 @@ class TorchFwd(ConvFwd):
 
         hooked = self.enable_stats or self.nan_check
         # each step a span while a profiler records; else no hook at all
-        step_hook = StepSpans() if recording() else None
+        step_hook = StepSpans(getattr(self.fwd, "conv_routes", None)) \
+            if recording() else None
         with timer("run_fwd", request=True):
             with timer("run_fwd.upload",
                        bytes=sum(v.v.nbytes for v in to_set.values())):

@@ -74,6 +74,9 @@ ENTRY_POINTS = {
     "boda_act_absmax": [_P, _P, _LL, _I, _P],
     # A, B, Cc, per_chan -> floats of boda_act_quantize's workspace
     "boda_act_quantize_ws_floats": [_LL] * 3 + [_I],
+    # x, w, ws, n, H, W, C, oc, ky, kx, sy, sx, py, px, tile_n, va, vb,
+    # full, splits, grid, nmem, outs, biases, meta, q (host arrays), stream
+    "boda_bconv": [_P] * 3 + [_I] * 18 + [_P] * 5,
 }
 
 

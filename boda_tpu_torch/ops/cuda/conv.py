@@ -14,11 +14,13 @@ the JAX package; here it is F.conv_transpose2d on cuDNN, under the same
 rule as the vendor convs below.
 
 XlaConv, XlaConv2 (conv2.py) and S2dConv are vendor roles in the JAX
-package (XLA convs, the last over a 2x2 phase-stacked input). Here all
-three are F.conv2d on cuDNN in full FP32 on the operands rounded to the
-compute dtype (vendor_conv says why not in bf16), channels_last under NHWC
-storage; the phase stacking only re-indexes the same arithmetic, so it is
-dropped. The int8 forms of XlaConv and XlaConv2 (quant8, in_q8) run on
+package (XLA convs, the last over a 2x2 phase-stacked input). Under
+prec=bf16 with NHWC storage, on inference, all three run on kernel B7
+(bconv.py: bf16 operands, f32 sums, the bias, ReLU and store in its
+epilogue; takes_b7 gives the rule). Else they are F.conv2d on cuDNN in
+full FP32 on the operands rounded to the compute dtype (vendor_conv says
+why not in bf16), channels_last under NHWC storage; the phase stacking
+only re-indexes the same arithmetic, so it is dropped. The int8 forms of XlaConv and XlaConv2 (quant8, in_q8) run on
 kernel B6 (qconv.py), an int8 edge's store (out_q8) also after a float
 vendor conv. Under autograd the vendor convs carry the mixed-precision VJP
 of ops/mxu_grad.py, with the int8 weight gradient of grad_q8 on B6. The
@@ -41,6 +43,7 @@ from ...core.error import RtErr
 from ..mxu_grad import grad_q8_site, mxu_conv, relu_store
 from ..op_base import OpBase
 from ..registry import IN, OUT, KernelTemplate, adecl, template
+from .bconv import FilterCache, Member, bconv, ohwi_bf16, records_grad
 from .qconv import absmax, act_quantize, qconv, quantize_filter, \
     static_act_scale, store_int8
 from .sgemm import matmul_ext
@@ -301,22 +304,52 @@ def _scale_of(rfs: OpBase, key: str) -> float:
     return float(rfs.nda_vals[key].item()) if key in rfs.nda_vals else 0.0
 
 
+def takes_b7(cdt, io_nhwc: bool, transposed: bool = False) -> bool:
+    """The route of a float vendor conv step, from what its sig says: kernel
+    B7 (ops/cuda/bconv.py) where its operands are bf16 under NHWC storage
+    and it is not a transposed conv; else the vendor conv. The built step
+    takes B7 on every call that records no autograd graph (a CPU tensor
+    takes B7's plain version, the vendor arithmetic); under autograd it runs
+    the vendor conv, whose VJP (ops/mxu_grad) saves the rounded operands.
+    prec=f32, NCHW storage and deconv keep the vendor conv: they need FP32
+    operands or an NCHW result."""
+    return cdt == torch.bfloat16 and io_nhwc and not transposed
+
+
+def _bias_b7(b):
+    return None if b is None else b.float().contiguous()
+
+
 def _cudnn_conv(rfs: OpBase, q8: bool = False):
-    """A vendor conv step (vendor_conv, vendor_store) of a conv sig: the
-    f32-output XLA conv of the JAX package (conv.py:281-296, :334-379),
-    stored int8 where it produces an int8 edge (out_q8). Takes and returns
-    NCHW, or NHWC storage tensors when the plan's fused-storage pass marked
-    the step. q8: the int8 weight gradient under autograd (grad_q8)."""
+    """A float vendor conv step of a conv sig: the f32-output XLA conv of
+    the JAX package (conv.py:281-296, :334-379), stored int8 where it
+    produces an int8 edge (out_q8); on kernel B7 where takes_b7 says so,
+    else vendor_conv and vendor_store. Takes and returns NCHW, or NHWC
+    storage tensors when the plan's fused-storage pass marked the step. q8:
+    the int8 weight gradient under autograd (grad_q8). The fn's `route` is
+    "b7" or "vendor"."""
     ind, outd, fd, sy, sx, py, px, relu = conv_params(rfs)
     io_nhwc, _ = storage_io(rfs)
     out_absmax = _scale_of(rfs, "out_scale") \
         if rfs.get_u32_or("out_q8", 0) else 0.0
     odt = torch.int8 if out_absmax else store_dtype(rfs)
-    conv = vendor_conv((sy, sx), (py, px), compute_dtype(rfs), io_nhwc,
-                       q8=q8)
+    cdt = compute_dtype(rfs)
+    conv = vendor_conv((sy, sx), (py, px), cdt, io_nhwc, q8=q8)
+
+    def vendor_fn(x, w, b=None):
+        return vendor_store(conv(x, w, b), relu, odt, io_nhwc, out_absmax)
+    if not takes_b7(cdt, io_nhwc):
+        vendor_fn.route = "vendor"
+        return vendor_fn
+    member = (Member(fd["out_chan"], relu, odt, out_absmax),)
+    filt = FilterCache(ohwi_bf16)
 
     def fn(x, w, b=None):
-        return vendor_store(conv(x, w, b), relu, odt, io_nhwc, out_absmax)
+        if records_grad(x, w, b):
+            return vendor_fn(x, w, b)
+        return bconv(x.to(torch.bfloat16).contiguous(), filt(w),
+                     (_bias_b7(b),), member, (sy, sx), (py, px))[0]
+    fn.route = "b7"
     return fn
 
 
@@ -359,6 +392,7 @@ def int8_conv(stride, pad, relu: bool, odt, io_nhwc: bool, prequant: bool,
         return y if io_nhwc else y.permute(0, 3, 1, 2).contiguous()
     if not in_q8 and not act_absmax:
         conv.slot_absmax = lambda x, *_: absmax(x.contiguous())
+    conv.route = "b6"
     return conv
 
 
@@ -488,6 +522,7 @@ class Deconv(_ConvBase):
         def fn(x, w, b=None):
             return vendor_store(conv(x, w.transpose(0, 1), b), relu, odt,
                                 io_nhwc)
+        fn.route = "vendor"
         return fn
 
 

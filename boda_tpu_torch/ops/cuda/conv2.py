@@ -11,9 +11,11 @@ tap). Each member keeps its own ReLU flag and stored dtype. The
 `fuse_siblings` lowering pass (engine/lower.py) emits the steps, gated by
 OpTune(fuse_siblings=1).
 
-A vendor role in both packages (XLA's conv there, cuDNN's here through
-ops/cuda/conv.vendor_conv, which says which arithmetic runs and where it
-rounds), not a kernel port. The declared args, reduced-signature keys,
+A vendor role in both packages (XLA's conv there; here kernel B7 under
+prec=bf16 with NHWC storage on inference, one launch that writes each
+member's output, else cuDNN's through ops/cuda/conv.vendor_conv, which says
+which arithmetic runs and where it rounds; conv.takes_b7 gives the rule),
+not a port of a TPU kernel. The declared args, reduced-signature keys,
 flops and the float64 reference are the JAX template's (conv2.py:35-108),
 so reduced sigs and wisdom keys stay string-equal. The int8 forms (quant8,
 with prequantized weights or the weight quantize in the step;
@@ -36,8 +38,9 @@ from ...core.error import RtErr
 from ..mxu_grad import grad_q8_site
 from ..op_base import OpBase
 from ..registry import IN, OUT, KernelTemplate, adecl, template
-from .conv import SIBS, _ConvBase, _scale_of, int8_conv, vendor_conv, \
-    vendor_store
+from .bconv import FilterCache, Member, bconv, ohwi_bf16, records_grad
+from .conv import SIBS, _ConvBase, _bias_b7, _scale_of, int8_conv, \
+    takes_b7, vendor_conv, vendor_store
 from .util import compute_dtype, storage_io, torch_dtype
 
 
@@ -139,6 +142,8 @@ class XlaConv2(KernelTemplate):
         io_nhwc, edt = storage_io(rfs)
         out_dts = [(edt if io_nhwc and edt is not None else
                     torch_dtype(rfs.get_dims(f"out_{s}").dtype)) for s in sibs]
+        cdt = compute_dtype(rfs)
+        b7 = not quant8 and takes_b7(cdt, io_nhwc)
         if quant8:
             # one int8 conv over all members, stored f32 before ReLU: each
             # member's ReLU and store follow, as in the float form
@@ -150,27 +155,39 @@ class XlaConv2(KernelTemplate):
                     else q(x, w, b, amax=amax)
                 return y.permute(0, 3, 1, 2) if io_nhwc else y
         else:
-            vconv = vendor_conv(stride, padding, compute_dtype(rfs), io_nhwc,
+            vconv = vendor_conv(stride, padding, cdt, io_nhwc,
                                 q8=grad_q8_site(rfs, True))
 
             def conv(x, w, b, _sws):
                 return vconv(x, w, b)
+
+        def embed(ws):
+            # mixed kernel sizes: center-embed the smaller kernel in the
+            # group's largest with zero taps (exact, int8 or float)
+            return [F.pad(w, (dx, dx, dy, dy)) if (dy or dx) else w
+                    for w, (dy, dx) in zip(ws, embeds)]
+        # B7: every member in one launch, each into its own output
+        members = tuple(Member(n_i, relu_i, dt_i)
+                        for n_i, relu_i, dt_i in zip(ns, relus, out_dts))
+        filt = FilterCache(lambda *ws: ohwi_bf16(torch.cat(embed(ws), dim=0)))
 
         def fn(x, *wbs, **kw):
             # the members' operands in declared order: filts, biases where
             # the member has them, and the int8 filters' scales
             it = iter(wbs)
             ws, bs, ss = [], [], []
-            for (dy, dx), n_i, hb in zip(embeds, ns, has_bias):
-                w = next(it)
-                # mixed kernel sizes: center-embed the smaller kernel in the
-                # group's largest with zero taps (exact, int8 or float)
-                ws.append(F.pad(w, (dx, dx, dy, dy)) if (dy or dx) else w)
-                bs.append(next(it).float() if hb
-                          else torch.zeros(n_i, device=x.device))
+            for hb in has_bias:
+                ws.append(next(it))
+                bs.append(next(it) if hb else None)
                 if prequant:
                     ss.append(next(it))
-            y = conv(x, torch.cat(ws, dim=0), torch.cat(bs, dim=0),
+            if b7 and not records_grad(x, *ws, *bs):
+                return bconv(x.to(torch.bfloat16).contiguous(), filt(*ws),
+                             tuple(_bias_b7(b) for b in bs), members, stride,
+                             padding)
+            bs = [torch.zeros(n_i, device=x.device) if b is None
+                  else b.float() for b, n_i in zip(bs, ns)]
+            y = conv(x, torch.cat(embed(ws), dim=0), torch.cat(bs, dim=0),
                      torch.cat(ss, dim=0) if prequant else None, **kw)
             outs, off = [], 0
             for n_i, relu_i, dt_i in zip(ns, relus, out_dts):
@@ -181,4 +198,5 @@ class XlaConv2(KernelTemplate):
         if quant8 and hasattr(q, "slot_absmax"):
             # a dynamic scale: fn(x, ..., amax=m) as int8_conv's conv
             fn.slot_absmax = q.slot_absmax
+        fn.route = "b6" if quant8 else ("b7" if b7 else "vendor")
         return fn

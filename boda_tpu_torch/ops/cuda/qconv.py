@@ -343,22 +343,34 @@ def qconv_plan(n: int, H: int, W: int, C: int, oc: int, ky: int, kx: int,
     g = gemm_plan("qconv_plan", n * oy * ox, oc, K, C, TILE_N, torch.int8,
                   sms, SPLIT)
     chunks = math.ceil(K / g.bk)
-    min_chunks = SPLIT[torch.int8][3]
+    full, splits, grid = ring_walk(g, math.ceil(oc / TILE_N), chunks,
+                                   SPLIT[torch.int8][3], sms)
+    copy, copy_b = copy_width(C), copy_width(K)
+    tma_a = copy == 16 and (ky, kx) == (1, 1) and tuple(stride) == (1, 1) \
+        and tuple(pad) == (0, 0)
+    return QconvPlan(copy, copy_b, tma_a, g.blocks, chunks, full, splits,
+                     grid)
+
+
+def ring_walk(g, tiles_n: int, chunks: int, min_chunks: int,
+              sms: int) -> tuple[int, int, int]:
+    """(full, splits, grid) of the persistent walk of csrc/conv_ring.cuh
+    (B6 and B7) over g.blocks tiles, tiles_n of them along N, of `chunks`
+    K chunks: K split as g says where the tiles are fewer than the SMs,
+    into at most one unit per SM, or, past that, the last wave's tiles
+    (whole rows of tiles) split where the split units fit one wave and keep
+    min_chunks chunks each; the first `full` tiles run whole; grid is the
+    units, at most one block per SM."""
     if g.blocks < sms:
         splits, full = max(1, min(g.splits, sms // g.blocks)), 0
     else:
-        tiles_n = math.ceil(oc / TILE_N)
         full = g.blocks // sms * sms // tiles_n * tiles_n
         rest = g.blocks - full
         splits = min(sms // rest, chunks // min_chunks) if rest else 1
     if splits < 2:
         splits, full = 1, g.blocks
-    copy, copy_b = copy_width(C), copy_width(K)
-    tma_a = copy == 16 and (ky, kx) == (1, 1) and tuple(stride) == (1, 1) \
-        and tuple(pad) == (0, 0)
     units = full + (g.blocks - full) * splits
-    return QconvPlan(copy, copy_b, tma_a, g.blocks, chunks, full, splits,
-                     min(units, sms))
+    return full, splits, min(units, sms)
 
 
 def _check(xq, wq, s_act, sws, bias, stride, pad, out_dtype, out_absmax):

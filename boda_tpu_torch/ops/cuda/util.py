@@ -68,7 +68,8 @@ def kernel_wrappers() -> dict:
     its kernel's launches ("quantize": sgemm_int8's quantize kernel;
     "act_quantize": qconv's; "absmax": its first pass alone, a dp slot's
     max; "cotangent_quantize": its per-channel form in the int8 weight
-    gradient)."""
+    gradient; "bconv": B7, the bf16 vendor conv)."""
+    from .bconv import bconv
     from .qconv import absmax, act_quantize, cotangent_quantize, qconv
     from .qsgemm import quantize_operands, sgemm_int8
     from .resblock import resblock
@@ -79,7 +80,7 @@ def kernel_wrappers() -> dict:
             "fused_stem": fused_stem, "resblock": resblock,
             "sgemm_int8": sgemm_int8, "quantize": quantize_operands,
             "qconv": qconv, "act_quantize": act_quantize, "absmax": absmax,
-            "cotangent_quantize": cotangent_quantize}
+            "cotangent_quantize": cotangent_quantize, "bconv": bconv}
 
 
 def launch_counts(reset: bool = False) -> dict[str, int]:

@@ -65,13 +65,19 @@ Phases, run in order, each fatal on failure (all of them by default):
            and 1 (what stem_plan's estimate rests on; its shared-memory sum
            and blocks per SM must equal the kernel's own). --kernels cuts
            the phase down to the named kernels
-  vendor   the vendor conv template under prec=bf16 with NHWC bf16 storage
-           at the 21 ResNet-50 b32 conv sigs: its result comes back
-           channels_last (no permute copy around the step) and agrees with
-           the f64 conv of the rounded operands (mrd 5e-3); beside it, timed
-           and used nowhere in the port, the bf16 cuDNN form that rounds the
-           sum before the bias: its mrd against the template, the share of
-           stored values it moves, its time
+  vendor   the vendor conv template under prec=bf16 with NHWC bf16 storage,
+           on kernel B7: at the 21 ResNet-50 b32 conv sigs its result is
+           contiguous NHWC bf16 and agrees with the f64 conv of the rounded
+           operands after one rounding (mrd 5e-3), B7 with its plain version
+           (the vendor arithmetic), timed beside its bound and cuDNN's FP32
+           conv; beside it, used nowhere in the port, the FP32 vendor form
+           (channels_last) and the bf16 cuDNN form that rounds the sum before
+           the bias: its mrd against the FP32 form, the share of stored
+           values it moves, its time; then B7 at edges (no bias, f32 and int8
+           stores, member widths off the 4-result stores, split K, C = 3, 6
+           and 20) and at every distinct B7 step of the benchmark's three
+           b128 cells, against its plain version and timed, with the sums
+           per request
   digests  TorchFwd at batch 1 under the f32 tune, the fused f32 tune and
            the f32 twin of the headline tune (vendor convs, sibling convs
            fused into xla_conv2) against the per-node digest archives recorded on a TPU
@@ -365,6 +371,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
 import json
 import re
@@ -405,16 +412,22 @@ B128_TUNES = ("headline", INT8)
 UNFUSED_LAUNCHES = {"matmul_ext": 40, "tconv": 13, "fused_stem": 0,
                     "resblock": 0, "sgemm_int8": 0, "quantize": 0,
                     "qconv": 0, "act_quantize": 0, "absmax": 0,
-                    "cotangent_quantize": 0}
+                    "cotangent_quantize": 0, "bconv": 0}
 FUSED_LAUNCHES = {**UNFUSED_LAUNCHES, "matmul_ext": 14, "tconv": 3,
                   "fused_stem": 1, "resblock": 12}
-VENDOR_LAUNCHES = dict.fromkeys(UNFUSED_LAUNCHES, 0)
-INT8_LAUNCHES = {**VENDOR_LAUNCHES, "qconv": 31, "act_quantize": 31}
-LAUNCHES = {"f32": UNFUSED_LAUNCHES, "bf16_nhwc": UNFUSED_LAUNCHES,
+# the headline tune's 50 conv steps (46 xla_conv, 4 xla_conv2) on B7; the
+# int8 preset's 19 float ones (17 and 2) on B7, its 31 int8 ones on B6
+VENDOR_LAUNCHES = {**dict.fromkeys(UNFUSED_LAUNCHES, 0), "bconv": 50}
+INT8_LAUNCHES = {**VENDOR_LAUNCHES, "qconv": 31, "act_quantize": 31,
+                 "bconv": 19}
+# (prec=bf16,layout=nhwc): conv1 is an s2d_conv step, on B7
+LAUNCHES = {"f32": UNFUSED_LAUNCHES,
+            "bf16_nhwc": {**UNFUSED_LAUNCHES, "bconv": 1},
             "fused_f32": FUSED_LAUNCHES, "fused_bf16_nhwc": FUSED_LAUNCHES,
             "headline": VENDOR_LAUNCHES, INT8: INT8_LAUNCHES}
 # the hand kernel each template launches once per step (the vendor
-# templates xla_conv, xla_conv2, s2d_conv and the plain-torch ones launch none)
+# templates xla_conv, xla_conv2, s2d_conv launch B7 where _b7_step says so,
+# the plain-torch ones none)
 TEMPLATE_KERNEL = {"k1conv": "matmul_ext", "conv": "matmul_ext",
                    "ipconv": "matmul_ext", "tconv": "tconv",
                    "fused_stem": "fused_stem", "resblock": "resblock"}
@@ -1777,25 +1790,210 @@ def _stem_plans(dev, gen) -> None:
             del args, want, out
 
 
-def phase_vendor(ctx: dict) -> None:
-    """The vendor conv under prec=bf16 with NHWC bf16 storage at the 21
-    ResNet-50 b32 conv sigs: the template's form (F.conv2d in FP32 on the
-    bf16-rounded operands, channels_last) must come back channels_last (no
-    permute copy around the step) and agree with the f64 conv of the rounded
-    operands after the one rounding of the store; beside it, timed here and
-    used nowhere in the port, the bf16 cuDNN form that rounds the sum before
-    the bias: its mrd against the template's result, the share of stored
-    values it moves, and its time."""
+def _b7_operands(sig, dev, gen, bias: bool = True):
+    """B7's operands for the sig of a B7 step (xla_conv, s2d_conv or
+    xla_conv2 under prec=bf16 with NHWC storage): x [n, H, W, C] and the
+    concatenated OHWI filter in bf16 (seeded, the filter at fan-in scale),
+    f32 biases, the members (out_chan, ReLU, stored dtype and out_absmax as
+    the step stores them), stride and pad."""
+    import torch
+    from boda_tpu_torch.ops.cuda.bconv import Member
+    from boda_tpu_torch.ops.cuda.conv import SIBS, _scale_of, conv_params
+    from boda_tpu_torch.ops.cuda.util import storage_io, store_dtype, \
+        torch_dtype
+    n, C, H, W = sig.get_dims("in").shape
+    st, pd = sig.get_dims_or_none("stride"), sig.get_dims_or_none("in_pad")
+    stride = (st["y"], st["x"]) if st else (1, 1)
+    pad = (pd["y"], pd["x"]) if pd else (0, 0)
+    if sig.func_name == "xla_conv2":
+        _, edt = storage_io(sig)
+        sibs = [t for t in SIBS if f"filts_{t}" in sig.nda_vals]
+        fds = [sig.get_dims(f"filts_{t}") for t in sibs]
+        ky, kx = max(d["y"] for d in fds), max(d["x"] for d in fds)
+        members = tuple(Member(
+            d["out_chan"], sig.get_u32_or(f"relu_{t}", 0) == 1,
+            edt or torch_dtype(sig.get_dims(f"out_{t}").dtype))
+            for t, d in zip(sibs, fds))
+    else:
+        _ind, _outd, fd, _sy, _sx, _py, _px, relu = conv_params(sig)
+        ky, kx = fd["y"], fd["x"]
+        amax = _scale_of(sig, "out_scale") \
+            if sig.get_u32_or("out_q8", 0) else 0.0
+        members = (Member(fd["out_chan"], relu,
+                          torch.int8 if amax else store_dtype(sig), amax),)
+    N = sum(m.oc for m in members)
+    x = torch.randn(n, H, W, C, device=dev, generator=gen).bfloat16()
+    w = (torch.randn(N, ky, kx, C, device=dev, generator=gen)
+         * (C * ky * kx) ** -0.5).bfloat16()
+    biases = tuple((torch.randn(m.oc, device=dev, generator=gen) * 0.5)
+                   if bias else None for m in members)
+    return x, w, biases, members, stride, pad
+
+
+def _b7_key(sig) -> tuple:
+    """What a B7 launch depends on: the template, the input and filter
+    shapes, stride, pad and the members' stores."""
+    keys = ("in", "stride", "in_pad") + tuple(
+        k for k in sorted(sig.nda_vals)
+        if k.startswith(("filts", "relu_", "out")) or k == "conv_has_relu")
+    return (sig.func_name,) + tuple(
+        (k, str(sig.nda_vals[k])) for k in keys if k in sig.nda_vals)
+
+
+def _b7_cell_steps(model: str, tune_name: str, batch: int = 128) -> dict:
+    """{_b7_key: (a B7 step's sig, its count)} of the plan the benchmark's
+    cell of `model` runs at `batch` under a tune of TUNES or INT8 (the
+    steps whose built fn takes route 'b7')."""
+    import torch
+    from boda_tpu_torch.engine.iface import make_engine
+    from boda_tpu_torch.models.zoo import build_model
+    pipe = build_model(model, batch=batch)
+    eng = make_engine(f"(engine=torch,{engine_spec(tune_name)})")
+    eng.init(pipe)
+    out: dict = {}
+    for s in eng.plan.steps:
+        if eng.fwd.conv_routes.get(s.call_tag) == "b7":
+            k = _b7_key(s.sig)
+            sig, c = out.get(k, (s.sig, 0))
+            out[k] = (sig, c + 1)
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def _b7_case(label, x, w, biases, members, stride, pad, peaks, f64=False):
+    """B7 against bconv_plain on the card (mrd of every member at the bf16
+    gate; f64: also the stored values against the f64 conv of the rounded
+    operands after the store's one rounding), then timed: the kernel alone
+    (a CUDA graph), the wrapper's call, the plain version and cuDNN's FP32
+    conv of the same operands alone (the yardstick; the port never calls
+    it), beside the bound. Returns the case's numbers."""
     import torch
     import torch.nn.functional as F
+    from boda_tpu_torch.ops.cuda.bconv import bconv, bconv_plain, \
+        bconv_plan, launch_bconv, thin_pad
+    from boda_tpu_torch.ops.cuda.util import full_fp32
+    n, H, W, C = x.shape
+    N, ky, kx, _ = w.shape
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    # the kernel as the wrapper launches it: a thin input widened first
+    extra = thin_pad(C)
+    xk, wk = (F.pad(x, (0, extra)), F.pad(w, (0, extra))) if extra else (x, w)
+    plan = bconv_plan(n, H, W, C + extra, N, ky, kx, stride, pad, sms)
+    got = bconv(x, w, biases, members, stride, pad)
+    torch.cuda.synchronize()
+    want = bconv_plain(x, w, biases, members, stride, pad)
+    # B7's stored values against the plain version's sums stored in f32:
+    # the kernel's one rounding to bf16 and its other order of the f32
+    # sum (two bf16 stores of sums taken in two orders may sit one bf16
+    # step apart, up to 7.8e-3 of the largest value)
+    want32 = bconv_plain(x, w, biases, tuple(
+        dataclasses.replace(m, dtype=torch.float32)
+        if m.dtype == torch.bfloat16 else m for m in members), stride, pad)
+    err, moved = 0.0, 0.0
+    for g, p, p32, m in zip(got, want, want32, members):
+        check(g.dtype == m.dtype and g.shape == p.shape and g.is_contiguous(),
+              f"bconv {label}: a member's output {g.dtype} {tuple(g.shape)}")
+        if m.dtype == torch.int8:
+            # an int8 edge: a code may move one step where the two f32
+            # sums, taken in other orders, straddle a rounding boundary
+            codes = int((g.int() - p.int()).abs().max())
+            check(codes <= 1, f"bconv {label}: int8 codes {codes} apart")
+        else:
+            err = max(err, mrd(g, p32))
+            if m.dtype == torch.bfloat16:
+                moved = max(moved, float((g != p).float().mean()))
+    check(err <= BF16_MRD, f"bconv {label}: mrd {err:.3e} against the plain "
+                           f"version's f32 sums")
+    if f64:
+        xc = x.permute(0, 3, 1, 2).double()
+        acc = F.conv2d(xc, w.permute(0, 3, 1, 2).double(), stride=stride,
+                       padding=pad)
+        off = 0
+        for g, b, m in zip(got, biases, members):
+            y = acc[:, off:off + m.oc]
+            if b is not None:
+                y = y + b.double()[None, :, None, None]
+            y = (torch.relu(y) if m.relu else y).permute(0, 2, 3, 1)
+            if m.dtype == torch.int8:
+                q = torch.round(y * (127.0 / m.out_absmax)).clamp(-127, 127)
+                codes = int((g.double() - q).abs().max())
+                check(codes <= 1, f"bconv {label}: int8 codes {codes} from "
+                                  f"the f64 conv's")
+            else:
+                e64 = mrd(g, y)
+                check(e64 <= BF16_MRD, f"bconv {label}: mrd {e64:.3e} "
+                                       f"against the f64 conv")
+            off += m.oc
+    outs = tuple(torch.empty_like(g) for g in got)
+    kern_ms = graph_ms(lambda: launch_bconv(
+        xk, wk, biases, members, outs, stride, pad, plan.tile_n, plan.full,
+        plan.splits, plan.grid))
+    call_ms = cuda_ms(lambda: bconv(x, w, biases, members, stride, pad), 10)
+    plain_ms = cuda_ms(lambda: bconv_plain(x, w, biases, members, stride,
+                                           pad), 5)
+    xf = x.permute(0, 3, 1, 2).float()
+    wf = w.permute(0, 3, 1, 2).float()
+
+    def library():
+        with full_fp32():
+            return F.conv2d(xf, wf, stride=stride, padding=pad)
+    lib_ms = cuda_ms(library, 5)
+    oy, ox = got[0].shape[1:3]
+    work = 2 * n * oy * ox * N * ky * kx * C
+    nbytes = 2 * (x.numel() + w.numel()) + sum(
+        g.numel() * g.element_size() for g in got)
+    bound_ms, by = bound(peaks, "bf16", work, nbytes)
+    print(f"bconv {label:44s} mrd {err:.3e} (<= {BF16_MRD:g}; "
+          f"{100 * moved:.2f}% of the values one bf16 step off the plain "
+          f"version's); kernel "
+          f"{kern_ms:.4f} ms (call {call_ms:.4f}), plain {plain_ms:.4f}, "
+          f"bound {bound_ms:.4f} ({by}), cuDNN FP32 {lib_ms:.4f}; plan "
+          f"tile_n {plan.tile_n} blocks {plan.blocks} chunks {plan.chunks} "
+          f"full {plan.full} splits {plan.splits} grid {plan.grid} copy "
+          f"{plan.copy}/{plan.copy_b}{' tma_a' if plan.tma_a else ''}",
+          flush=True)
+    return {"ms": kern_ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "library_ms": lib_ms, "mrd": err,
+            "moved": moved}
+
+
+def _b7_label(x, w, members, stride) -> str:
+    n, H, _W, C = x.shape
+    N, ky, kx, _ = w.shape
+    mem = "+".join(str(m.oc) for m in members)
+    return f"{ky}x{kx}/s{stride[0]} {C}->{mem} {H}^2 b{n}"
+
+
+def phase_vendor(ctx: dict) -> None:
+    """The vendor conv under prec=bf16 with NHWC bf16 storage, which runs on
+    kernel B7 (ops/cuda/bconv.py): at the 21 ResNet-50 b32 conv sigs the
+    template's result must be contiguous NHWC bf16 and agree with the f64
+    conv of the rounded operands after the one rounding of the store, and
+    B7 with bconv_plain (the vendor arithmetic: FP32 cuDNN on the rounded
+    operands); beside it, timed here and used nowhere in the port, the FP32
+    vendor form (its result must come back channels_last) and the bf16
+    cuDNN form that rounds the sum before the bias: its mrd against the
+    template's result, the share of stored values it moves, and its time.
+    Then B7 at every distinct B7 step of the benchmark's three b128 cells
+    (ResNet-50 at the headline tune and under the int8 preset, GoogLeNet
+    with LRN at the headline tune; conv1 at C = 3, the sibling groups, the
+    int8 edges), against bconv_plain and timed (_b7_case), with the sums
+    per request; and edges: no bias, f32 and int8 stores, a member width
+    that breaks the 4-result stores, split K."""
+    import torch
+    import torch.nn.functional as F
+    from boda_tpu_torch.core.machine import card_peaks
+    from boda_tpu_torch.ops.cuda.bconv import Member
     from boda_tpu_torch.ops.cuda.conv import conv_params, vendor_conv
     from boda_tpu_torch.ops.op_base import read_op_sigs
     from boda_tpu_torch.ops.registry import get_template
     from torch.profiler import ProfilerActivity, profile
     dev = torch.device("cuda", 0)
+    peaks = card_peaks(torch.cuda.get_device_name(0))
     gen = torch.Generator(device=dev).manual_seed(3)
     cl = torch.channels_last
-    tot = {"fp32": 0.0, "bf16": 0.0}
+    tot = {"b7": 0.0, "fp32": 0.0, "bf16": 0.0}
     worst = (0.0, 0.0)
     ops = read_op_sigs(DATA / "ops" / "resnet50-convs.txt")
     for op in ops:
@@ -1811,19 +2009,25 @@ def phase_vendor(ctx: dict) -> None:
         top.str_vals.update(prec="bf16", io_layout="nhwc", edge_prec="bf16")
         t = get_template("xla_conv")
         fn = t.build(t.check_args(top))
+        check(fn.route == "b7", f"vendor {_op_label(op)}: route {fn.route}")
         got = fn(x, w, b)
-        y = vendor_conv((sy, sx), (py, px), torch.bfloat16, True)(x, w, b)
+        conv = vendor_conv((sy, sx), (py, px), torch.bfloat16, True)
+        y = conv(x, w, b)
         check(y.is_contiguous(memory_format=cl) and got.is_contiguous()
               and got.dtype == torch.bfloat16,
-              f"vendor {_op_label(op)}: the conv's result is not "
+              f"vendor {_op_label(op)}: the FP32 form's result is not "
               f"channels_last, or the step's output not contiguous NHWC")
+        wk = w.permute(0, 2, 3, 1).bfloat16().contiguous()
+        case = _b7_case(_op_label(op), x, wk, (b,),
+                        (Member(oc, relu, torch.bfloat16),), (sy, sx),
+                        (py, px), peaks, f64=True)
         xc = x.permute(0, 3, 1, 2)
-        want = F.conv2d(xc.double(), w.bfloat16().double(), b.double(),
-                        stride=(sy, sx), padding=(py, px))
-        want = (torch.relu(want) if relu else want).permute(0, 2, 3, 1)
-        err = mrd(got, want)
-        check(err <= BF16_MRD, f"vendor {_op_label(op)}: mrd {err:.3e}")
         wb = w.bfloat16().contiguous(memory_format=cl)
+
+        def fp32_form():
+            z = conv(x, w, b)
+            z = torch.relu(z) if relu else z
+            return z.bfloat16().permute(0, 2, 3, 1).contiguous()
 
         def bf16_form():
             z = F.conv2d(xc, wb, stride=(sy, sx), padding=(py, px)) \
@@ -1831,9 +2035,10 @@ def phase_vendor(ctx: dict) -> None:
             z = torch.relu(z) if relu else z
             return z.bfloat16().permute(0, 2, 3, 1).contiguous()
         alt = bf16_form()
-        alt_err = mrd(alt, got)
-        moved = float((alt != got).float().mean())
+        alt_err = mrd(alt, fp32_form())
+        moved = float((alt != fp32_form()).float().mean())
         ms = cuda_ms(lambda: fn(x, w, b), 5)
+        fp32_ms = cuda_ms(fp32_form, 5)
         alt_ms = cuda_ms(bf16_form, 5)
         if (ky, sy, C) == (3, 1, 256):
             # the device kernels of one step (res4's 3x3), by name
@@ -1841,22 +2046,102 @@ def phase_vendor(ctx: dict) -> None:
                 fn(x, w, b)
                 torch.cuda.synchronize()
             profiled = _op_label(op)
-        tot["fp32"] += ms
+        tot["b7"] += ms
+        tot["fp32"] += fp32_ms
         tot["bf16"] += alt_ms
         worst = max(worst, (alt_err, moved))
-        print(f"vendor {_op_label(op):34s} template (FP32 on rounded "
-              f"operands, channels_last) mrd {err:.3e} vs f64, {ms:.4f} ms; "
-              f"bf16 cuDNN form mrd {alt_err:.3e} vs the template, moves "
+        print(f"vendor {_op_label(op):34s} template (B7) {ms:.4f} ms, "
+              f"kernel {case['ms']:.4f}; FP32 form {fp32_ms:.4f} ms; bf16 "
+              f"cuDNN form mrd {alt_err:.3e} vs the FP32 form, moves "
               f"{100 * moved:.1f}% of the stored values, {alt_ms:.4f} ms")
-    print(f"vendor: {len(ops)} sigs; template {tot['fp32']:.3f} ms, bf16 "
-          f"cuDNN form {tot['bf16']:.3f} ms; the bf16 form's largest mrd "
-          f"against the template {worst[0]:.3e} (gate 5e-3), moving "
-          f"{100 * worst[1]:.1f}% of the values there, on [{ctx['smi']}]")
+    print(f"vendor: {len(ops)} sigs; template (B7) {tot['b7']:.3f} ms, FP32 "
+          f"form {tot['fp32']:.3f} ms, bf16 cuDNN form {tot['bf16']:.3f} "
+          f"ms; the bf16 form's largest mrd against the FP32 form "
+          f"{worst[0]:.3e} (gate 5e-3), moving {100 * worst[1]:.1f}% of the "
+          f"values there, on [{ctx['smi']}]")
     print(f"vendor {profiled}: device kernels of one step: "
           + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.4f} ms"
                       for e in prof.key_averages()
                       if e.self_device_time_total > 0))
     ctx["vendor_ms"] = tot
+    # the edges of the epilogue and the split
+    for label, (n, H, C, mems, k, s_, p_, bias) in {
+            "no bias, f32 + int8 stores": (
+                4, 14, 64, (Member(40, True, torch.float32),
+                            Member(24, False, torch.int8, 3.0)), 3, 1, 1,
+                False),
+            "member widths 6+10 (no 4-result stores)": (
+                2, 9, 24, (Member(6, True), Member(10, False)), 1, 1, 0,
+                True),
+            "split K, ragged oc 200": (
+                1, 7, 512, (Member(200, True),), 3, 1, 1, True),
+            "C = 3 7x7/s2, oc 64": (
+                2, 30, 3, (Member(64, True),), 7, 2, 3, True),
+            "C = 20 (4-byte copies) 5x5": (
+                2, 12, 20, (Member(48, True),), 5, 1, 2, True),
+            "C = 6 (element B), 4 members": (
+                2, 10, 6, (Member(16, True), Member(8, False),
+                           Member(32, True, torch.float32),
+                           Member(8, True)), 3, 2, 1, True)}.items():
+        N = sum(m.oc for m in mems)
+        x = torch.randn(n, H, H, C, device=dev, generator=gen).bfloat16()
+        w = (torch.randn(N, k, k, C, device=dev, generator=gen)
+             * (C * k * k) ** -0.5).bfloat16()
+        bs = tuple((torch.randn(m.oc, device=dev, generator=gen) * 0.5)
+                   if bias else None for m in mems)
+        _b7_case(f"edge: {label}", x, w, bs, mems, (s_, s_), (p_, p_),
+                 peaks, f64=True)
+    # the narrow copies (C = 3 element by element, C = 6 in 4 bytes)
+    # unwidened, the kernel alone
+    from boda_tpu_torch.ops.cuda.bconv import bconv_plain, bconv_plan, \
+        launch_bconv
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for C, k, mems in ((3, 7, (Member(64, True),)),
+                       (6, 3, (Member(24, True), Member(8, False)))):
+        x = torch.randn(2, 30, 30, C, device=dev, generator=gen).bfloat16()
+        N = sum(m.oc for m in mems)
+        w = (torch.randn(N, k, k, C, device=dev, generator=gen)
+             * (C * k * k) ** -0.5).bfloat16()
+        bs = tuple(torch.randn(m.oc, device=dev, generator=gen)
+                   for m in mems)
+        plan = bconv_plan(2, 30, 30, C, N, k, k, (2, 2), (1, 1), sms)
+        outs = tuple(torch.empty(2, 15 - (k - 3) // 2, 15 - (k - 3) // 2,
+                                 m.oc, dtype=m.dtype, device=dev)
+                     for m in mems)
+        launch_bconv(x, w, bs, mems, outs, (2, 2), (1, 1), plan.tile_n,
+                     plan.full, plan.splits, plan.grid)
+        want = bconv_plain(x, w, bs, mems, (2, 2), (1, 1))
+        err = max(mrd(g, p) for g, p in zip(outs, want))
+        print(f"bconv edge: unwidened C = {C} {k}x{k}/s2 copies "
+              f"{plan.copy}/{plan.copy_b}: mrd {err:.3e}", flush=True)
+        check(plan.copy in (2, 4) and err <= BF16_MRD,
+              f"bconv unwidened C = {C}: mrd {err:.3e}")
+    # every distinct B7 step of the three b128 cells
+    cells = {}
+    for cell, (model, tune) in {
+            "resnet50-bf16-b128": ("resnet-50", "headline"),
+            "resnet50-int8-b128": ("resnet-50", INT8),
+            "googlenet-bf16-b128": ("googlenet_conv_lrn", "headline")}.items():
+        steps = _b7_cell_steps(model, tune)
+        sums = dict.fromkeys(("ms", "call_ms", "plain_ms", "bound_ms",
+                              "library_ms"), 0.0)
+        count = 0
+        for k, (sig, c) in steps.items():
+            x, w, bs, mems, stride, pad = _b7_operands(sig, dev, gen)
+            case = _b7_case(f"{cell} x{c} {_b7_label(x, w, mems, stride)}",
+                            x, w, bs, mems, stride, pad, peaks)
+            for key in sums:
+                sums[key] += c * case[key]
+            count += c
+            del x, w, bs
+        torch.cuda.empty_cache()
+        print(f"bconv {cell}: {count} B7 steps ({len(steps)} distinct) per "
+              f"request: kernel {sums['ms']:.3f} ms (calls "
+              f"{sums['call_ms']:.3f}), plain {sums['plain_ms']:.3f}, bound "
+              f"{sums['bound_ms']:.3f}, cuDNN FP32 {sums['library_ms']:.3f} "
+              f"on [{ctx['smi']}]", flush=True)
+        cells[cell] = {"steps": count, **sums}
+    ctx["bconv_cells"] = cells
 
 
 def _nodes_to_get(pipe):
@@ -2183,13 +2468,7 @@ def phase_full(ctx: dict) -> None:
         # what the lowering sent where: one launch per step of a template
         # that wraps a hand kernel, and per int8 vendor step one qconv and,
         # unless its input arrives int8, one act_quantize
-        planned = dict.fromkeys(counts, 0)
-        for st in eng.plan.steps:
-            if st.func_name in TEMPLATE_KERNEL:
-                planned[TEMPLATE_KERNEL[st.func_name]] += 1
-            if st.sig.get_u32_or("quant8", 0):
-                planned["qconv"] += 1
-                planned["act_quantize"] += 1 - st.sig.get_u32_or("in_q8", 0)
+        planned = _planned_launches(eng.plan, counts)
         check(counts == planned, f"run_cnet {tune_name}: launches {counts} "
                                  f"!= the plan's steps {planned}")
         check(("xla_conv2" in steps) == ("fuse_siblings" in tune),
@@ -2287,10 +2566,22 @@ def _counts_reset(wrappers: dict) -> None:
         w.launches = 0
 
 
-def _planned_launches(plan, counts: dict) -> dict:
-    """The launches the plan's steps send to each hand kernel: one per
-    step of a template that wraps one, and per int8 vendor step one qconv
-    and, unless its input arrives int8, one act_quantize."""
+def _b7_step(sig) -> bool:
+    """Whether a step takes B7 on an inference forward: a float vendor conv
+    (xla_conv, xla_conv2, s2d_conv) whose sig conv.takes_b7 routes there."""
+    from boda_tpu_torch.ops.cuda.conv import takes_b7
+    from boda_tpu_torch.ops.cuda.util import compute_dtype, storage_io
+    return sig.func_name in ("xla_conv", "xla_conv2", "s2d_conv") \
+        and not sig.get_u32_or("quant8", 0) \
+        and takes_b7(compute_dtype(sig), storage_io(sig)[0])
+
+
+def _planned_launches(plan, counts: dict, grad: bool = False) -> dict:
+    """The launches the plan's steps send to each hand kernel on a
+    forward: one per step of a template that wraps one, one B7 per float
+    vendor step that takes it (on inference; under autograd, grad, the
+    vendor conv runs with its VJP), and per int8 vendor step one qconv and,
+    unless its input arrives int8, one act_quantize."""
     planned = dict.fromkeys(counts, 0)
     for st in plan.steps:
         if st.func_name in TEMPLATE_KERNEL:
@@ -2298,6 +2589,8 @@ def _planned_launches(plan, counts: dict) -> dict:
         if st.sig.get_u32_or("quant8", 0):
             planned["qconv"] += 1
             planned["act_quantize"] += 1 - st.sig.get_u32_or("in_q8", 0)
+        elif _b7_step(st.sig) and not grad:
+            planned["bconv"] += 1
     return planned
 
 
@@ -4536,7 +4829,8 @@ DEVICE_KERNELS = {"matmul_ext": ("matmul_wgmma", "matmul_ffma"),
                   "fused_stem": ("stem_mma", "stem_ffma"),
                   "resblock": ("resblock_mma", "resblock_ffma"),
                   "qconv": ("qconv_kernel",),
-                  "act_quantize": ("act_quant_write",)}
+                  "act_quantize": ("act_quant_write",),
+                  "bconv": ("bconv_kernel",)}
 # the per-model grid at b64 (docs/PERF.md:80-90's rows): model, its int8
 # site regex (None: tune/presets.RESNET_INT8_SITE_PATS) and static scales
 GRID_BATCH = 64
@@ -4804,7 +5098,7 @@ def _tune_xprof(t: dict, wrappers: dict) -> None:
                             f"{engine_spec(name)})")
         torch.cuda.synchronize()
         counts = {k: w.launches for k, w in wrappers.items()}
-        planned = _planned_launches(hm.eng.plan, counts)
+        planned = _planned_launches(hm.eng.plan, counts, grad=bool(bwd))
         print(f"cnet_xprof {label}:")
         print(out.rstrip())
         # the mode's forward outside the trace and its profiler warm-up,
