@@ -8,7 +8,9 @@ holding each activation until its last reader has run. The layer semantics are
 Caffe's deploy semantics:
 
 - conv: cross-correlation with symmetric zero padding, a bias, an optional
-  ReLU;
+  ReLU; in `groups` groups where the layer says (default 1): the input's
+  channels and the outputs split into g equal blocks in order, output block
+  j seeing input block j alone, so a filter is (out, cin / g, k, k);
 - maxpool: Caffe's ceil-mode output size, padding that never wins the max;
 - avgpool_global: the mean over the whole plane;
 - lrn: across channels, x * (k + alpha / n * sum of x^2 over n channels
@@ -78,6 +80,10 @@ class Net:
             c, h, w = s[L.ins[0]]
             if L.kind == "conv":
                 k, st, pd = L.p["k"], L.p["stride"], L.p["pad"]
+                g = groups(L)
+                if c % g or L.p["out"] % g:
+                    raise ValueError(f"{L.name}: {g} groups do not divide "
+                                     f"{c} inputs and {L.p['out']} outputs")
                 s[L.out] = (L.p["out"], (h + 2 * pd - k) // st + 1,
                             (w + 2 * pd - k) // st + 1)
             elif L.kind == "maxpool":
@@ -98,10 +104,10 @@ class Net:
     def weight_shapes(self) -> list:
         """[(name, shape, fan_in)] of every filter and bias, in layer order,
         named as the deploy graph names its blobs: '<layer>_filts' (out,
-        in, k, k) and '<layer>_biases' (out,)."""
+        in / groups, k, k) and '<layer>_biases' (out,)."""
         out = []
         for L in self.convs():
-            cin = self.shapes[L.ins[0]][0]
+            cin = self.shapes[L.ins[0]][0] // groups(L)
             k = L.p["k"]
             out.append((f"{L.name}_filts", (L.p["out"], cin, k, k),
                         cin * k * k))
@@ -144,15 +150,15 @@ class Net:
         x = xs[0]
         if L.kind == "conv":
             wt, b = w[f"{L.name}_filts"], w[f"{L.name}_biases"]
-            st, pd = L.p["stride"], L.p["pad"]
+            st, pd, g = L.p["stride"], L.p["pad"], groups(L)
             if q is None:
                 y = F.conv2d(rounded(x, operand), rounded(wt, operand), b,
-                             st, pd)
+                             st, pd, 1, g)
             else:
                 bits, absmax = q
                 xq, s_act = quantize_act(x, bits, absmax)
                 wq, s_w = quantize_filter(wt, bits)
-                y = F.conv2d(xq, wq, None, st, pd) \
+                y = F.conv2d(xq, wq, None, st, pd, 1, g) \
                     * (s_act * s_w)[None, :, None, None] \
                     + b[None, :, None, None]
             return F.relu(y) if L.p.get("relu") else y
@@ -179,6 +185,11 @@ class Net:
         if L.kind == "dropout":
             return x
         raise ValueError(f"unknown layer kind '{L.kind}'")
+
+
+def groups(L: Layer) -> int:
+    """The groups a conv layer's channels split into (1: ungrouped)."""
+    return L.p.get("groups", 1)
 
 
 def pool_out(n: int, p: dict) -> int:
@@ -246,8 +257,9 @@ def run_reference(net: Net, x: torch.Tensor, w: dict, quant=None,
 
 
 def conv_flops(net: Net, L: Layer) -> int:
-    """Multiply-adds x 2 of one conv layer at batch 1."""
-    cin = net.shapes[L.ins[0]][0]
+    """Multiply-adds x 2 of one conv layer at batch 1: each output sums
+    over its group's cin / groups input channels."""
+    cin = net.shapes[L.ins[0]][0] // groups(L)
     c, h, w = net.shapes[L.out]
     return 2 * c * h * w * cin * L.p["k"] ** 2
 

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import re
 
-from .reference.graph import Net, conv_flops, numel
+from .reference.graph import Layer, Net, conv_flops, groups, numel
 
 PEAKS = {
     # part: (f32 FFMA, bf16, int8, HBM bytes/s)
@@ -55,30 +55,41 @@ def flop_seconds(net: Net, precision: dict, peaks: dict,
                        for L in net.convs())
 
 
+def layer_least_seconds(net: Net, L: Layer, site: str, edges: str,
+                        peaks: dict, batch: int) -> float:
+    """The least time of one layer of one batch's forward: for a conv (the
+    classifier is one), the larger of its operations over the peak of its
+    declared precision `site` and its bytes over the HBM rate; for a pool,
+    its bytes over the HBM rate; 0 for any other layer. Each input, filter
+    and output is counted once: an activation at the edge precision `edges`
+    (at the site's, where that is narrower), a filter (out, cin / groups,
+    k, k) at the site's, a bias at 4 bytes. site is unused for a pool."""
+    edge = BYTES[edges]
+    if L.kind == "conv":
+        a = min(edge, BYTES[site])
+        cin = net.shapes[L.ins[0]][0] // groups(L)
+        w = L.p["out"] * cin * L.p["k"] ** 2
+        nbytes = batch * (numel(net.shapes[L.ins[0]]) * a
+                          + numel(net.shapes[L.out]) * edge) \
+            + w * BYTES[site] + L.p["out"] * 4
+        return max(batch * conv_flops(net, L) / peaks[site],
+                   nbytes / peaks["hbm"])
+    if L.kind in ("maxpool", "avgpool_global"):
+        nbytes = batch * edge * (numel(net.shapes[L.ins[0]])
+                                 + numel(net.shapes[L.out]))
+        return nbytes / peaks["hbm"]
+    return 0.0
+
+
 def least_seconds(net: Net, precision: dict, peaks: dict,
                   batch: int) -> float:
-    """The least time of one batch's forward: per conv (the classifier is
-    one) and per pool, the larger of its operations over the peak of its
-    declared precision and its bytes over the HBM rate, summed. Each
-    input, filter and output is counted once: an activation at the edge
-    precision (at the site's, where that is narrower), a filter at the
-    site's, a bias at 4 bytes."""
+    """The least time of one batch's forward: `layer_least_seconds` of
+    every layer at its site's declared precision, added one by one in
+    layer order (not by `sum`, which compensates float rounding since
+    Python 3.12 and so reads other digits)."""
     prec = site_precisions(net, precision)
-    edge = BYTES[precision["edges"]]
     total = 0.0
     for L in net.layers:
-        if L.kind == "conv":
-            p = prec[L.name]
-            a = min(edge, BYTES[p])
-            cin = net.shapes[L.ins[0]][0]
-            w = L.p["out"] * cin * L.p["k"] ** 2
-            nbytes = batch * (numel(net.shapes[L.ins[0]]) * a
-                              + numel(net.shapes[L.out]) * edge) \
-                + w * BYTES[p] + L.p["out"] * 4
-            total += max(batch * conv_flops(net, L) / peaks[p],
-                         nbytes / peaks["hbm"])
-        elif L.kind in ("maxpool", "avgpool_global"):
-            nbytes = batch * edge * (numel(net.shapes[L.ins[0]])
-                                     + numel(net.shapes[L.out]))
-            total += nbytes / peaks["hbm"]
+        total += layer_least_seconds(net, L, prec.get(L.name),
+                                     precision["edges"], peaks, batch)
     return total

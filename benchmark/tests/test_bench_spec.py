@@ -115,3 +115,11 @@ def test_a_load_the_harness_cannot_offer_is_refused(monkeypatch, key, value):
     monkeypatch.setattr(spec, "load_json", load_json)
     with pytest.raises(spec.SpecError, match=key):
         spec.load_cell(names("workloads")[0])
+
+
+def test_every_reader_has_a_metric():
+    """Each reader in benchmark/metrics/ reads a metric BENCHMARK.json
+    names: a retired metric takes its reader with it."""
+    readers = {f.stem for f in (spec.ROOT / "benchmark" / "metrics")
+               .glob("*.py")}
+    assert readers == set(names("end_to_end") + names("per_layer"))
