@@ -336,6 +336,11 @@ def _fuse_sibling_convs(steps: list[Step], node_dims,
         if "biases" not in s.arg_nodes:
             return None  # keep the template's paired-args form simple
         sig = s.sig
+        if sig.get_u32_or("groups", 1) > 1:
+            # xla_conv2 (and B7) is ungrouped, and fd["in_chan"] (in /
+            # groups) cannot tell a grouped filter from an ungrouped one:
+            # a grouped conv is no sibling
+            return None
         fd = sig.get_dims("filts")
         st = sig.get_dims_or_none("stride")
         pd = sig.get_dims_or_none("in_pad")
@@ -446,6 +451,7 @@ def _fuse_stem(steps: list[Step], node_dims, outputs: set,
                   and s1.sig.get_u32_or("conv_has_relu", 0) == 1
                   and st is not None and st["y"] == 2 and st["x"] == 2
                   and fdims is not None and fdims["in_chan"] <= 4
+                  and s1.sig.get_u32_or("groups", 1) == 1
                   and s2.func_name == "pool"
                   and s2.sig.str_vals.get("avg_pool") not in ("1",)
                   and pst is not None and pst["y"] == 2 and pst["x"] == 2
@@ -499,7 +505,8 @@ def _fuse_resblocks(steps: list[Step], node_dims, outputs: set,
             uses[node] = uses.get(node, 0) + 1
 
     def is_conv(s, k, pad, relu):
-        if s.func_name not in ("xla_conv", "conv", "tconv", "k1conv"):
+        if s.func_name not in ("xla_conv", "conv", "tconv", "k1conv") \
+                or s.sig.get_u32_or("groups", 1) > 1:
             return False
         ks = s.sig.get_dims_or_none("kern_sz")
         st = s.sig.get_dims_or_none("stride")

@@ -18,10 +18,10 @@ the pieces it does that with:
   the filter, bias and, for int8, the per-channel scales (a sig of its own
   at out_chan/mp), and the slices are gathered along the channel axis of
   the storage form (NCHW: 1, NHWC: 3). Any other step that reads a split
-  weight (the sibling-fused xla_conv2, fused_stem, resblock, deconv) runs
-  on the gathered weight: each process keeps every weight whole, so that
-  gather is the weight itself. A step that reads no split weight runs on
-  every slot, as GSPMD's replicated compute does.
+  weight (the sibling-fused xla_conv2, fused_stem, resblock, deconv, a
+  conv in groups) runs on the gathered weight: each process keeps every
+  weight whole, so that gather is the weight itself. A step that reads no
+  split weight runs on every slot, as GSPMD's replicated compute does.
 - the outputs are gathered over 'dp' along img (gather_rows).
 
 fwd.routes counts the steps that read a split weight, by route. Under

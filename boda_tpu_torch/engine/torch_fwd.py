@@ -224,8 +224,8 @@ def build_forward(plan: Plan, device: torch.device | None = None,
     mesh's first local slot's device. fwd.routes counts the steps that read
     a weight split over 'mp', by route ({'column_parallel': n, 'gathered':
     m}; both 0 on one slot). fwd.conv_routes gives each conv step's route
-    by call tag, as its built fn says ('b7', 'b6' or 'vendor': the kernel
-    or the vendor library its inference forward runs on).
+    by call tag, as its built fn says ('b7', 'b8', 'b6' or 'vendor': the
+    kernel or the vendor library its inference forward runs on).
 
     inputs: every node of plan.input_nodes, as logical (NCHW, node dtype)
     tensors on that device; names, shapes, dtypes and device are checked.
@@ -287,7 +287,10 @@ def build_forward(plan: Plan, device: torch.device | None = None,
         col_fn, col_ix = None, []
         if w_split.intersection(reads):
             wargs = [a for a in COL_WEIGHT_ARGS if a in s.arg_nodes]
+            # a grouped conv's out_chan slice would read another slice of
+            # its input: it runs on the gathered weight
             if s.func_name in COL_TEMPLATES \
+                    and s.sig.get_u32_or("groups", 1) == 1 \
                     and all(s.arg_nodes[a] in w_split for a in wargs):
                 col_fn = tmpl.build(tmpl.check_args(
                     column_sig(s.sig, mesh.shape["mp"])))
@@ -392,11 +395,12 @@ def build_forward(plan: Plan, device: torch.device | None = None,
 class StepSpans:
     """build_forward's step_hook while a profiler records: each step on
     each slot a `fwd.step` span (call_tag, func_name, and for a conv step
-    its `route` from `routes`, build_forward's fwd.conv_routes) in the
-    timer log's span list (core/timers.py), with no record_function range
-    and no TIMERS row, which would cost the step loop more than the host
-    time it measures. One instance per forward: it records into the span
-    open at its first step (the forward's `fwd`)."""
+    its `route` from `routes`, build_forward's fwd.conv_routes, and for a
+    grouped conv its `groups`) in the timer log's span list
+    (core/timers.py), with no record_function range and no TIMERS row,
+    which would cost the step loop more than the host time it measures.
+    One instance per forward: it records into the span open at its first
+    step (the forward's `fwd`)."""
 
     def __init__(self, routes: dict | None = None):
         self.add = None
@@ -418,6 +422,9 @@ class StepSpans:
         route = self.routes.get(s.call_tag)
         if route is not None:
             attrs["route"] = route
+        groups = s.sig.get_u32_or("groups", 1)
+        if groups > 1:
+            attrs["groups"] = groups
         self.add(self.t0, end, attrs)
 
 

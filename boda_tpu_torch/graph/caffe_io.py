@@ -217,16 +217,20 @@ def create_pipe_from_param(net: PbNode, in_dims: Optional[Dims] = None,
                                         wds[i] if i < len(wds) else 1.0))
         if ltype in ("Convolution", "Deconvolution"):
             cp = l.get("convolution_param") or PbNode()
-            # unsupported conv features must fail at parse time: silently
-            # ignoring group would crash weight copy with a raw reshape
-            # error (blob has out*in/g elements) and ignoring dilation
-            # would compute a different net (the reference ignored both
-            # and shipped _ng "no groups" net variants instead)
+            # unsupported conv features must fail at parse time: ignoring
+            # dilation would compute a different net. A Convolution's
+            # group g splits its channels into g blocks (its filter blob
+            # is (out, in / g, k, k); graph/pipe.py checks that g
+            # divides both); a Deconvolution's stays refused
             grp = int(cp.get("group", 1) or 1)
-            if grp != 1:
-                raise RtErr(f"caffe import: convolution group={grp} is "
-                            f"unsupported (layer '{name}'); use a "
-                            f"no-groups net variant")
+            if grp != 1 and ltype == "Deconvolution":
+                raise RtErr(f"caffe import: deconvolution group={grp} is "
+                            f"unsupported (layer '{name}')")
+            if grp < 1:
+                raise RtErr(f"caffe import: convolution group={grp} "
+                            f"(layer '{name}')")
+            if grp > 1:
+                params["groups"] = grp
             dil = _geom(cp, "dilation", 1)
             if tuple(dil) != (1, 1):
                 raise RtErr(f"caffe import: dilation={tuple(dil)} is "
@@ -536,6 +540,8 @@ def pipe_to_net_param(pipe: ConvPipe, name: str = "net") -> PbNode:
             if pd != (0, 0):
                 cp.add("pad", pd.y) if pd.y == pd.x else (
                     cp.add("pad_h", pd.y), cp.add("pad_w", pd.x))
+            if op.get_u32_or("groups", 1) > 1:
+                cp.add("group", op.get_u32("groups"))
             l.add("convolution_param", cp)
         elif op.type == "InnerProduct":
             ip = PbNode()

@@ -386,9 +386,18 @@ class ConvPipe:
                 ks = Pt(in_dims["y"], in_dims["x"])
                 op._set_param("kern_sz", (ks.y, ks.x))
             out_chans = op.get_u32("out_chans")
+            # a grouped conv (`groups` g, set only where g > 1): input and
+            # output channels split into g blocks in order, output block j
+            # reading input block j alone, so its filter is (out_chan,
+            # in_chan / g, y, x)
+            g = op.get_u32_or("groups", 1)
+            if g < 1 or in_dims["chan"] % g or out_chans % g:
+                raise RtErr(f"conv '{op.tag}': {g} groups do not divide its "
+                            f"{in_dims['chan']} input and {out_chans} output "
+                            f"channels")
             self.must_get_node(op.bots[1]).dims = Dims.make(
-                tn=in_dims.tn, out_chan=out_chans, in_chan=in_dims["chan"],
-                y=ks.y, x=ks.x)
+                tn=in_dims.tn, out_chan=out_chans,
+                in_chan=in_dims["chan"] // g, y=ks.y, x=ks.x)
             self.must_get_node(op.bots[2]).dims = Dims.make(
                 tn=in_dims.tn, out_chan=out_chans)
         elif op.type == "InnerProduct":
@@ -566,6 +575,11 @@ class ConvPipe:
             gl = cop.bots[0] + "_grad_loss"
             return ConvOp("BckDropout", cop.tag + "_bck", [gl], [gl], params)
         if t == "Convolution":
+            if cop.get_u32_or("groups", 1) > 1:
+                raise RtErr(f"add_bck_ops: grouped conv '{cop.tag}' has no "
+                            f"backward op (BckConv is ungrouped; the "
+                            f"autodiff training path, cnet_train/mxu_grad, "
+                            f"differentiates it)")
             return ConvOp("BckConv", cop.tag + "_bck",
                           list(cop.bots) + [cop.tops[0] + "_grad_loss"],
                           [self._grad_onn(cop, b) for b in cop.bots[:3]], params)

@@ -44,11 +44,17 @@ class NetBuilder:
         return base
 
     def conv(self, tag: str, out_chans: int, kern: int, stride: int = 1,
-             pad: int = 0, relu: bool = True, in_node: str = "") -> "NetBuilder":
+             pad: int = 0, relu: bool = True, in_node: str = "",
+             groups: int = 1) -> "NetBuilder":
+        """A conv; groups > 1: a grouped conv, whose filter is (out_chans,
+        in / groups, kern, kern) (the op carries `groups` only then)."""
         src = in_node or self.cur
+        params = {"out_chans": out_chans, "kern_sz": (kern, kern),
+                  "stride": (stride, stride), "in_pad": (pad, pad)}
+        if groups != 1:
+            params["groups"] = groups
         self.pipe.add_op(ConvOp("Convolution", tag, [src, f"{tag}_filts", f"{tag}_biases"],
-                                [tag], {"out_chans": out_chans, "kern_sz": (kern, kern),
-                                        "stride": (stride, stride), "in_pad": (pad, pad)}))
+                                [tag], params))
         self.cur = tag
         if relu:
             self.relu(f"{tag}_relu")
@@ -352,6 +358,49 @@ def build_resnet(depth: int = 50, batch: int = 1, ysz: int = 224, xsz: int = 224
     return b.done()
 
 
+def build_resnext(depth: int = 101, cardinality: int = 64, width: int = 4,
+                  batch: int = 1, ysz: int = 224, xsz: int = 224,
+                  num_classes: int = 1000) -> ConvPipe:
+    """ResNeXt (Xie et al., arXiv:1611.05431; facebookresearch/ResNeXt):
+    ResNet's stem, head and block naming (build_resnet) around aggregated
+    bottlenecks: a 1x1 to cardinality x width channels, a 3x3 in
+    `cardinality` groups that carries the stage's stride, a 1x1 to the
+    stage's output (256 << stage); the width doubles each stage. 101-64x4d:
+    3/4/23/3 blocks, bottlenecks 256/512/1024/2048 wide."""
+    blocks = {101: (3, 4, 23, 3)}.get(depth)
+    if blocks is None:
+        raise RtErr(f"unsupported resnext depth {depth}")
+    b = NetBuilder(f"resnext-{depth}-{cardinality}x{width}d", batch, 3, ysz,
+                   xsz)
+    b.conv("conv1", 64, 7, 2, 3).pool("pool1", 3, 2)
+    cur = b.cur
+    for stage, reps in enumerate(blocks, 2):
+        inner = cardinality * width << (stage - 2)
+        out = 256 << (stage - 2)
+        for r in range(reps):
+            # build_resnet's caffe naming at 101: res4a, res4b1..res4b22
+            tag = f"res{stage}{chr(ord('a') + r)}" if reps <= 3 else \
+                (f"res{stage}a" if r == 0 else f"res{stage}b{r}")
+            stride = 2 if (r == 0 and stage > 2) else 1
+            b.conv(f"{tag}_branch2a", inner, 1, in_node=cur)
+            b.conv(f"{tag}_branch2b", inner, 3, stride, 1,
+                   groups=cardinality)
+            b.conv(f"{tag}_branch2c", out, 1, relu=False)
+            main = b.cur
+            short = cur
+            if r == 0:
+                b.conv(f"{tag}_branch1", out, 1, stride, relu=False,
+                       in_node=cur)
+                short = b.cur
+            b.eltwise(tag, [short, main])
+            b.relu(f"{tag}_relu")
+            cur = b.cur
+    b.pool("pool5", 7, 1, global_=True, avg=True)
+    b.conv("fc1000-conv", num_classes, 1, relu=False)
+    b.softmax()
+    return b.done()
+
+
 def build_googlenet_conv(batch: int = 1, ysz: int = 224, xsz: int = 224,
                          num_classes: int = 1000, lrn: bool = False) -> ConvPipe:
     """GoogLeNet v1 all-conv (reference: nets/googlenet_conv[_no_lrn])."""
@@ -436,8 +485,17 @@ MODEL_BUILDERS = {
 }
 
 
+# the port's models with grouped convs, which the JAX package's IR has not:
+# apart from MODEL_BUILDERS, the JAX zoo's, whose plans both packages lower
+# alike (tests/test_torch_sigs.py)
+GROUPED_BUILDERS = {
+    "resnext-101-64x4d": lambda **kw: build_resnext(101, 64, 4, **kw),
+}
+
+
 def build_model(name: str, **kw) -> ConvPipe:
-    bld = MODEL_BUILDERS.get(name)
+    bld = MODEL_BUILDERS.get(name) or GROUPED_BUILDERS.get(name)
     if bld is None:
-        raise RtErr(f"unknown model '{name}' (known: {','.join(sorted(MODEL_BUILDERS))})")
+        known = sorted(MODEL_BUILDERS) + sorted(GROUPED_BUILDERS)
+        raise RtErr(f"unknown model '{name}' (known: {','.join(known)})")
     return bld(**kw)

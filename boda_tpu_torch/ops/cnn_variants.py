@@ -208,7 +208,13 @@ def add_cnn_codegen_annotations(op: OpBase, tune: OpTune,
         fd = op.get_dims("filts")
         st = op.get_dims_or_none("stride")
         sy, sx = (st["y"], st["x"]) if st else (1, 1)
-        if op.type != "Deconvolution" and t.s2d and sy == 2 and sx == 2 \
+        grouped = op.get_u32_or("groups", 1) > 1
+        if grouped:
+            # a grouped conv runs on the vendor template under any tune:
+            # its own kernel there (B8) or the vendor conv; no B1/B2
+            # template, fused stem or resblock takes one
+            fn = "xla_conv"
+        elif op.type != "Deconvolution" and t.s2d and sy == 2 and sx == 2 \
                 and fd["in_chan"] <= 4 and fd["y"] >= 3 and fd["x"] >= 3:
             # first-layer transform beats both hand and vendor paths on
             # TPU regardless of use_culibs (it lowers to an XLA conv)
@@ -249,6 +255,10 @@ def add_cnn_codegen_annotations(op: OpBase, tune: OpTune,
                          if (t.Mb or t.Nb or t.Kb) else None)
         _set_or_pop_str(op, "prec", t.prec)
         _set_or_pop_str(op, "layout", t.layout)
+        if t.quant8 and grouped:
+            raise RtErr(f"quant8 at grouped conv site "
+                        f"'{getattr(op, 'tag', op.type)}': the int8 conv "
+                        f"(B6) is ungrouped; keep the site in float")
         if t.quant8 and fn == "xla_conv" and op.get_dims("filts")["in_chan"] >= 16:
             # int8 execution for the MXU-heavy convs; thin-channel stems
             # stay in float (their error dominates, their flops don't)
@@ -268,10 +278,11 @@ def add_cnn_codegen_annotations(op: OpBase, tune: OpTune,
             op.nda_vals.pop("quant8", None)
             op.nda_vals.pop("act_scale", None)
             op.nda_vals.pop("no_prequant", None)
-        if t.grad_q8 and fn == "xla_conv" and fd["in_chan"] >= 16:
+        if t.grad_q8 and fn == "xla_conv" and fd["in_chan"] >= 16 \
+                and not grouped:
             # int8 weight-gradient contraction (training); same
             # thin-channel gate as quant8 — the stem's error dominates
-            # while its wgrad flops don't
+            # while its wgrad flops don't; ungrouped, as B6 is
             op.set_u32("grad_q8", 1)
         else:
             op.nda_vals.pop("grad_q8", None)

@@ -17,10 +17,12 @@ XlaConv, XlaConv2 (conv2.py) and S2dConv are vendor roles in the JAX
 package (XLA convs, the last over a 2x2 phase-stacked input). Under
 prec=bf16 with NHWC storage, on inference, all three run on kernel B7
 (bconv.py: bf16 operands, f32 sums, the bias, ReLU and store in its
-epilogue; takes_b7 gives the rule). Else they are F.conv2d on cuDNN in
-full FP32 on the operands rounded to the compute dtype (vendor_conv says
-why not in bf16), channels_last under NHWC storage; the phase stacking
-only re-indexes the same arithmetic, so it is dropped. The int8 forms of XlaConv and XlaConv2 (quant8, in_q8) run on
+epilogue; takes_b7 gives the rule), and an XlaConv in groups (`groups`
+g > 1: filter (out_chan, in_chan / g, y, x); every grouped conv is one) on
+kernel B8 (gconv.py; takes_b8 gives the rule). Else they are F.conv2d on
+cuDNN in full FP32 on the operands rounded to the compute dtype
+(vendor_conv says why not in bf16), channels_last under NHWC storage; the
+phase stacking only re-indexes the same arithmetic, so it is dropped. The int8 forms of XlaConv and XlaConv2 (quant8, in_q8) run on
 kernel B6 (qconv.py), an int8 edge's store (out_q8) also after a float
 vendor conv. Under autograd the vendor convs carry the mixed-precision VJP
 of ops/mxu_grad.py, with the int8 weight gradient of grad_q8 on B6. The
@@ -44,6 +46,7 @@ from ..mxu_grad import grad_q8_site, mxu_conv, relu_store
 from ..op_base import OpBase
 from ..registry import IN, OUT, KernelTemplate, adecl, template
 from .bconv import FilterCache, Member, bconv, ohwi_bf16, records_grad
+from .gconv import gconv, gconv_fits
 from .qconv import absmax, act_quantize, qconv, quantize_filter, \
     static_act_scale, store_int8
 from .sgemm import matmul_ext
@@ -65,6 +68,20 @@ def conv_params(rfs: OpBase):
     py, px = (pad["y"], pad["x"]) if pad else (0, 0)
     relu = rfs.get_u32_or("conv_has_relu", 0) == 1
     return ind, outd, fd, sy, sx, py, px, relu
+
+
+def conv_groups(rfs: OpBase) -> int:
+    """The groups of a conv sig (1: ungrouped): its input's channels over
+    its filter's in_chan. A grouped op's sig also carries `groups`, which
+    the reduced sig (check_args) leaves out, its keys being the JAX
+    package's: the dims say it."""
+    ind, fd = rfs.get_dims("in"), rfs.get_dims("filts")
+    g, r = divmod(ind["chan"], fd["in_chan"])
+    if r or fd["out_chan"] % g:
+        raise RtErr(f"conv: {ind['chan']} input channels, a filter of "
+                    f"{fd['in_chan']} in and {fd['out_chan']} out: no whole "
+                    f"number of groups")
+    return g
 
 
 def conv_flops(rfs: OpBase) -> int:
@@ -109,14 +126,22 @@ class _ConvBase(KernelTemplate):
         n, C, H, W = x.shape
         oc, ic, ky, kx = w.shape
         oy, ox = outd["y"], outd["x"]
+        g = conv_groups(rfs)
         xp = np.pad(x, ((0, 0), (0, 0), (py, py), (px, px)))
         out = np.zeros((n, oc, oy, ox))
         for yy in range(ky):
             for xx in range(kx):
                 win = xp[:, :, yy:yy + oy * sy:sy, xx:xx + ox * sx:sx]
                 win = win[:, :, :oy, :ox]
-                out += np.einsum("nchw,oc->nohw", win, w[:, :, yy, xx],
-                                 optimize=True)
+                if g == 1:
+                    out += np.einsum("nchw,oc->nohw", win, w[:, :, yy, xx],
+                                     optimize=True)
+                else:
+                    # output block j from input block j alone
+                    out += np.einsum(
+                        "njchw,joc->njohw", win.reshape(n, g, ic, oy, ox),
+                        w[:, :, yy, xx].reshape(g, oc // g, ic),
+                        optimize=True).reshape(n, oc, oy, ox)
         if b is not None:
             out += np.asarray(b, np.float64)[None, :, None, None]
         if relu:
@@ -132,13 +157,15 @@ class _ConvBase(KernelTemplate):
 def make_conv_op(n: int, cin: int, h: int, w: int, cout: int, ky: int, kx: int,
                  sy: int = 1, sx: int = 1, py: int = 0, px: int = 0,
                  func_name: str = "xla_conv", relu: bool = False,
-                 bias: bool = True) -> OpBase:
-    """Helper: construct a Convolution op sig in reference layout."""
+                 bias: bool = True, groups: int = 1) -> OpBase:
+    """Helper: construct a Convolution op sig in reference layout (groups
+    > 1: a grouped conv, its filter (cout, cin / groups, ky, kx))."""
     oy = (h + 2 * py - ky) // sy + 1
     ox = (w + 2 * px - kx) // sx + 1
     op = OpBase({"type": "Convolution", "func_name": func_name})
     op.set_dims("in", Dims.make(img=n, chan=cin, y=h, x=w))
-    op.set_dims("filts", Dims.make(out_chan=cout, in_chan=cin, y=ky, x=kx))
+    op.set_dims("filts", Dims.make(out_chan=cout, in_chan=cin // groups,
+                                   y=ky, x=kx))
     if bias:
         op.set_dims("biases", Dims.make(out_chan=cout))
     op.set_dims("out", Dims.make(img=n, chan=cout, y=oy, x=ox))
@@ -147,6 +174,8 @@ def make_conv_op(n: int, cin: int, h: int, w: int, cout: int, ky: int, kx: int,
     op.set_null_dims("kern_sz", y=ky, x=kx)
     if relu:
         op.set_u32("conv_has_relu", 1)
+    if groups > 1:
+        op.set_u32("groups", groups)
     return op
 
 
@@ -249,8 +278,9 @@ class IpConv(_ConvBase):
 
 
 def vendor_conv(stride, pad, cdt, io_nhwc, transposed: bool = False,
-                q8: bool = False):
-    """The vendor conv of a step (cuDNN's role; XLA's in the JAX package):
+                q8: bool = False, groups: int = 1):
+    """The vendor conv of a step (cuDNN's role; XLA's in the JAX package),
+    in `groups` groups:
     conv(x, w, b) -> the f32 conv of the operands rounded to the compute
     dtype `cdt`, + the f32 bias, as a logical NCHW tensor. It runs in full
     FP32 (never TF32) on the rounded operands, also under prec=bf16: FP32
@@ -277,7 +307,7 @@ def vendor_conv(stride, pad, cdt, io_nhwc, transposed: bool = False,
     def conv(x, w, b=None):
         if io_nhwc:
             x = x.permute(0, 3, 1, 2)
-        y = mxu_conv(x, w, stride, pad, cdt, transposed, io_nhwc, q8)
+        y = mxu_conv(x, w, stride, pad, cdt, transposed, io_nhwc, q8, groups)
         if b is not None:
             y = y + b.float()[None, :, None, None]
         return y
@@ -316,6 +346,19 @@ def takes_b7(cdt, io_nhwc: bool, transposed: bool = False) -> bool:
     return cdt == torch.bfloat16 and io_nhwc and not transposed
 
 
+def takes_b8(cdt, io_nhwc: bool, odt, cin: int, cout: int, groups: int,
+             taps: int) -> bool:
+    """The route of a grouped vendor conv step (groups > 1), from what its
+    sig says: kernel B8 (ops/cuda/gconv.py) where its operands are bf16
+    under NHWC storage, it stores bf16 and B8 has an instance for its group
+    width and its taps (gconv_fits); else the vendor conv in groups. As
+    under takes_b7, the built step takes B8 on every call that records no
+    autograd graph (a CPU tensor takes B8's plain version, the vendor
+    arithmetic)."""
+    return cdt == torch.bfloat16 and io_nhwc and odt == torch.bfloat16 \
+        and groups > 1 and gconv_fits(cin, cout, groups, taps)
+
+
 def _bias_b7(b):
     return None if b is None else b.float().contiguous()
 
@@ -326,18 +369,35 @@ def _cudnn_conv(rfs: OpBase, q8: bool = False):
     produces an int8 edge (out_q8); on kernel B7 where takes_b7 says so,
     else vendor_conv and vendor_store. Takes and returns NCHW, or NHWC
     storage tensors when the plan's fused-storage pass marked the step. q8:
-    the int8 weight gradient under autograd (grad_q8). The fn's `route` is
-    "b7" or "vendor"."""
+    the int8 weight gradient under autograd (grad_q8). A grouped conv runs
+    on kernel B8 where takes_b8 says so, else on the vendor conv in groups.
+    The fn's `route` is "b7", "b8" or "vendor"."""
     ind, outd, fd, sy, sx, py, px, relu = conv_params(rfs)
     io_nhwc, _ = storage_io(rfs)
     out_absmax = _scale_of(rfs, "out_scale") \
         if rfs.get_u32_or("out_q8", 0) else 0.0
     odt = torch.int8 if out_absmax else store_dtype(rfs)
     cdt = compute_dtype(rfs)
-    conv = vendor_conv((sy, sx), (py, px), cdt, io_nhwc, q8=q8)
+    groups = conv_groups(rfs)
+    conv = vendor_conv((sy, sx), (py, px), cdt, io_nhwc, q8=q8,
+                       groups=groups)
 
     def vendor_fn(x, w, b=None):
         return vendor_store(conv(x, w, b), relu, odt, io_nhwc, out_absmax)
+    if groups > 1:
+        if not takes_b8(cdt, io_nhwc, odt, ind["chan"], fd["out_chan"],
+                        groups, fd["y"] * fd["x"]):
+            vendor_fn.route = "vendor"
+            return vendor_fn
+        gfilt = FilterCache(ohwi_bf16)
+
+        def gfn(x, w, b=None):
+            if records_grad(x, w, b):
+                return vendor_fn(x, w, b)
+            return gconv(x.to(torch.bfloat16).contiguous(), gfilt(w),
+                         _bias_b7(b), groups, (sy, sx), (py, px), relu)
+        gfn.route = "b8"
+        return gfn
     if not takes_b7(cdt, io_nhwc):
         vendor_fn.route = "vendor"
         return vendor_fn

@@ -68,8 +68,10 @@ def kernel_wrappers() -> dict:
     its kernel's launches ("quantize": sgemm_int8's quantize kernel;
     "act_quantize": qconv's; "absmax": its first pass alone, a dp slot's
     max; "cotangent_quantize": its per-channel form in the int8 weight
-    gradient; "bconv": B7, the bf16 vendor conv)."""
+    gradient; "bconv": B7, the bf16 vendor conv; "gconv": B8, the grouped
+    conv)."""
     from .bconv import bconv
+    from .gconv import gconv
     from .qconv import absmax, act_quantize, cotangent_quantize, qconv
     from .qsgemm import quantize_operands, sgemm_int8
     from .resblock import resblock
@@ -80,7 +82,8 @@ def kernel_wrappers() -> dict:
             "fused_stem": fused_stem, "resblock": resblock,
             "sgemm_int8": sgemm_int8, "quantize": quantize_operands,
             "qconv": qconv, "act_quantize": act_quantize, "absmax": absmax,
-            "cotangent_quantize": cotangent_quantize, "bconv": bconv}
+            "cotangent_quantize": cotangent_quantize, "bconv": bconv,
+            "gconv": gconv}
 
 
 def launch_counts(reset: bool = False) -> dict[str, int]:

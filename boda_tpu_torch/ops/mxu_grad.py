@@ -103,40 +103,43 @@ def relu_store(y: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
 
 # ---------------------------------------------------------------- the conv
 
-def _conv_fwd(xc, wc, stride, pad, transposed, nhwc):
+def _conv_fwd(xc, wc, stride, pad, transposed, nhwc, groups=1):
     """f32 conv of the rounded operands in full FP32 (vendor_conv's
-    arithmetic); under NHWC storage (nhwc: x is the channels_last view of
+    arithmetic), in `groups` groups; under NHWC storage (nhwc: x is the channels_last view of
     an NHWC tensor) the filter goes channels_last too, so the result comes
     back channels_last."""
     if nhwc:
         wc = wc.contiguous(memory_format=torch.channels_last)
     conv_fn = F.conv_transpose2d if transposed else F.conv2d
     with full_fp32():
-        return conv_fn(xc.float(), wc.float(), stride=stride, padding=pad)
+        return conv_fn(xc.float(), wc.float(), stride=stride, padding=pad,
+                       groups=groups)
 
 
-def conv_backward_plain(gc, xc, wc, stride, pad, transposed, mask):
-    """(dx, dW) of the conv of xc, wc (both in cd) for the cotangent gc (in
+def conv_backward_plain(gc, xc, wc, stride, pad, transposed, mask,
+                        groups=1):
+    """(dx, dW) of the conv of xc, wc (both in cd, in `groups` groups) for the cotangent gc (in
     cd): full-FP32 grad convs on the rounded values, each rounded once to
     cd; None where mask says so."""
     cd = xc.dtype
     with full_fp32():
         dx, dw, _ = torch.ops.aten.convolution_backward(
             gc.float(), xc.float(), wc.float(), None, list(stride), list(pad),
-            [1, 1], transposed, [0, 0], 1, [mask[0], mask[1], False])
+            [1, 1], transposed, [0, 0], groups, [mask[0], mask[1], False])
     return (None if dx is None else dx.to(cd),
             None if dw is None else dw.to(cd))
 
 
-def conv_backward(gc, xc, wc, stride, pad, transposed, mask):
+def conv_backward(gc, xc, wc, stride, pad, transposed, mask, groups=1):
     """conv_backward_plain's function where the tensors lie on the CPU or
     cd is f32; on the card under cd = bf16, torch's bf16 cuDNN
     convolution_backward (f32 sums, one rounding to bf16)."""
     if xc.dtype == torch.float32 or not use_kernel(gc, xc, wc):
-        return conv_backward_plain(gc, xc, wc, stride, pad, transposed, mask)
+        return conv_backward_plain(gc, xc, wc, stride, pad, transposed, mask,
+                                   groups)
     dx, dw, _ = torch.ops.aten.convolution_backward(
         gc, xc, wc, None, list(stride), list(pad), [1, 1], transposed, [0, 0],
-        1, [mask[0], mask[1], False])
+        groups, [mask[0], mask[1], False])
     return dx, dw
 
 
@@ -159,35 +162,36 @@ def q8_fits(n: int, oy: int, ox: int) -> bool:
 
 class MxuConv(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, stride, pad, cd, transposed, nhwc, q8):
+    def forward(ctx, x, w, stride, pad, cd, transposed, nhwc, q8, groups):
         xc, wc = x.to(cd), w.to(cd)
         if nhwc:
             wc = wc.contiguous(memory_format=torch.channels_last)
         ctx.save_for_backward(xc, wc)
-        ctx.conf = (stride, pad, transposed, q8, x.dtype, w.dtype)
-        return _conv_fwd(xc, wc, stride, pad, transposed, nhwc)
+        ctx.conf = (stride, pad, transposed, q8, x.dtype, w.dtype, groups)
+        return _conv_fwd(xc, wc, stride, pad, transposed, nhwc, groups)
 
     @staticmethod
     def backward(ctx, g):
         xc, wc = ctx.saved_tensors
-        stride, pad, transposed, q8, xdt, wdt = ctx.conf
+        stride, pad, transposed, q8, xdt, wdt, groups = ctx.conf
         need_x, need_w = ctx.needs_input_grad[:2]
         q8 = q8 and need_w and q8_fits(g.shape[0], g.shape[2], g.shape[3])
         gc = g.to(xc.dtype)
         dx, dw = conv_backward(gc, xc, wc, stride, pad, transposed,
-                               (need_x, need_w and not q8))
+                               (need_x, need_w and not q8), groups)
         if q8:
             from .cuda.qconv import wgrad_q8
             dw = wgrad_q8(xc.permute(0, 2, 3, 1), wc, g.permute(0, 2, 3, 1),
                           stride, pad).to(xc.dtype)
         return (None if dx is None else dx.to(xdt),
                 None if dw is None else dw.to(wdt), None, None, None, None,
-                None, None)
+                None, None, None)
 
 
 def mxu_conv(x, w, stride, pad, cd: torch.dtype, transposed: bool = False,
-             nhwc: bool = False, q8: bool = False) -> torch.Tensor:
-    """The f32 conv (F.conv2d, or F.conv_transpose2d with an (in_chan,
+             nhwc: bool = False, q8: bool = False,
+             groups: int = 1) -> torch.Tensor:
+    """The f32 conv (F.conv2d in `groups` groups, or F.conv_transpose2d with an (in_chan,
     out_chan, ky, kx) filter where transposed) of x and w rounded to cd, in
     full FP32; x is a logical NCHW tensor, the channels_last view of an NHWC
     one where nhwc. Under autograd it carries MxuConv's VJP (q8: the int8
@@ -195,5 +199,7 @@ def mxu_conv(x, w, stride, pad, cd: torch.dtype, transposed: bool = False,
     takes it for); otherwise it is that forward alone."""
     stride, pad = tuple(stride), tuple(pad)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return MxuConv.apply(x, w, stride, pad, cd, transposed, nhwc, q8)
-    return _conv_fwd(x.to(cd), w.to(cd), stride, pad, transposed, nhwc)
+        return MxuConv.apply(x, w, stride, pad, cd, transposed, nhwc, q8,
+                             groups)
+    return _conv_fwd(x.to(cd), w.to(cd), stride, pad, transposed, nhwc,
+                     groups)

@@ -78,6 +78,13 @@ Phases, run in order, each fatal on failure (all of them by default):
            and 20) and at every distinct B7 step of the benchmark's three
            b128 cells, against its plain version and timed, with the sums
            per request
+  gconv    kernel B8, the grouped conv under prec=bf16 with NHWC bf16
+           storage: at ResNeXt-101 (64x4d)'s seven grouped 3x3 shapes at
+           b128 against its plain version (the vendor arithmetic), timed
+           beside its bound and cuDNN's bf16 grouped conv alone, with the
+           sums over a request's 33 layers; at edges (no bias or ReLU,
+           groups of 64 channels, ragged tiles, stride 2 on an odd input,
+           pad 0); a grouped xla_conv step on route b8
   digests  TorchFwd at batch 1 under the f32 tune, the fused f32 tune and
            the f32 twin of the headline tune (vendor convs, sibling convs
            fused into xla_conv2) against the per-node digest archives recorded on a TPU
@@ -412,7 +419,7 @@ B128_TUNES = ("headline", INT8)
 UNFUSED_LAUNCHES = {"matmul_ext": 40, "tconv": 13, "fused_stem": 0,
                     "resblock": 0, "sgemm_int8": 0, "quantize": 0,
                     "qconv": 0, "act_quantize": 0, "absmax": 0,
-                    "cotangent_quantize": 0, "bconv": 0}
+                    "cotangent_quantize": 0, "bconv": 0, "gconv": 0}
 FUSED_LAUNCHES = {**UNFUSED_LAUNCHES, "matmul_ext": 14, "tconv": 3,
                   "fused_stem": 1, "resblock": 12}
 # the headline tune's 50 conv steps (46 xla_conv, 4 xla_conv2) on B7; the
@@ -2142,6 +2149,151 @@ def phase_vendor(ctx: dict) -> None:
               f"on [{ctx['smi']}]", flush=True)
         cells[cell] = {"steps": count, **sums}
     ctx["bconv_cells"] = cells
+
+
+# ResNeXt-101 (64x4d)'s grouped 3x3s at b128: (label, H, C, stride, steps
+# of a request); 64 groups of C / 64 channels, pad 1
+GCONV_STAGES = (("res2", 56, 256, 1, 3), ("res3a", 56, 512, 2, 1),
+                ("res3", 28, 512, 1, 3), ("res4a", 28, 1024, 2, 1),
+                ("res4", 14, 1024, 1, 22), ("res5a", 14, 2048, 2, 1),
+                ("res5", 7, 2048, 1, 2))
+
+
+def _gconv_case(label, x, w, b, groups, stride, pad, relu, peaks,
+                timed=True):
+    """B8 against gconv_plain on the card: the stored bf16 values against
+    the plain version's sums stored in f32 (mrd at the bf16 gate; the two
+    sum in other orders, so a value may sit one bf16 step off the plain
+    version's), then timed: the kernel alone (a CUDA graph), the wrapper's
+    call, the plain version and cuDNN's bf16 grouped conv alone on
+    channels_last operands (the yardstick; the port never calls it),
+    beside the bound. Returns the case's numbers."""
+    import torch
+    import torch.nn.functional as F
+    from boda_tpu_torch.ops.cuda.gconv import gconv, gconv_plain, gconv_plan
+    from boda_tpu_torch.ops.mxu_grad import _conv_fwd
+    got = gconv(x, w, b, groups, stride, pad, relu)
+    torch.cuda.synchronize()
+    want = gconv_plain(x, w, b, groups, stride, pad, relu)
+    y32 = _conv_fwd(x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2), stride,
+                    pad, False, True, groups)
+    if b is not None:
+        y32 = y32 + b[None, :, None, None]
+    y32 = (torch.relu(y32) if relu else y32).permute(0, 2, 3, 1)
+    check(got.dtype == torch.bfloat16 and got.shape == want.shape
+          and got.is_contiguous(),
+          f"gconv {label}: output {got.dtype} {tuple(got.shape)}")
+    err = mrd(got, y32)
+    moved = float((got != want).float().mean())
+    check(err <= BF16_MRD, f"gconv {label}: mrd {err:.3e} against the "
+                           f"plain version's f32 sums")
+    n, H, W, C = x.shape
+    oc, ky, kx, cg = w.shape
+    oy, ox = got.shape[1:3]
+    plan = gconv_plan(oy, ox, ky, kx, tuple(stride))
+    out = {"mrd": err, "moved": moved}
+    if timed:
+        out["ms"] = graph_ms(lambda: gconv(x, w, b, groups, stride, pad,
+                                           relu))
+        out["call_ms"] = cuda_ms(lambda: gconv(x, w, b, groups, stride, pad,
+                                               relu), 10)
+        out["plain_ms"] = cuda_ms(lambda: gconv_plain(
+            x, w, b, groups, stride, pad, relu), 3)
+        xc = x.permute(0, 3, 1, 2)
+        wc = w.permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        out["library_ms"] = cuda_ms(lambda: F.conv2d(
+            xc, wc, stride=stride, padding=pad, groups=groups), 10)
+        work = 2 * n * oy * ox * oc * ky * kx * cg
+        nbytes = 2 * (x.numel() + w.numel() + got.numel()) + (
+            0 if b is None else 4 * b.numel())
+        out["bound_ms"], by = bound(peaks, "bf16", work, nbytes)
+        times = (f"kernel {out['ms']:.4f} ms (call {out['call_ms']:.4f}), "
+                 f"plain {out['plain_ms']:.4f}, bound {out['bound_ms']:.4f} "
+                 f"({by}), cuDNN bf16 grouped {out['library_ms']:.4f}")
+    else:
+        times = "not timed"
+    print(f"gconv {label:40s} mrd {err:.3e} (<= {BF16_MRD:g}; "
+          f"{100 * moved:.2f}% of the values one bf16 step off the plain "
+          f"version's); {times}; tile {plan.ty}x{plan.tx} of "
+          f"{plan.tiles_y}x{plan.tiles_x}, halo {plan.hy}x{plan.hx}",
+          flush=True)
+    return out
+
+
+def phase_gconv(ctx: dict) -> None:
+    """Kernel B8 (csrc/gconv.cu, ops/cuda/gconv.py), the grouped conv under
+    prec=bf16 with NHWC storage: at each grouped 3x3 shape of ResNeXt-101
+    (64x4d) at b128 (64 groups of 4 to 32 channels, the stride-2 first block
+    of each stage too) against gconv_plain (the vendor arithmetic) and
+    timed beside its bound and cuDNN's bf16 grouped conv alone, with the
+    sums over a request's 33 layers; at edges (no bias or ReLU, groups of
+    64 channels, images no tile divides, stride 2 on an odd input, pad 0,
+    one image); and the xla_conv template of a grouped sig: route b8, its
+    result the kernel's."""
+    import torch
+    from boda_tpu_torch.core.machine import card_peaks
+    from boda_tpu_torch.ops.cuda.conv import make_conv_op
+    from boda_tpu_torch.ops.cuda.gconv import gconv
+    from boda_tpu_torch.ops.registry import get_template
+    dev = torch.device("cuda", 0)
+    peaks = card_peaks(torch.cuda.get_device_name(0))
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def operands(n, H, C, cg, bias=True):
+        x = torch.randn(n, H, H, C, device=dev, generator=gen).bfloat16()
+        w = (torch.randn(C, 3, 3, cg, device=dev, generator=gen)
+             * (9 * cg) ** -0.5).bfloat16()
+        b = torch.randn(C, device=dev, generator=gen) * 0.5 if bias else None
+        return x, w, b
+    sums = dict.fromkeys(("ms", "call_ms", "plain_ms", "bound_ms",
+                          "library_ms"), 0.0)
+    steps = 0
+    for label, H, C, st, count in GCONV_STAGES:
+        x, w, b = operands(128, H, C, C // 64)
+        case = _gconv_case(f"{label} x{count} 3x3/s{st} {C} g64 {H}^2 b128",
+                           x, w, b, 64, (st, st), (1, 1), True, peaks)
+        for k in sums:
+            sums[k] += count * case[k]
+        steps += count
+        del x, w, b
+    torch.cuda.empty_cache()
+    print(f"gconv resnext101-bf16-b128: {steps} B8 steps per request: kernel "
+          f"{sums['ms']:.3f} ms (calls {sums['call_ms']:.3f}), plain "
+          f"{sums['plain_ms']:.3f}, bound {sums['bound_ms']:.3f}, cuDNN bf16 "
+          f"grouped {sums['library_ms']:.3f} on [{ctx['smi']}]", flush=True)
+    ctx["gconv"] = {"steps": steps, **sums}
+    for label, (n, H, C, g, st, pd, bias, relu) in {
+            "no bias, no ReLU, 13^2 (ragged tiles)": (
+                2, 13, 256, 64, 1, 1, False, False),
+            "groups of 64 channels": (2, 9, 128, 2, 1, 1, True, True),
+            "stride 2 on 15^2, groups of 8": (3, 15, 128, 16, 2, 1, True,
+                                              True),
+            "pad 0, groups of 16, 37^2 (two tiles across)": (
+                1, 37, 64, 4, 1, 0, True, False),
+            "groups of 4 at 64 channels, stride 2, 58^2": (
+                2, 58, 64, 16, 2, 1, True, True)}.items():
+        x, w, b = operands(n, H, C, C // g, bias)
+        _gconv_case(f"edge: {label}", x, w, b, g, (st, st), (pd, pd), relu,
+                    peaks, timed=False)
+    # the template: a grouped xla_conv sig under the cell's tune
+    op = make_conv_op(4, 512, 28, 28, 512, 3, 3, 1, 1, 1, 1, relu=True,
+                      groups=64)
+    op.str_vals.update(prec="bf16", io_layout="nhwc", edge_prec="bf16")
+    t = get_template("xla_conv")
+    fn = t.build(t.check_args(op))
+    check(fn.route == "b8", f"gconv template: route {fn.route}")
+    x = torch.randn(4, 28, 28, 512, device=dev, generator=gen).bfloat16()
+    w = torch.randn(512, 8, 3, 3, device=dev, generator=gen) * 0.1
+    b = torch.randn(512, device=dev, generator=gen)
+    before = gconv.launches
+    got = fn(x, w, b)
+    want = gconv(x, w.permute(0, 2, 3, 1).bfloat16().contiguous(), b, 64,
+                 (1, 1), (1, 1), True)
+    check(gconv.launches == before + 2 and bit_equal(got, want),
+          "gconv template: the step's result is not the kernel's")
+    print("gconv template: a grouped xla_conv step runs B8, its result the "
+          "kernel's bit for bit", flush=True)
 
 
 def _nodes_to_get(pipe):
@@ -6185,7 +6337,8 @@ def phase_parallel(ctx: dict) -> None:
 
 
 PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
-          "vendor": phase_vendor, "digests": phase_digests,
+          "vendor": phase_vendor, "gconv": phase_gconv,
+          "digests": phase_digests,
           "agree": phase_agree, "full": phase_full, "engine": phase_engine,
           "ops_prof": phase_ops_prof, "zoo": phase_zoo, "serve": phase_serve,
           "pyra": phase_pyra, "train": phase_train, "tune": phase_tune,
