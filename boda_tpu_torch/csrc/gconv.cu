@@ -19,67 +19,116 @@
 // (64x4d)'s res2 (og = 4) to 144 at res5 (og = 32), under the card's ridge of
 // about 295. B7 does not fit it: wgmma's least N (8) and K (16) are larger
 // than a group of 4, and its 128-wide tiles are shaped for compute-bound
-// layers. An FFMA kernel would be bound by its operations at res4 and res5
-// (FFMA's ridge is about 20 flops a byte). So:
-// - each block computes a tile of ty x tx output pixels of one image over a
-//   slab of 64 input channels (the slab's groups) and writes the same 64
-//   output channels: it stages the tile's input halo in shared memory once,
-//   by 16-byte cp.async with zero fill outside the image, so each input byte
-//   crosses device memory about once (the halo's overlap with the next tile
-//   is read again, mostly from L2; blocks of neighbouring tiles run side by
-//   side, the slab the fastest index);
-// - the warps run mma.sync m16n8k16 per unit of groups, straight from the
-//   staged halo (a fragment row is a pixel, its K a tap's channels), with the
-//   slab's filter staged beside it; where og < 8 (res2's 4) two groups make
-//   one block-diagonal unit of 8 outputs over their 8 channels, the filter's
-//   off-diagonal blocks zero, so no mma column is wasted on padding;
-// - the epilogue stages the tile's bf16 results in shared memory, and the
-//   block writes them out by 16-byte stores, each pixel's 128 bytes whole.
-// Pixels are padded by 16 bytes in shared memory (and the filter's rows to
-// 4 words past a multiple of 8), so the 8 rows of a fragment fall in other
-// banks. The zero blocks of a unit and the padding of K take x's finite
-// values times 0: an Inf or NaN input reaches the sums of the other group of
-// its unit, which cuDNN's grouped conv would not; a net's finite activations
-// never show it.
+// layers. So the kernel has to stream x in and y out at the card's rate, and
+// everything else has to hide under that stream. The work is cut in tiles of
+// ty x tx output pixels of one image over a slab of 64 channels (the slab's
+// groups), in and out; a unit is p groups of cg channels whose block-diagonal
+// product is one GEMM of cp = p * cg outputs over their cp channels (p = 2
+// at cg = 4, the two groups' off-diagonal blocks zero, so no mma column is
+// spent on padding; p = 1 from cg = 8 up). Its design, by part:
+// - Persistence and the filter held: the grid is one or two blocks an SM
+//   (ops/cuda/gconv.gconv_plan), each pinned to one slab, walking that
+//   slab's tiles (image, tile row, tile column) in a static stride, so that
+//   the blocks of a slab take neighbouring tiles at once and read their
+//   halos' overlap from L2. A block loads its slab's filter once, packed on
+//   the host in the order the fragments are read (gconv.pack_filter, once
+//   per weight): up to cg 16 into registers, each consumer warp holding the
+//   B fragments of its 8 or 16 output columns for every k16 step (10
+//   registers at cg 4 and 8, 36 at cg 16); from cg 32 up, where that would
+//   take 72 and keep an SM to one block (whose warps then could not hide the
+//   math under the stream), into shared memory (18 or 36 KB), read at each
+//   step. Each warp holds its columns' biases.
+// - The ring: the producer warp's lane 0 keeps up to 4 tile halos in flight
+//   (the plan's stages), each one TMA load of a box (64 channels, hx, hy, 1)
+//   of x's NHWC tensor map at signed coordinates, so the hardware zero-fills
+//   the padding and past the image's edges, with full/empty mbarriers
+//   (tma_pipe.cuh). TMA, not cp.async: a halo is one instruction of one
+//   thread, each dimension of its box is within TMA's 256, and a pixel's 64
+//   bf16 are exactly one row of the 128-byte swizzle, so the rows of a
+//   fragment fall in other banks with no padding. Where a stride-1 tile
+//   spans the output's width, the box's rows are widened to tx modulo 8, so
+//   that the 8 rows of an ldmatrix that cross a tile row's end fall in other
+//   banks too (the extra columns lie past the image: zero fill, no reads).
+// - ldmatrix without a tap table: 8 consumer warps read A straight from the
+//   staged halo by ldmatrix.x4, each lane giving its own fragment row's
+//   address at the tap (a pixel of the halo, a 16-byte chunk of the unit's
+//   channels, swizzled). The rows' halo offsets are a table made once per
+//   block (the tile's shape never changes) and read once per fragment; the
+//   taps' offsets are registers made once per block; the k loop is unrolled
+//   at compile time over 9 taps (the packed filter is zero past a conv's
+//   own), with no division in it. At cg = 4 and 8 a k16 step is two taps of
+//   8 channels, from cg = 16 up one tap's 16. A warp takes two m16 fragments
+//   at a time, so two mma chains run side by side.
+// - The TMA store: the epilogue (the f32 bias by __fadd_rn, the ReLU, one
+//   rounding to bf16) writes one of two swizzled staging tiles; the producer
+//   warp joins the consumers' barrier at the tile's end and stores the tile
+//   by a TMA tensor store (box 64 channels, tx, ty, 1), which clips the
+//   ragged edge, so no consumer stalls starting a copy. The store runs on
+//   under the next tile's math; before the barrier the producer waits until
+//   the store of the tile before has read the other staging tile, which the
+//   consumers write next.
+// What bounds it then: the stream, and shared memory's 128 bytes a clock.
+// ldmatrix reads each staged input row once a tap (about 9 times the input,
+// beside the TMA's writes and the store's reads), so the layers through res4
+// run at 1.1-1.3 times a device copy of the same bytes on an H100 SXM, held
+// by shared memory and DRAM together; res5 (cg 32, 144 flops a byte) is held
+// by the math.
+// The zero blocks of a unit and the padding of K take x's finite values
+// times 0: an Inf or NaN input reaches the sums of the other group of its
+// unit (and a tap past a smaller filter's), which cuDNN's grouped conv would
+// not; a net's finite activations never show it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#include "hopper_gemm.cuh"
+#include "tma_pipe.cuh"
+
 namespace {
 
-using E = __nv_bfloat16;
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSlab = 64;            // channels of a block's slab, in and out
-constexpr int kPsw = kSlab / 2 + 4;  // shared words of a staged pixel
+namespace tma = boda::tma;
+using boda::hopper::align_1024;
+using boda::hopper::fence_proxy_async;
+using boda::hopper::smem_addr;
+
+constexpr int kConsumers = 8;                    // consumer warps
+constexpr int kThreads = (kConsumers + 1) * 32;  // and one producer warp
+constexpr int kSlab = 64;                        // channels of a block's slab, in and out
+constexpr int kPixel = 128;                      // bytes of a pixel's slab: one swizzled row
+constexpr int kMaxTaps = 9;
+constexpr int kMaxStages = 4;
+
+// An instance's geometry, from its group width.
+template <int CG>
+struct Inst {
+  static constexpr int P = CG < 8 ? 8 / CG : 1;  // groups of a unit
+  static constexpr int CP = P * CG;              // a unit's channels, in and out
+  static constexpr int NW = CP >= 16 ? 2 : 1;    // n8 fragments of a warp
+  static constexpr int G = 8 / NW;               // column groups of a slab
+  static constexpr int S = kConsumers / G;       // warps that split a column group's pixels
+  static constexpr int KS = (kMaxTaps * CP + 15) / 16;  // k16 steps of a unit
+  // the filter in registers (2 NW KS of them), or from cg 32 up, where that
+  // would keep an SM to one block, in shared memory: the slab's, KS KB
+  static constexpr bool kRegs = CG <= 16;
+  static constexpr int kFilterBytes = kRegs ? 0 : 8 * KS * 32 * 8;
+};
 
 struct GShape {
-  int H, W, C, oc, ky, kx, sy, sx, py, px, oy, ox;
-  int ty, tx, hy, hx, tiles_y, tiles_x, slabs, relu;
-  int kpad;  // a unit's K in whole k16 steps (zero past ky * kx * cp)
-  int swb;   // shared words of a staged filter row: kpad / 2 + 4
+  int sy, sx, py, px, kx, taps;
+  int ty, tx, hy, hx, tiles_y, tiles_x;
+  int slabs, tiles;  // slabs of C; tiles of a slab (n * tiles_y * tiles_x)
+  int per_slab;      // blocks of a slab
+  int npix, pairs;   // pixels of a tile; pairs of its m16 fragments
+  int stages, stage_bytes, stg_bytes;
+  int relu;
 };
 
-// A unit: p groups of cg channels whose block-diagonal product is one GEMM
-// of cp = p * cg outputs over their cp channels (p = 1 from cg = 8 up).
-template <int CG>
-struct Unit {
-  static constexpr int P = CG < 8 ? 8 / CG : 1;
-  static constexpr int CP = P * CG;
-  static constexpr int NF = CP / 8;        // n8 fragments of a unit's outputs
-  static constexpr int U = kSlab / CP;     // units of a slab
-  static constexpr int V = CG < 8 ? 4 : 8; // bf16 values of a filter copy
-};
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src, int bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+__device__ __forceinline__ void ldsm_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr)
+               : "memory");
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -91,213 +140,275 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// One block: output pixels [oy0, oy0 + ty) x [ox0, ox0 + tx) of image img,
-// channels [c0, c0 + 64) of x in and of y out. Shared memory: the input halo
-// (hy x hx pixels of kPsw words), the slab's filter (64 rows of swb words,
-// row r = output c0 + r, k = tap * cp + channel within its unit, zero off a
-// unit's diagonal and past its taps), the staged output (ty * tx pixels of
-// kPsw words) and the tap table (halo pixel offset of each tap; 0 for the
-// taps of K's padding, whose filter is zero).
+// Shared memory, from a 1024-byte boundary: the ring (stages halos of hy x hx
+// pixels, each stage_bytes), the two staging tiles (npix pixels, each
+// stg_bytes), the slab's filter where it is not in registers, the fragment
+// rows' table (pairs * 32 halo rows) and the ring's full and empty mbarriers.
+// wp: the packed filter, [slabs][8 n8 fragments][KS k16 steps][32 lanes] of
+// (b0, b1) (gconv.pack_filter); bias f32 [C] or null.
 template <int CG>
-__global__ void __launch_bounds__(kThreads)
-    gconv_kernel(const E* __restrict__ x, const E* __restrict__ w,
-                 const float* __restrict__ bias, E* __restrict__ y, GShape s) {
-  using Un = Unit<CG>;
-  extern __shared__ __align__(16) uint32_t sm[];
-  const int taps_n = s.ky * s.kx;
-  const int tpad = s.kpad / Un::CP;
-  const int hpix = s.hy * s.hx, npix = s.ty * s.tx;
-  uint32_t* xs = sm;
-  uint32_t* ws = xs + hpix * kPsw;
-  uint32_t* os = ws + kSlab * s.swb;
-  int* taps = reinterpret_cast<int*>(os + npix * kPsw);
+__global__ void __launch_bounds__(kThreads, 2)
+    gconv_kernel(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap ymap, const uint2* __restrict__ wp,
+                 const float* __restrict__ bias, GShape s) {
+  using I = Inst<CG>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  const uint32_t ring = smem_addr(smem);
+  uint8_t* stg = smem + s.stages * s.stage_bytes;
+  uint2* wsm = reinterpret_cast<uint2*>(stg + 2 * s.stg_bytes);
+  int* rowtab = reinterpret_cast<int*>(stg + 2 * s.stg_bytes + I::kFilterBytes);
+  const uint32_t full0 = smem_addr(rowtab + s.pairs * 32), empty0 = full0 + 8 * s.stages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int slab = blockIdx.x % s.slabs, first = blockIdx.x / s.slabs;
+  const int nt = (s.tiles - first + s.per_slab - 1) / s.per_slab;  // the block's tiles
 
-  int b = blockIdx.x;
-  const int slab = b % s.slabs;
-  b /= s.slabs;
-  const int txi = b % s.tiles_x;
-  b /= s.tiles_x;
-  const int tyi = b % s.tiles_y;
-  const int img = b / s.tiles_y;
-  const int oy0 = tyi * s.ty, ox0 = txi * s.tx;
-  const int iy0 = oy0 * s.sy - s.py, ix0 = ox0 * s.sx - s.px;
-  const int c0 = slab * kSlab;
-
-  // the halo, 8 copies of 16 bytes a pixel, zeros outside the image
-  for (int i = threadIdx.x; i < hpix * 8; i += kThreads) {
-    const int p = i >> 3, v = i & 7;
-    const int iy = iy0 + p / s.hx, ix = ix0 + p % s.hx;
-    const bool in = iy >= 0 && iy < s.H && ix >= 0 && ix < s.W;
-    const E* src = in ? x + (((size_t)img * s.H + iy) * s.W + ix) * s.C + c0 + v * 8 : x;
-    cp_async16(xs + p * kPsw + v * 4, src, in ? 16 : 0);
+  if constexpr (!I::kRegs) {
+    // the slab's filter, for the block's life
+    const uint4* src = reinterpret_cast<const uint4*>(wp) + (size_t)slab * (I::kFilterBytes / 16);
+    for (int i = threadIdx.x; i < I::kFilterBytes / 16; i += kThreads)
+      reinterpret_cast<uint4*>(wsm)[i] = src[i];
   }
-  // the slab's filter, each unit block-diagonal: row r, columns k .. k + V
-  const int kv = s.kpad / Un::V;
-  for (int i = threadIdx.x; i < kSlab * kv; i += kThreads) {
-    const int r = i / kv, k = (i % kv) * Un::V;
-    const int tap = k / Un::CP, c = k % Un::CP;
-    const bool on = tap < taps_n && (r % Un::CP) / CG == c / CG;
-    const E* src = on ? w + ((size_t)(c0 + r) * taps_n + tap) * CG + c % CG : w;
-    uint32_t* dst = ws + r * s.swb + k / 2;
-    if (Un::V == 8) {
-      cp_async16(dst, src, on ? 16 : 0);
-    } else {
-      cp_async8(dst, src, on ? 8 : 0);
+  // each fragment row's halo row at tap 0 (row 0 past the tile's pixels)
+  for (int i = threadIdx.x; i < s.pairs * 32; i += kThreads)
+    rowtab[i] = i < s.npix ? (i / s.tx) * s.sy * s.hx + (i % s.tx) * s.sx : 0;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < s.stages; ++i) {
+      tma::mbar_init(full0 + 8 * i, 1);
+      tma::mbar_init(empty0 + 8 * i, kConsumers);
     }
+    tma::fence_mbar_init();
   }
-  asm volatile("cp.async.commit_group;\n" ::);
-  for (int t = threadIdx.x; t < tpad; t += kThreads) {
-    taps[t] = t < taps_n ? (t / s.kx) * s.hx + t % s.kx : 0;
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (warp == kConsumers) {
+    // the producer warp: its lane 0 keeps the ring's halos loading up to
+    // `stages` tiles ahead of the consumers, and stores each tile the
+    // consumers have staged (the barrier at its end), once the store of the
+    // tile before has read the other staging tile, which the consumers
+    // write next. No consumer stalls starting a copy.
+    if (lane == 0) {
+      tma::prefetch_map(&xmap);
+      tma::prefetch_map(&ymap);
+    }
+    const uint32_t bytes = s.hy * s.hx * kPixel;
+    for (int i = 0, jl = 0, t = first; i < nt; ++i, t += s.per_slab) {
+      for (; jl < nt && jl < i + s.stages; ++jl) {
+        const int st = jl % s.stages, tl = first + jl * s.per_slab;
+        const int txi = tl % s.tiles_x, r = tl / s.tiles_x;
+        tma::mbar_wait(empty0 + 8 * st, ((jl / s.stages) & 1) ^ 1);
+        if (lane == 0) {
+          tma::mbar_expect_tx(full0 + 8 * st, bytes);
+          tma::tma_load_4d(ring + st * s.stage_bytes, &xmap, slab * kSlab,
+                           txi * s.tx * s.sx - s.px, (r % s.tiles_y) * s.ty * s.sy - s.py,
+                           r / s.tiles_y, full0 + 8 * st);
+        }
+      }
+      if (lane == 0) tma::bulk_wait_read<0>();
+      __syncwarp();
+      tma::named_sync(1, kThreads);  // tile i is staged
+      if (lane == 0) {
+        const int txi = t % s.tiles_x, r = t / s.tiles_x;
+        tma::tma_store_4d(&ymap, slab * kSlab, txi * s.tx, (r % s.tiles_y) * s.ty, r / s.tiles_y,
+                          smem_addr(stg + (i & 1) * s.stg_bytes));
+        tma::bulk_commit();
+      }
+    }
+    // the last store has read its staging tile before the block's shared
+    // memory goes
+    if (lane == 0) tma::bulk_wait_all();
+    return;
+  }
+
+  // a consumer warp: n8 fragments nf0 .. nf0 + NW of the slab's 64 outputs
+  // (in unit u), over the fragment pairs split, split + S, ... of each tile
+  const int nf0 = (warp % I::G) * I::NW, split = warp / I::G;
+  const int u = nf0 * 8 / I::CP;
   const int g = lane >> 2, q = lane & 3;
-  const int mf = (npix + 15) / 16;
-  const int ksteps = s.kpad / 16;
-  for (int item = warp; item < mf * Un::U; item += kWarps) {
-    const int f = item % mf, u = item / mf;
-    int base[2];  // halo pixel of the fragment rows g and g + 8 at tap 0
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int m = f * 16 + g + 8 * h;
-      base[h] = m < npix ? (m / s.tx) * s.sy * s.hx + (m % s.tx) * s.sx : 0;
-    }
-    float acc[Un::NF][4];
-#pragma unroll
-    for (int j = 0; j < Un::NF; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-    const uint32_t* xu = xs + u * (Un::CP / 2);
-    const uint32_t* wu = ws + (u * Un::CP + g) * s.swb + q;
-    for (int ks = 0; ks < ksteps; ++ks) {
-      uint32_t a[4];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = ks * 16 + h * 8 + 2 * q;
-        const int off = taps[k / Un::CP];
-        const int cw = (k % Un::CP) / 2;
-        a[2 * h] = xu[(base[0] + off) * kPsw + cw];
-        a[2 * h + 1] = xu[(base[1] + off) * kPsw + cw];
-      }
-#pragma unroll
-      for (int j = 0; j < Un::NF; ++j) {
-        const uint32_t* wr = wu + j * 8 * s.swb + ks * 8;
-        mma_bf16(acc[j], a, wr[0], wr[4]);
-      }
-    }
-    // the epilogue into the staged output: bias, ReLU, one rounding
-#pragma unroll
-    for (int j = 0; j < Un::NF; ++j) {
-      const int n = u * Un::CP + j * 8 + 2 * q;
-      const float b0 = bias != nullptr ? bias[c0 + n] : 0.f;
-      const float b1 = bias != nullptr ? bias[c0 + n + 1] : 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int m = f * 16 + g + 8 * h;
-        if (m >= npix) continue;
-        float v0 = acc[j][2 * h], v1 = acc[j][2 * h + 1];
-        if (bias != nullptr) {
-          v0 = __fadd_rn(v0, b0);
-          v1 = __fadd_rn(v1, b1);
-        }
-        if (s.relu) {
-          if (v0 < 0.f) v0 = 0.f;
-          if (v1 < 0.f) v1 = 0.f;
-        }
-        const __nv_bfloat162 pr = __floats2bfloat162_rn(v0, v1);
-        os[m * kPsw + n / 2] = *reinterpret_cast<const uint32_t*>(&pr);
-      }
-    }
-  }
-  __syncthreads();
+  const int hi = lane >> 4;                // the k8 half of the lane's ldmatrix row
+  const int mr = (lane & 7) + (lane & 8);  // and that row of the m16 fragment
 
-  // each staged pixel out whole: 8 stores of 16 bytes
-  for (int i = threadIdx.x; i < npix * 8; i += kThreads) {
-    const int m = i >> 3, v = i & 7;
-    const int oyy = oy0 + m / s.tx, oxx = ox0 + m % s.tx;
-    if (oyy < s.oy && oxx < s.ox) {
-      const uint4 val = *reinterpret_cast<const uint4*>(os + m * kPsw + v * 4);
-      *reinterpret_cast<uint4*>(y + (((size_t)img * s.oy + oyy) * s.ox + oxx) * s.oc + c0 +
-                                v * 8) = val;
+  // the warp's filter, for the block's life: the B fragments of each k16
+  // step in registers (up to cg 16), else read at each step from the slab's
+  // filter in shared memory
+  uint2 bw[I::kRegs ? I::NW : 1][I::kRegs ? I::KS : 1];
+  const uint2* wsrc = wp + (size_t)(slab * 8 + nf0) * I::KS * 32 + lane;
+  const uint2* wsh = wsm + nf0 * I::KS * 32 + lane;
+  if constexpr (I::kRegs) {
+#pragma unroll
+    for (int j = 0; j < I::NW; ++j)
+#pragma unroll
+      for (int ks = 0; ks < I::KS; ++ks) bw[j][ks] = wsrc[(j * I::KS + ks) * 32];
+  }
+  // the columns' biases, -0.0 where there is none (x + -0.0 is x, signed
+  // zeros too)
+  float2 bz[I::NW];
+#pragma unroll
+  for (int j = 0; j < I::NW; ++j) {
+    const int n = slab * kSlab + (nf0 + j) * 8 + 2 * q;
+    bz[j] = bias != nullptr ? make_float2(bias[n], bias[n + 1]) : make_float2(-0.f, -0.f);
+  }
+  // where the lane's ldmatrix row lies at step ks, from its fragment row's
+  // halo row at tap 0: 8 x the tap's halo rows + the 16-byte chunk of the
+  // unit's channels (taps past the filter's: row 0, their filter zero)
+  int koff[I::KS];
+#pragma unroll
+  for (int ks = 0; ks < I::KS; ++ks) {
+    const int k8 = 2 * ks + hi;
+    const int tap = k8 * 8 / I::CP, c8 = k8 % (I::CP / 8);
+    const int toff = tap < s.taps ? (tap / s.kx) * s.hx + tap % s.kx : 0;
+    koff[ks] = toff * 8 + u * (I::CP / 8) + c8;
+  }
+
+  for (int i = 0; i < nt; ++i) {
+    const int st = i % s.stages;
+    const uint32_t xs = ring + st * s.stage_bytes;
+    uint8_t* ob = stg + (i & 1) * s.stg_bytes;
+    tma::mbar_wait(full0 + 8 * st, (i / s.stages) & 1);
+    for (int p = split; p < s.pairs; p += I::S) {
+      int r8[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) r8[h] = rowtab[(2 * p + h) * 16 + mr] * 8;
+      float acc[2][I::NW][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < I::NW; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[h][j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < I::KS; ++ks) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // row v >> 3, chunk v & 7, swizzled by the row as TMA wrote it
+          const int v = r8[h] + koff[ks];
+          ldsm_x4(a[h], xs + ((v ^ ((v >> 3) & 7)) << 4));
+        }
+#pragma unroll
+        for (int j = 0; j < I::NW; ++j) {
+          uint2 b;
+          if constexpr (I::kRegs)
+            b = bw[j][ks];
+          else
+            b = wsh[(j * I::KS + ks) * 32];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) mma_bf16(acc[h][j], a[h], b.x, b.y);
+        }
+      }
+      // the epilogue into the staging tile: bias, ReLU, one rounding
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = (2 * p + h) * 16 + g + 8 * e;
+          if (m >= s.npix) continue;
+#pragma unroll
+          for (int j = 0; j < I::NW; ++j) {
+            float v0 = __fadd_rn(acc[h][j][2 * e], bz[j].x);
+            float v1 = __fadd_rn(acc[h][j][2 * e + 1], bz[j].y);
+            if (s.relu) {
+              if (v0 < 0.f) v0 = 0.f;
+              if (v1 < 0.f) v1 = 0.f;
+            }
+            *reinterpret_cast<__nv_bfloat162*>(ob + m * kPixel + (((nf0 + j) ^ (m & 7)) << 4) +
+                                               q * 4) = __floats2bfloat162_rn(v0, v1);
+          }
+        }
+      }
     }
+    // the warp is done with the stage, which the producer may load again,
+    // and its part of the tile is staged (its writes seen by the TMA store)
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) tma::mbar_arrive(empty0 + 8 * st);
+    tma::named_sync(1, kThreads);
   }
 }
 
 template <int CG>
-int launch(const E* x, const E* w, const float* bias, E* y, const GShape& s, int blocks,
-           int smem, cudaStream_t stream) {
+int launch(const CUtensorMap& xmap, const CUtensorMap& ymap, const void* wp, const float* bias,
+           const GShape& s, long smem, cudaStream_t stream) {
+  smem += Inst<CG>::kFilterBytes;
+  if (smem > 227L * 1024) return static_cast<int>(cudaErrorInvalidConfiguration);
   static bool smem_set = false;  // per instantiation
-  if (!smem_set) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gconv_kernel<CG>, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    smem_set = true;
-  }
-  gconv_kernel<CG><<<blocks, kThreads, smem, stream>>>(x, w, bias, y, s);
+  const cudaError_t e = allow_smem(gconv_kernel<CG>, 227 * 1024, smem_set);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  gconv_kernel<CG><<<s.slabs * s.per_slab, kThreads, (int)smem, stream>>>(
+      xmap, ymap, static_cast<const uint2*>(wp), bias, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x: bf16 NHWC [n, H, W, C]; w: bf16 OHWI [oc, ky, kx, C / groups]; bias: f32
-// [oc] or null; y: bf16 NHWC [n, oy, ox, oc], oy = (H + 2*py - ky) / sy + 1
-// (ox alike). Groups of cg = C / groups = oc / groups channels, cg one of 4,
-// 8, 16, 32, 64, and C a multiple of 64; ty x tx: a block's output tile
-// (ops/cuda/gconv.gconv_plan). The caller keeps every extent under 2^31.
-// Returns the launch's cudaGetLastError(), cudaErrorInvalidValue for a shape
-// it has no instance for, or cudaErrorInvalidConfiguration where the tile's
-// shared memory passes 227 KB.
-extern "C" int boda_gconv(const void* x, const void* w, const void* bias, void* y, int n, int H,
-                          int W, int C, int oc, int groups, int ky, int kx, int sy, int sx,
-                          int py, int px, int ty, int tx, int relu, void* stream) {
-  if (groups < 2 || C % groups != 0 || oc != C || C % kSlab != 0 || ty < 1 || tx < 1) {
+// x: bf16 NHWC [n, H, W, C], 16-byte aligned; wp: B8's packed filter of a
+// bf16 OHWI [C, ky, kx, C / groups] (ops/cuda/gconv.pack_filter); bias: f32
+// [C] or null; y: bf16 NHWC [n, oy, ox, C], 16-byte aligned, oy = (H + 2*py -
+// ky) / sy + 1 (ox alike). Groups of cg = C / groups channels in and out, cg
+// one of 4, 8, 16, 32, 64, C a multiple of 64, at most 9 taps. The plan
+// (ops/cuda/gconv.gconv_plan): ty x tx output pixels a tile, a ring of
+// `stages` halos, per_slab blocks walking each slab's tiles. The caller keeps
+// every extent under 2^31. Returns the launch's cudaGetLastError(),
+// cudaErrorInvalidValue for a shape or plan it has no instance for,
+// cudaErrorInvalidConfiguration where the block's shared memory passes 227
+// KB, or tma::kEncodeError + the CUresult of a tensor map cuTensorMapEncodeTiled refused.
+extern "C" int boda_gconv(const void* x, const void* wp, const void* bias, void* y, int n, int H,
+                          int W, int C, int groups, int ky, int kx, int sy, int sx, int py,
+                          int px, int ty, int tx, int hx, int stages, int per_slab, int relu,
+                          void* stream) {
+  if (groups < 2 || C % groups != 0 || C % kSlab != 0 || ty < 1 || tx < 1 || ky < 1 ||
+      kx < 1 || ky * kx > kMaxTaps || sy < 1 || sx < 1 || stages < 2 || stages > kMaxStages ||
+      per_slab < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int cg = C / groups;
-  const int p = cg < 8 ? 8 / cg : 1;
   GShape s;
-  s.H = H;
-  s.W = W;
-  s.C = C;
-  s.oc = oc;
-  s.ky = ky;
-  s.kx = kx;
   s.sy = sy;
   s.sx = sx;
   s.py = py;
   s.px = px;
-  s.oy = (H + 2 * py - ky) / sy + 1;
-  s.ox = (W + 2 * px - kx) / sx + 1;
+  s.kx = kx;
+  s.taps = ky * kx;
+  const int oy = (H + 2 * py - ky) / sy + 1, ox = (W + 2 * px - kx) / sx + 1;
   s.ty = ty;
   s.tx = tx;
   s.hy = (ty - 1) * sy + ky;
-  s.hx = (tx - 1) * sx + kx;
-  s.tiles_y = (s.oy + ty - 1) / ty;
-  s.tiles_x = (s.ox + tx - 1) / tx;
+  s.hx = hx;
+  if (hx < (tx - 1) * sx + kx || s.hy > 256 || s.hx > 256 || ty > 256 || tx > 256)
+    return static_cast<int>(cudaErrorInvalidValue);  // past a TMA box's dimension
+  s.tiles_y = (oy + ty - 1) / ty;
+  s.tiles_x = (ox + tx - 1) / tx;
   s.slabs = C / kSlab;
+  s.tiles = n * s.tiles_y * s.tiles_x;
+  s.per_slab = per_slab;
+  if (per_slab > s.tiles) return static_cast<int>(cudaErrorInvalidValue);
+  s.npix = ty * tx;
+  s.pairs = (s.npix + 31) / 32;
+  s.stages = stages;
+  s.stage_bytes = (s.hy * s.hx * kPixel + 1023) / 1024 * 1024;
+  s.stg_bytes = (s.npix * kPixel + 1023) / 1024 * 1024;
   s.relu = relu;
-  s.kpad = (ky * kx * p * cg + 15) / 16 * 16;
-  s.swb = s.kpad / 2 + 4;
-  const long smem = 4L * ((long)(s.hy * s.hx + ty * tx) * kPsw + (long)kSlab * s.swb +
-                          s.kpad / (p * cg));
-  if (smem > 227L * 1024) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const long blocks = (long)n * s.tiles_y * s.tiles_x * s.slabs;
-  const E* xe = static_cast<const E*>(x);
-  const E* we = static_cast<const E*>(w);
+  // as gconv_plan counts it: 1 KB to align, the ring, the staging, (the
+  // filter, by instance,) the rows' table, the barriers
+  const long smem = 1024L + (long)stages * s.stage_bytes + 2L * s.stg_bytes + s.pairs * 128L +
+                    16L * stages;
+  CUtensorMap xmap, ymap;
+  int rc = tma::encode_nhwc_bf16(&xmap, x, n, H, W, C, s.hx, s.hy);
+  if (rc != 0) return rc;
+  rc = tma::encode_nhwc_bf16(&ymap, y, n, oy, ox, C, s.tx, s.ty);
+  if (rc != 0) return rc;
   const float* bf = static_cast<const float*>(bias);
-  E* ye = static_cast<E*>(y);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (cg) {
+  switch (C / groups) {
     case 4:
-      return launch<4>(xe, we, bf, ye, s, (int)blocks, (int)smem, st);
+      return launch<4>(xmap, ymap, wp, bf, s, smem, st);
     case 8:
-      return launch<8>(xe, we, bf, ye, s, (int)blocks, (int)smem, st);
+      return launch<8>(xmap, ymap, wp, bf, s, smem, st);
     case 16:
-      return launch<16>(xe, we, bf, ye, s, (int)blocks, (int)smem, st);
+      return launch<16>(xmap, ymap, wp, bf, s, smem, st);
     case 32:
-      return launch<32>(xe, we, bf, ye, s, (int)blocks, (int)smem, st);
+      return launch<32>(xmap, ymap, wp, bf, s, smem, st);
     case 64:
-      return launch<64>(xe, we, bf, ye, s, (int)blocks, (int)smem, st);
+      return launch<64>(xmap, ymap, wp, bf, s, smem, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,10 +1,11 @@
 // The warp-specialized pipeline helpers of Hopper kernels: mbarriers, named
 // barriers, the cp.async copies that signal an mbarrier when they land, 2-D
-// TMA tile loads, and the host-side encoding of a TMA tensor map through the
-// entry point cudaGetDriverEntryPoint returns (so a library with a plain C
-// interface, linked by nvcc alone, needs no -lcuda). qconv.cu (B6) runs on
-// them; hopper_gemm.cuh's cp.async ring is the older pattern that B1, B2, B3,
-// B4 and B5 still use.
+// and 4-D TMA tile loads and stores, and the host-side encoding of a TMA
+// tensor map through the entry point cudaGetDriverEntryPoint returns (so a
+// library with a plain C interface, linked by nvcc alone, needs no -lcuda).
+// qconv.cu (B6) and bconv.cu (B7) run on them, gconv.cu (B8) on their 4-D
+// NHWC forms; hopper_gemm.cuh's cp.async ring is the older pattern that B1,
+// B2, B3, B4 and B5 still use.
 //
 // The ring: stage s of a K-chunk ring has a "full" barrier, which the
 // producer's copies complete, and an "empty" one, on which the consumers
@@ -132,6 +133,32 @@ __device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, int c0, int
       : "memory");
 }
 
+// The box at (c0 innermost, c1, c2, c3) of a 4-D tensor map into shared
+// memory at dst, completing `bytes` of transactions on bar (every byte of the
+// box counts, the zero fill past the tensor's edges too). Coordinates are
+// signed: a box may start before the tensor.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The box at (c0 innermost, c1, c2, c3) of a 4-D tensor map, from shared
+// memory at src (laid out as tma_load_4d writes it), stored asynchronously in
+// this thread's current bulk group; parts of the box past the tensor are not
+// written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, int c0, int c1, int c2,
+                                             int c3, uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -151,7 +178,7 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
-// Errors of encode_2d_u8 come back as kEncodeError + the CUresult (or +
+// Errors of encode_2d_u8 and encode_nhwc_bf16 come back as kEncodeError + the CUresult (or +
 // 999 where libcuda has no cuTensorMapEncodeTiled), above every
 // cudaError_t, so a caller that reports launch codes can tell them apart.
 constexpr int kEncodeError = 10000;
@@ -190,6 +217,28 @@ inline int encode_2d_u8(CUtensorMap* map, const void* ptr, uint64_t rows, uint64
   const cuuint32_t elem_strides[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(ptr), dims, strides,
                         box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
+}
+
+// The map of a bf16 NHWC tensor [n, h, w, c] at ptr (c % 8 == 0, ptr 16-byte
+// aligned), read or written in boxes of 64 channels x box_w x box_h pixels of
+// one image. A pixel's 64 channels are one 128-byte row of the box in shared
+// memory, in the 128-byte swizzle (chunk j of box row r at r*128 + ((j ^ (r %
+// 8)) << 4), from a 1024-byte-aligned address); rows run over the box's
+// pixels, x fastest. A load zero-fills the pixels past the tensor; a store
+// leaves them out. Returns 0 or kEncodeError + the CUresult.
+inline int encode_nhwc_bf16(CUtensorMap* map, const void* ptr, uint64_t n, uint64_t h, uint64_t w,
+                            uint64_t c, uint32_t box_w, uint32_t box_h) {
+  const PFN_cuTensorMapEncodeTiled_v12000 fn = encode_tiled_fn();
+  if (fn == nullptr) return kEncodeError + 999;
+  const cuuint64_t dims[4] = {c, w, h, n};
+  const cuuint64_t strides[3] = {c * 2, w * c * 2, h * w * c * 2};  // bytes
+  const cuuint32_t box[4] = {64, box_w, box_h, 1};
+  const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);

@@ -77,9 +77,9 @@ ENTRY_POINTS = {
     # x, w, ws, n, H, W, C, oc, ky, kx, sy, sx, py, px, tile_n, va, vb,
     # full, splits, grid, nmem, outs, biases, meta, q (host arrays), stream
     "boda_bconv": [_P] * 3 + [_I] * 18 + [_P] * 5,
-    # x, w, bias, y, n, H, W, C, oc, groups, ky, kx, sy, sx, py, px, ty, tx,
-    # relu, stream
-    "boda_gconv": [_P] * 4 + [_I] * 15 + [_P],
+    # x, wp, bias, y, n, H, W, C, groups, ky, kx, sy, sx, py, px, ty, tx, hx,
+    # stages, per_slab, relu, stream
+    "boda_gconv": [_P] * 4 + [_I] * 17 + [_P],
 }
 
 

@@ -46,7 +46,7 @@ from ..mxu_grad import grad_q8_site, mxu_conv, relu_store
 from ..op_base import OpBase
 from ..registry import IN, OUT, KernelTemplate, adecl, template
 from .bconv import FilterCache, Member, bconv, ohwi_bf16, records_grad
-from .gconv import gconv, gconv_fits
+from .gconv import gconv, gconv_fits, pack_filter
 from .qconv import absmax, act_quantize, qconv, quantize_filter, \
     static_act_scale, store_int8
 from .sgemm import matmul_ext
@@ -389,13 +389,17 @@ def _cudnn_conv(rfs: OpBase, q8: bool = False):
                         groups, fd["y"] * fd["x"]):
             vendor_fn.route = "vendor"
             return vendor_fn
-        gfilt = FilterCache(ohwi_bf16)
+        def b8_filter(w):
+            wo = ohwi_bf16(w)
+            return wo, pack_filter(wo, groups)
+        gfilt = FilterCache(b8_filter)
 
         def gfn(x, w, b=None):
             if records_grad(x, w, b):
                 return vendor_fn(x, w, b)
-            return gconv(x.to(torch.bfloat16).contiguous(), gfilt(w),
-                         _bias_b7(b), groups, (sy, sx), (py, px), relu)
+            wo, wp = gfilt(w)
+            return gconv(x.to(torch.bfloat16).contiguous(), wo, _bias_b7(b),
+                         groups, (sy, sx), (py, px), relu, wp)
         gfn.route = "b8"
         return gfn
     if not takes_b7(cdt, io_nhwc):

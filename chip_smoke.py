@@ -566,6 +566,7 @@ def phase_env(ctx: dict) -> None:
 def phase_build(ctx: dict) -> None:
     from boda_tpu_torch.ops.cuda import build
     lib, secs, log = build.build_library()
+    ctx["build_log"] = log
     print(f"build: {lib.name} in {secs:.1f} s")
     for ln in log.splitlines():
         if "registers" in ln or "spill" in ln or "Compiling entry" in ln \
@@ -2164,15 +2165,19 @@ def _gconv_case(label, x, w, b, groups, stride, pad, relu, peaks,
     """B8 against gconv_plain on the card: the stored bf16 values against
     the plain version's sums stored in f32 (mrd at the bf16 gate; the two
     sum in other orders, so a value may sit one bf16 step off the plain
-    version's), then timed: the kernel alone (a CUDA graph), the wrapper's
-    call, the plain version and cuDNN's bf16 grouped conv alone on
-    channels_last operands (the yardstick; the port never calls it),
-    beside the bound. Returns the case's numbers."""
+    version's), with the filter packed once as the conv step packs it (and
+    packed in the call once, bit for bit the same), then timed: the kernel
+    alone (a CUDA graph), the wrapper's call, the plain version and cuDNN's
+    bf16 grouped conv alone on channels_last operands (the yardstick; the
+    port never calls it), beside the bound. Returns the case's numbers."""
     import torch
     import torch.nn.functional as F
-    from boda_tpu_torch.ops.cuda.gconv import gconv, gconv_plain, gconv_plan
+    from boda_tpu_torch.ops.cuda.gconv import gconv, gconv_plain, \
+        gconv_plan, pack_filter
+    from boda_tpu_torch.ops.cuda.util import sm_count
     from boda_tpu_torch.ops.mxu_grad import _conv_fwd
-    got = gconv(x, w, b, groups, stride, pad, relu)
+    wp = pack_filter(w, groups)
+    got = gconv(x, w, b, groups, stride, pad, relu, wp)
     torch.cuda.synchronize()
     want = gconv_plain(x, w, b, groups, stride, pad, relu)
     y32 = _conv_fwd(x.permute(0, 3, 1, 2), w.permute(0, 3, 1, 2), stride,
@@ -2183,6 +2188,9 @@ def _gconv_case(label, x, w, b, groups, stride, pad, relu, peaks,
     check(got.dtype == torch.bfloat16 and got.shape == want.shape
           and got.is_contiguous(),
           f"gconv {label}: output {got.dtype} {tuple(got.shape)}")
+    check(bit_equal(gconv(x, w, b, groups, stride, pad, relu), got),
+          f"gconv {label}: the filter packed in the call gives another "
+          f"result")
     err = mrd(got, y32)
     moved = float((got != want).float().mean())
     check(err <= BF16_MRD, f"gconv {label}: mrd {err:.3e} against the "
@@ -2190,13 +2198,14 @@ def _gconv_case(label, x, w, b, groups, stride, pad, relu, peaks,
     n, H, W, C = x.shape
     oc, ky, kx, cg = w.shape
     oy, ox = got.shape[1:3]
-    plan = gconv_plan(oy, ox, ky, kx, tuple(stride))
+    plan = gconv_plan(n, oy, ox, C, cg, ky, kx, tuple(stride),
+                      sm_count(x.device.index))
     out = {"mrd": err, "moved": moved}
     if timed:
         out["ms"] = graph_ms(lambda: gconv(x, w, b, groups, stride, pad,
-                                           relu))
+                                           relu, wp))
         out["call_ms"] = cuda_ms(lambda: gconv(x, w, b, groups, stride, pad,
-                                               relu), 10)
+                                               relu, wp), 10)
         out["plain_ms"] = cuda_ms(lambda: gconv_plain(
             x, w, b, groups, stride, pad, relu), 3)
         xc = x.permute(0, 3, 1, 2)
@@ -2210,27 +2219,54 @@ def _gconv_case(label, x, w, b, groups, stride, pad, relu, peaks,
         out["bound_ms"], by = bound(peaks, "bf16", work, nbytes)
         times = (f"kernel {out['ms']:.4f} ms (call {out['call_ms']:.4f}), "
                  f"plain {out['plain_ms']:.4f}, bound {out['bound_ms']:.4f} "
-                 f"({by}), cuDNN bf16 grouped {out['library_ms']:.4f}")
+                 f"({by}; kernel/bound "
+                 f"{out['ms'] / out['bound_ms']:.2f}), cuDNN bf16 grouped "
+                 f"{out['library_ms']:.4f}")
     else:
         times = "not timed"
     print(f"gconv {label:40s} mrd {err:.3e} (<= {BF16_MRD:g}; "
           f"{100 * moved:.2f}% of the values one bf16 step off the plain "
           f"version's); {times}; tile {plan.ty}x{plan.tx} of "
-          f"{plan.tiles_y}x{plan.tiles_x}, halo {plan.hy}x{plan.hx}",
-          flush=True)
+          f"{plan.tiles_y}x{plan.tiles_x}, halo {plan.hy}x{plan.hx}, ring "
+          f"{plan.stages}, {plan.per_sm} a SM, grid {plan.grid} "
+          f"({plan.per_slab} a slab), smem {plan.smem} B", flush=True)
     return out
+
+
+def _gconv_registers(log: str) -> None:
+    """Each gconv_kernel instance's registers, stack and spills, as ptxas
+    -v reported them in this process's build (nothing where the library
+    was built before it)."""
+    name = None
+    props = {}
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\S+?)'?(?: for|$)", ln.strip())
+        if m:
+            name = m.group(1)
+            continue
+        if name and "gconv_kernel" in name and (
+                "spill" in ln or "registers" in ln):
+            props.setdefault(name, []).append(ln.split(":", 1)[-1].strip())
+    if not props:
+        print("gconv registers: no build in this process", flush=True)
+    for name, lines in props.items():
+        cg = re.search(r"gconv_kernelILi(\d+)E", name)
+        print(f"gconv registers: cg {cg.group(1) if cg else name}: "
+              f"{'; '.join(dict.fromkeys(lines))}", flush=True)
 
 
 def phase_gconv(ctx: dict) -> None:
     """Kernel B8 (csrc/gconv.cu, ops/cuda/gconv.py), the grouped conv under
-    prec=bf16 with NHWC storage: at each grouped 3x3 shape of ResNeXt-101
-    (64x4d) at b128 (64 groups of 4 to 32 channels, the stride-2 first block
-    of each stage too) against gconv_plain (the vendor arithmetic) and
-    timed beside its bound and cuDNN's bf16 grouped conv alone, with the
-    sums over a request's 33 layers; at edges (no bias or ReLU, groups of
-    64 channels, images no tile divides, stride 2 on an odd input, pad 0,
-    one image); and the xla_conv template of a grouped sig: route b8, its
-    result the kernel's."""
+    prec=bf16 with NHWC storage: each instance's registers and spills from
+    the build; at each grouped 3x3 shape of ResNeXt-101 (64x4d) at b128 (64
+    groups of 4 to 32 channels, the stride-2 first block of each stage too)
+    against gconv_plain (the vendor arithmetic) and timed beside its bound
+    and cuDNN's bf16 grouped conv alone, with the sums over a request's 33
+    layers; at edges (no bias or ReLU, groups of 64 channels, 1x1 filters,
+    pad 0, odd and unequal H and W, stride 2 on odd sizes, one image); and
+    the xla_conv template of a grouped sig: route b8, its result the
+    kernel's."""
     import torch
     from boda_tpu_torch.core.machine import card_peaks
     from boda_tpu_torch.ops.cuda.conv import make_conv_op
@@ -2239,11 +2275,13 @@ def phase_gconv(ctx: dict) -> None:
     dev = torch.device("cuda", 0)
     peaks = card_peaks(torch.cuda.get_device_name(0))
     gen = torch.Generator(device=dev).manual_seed(8)
+    _gconv_registers(ctx.get("build_log", ""))
 
-    def operands(n, H, C, cg, bias=True):
-        x = torch.randn(n, H, H, C, device=dev, generator=gen).bfloat16()
-        w = (torch.randn(C, 3, 3, cg, device=dev, generator=gen)
-             * (9 * cg) ** -0.5).bfloat16()
+    def operands(n, H, C, cg, bias=True, W=None, k=3):
+        x = torch.randn(n, H, W or H, C, device=dev, generator=gen) \
+            .bfloat16()
+        w = (torch.randn(C, k, k, cg, device=dev, generator=gen)
+             * (k * k * cg) ** -0.5).bfloat16()
         b = torch.randn(C, device=dev, generator=gen) * 0.5 if bias else None
         return x, w, b
     sums = dict.fromkeys(("ms", "call_ms", "plain_ms", "bound_ms",
@@ -2260,20 +2298,32 @@ def phase_gconv(ctx: dict) -> None:
     torch.cuda.empty_cache()
     print(f"gconv resnext101-bf16-b128: {steps} B8 steps per request: kernel "
           f"{sums['ms']:.3f} ms (calls {sums['call_ms']:.3f}), plain "
-          f"{sums['plain_ms']:.3f}, bound {sums['bound_ms']:.3f}, cuDNN bf16 "
-          f"grouped {sums['library_ms']:.3f} on [{ctx['smi']}]", flush=True)
+          f"{sums['plain_ms']:.3f}, bound {sums['bound_ms']:.3f} (kernel/"
+          f"bound {sums['ms'] / sums['bound_ms']:.2f}), cuDNN bf16 grouped "
+          f"{sums['library_ms']:.3f} on [{ctx['smi']}]", flush=True)
     ctx["gconv"] = {"steps": steps, **sums}
-    for label, (n, H, C, g, st, pd, bias, relu) in {
+    # (n, H, W, C, groups, k, stride, pad, bias, relu)
+    for label, (n, H, W, C, g, k, st, pd, bias, relu) in {
             "no bias, no ReLU, 13^2 (ragged tiles)": (
-                2, 13, 256, 64, 1, 1, False, False),
-            "groups of 64 channels": (2, 9, 128, 2, 1, 1, True, True),
-            "stride 2 on 15^2, groups of 8": (3, 15, 128, 16, 2, 1, True,
-                                              True),
+                2, 13, 13, 256, 64, 3, 1, 1, False, False),
+            "groups of 64 channels": (2, 9, 9, 128, 2, 3, 1, 1, True, True),
+            "groups of 64, stride 2 on 11x7, 4096 channels": (
+                2, 11, 7, 4096, 64, 3, 2, 1, True, True),
+            "stride 2 on 15^2, groups of 8": (3, 15, 15, 128, 16, 3, 2, 1,
+                                              True, True),
+            "stride 2 on 13x9, groups of 32": (2, 13, 9, 256, 8, 3, 2, 1,
+                                               True, False),
             "pad 0, groups of 16, 37^2 (two tiles across)": (
-                1, 37, 64, 4, 1, 0, True, False),
+                1, 37, 37, 64, 4, 3, 1, 0, True, False),
+            "odd 17x23, groups of 4, one image": (1, 17, 23, 256, 64, 3, 1,
+                                                  1, True, True),
+            "1x1, groups of 16, 9x11": (2, 9, 11, 256, 16, 1, 1, 0, True,
+                                        True),
+            "1x1 stride 2, groups of 4, 15x13": (2, 15, 13, 128, 32, 1, 2, 0,
+                                                 True, False),
             "groups of 4 at 64 channels, stride 2, 58^2": (
-                2, 58, 64, 16, 2, 1, True, True)}.items():
-        x, w, b = operands(n, H, C, C // g, bias)
+                2, 58, 58, 64, 16, 3, 2, 1, True, True)}.items():
+        x, w, b = operands(n, H, C, C // g, bias, W, k)
         _gconv_case(f"edge: {label}", x, w, b, g, (st, st), (pd, pd), relu,
                     peaks, timed=False)
     # the template: a grouped xla_conv sig under the cell's tune
@@ -2286,14 +2336,17 @@ def phase_gconv(ctx: dict) -> None:
     x = torch.randn(4, 28, 28, 512, device=dev, generator=gen).bfloat16()
     w = torch.randn(512, 8, 3, 3, device=dev, generator=gen) * 0.1
     b = torch.randn(512, device=dev, generator=gen)
+    fn(x, w, b)  # the step's first call packs the filter
     before = gconv.launches
     got = fn(x, w, b)
+    check(gconv.launches == before + 1, "gconv template: the step's second "
+          "call launched more than B8 once")
     want = gconv(x, w.permute(0, 2, 3, 1).bfloat16().contiguous(), b, 64,
                  (1, 1), (1, 1), True)
-    check(gconv.launches == before + 2 and bit_equal(got, want),
+    check(bit_equal(got, want),
           "gconv template: the step's result is not the kernel's")
-    print("gconv template: a grouped xla_conv step runs B8, its result the "
-          "kernel's bit for bit", flush=True)
+    print("gconv template: a grouped xla_conv step runs B8 once a call, its "
+          "result the kernel's bit for bit", flush=True)
 
 
 def _nodes_to_get(pipe):

@@ -108,20 +108,114 @@ OUTPUTS = [(56, 1), (28, 2), (28, 1), (14, 2), (14, 1), (7, 2), (7, 1),
 
 @pytest.mark.parametrize("oy,stride", OUTPUTS)
 def test_gconv_plan_covers_the_output(oy, stride):
-    p = G.gconv_plan(oy, oy, 3, 3, (stride, stride))
+    p = G.gconv_plan(128, oy, oy, 256, 4, 3, 3, (stride, stride), 132)
     assert p.tx <= 32 and p.tiles_x * p.tx >= oy > (p.tiles_x - 1) * p.tx
     assert p.tiles_y * p.ty >= oy > (p.tiles_y - 1) * p.ty
     assert p.ty * p.tx <= G.TILE_PIXELS
-    assert (p.hy, p.hx) == ((p.ty - 1) * stride + 3, (p.tx - 1) * stride + 3)
-    assert p.hy * p.hx * G.PIXEL_WORDS * 4 <= G.HALO_BYTES
+    halo_x = (p.tx - 1) * stride + 3
+    assert p.hy == (p.ty - 1) * stride + 3
+    assert p.hy * halo_x * G.PIXEL_BYTES <= G.HALO_BYTES
+    # the box: the halo, widened at stride 1 across the whole width so that
+    # its rows are as many as the tile's modulo 8 (the extra columns past
+    # the image)
+    if stride == 1 and p.tiles_x == 1:
+        assert halo_x <= p.hx < halo_x + 8 and (p.hx - p.tx) % 8 == 0
+    else:
+        assert p.hx == halo_x
 
 
 def test_gconv_plan_of_res2():
     # 56 columns in two tiles of 28, four rows: 112 pixels, 7 mma rows of
-    # 16, from a 6 x 30 halo
-    p = G.gconv_plan(56, 56, 3, 3, (1, 1))
+    # 16, from a 6 x 30 halo (two tiles across: not widened); three halos
+    # in the ring, two blocks an SM,
+    # 66 blocks on each of the 4 slabs (264 = 132 x 2), 3584 tiles a slab
+    p = G.gconv_plan(128, 56, 56, 256, 4, 3, 3, (1, 1), 132)
     assert (p.ty, p.tx, p.tiles_y, p.tiles_x, p.hy, p.hx) == \
         (4, 28, 14, 2, 6, 30)
+    assert (p.stages, p.per_sm, p.slabs, p.tiles, p.per_slab, p.grid) == \
+        (3, 2, 4, 3584, 66, 264)
+
+
+# (n, H, W, C, cg, k, stride, pad): ResNeXt-101 (64x4d)'s seven grouped
+# 3x3s at b128, then edges: groups of 64, 1x1, pad 0, odd H and W, stride 2
+# on odd sizes, one image, an output of 91 columns in three tiles
+PLAN_SHAPES = [
+    (128, 56, 56, 256, 4, 3, 1, 1), (128, 56, 56, 512, 8, 3, 2, 1),
+    (128, 28, 28, 512, 8, 3, 1, 1), (128, 28, 28, 1024, 16, 3, 2, 1),
+    (128, 14, 14, 1024, 16, 3, 1, 1), (128, 14, 14, 2048, 32, 3, 2, 1),
+    (128, 7, 7, 2048, 32, 3, 1, 1),
+    (2, 9, 9, 128, 64, 3, 1, 1), (2, 9, 9, 4096, 64, 3, 2, 1),
+    (2, 9, 9, 256, 16, 1, 1, 0), (1, 37, 37, 64, 16, 3, 1, 0),
+    (3, 13, 17, 256, 4, 3, 1, 1), (3, 15, 11, 128, 8, 3, 2, 1),
+    (1, 14, 14, 1024, 16, 3, 1, 1), (1, 181, 181, 64, 4, 3, 2, 1)]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("n,H,W,C,cg,k,st,pd", PLAN_SHAPES)
+def test_gconv_plan_walks_each_tile_once_and_fits(n, H, W, C, cg, k, st, pd,
+                                                  sms):
+    """The persistent walk covers every (slab, image, tile) once; the ring,
+    the staging, the rows' table and the barriers fit an SM's shared
+    memory, as many blocks as the plan puts on it; the grid is no larger
+    than the work; each TMA box is within 256 a dimension."""
+    oy, ox = (H + 2 * pd - k) // st + 1, (W + 2 * pd - k) // st + 1
+    p = G.gconv_plan(n, oy, ox, C, cg, k, k, (st, st), sms)
+    seen = [t for b in range(p.grid) for t in p.walk(b)]
+    want = {(s, i, ty, tx) for s in range(C // G.SLAB) for i in range(n)
+            for ty in range(p.tiles_y) for tx in range(p.tiles_x)}
+    assert len(seen) == len(want) and set(seen) == want
+    assert p.slabs == C // G.SLAB and p.tiles == n * p.tiles_y * p.tiles_x
+    assert p.tiles_y * p.ty >= oy and p.tiles_x * p.tx >= ox
+    assert p.smem == G.block_smem(p.hy, p.hx, p.ty, p.tx, p.stages, cg)
+    assert p.smem <= G.BLOCK_SMEM
+    assert p.per_sm * (p.smem + 1024) <= G.SM_SMEM
+    assert 1 <= p.per_sm <= G.BLOCKS_PER_SM
+    assert G.MIN_STAGES <= p.stages <= G.MAX_STAGES
+    assert p.grid <= p.slabs * p.tiles and p.per_slab <= p.tiles
+    assert p.grid <= max(p.slabs, sms * p.per_sm)
+    assert max(p.hy, p.hx, p.ty, p.tx) <= 256
+    assert p.hy == (p.ty - 1) * st + k
+    halo_x = (p.tx - 1) * st + k
+    assert p.hy * halo_x * G.PIXEL_BYTES <= G.HALO_BYTES
+    assert halo_x <= p.hx < halo_x + 8
+    # widened only where the extra columns lie past the image
+    assert p.hx == halo_x or (st == 1 and p.tiles_x == 1
+                              and (p.hx - p.tx) % 8 == 0)
+
+
+def _unpack(wp, C, cg):
+    """pack_filter's inverse, from its layout: [C, 9 taps, cp] with k =
+    tap * cp + c, the unit's channels at each tap."""
+    cp = max(cg, 8)
+    ks = wp.shape[2]
+    k = wp.reshape(C // 64, 8, ks, 8, 4, 2, 2).permute(0, 1, 3, 2, 5, 4, 6)
+    return k.reshape(C, ks * 16 // cp, cp)
+
+
+@pytest.mark.parametrize("cg,k", [(4, 3), (8, 3), (16, 3), (32, 3), (64, 3),
+                                  (4, 1), (16, 1), (32, 1)])
+def test_pack_filter_unpacks_to_the_ohwi_filter(cg, k):
+    """Each output's row of the packed filter is its OHWI filter at its own
+    group's channels of the unit, zero at the other group of a pair (cg =
+    4) and past its taps."""
+    C = 128
+    w = torch.randn(C, k, k, cg,
+                    generator=torch.Generator().manual_seed(cg + k)).bfloat16()
+    wp = G.pack_filter(w, C // cg)
+    cp, taps = max(cg, 8), k * k
+    assert wp.dtype == torch.bfloat16 and wp.is_contiguous()
+    assert wp.shape == (C // 64, 8, G.filter_steps(cg), 32, 4)
+    got = _unpack(wp, C, cg)
+    assert got.shape[1] * cp == G.filter_steps(cg) * 16
+    want = torch.zeros_like(got)
+    for o in range(C):
+        j = (o % cp) // cg  # o's group within its unit
+        want[o, :taps, j * cg:(j + 1) * cg] = w[o].reshape(taps, cg)
+    assert torch.equal(got, want)
+    if cg == 4:
+        # the pair's off-diagonal blocks: outputs 0-3 read channels 4-7 as 0
+        assert not got.view(C // 8, 2, 4, -1, 2, 4)[:, 0, :, :, 1].any()
+        assert not got.view(C // 8, 2, 4, -1, 2, 4)[:, 1, :, :, 0].any()
 
 
 @pytest.mark.parametrize("what", ["dtype", "width", "bias", "noncontig"])
