@@ -25,8 +25,9 @@ operands, channels_last, then conv.vendor_store per member), so a CPU
 tensor, which takes it, gives what the vendor path gave. `bconv_plan` is the
 kernel's plan: the N tile width from oc (64 where the whole N fits one
 64-wide tile, else 128), split-K and the grid on util.gemm_plan and
-qconv.ring_walk as B6's, the copy widths from C and K. `FilterCache` makes a
-step's bf16 OHWI filter once per set of weight tensors.
+qconv.ring_walk as B6's, the copy widths from C and K. `FilterCache` holds a
+conv step's filter in its kernel's form (ops/cuda/conv.conv_step) once per
+set of weight tensors.
 """
 
 from __future__ import annotations
@@ -43,8 +44,8 @@ from ...core.error import RtErr
 from ..mxu_grad import _conv_fwd
 from .build import check_launch, load_kernels
 from .qconv import out_q_scale, ring_walk
-from .util import GEMM_TILE_M, check_operand, cuda_stream, gemm_plan, \
-    sm_count, use_kernel
+from .util import GEMM_TILE_M, check_operand, copy_width, cuda_stream, \
+    gemm_plan, sm_count, use_kernel
 
 # split-K as util.gemm_plan reads it (below, least, fill, min_chunks), the
 # rule B6's plan measured (qconv.SPLIT), K in chunks of 64 bf16 values
@@ -56,13 +57,16 @@ MAX_MEMBERS = 4
 
 @dataclass(frozen=True)
 class Member:
-    """One conv of a B7 launch: its oc output channels (the next oc rows
-    of the concatenated filter), its ReLU, and its stored dtype (f32, bf16,
-    or int8 stored at out_absmax)."""
+    """One conv of a B7 launch or of a conv step: its oc output channels
+    (the next oc rows of the concatenated filter), its ReLU, its stored
+    dtype (f32, bf16, or int8 stored at out_absmax), and the (y, x) zero
+    taps that center-embed its filter in a sibling group's larger kernel
+    (ops/cuda/conv.conv_step; B7 takes the filter embedded)."""
     oc: int
     relu: bool = False
     dtype: torch.dtype = torch.bfloat16
     out_absmax: float = 0.0
+    embed: tuple[int, int] = (0, 0)
 
 
 @dataclass(frozen=True)
@@ -106,12 +110,6 @@ def thin_pad(C: int) -> int:
     return -C % 4 if C < 16 else 0
 
 
-def copy_width(extent: int, ptr: int = 0) -> int:
-    """The widest copy (16, 8, 4 bytes, or 2: one element) that divides a
-    run of `extent` bf16 values starting at address ptr."""
-    return next(v for v in COPY_WIDTHS if 2 * extent % v == 0 and ptr % v == 0)
-
-
 @functools.lru_cache(maxsize=4096)
 def bconv_plan(n: int, H: int, W: int, C: int, oc: int, ky: int, kx: int,
                stride: tuple[int, int], pad: tuple[int, int],
@@ -130,7 +128,8 @@ def bconv_plan(n: int, H: int, W: int, C: int, oc: int, ky: int, kx: int,
     chunks = math.ceil(K / g.bk)
     full, splits, grid = ring_walk(g, math.ceil(oc / tn), chunks,
                                    SPLIT[torch.bfloat16][3], sms)
-    copy, copy_b = copy_width(C), copy_width(K)
+    copy = copy_width(2 * C, 0, COPY_WIDTHS)
+    copy_b = copy_width(2 * K, 0, COPY_WIDTHS)
     tma_a = copy == 16 and (ky, kx) == (1, 1) and tuple(stride) == (1, 1) \
         and tuple(pad) == (0, 0)
     return BconvPlan(tn, copy, copy_b, tma_a, g.blocks, chunks, full, splits,
@@ -279,8 +278,9 @@ def _run(x, w, biases, outs, dims, tile_n, full, splits, grid, stores):
     meta_a, q_a = stores
     rc = load_kernels().boda_bconv(
         x.data_ptr(), w.data_ptr(), None if ws is None else ws.data_ptr(),
-        *dims, tile_n, copy_width(C, x.data_ptr()),
-        copy_width(ky * kx * C, w.data_ptr()), full, splits, grid, len(outs),
+        *dims, tile_n, copy_width(2 * C, x.data_ptr(), COPY_WIDTHS),
+        copy_width(2 * ky * kx * C, w.data_ptr(), COPY_WIDTHS), full, splits,
+        grid, len(outs),
         ctypes.addressof(out_a), ctypes.addressof(bias_a),
         ctypes.addressof(meta_a), ctypes.addressof(q_a),
         cuda_stream(x.device))
@@ -335,15 +335,8 @@ def ohwi_bf16(w: torch.Tensor) -> torch.Tensor:
                                     memory_format=torch.contiguous_format)
 
 
-def records_grad(*tensors) -> bool:
-    """Whether a forward on these tensors is recorded for autograd (the
-    vendor path then runs, with ops/mxu_grad's VJP)."""
-    return torch.is_grad_enabled() and any(
-        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
-
-
 class FilterCache:
-    """make(*ws), B7's filter of a step's weight tensors, made once per
+    """make(*ws), a conv step's filter of its weight tensors, made once per
     set of them and kept while they stay as they were: the same tensors
     (held here, so their ids stay theirs) at the same version counters (an
     in-place update bumps them), one set per device (each slot of a mesh

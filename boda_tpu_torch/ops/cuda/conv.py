@@ -14,18 +14,18 @@ the JAX package; here it is F.conv_transpose2d on cuDNN, under the same
 rule as the vendor convs below.
 
 XlaConv, XlaConv2 (conv2.py) and S2dConv are vendor roles in the JAX
-package (XLA convs, the last over a 2x2 phase-stacked input). Under
-prec=bf16 with NHWC storage, on inference, all three run on kernel B7
-(bconv.py: bf16 operands, f32 sums, the bias, ReLU and store in its
-epilogue; takes_b7 gives the rule), and an XlaConv in groups (`groups`
-g > 1: filter (out_chan, in_chan / g, y, x); every grouped conv is one) on
-kernel B8 (gconv.py; takes_b8 gives the rule). Else they are F.conv2d on
-cuDNN in full FP32 on the operands rounded to the compute dtype
-(vendor_conv says why not in bf16), channels_last under NHWC storage; the
-phase stacking only re-indexes the same arithmetic, so it is dropped. The int8 forms of XlaConv and XlaConv2 (quant8, in_q8) run on
-kernel B6 (qconv.py), an int8 edge's store (out_q8) also after a float
-vendor conv. Under autograd the vendor convs carry the mixed-precision VJP
-of ops/mxu_grad.py, with the int8 weight gradient of grad_q8 on B6. The
+package (XLA convs, the last over a 2x2 phase-stacked input). All three
+build through one conv step (conv_step), whose kernel conv_route decides:
+kernel B6 (qconv.py) for the int8 forms (quant8, in_q8; an int8 edge's
+store, out_q8, also after a float conv); under prec=bf16 with NHWC storage,
+on inference, kernel B7 (bconv.py: bf16 operands, f32 sums, the bias, ReLU
+and store in its epilogue) and, for a conv in groups (`groups` g > 1:
+filter (out_chan, in_chan / g, y, x)) within B8's widths, kernel B8
+(gconv.py); else F.conv2d on cuDNN in full FP32 on the operands rounded to
+the compute dtype (vendor_conv says why not in bf16), channels_last under
+NHWC storage. The phase stacking only re-indexes the same arithmetic, so
+it is dropped. Under autograd the float convs carry the mixed-precision
+VJP of ops/mxu_grad.py, with the int8 weight gradient of grad_q8 on B6. The
 matmul variants k1conv, conv and ipconv have no backward, in the JAX
 package as here: their kernel's wrapper refuses autograd.
 
@@ -45,36 +45,45 @@ from ...core.error import RtErr
 from ..mxu_grad import grad_q8_site, mxu_conv, relu_store
 from ..op_base import OpBase
 from ..registry import IN, OUT, KernelTemplate, adecl, template
-from .bconv import FilterCache, Member, bconv, ohwi_bf16, records_grad
+from .bconv import FilterCache, Member, bconv, ohwi_bf16
 from .gconv import gconv, gconv_fits, pack_filter
 from .qconv import absmax, act_quantize, qconv, quantize_filter, \
     static_act_scale, store_int8
 from .sgemm import matmul_ext
-from .util import compute_dtype, storage_io, store_dtype
+from .util import compute_dtype, forbid_autograd, records_grad, storage_io, \
+    store_dtype
 
 
 # the member tags of a sibling-fused conv (the JAX xla_conv2,
 # boda_tpu/ops/pallas/conv2.py:31): up to 4-way fusion; read by the lowering
 SIBS = ("a", "b", "c", "d")
+# the templates of a conv step, whose kernel conv_route decides
+CONV_STEPS = ("xla_conv", "xla_conv2", "s2d_conv", "deconv")
+
+
+def stride_pad(rfs: OpBase) -> tuple[tuple[int, int], tuple[int, int]]:
+    """((sy, sx), (py, px)) of a conv sig."""
+    st = rfs.get_dims_or_none("stride")
+    pad = rfs.get_dims_or_none("in_pad")
+    return ((st["y"], st["x"]) if st else (1, 1),
+            (pad["y"], pad["x"]) if pad else (0, 0))
 
 
 def conv_params(rfs: OpBase):
-    ind = rfs.get_dims("in")
-    outd = rfs.get_dims("out")
-    fd = rfs.get_dims("filts")
-    st = rfs.get_dims_or_none("stride")
-    pad = rfs.get_dims_or_none("in_pad")
-    sy, sx = (st["y"], st["x"]) if st else (1, 1)
-    py, px = (pad["y"], pad["x"]) if pad else (0, 0)
+    (sy, sx), (py, px) = stride_pad(rfs)
     relu = rfs.get_u32_or("conv_has_relu", 0) == 1
-    return ind, outd, fd, sy, sx, py, px, relu
+    return rfs.get_dims("in"), rfs.get_dims("out"), rfs.get_dims("filts"), \
+        sy, sx, py, px, relu
 
 
 def conv_groups(rfs: OpBase) -> int:
     """The groups of a conv sig (1: ungrouped): its input's channels over
     its filter's in_chan. A grouped op's sig also carries `groups`, which
     the reduced sig (check_args) leaves out, its keys being the JAX
-    package's: the dims say it."""
+    package's: the dims say it. An xla_conv2 sig (no `filts`) is ungrouped:
+    the sibling fusion keeps grouped convs apart."""
+    if "filts" not in rfs.nda_vals:
+        return 1
     ind, fd = rfs.get_dims("in"), rfs.get_dims("filts")
     g, r = divmod(ind["chan"], fd["in_chan"])
     if r or fd["out_chan"] % g:
@@ -334,112 +343,132 @@ def _scale_of(rfs: OpBase, key: str) -> float:
     return float(rfs.nda_vals[key].item()) if key in rfs.nda_vals else 0.0
 
 
-def takes_b7(cdt, io_nhwc: bool, transposed: bool = False) -> bool:
-    """The route of a float vendor conv step, from what its sig says: kernel
-    B7 (ops/cuda/bconv.py) where its operands are bf16 under NHWC storage
-    and it is not a transposed conv; else the vendor conv. The built step
-    takes B7 on every call that records no autograd graph (a CPU tensor
-    takes B7's plain version, the vendor arithmetic); under autograd it runs
-    the vendor conv, whose VJP (ops/mxu_grad) saves the rounded operands.
-    prec=f32, NCHW storage and deconv keep the vendor conv: they need FP32
-    operands or an NCHW result."""
-    return cdt == torch.bfloat16 and io_nhwc and not transposed
-
-
-def takes_b8(cdt, io_nhwc: bool, odt, cin: int, cout: int, groups: int,
-             taps: int) -> bool:
-    """The route of a grouped vendor conv step (groups > 1), from what its
-    sig says: kernel B8 (ops/cuda/gconv.py) where its operands are bf16
-    under NHWC storage, it stores bf16 and B8 has an instance for its group
-    width and its taps (gconv_fits); else the vendor conv in groups. As
-    under takes_b7, the built step takes B8 on every call that records no
-    autograd graph (a CPU tensor takes B8's plain version, the vendor
-    arithmetic)."""
-    return cdt == torch.bfloat16 and io_nhwc and odt == torch.bfloat16 \
-        and groups > 1 and gconv_fits(cin, cout, groups, taps)
-
-
-def _bias_b7(b):
-    return None if b is None else b.float().contiguous()
-
-
-def _cudnn_conv(rfs: OpBase, q8: bool = False):
-    """A float vendor conv step of a conv sig: the f32-output XLA conv of
-    the JAX package (conv.py:281-296, :334-379), stored int8 where it
-    produces an int8 edge (out_q8); on kernel B7 where takes_b7 says so,
-    else vendor_conv and vendor_store. Takes and returns NCHW, or NHWC
-    storage tensors when the plan's fused-storage pass marked the step. q8:
-    the int8 weight gradient under autograd (grad_q8). A grouped conv runs
-    on kernel B8 where takes_b8 says so, else on the vendor conv in groups.
-    The fn's `route` is "b7", "b8" or "vendor"."""
-    ind, outd, fd, sy, sx, py, px, relu = conv_params(rfs)
-    io_nhwc, _ = storage_io(rfs)
+def _out_store(rfs: OpBase) -> tuple[torch.dtype, float]:
+    """(stored dtype, out_absmax) of a one-output conv step: int8 at its
+    out_scale where it produces an int8 edge (out_q8), else store_dtype."""
     out_absmax = _scale_of(rfs, "out_scale") \
         if rfs.get_u32_or("out_q8", 0) else 0.0
-    odt = torch.int8 if out_absmax else store_dtype(rfs)
-    cdt = compute_dtype(rfs)
+    return (torch.int8 if out_absmax else store_dtype(rfs)), out_absmax
+
+
+def conv_route(rfs: OpBase) -> str:
+    """The kernel a conv step's inference forward runs on, from its reduced
+    sig (xla_conv, xla_conv2, s2d_conv or deconv); the one place that knows
+    the rule:
+    - "b6" (qconv.py) for an int8 form: quant8, which only xla_conv and
+      xla_conv2 take;
+    - "b8" (gconv.py) for a grouped conv (groups > 1) on bf16 operands under
+      NHWC storage that stores bf16 and that B8 has an instance for
+      (gconv_fits);
+    - "b7" (bconv.py) for an ungrouped conv on bf16 operands under NHWC
+      storage that is not transposed;
+    - else "vendor" (vendor_conv): prec=f32, NCHW storage, deconv and the
+      grouped widths B8 lacks need FP32 operands, an NCHW result or a
+      transposed conv.
+    Under autograd a float route's step runs the vendor conv (conv_step)."""
+    fn = rfs.func_name
+    if fn not in CONV_STEPS:
+        raise RtErr(f"conv_route: {fn} is none of {CONV_STEPS}")
+    if fn in ("xla_conv", "xla_conv2") and rfs.get_u32_or("quant8", 0):
+        return "b6"
+    if compute_dtype(rfs) != torch.bfloat16 or not storage_io(rfs)[0] \
+            or fn == "deconv":
+        return "vendor"
+    g = conv_groups(rfs)
+    if g == 1:
+        return "b7"
+    cin, fd = rfs.get_dims("in")["chan"], rfs.get_dims("filts")
+    fits = gconv_fits(cin, fd["out_chan"], g, fd["y"] * fd["x"])
+    return "b8" if fits and _out_store(rfs)[0] == torch.bfloat16 \
+        else "vendor"
+
+
+def conv_step(rfs: OpBase, members: tuple[Member, ...], operands,
+              q8: bool = False):
+    """The fn of a conv step of xla_conv, xla_conv2 or s2d_conv, on the
+    kernel conv_route gives (its `route`): the f32-output XLA conv of the
+    JAX package (conv.py:128-296, conv2.py), one conv of the members'
+    filters, each center-embedded (Member.embed) and concatenated on
+    out_chan, stored per member with its ReLU and stored dtype. fn(x,
+    *args): x in the step's storage form (NCHW, or NHWC under storage
+    NHWC), args the step's in their declared order, which operands(args)
+    parts into the members' filters, biases (None: none) and int8 filters'
+    scales (prequant_w). Returns the one member's output, or a tuple of
+    the members', in the storage form.
+
+    The filter is made once per set of weights (FilterCache) in the route's
+    form: B7's bf16 OHWI, B8's OHWI and pack_filter, B6's int8 OHWI and its
+    scales (quantize_filter where the weights arrive float). A float route
+    runs its kernel on every call that records no autograd graph; under
+    autograd it runs the vendor conv (vendor_conv, then vendor_store per
+    member), whose VJP (ops/mxu_grad) saves the rounded operands (q8: the
+    int8 weight gradient of grad_q8 on B6); B6 has no backward and raises.
+    One member's bias is added where given; a sibling group fills a missing
+    bias with zeros. B6 with one member stores through its epilogue (ReLU,
+    the stored dtype, an int8 edge); with several it stores f32, split per
+    member as the vendor conv's result is.
+
+    B6 (the JAX template's quant8 forms, conv.py:187-266): x arrives in
+    the storage form, int8 NHWC under in_q8 (at the static act_absmax),
+    else quantized on the layout it arrives in, an NCHW int8 copy permuted
+    to NHWC (a quarter of the f32 bytes). Where the scale is dynamic,
+    fn.slot_absmax(x, ...) is x's max|x| on the device, and fn(x, ...,
+    amax=m) quantizes at the scale of the max m (an f32 [1] tensor on x's
+    device) in place of x's own: under a dp split (engine/mesh_fwd.py) m is
+    the dp group's, as GSPMD reduces the JAX template's max (conv.py:58)."""
+    route = conv_route(rfs)
+    stride, pad = stride_pad(rfs)
+    io_nhwc, _ = storage_io(rfs)
     groups = conv_groups(rfs)
-    conv = vendor_conv((sy, sx), (py, px), cdt, io_nhwc, q8=q8,
-                       groups=groups)
+    one = len(members) == 1
+    prequant = rfs.get_u32_or("prequant_w", 0) == 1
+    vconv = vendor_conv(stride, pad, compute_dtype(rfs), io_nhwc, q8=q8,
+                        groups=groups)
 
-    def vendor_fn(x, w, b=None):
-        return vendor_store(conv(x, w, b), relu, odt, io_nhwc, out_absmax)
-    if groups > 1:
-        if not takes_b8(cdt, io_nhwc, odt, ind["chan"], fd["out_chan"],
-                        groups, fd["y"] * fd["x"]):
-            vendor_fn.route = "vendor"
-            return vendor_fn
-        def b8_filter(w):
-            wo = ohwi_bf16(w)
-            return wo, pack_filter(wo, groups)
-        gfilt = FilterCache(b8_filter)
+    def cat(ts):
+        return ts[0] if one else torch.cat(ts)
 
-        def gfn(x, w, b=None):
-            if records_grad(x, w, b):
-                return vendor_fn(x, w, b)
-            wo, wp = gfilt(w)
-            return gconv(x.to(torch.bfloat16).contiguous(), wo, _bias_b7(b),
-                         groups, (sy, sx), (py, px), relu, wp)
-        gfn.route = "b8"
-        return gfn
-    if not takes_b7(cdt, io_nhwc):
-        vendor_fn.route = "vendor"
-        return vendor_fn
-    member = (Member(fd["out_chan"], relu, odt, out_absmax),)
-    filt = FilterCache(ohwi_bf16)
+    def bias(bs, dev):
+        return _bias_f32(bs[0]) if one else cat(
+            [torch.zeros(m.oc, device=dev) if b is None else b.float()
+             for b, m in zip(bs, members)])
 
-    def fn(x, w, b=None):
-        if records_grad(x, w, b):
-            return vendor_fn(x, w, b)
-        return bconv(x.to(torch.bfloat16).contiguous(), filt(w),
-                     (_bias_b7(b),), member, (sy, sx), (py, px))[0]
-    fn.route = "b7"
-    return fn
+    def joined(ws):
+        # zero taps center-embed a smaller kernel in the group's largest
+        # (exact, int8 or float)
+        return cat([F.pad(w, (m.embed[1],) * 2 + (m.embed[0],) * 2)
+                    if any(m.embed) else w for w, m in zip(ws, members)])
 
+    def store(y):
+        # each member's channels of an f32 NCHW result, stored
+        outs, off = [], 0
+        for m in members:
+            outs.append(vendor_store(y[:, off:off + m.oc], m.relu, m.dtype,
+                                     io_nhwc, m.out_absmax))
+            off += m.oc
+        return outs
 
-def int8_conv(stride, pad, relu: bool, odt, io_nhwc: bool, prequant: bool,
-              act_absmax: float, in_q8: bool, out_absmax: float = 0.0):
-    """The int8 conv of a step on kernel B6 (the JAX template's quant8
-    forms, conv.py:187-266): conv(x, w, *rest) with rest = (sws, b) where
-    the weights arrive prequantized (int8 OIHW and their per-out_chan
-    scales), else (b,) and the per-channel weight quantize runs here in
-    torch ops; b may be absent. x arrives in the storage form (int8 NHWC
-    under in_q8, at the static act_absmax); the activation quantize runs
-    on the layout it arrives in, and an NCHW int8 copy is permuted to NHWC
-    for the kernel (a quarter of the f32 bytes). Returns the step's output
-    in the storage form, of odt (int8: stored at out_absmax).
+    def make(*wss):
+        w = joined(wss[:len(members)])
+        if route == "b6":
+            wq, sws = (w, cat(wss[len(members):])) if prequant \
+                else quantize_filter(w)
+            return wq.permute(0, 2, 3, 1).contiguous(), \
+                sws.float().contiguous()
+        wo = ohwi_bf16(w)
+        return (wo, pack_filter(wo, groups)) if route == "b8" else wo
+    filt = FilterCache(make)
 
-    Where the scale is dynamic, conv.slot_absmax(x, ...) is x's max|x| on
-    the device, and conv(x, ..., amax=m) quantizes at the scale of the max m
-    (an f32 [1] tensor on x's device) in place of x's own: under a dp split
-    (engine/mesh_fwd.py) m is the dp group's, so each slot's scale is the
-    whole batch's, as GSPMD reduces the JAX template's max (conv.py:58)."""
+    act_absmax = _scale_of(rfs, "act_scale")
+    in_q8 = rfs.get_u32_or("in_q8", 0) == 1
+    m0 = members[0]
+    # B6's epilogue: one member's store, or f32 for the members' split
+    relu, odt, out_absmax = (m0.relu, m0.dtype, m0.out_absmax) if one \
+        else (False, torch.float32, 0.0)
     s_in = {}  # in_q8: the static s_act, one f32 [1] tensor per device
 
-    def conv(x, w, *rest, amax=None):
-        sws, rest = (rest[0], rest[1:]) if prequant else (None, rest)
-        b = rest[0] if rest else None
-        wq, sws = (w, sws) if prequant else quantize_filter(w)
+    def b6(x, ws, bs, ss, amax=None):
+        wq, sws = filt(*ws, *ss)
         if in_q8:
             xq, s_act = x, s_in.get(x.device)
             if s_act is None:
@@ -449,15 +478,48 @@ def int8_conv(stride, pad, relu: bool, odt, io_nhwc: bool, prequant: bool,
             xq, s_act = act_quantize(x.contiguous(), act_absmax, amax=amax)
         if not io_nhwc:
             xq = xq.permute(0, 2, 3, 1)
-        y = qconv(xq.contiguous(), wq.permute(0, 2, 3, 1).contiguous(), s_act,
-                  sws.float().contiguous(),
-                  None if b is None else b.float().contiguous(), stride, pad,
-                  relu, odt, out_absmax)
-        return y if io_nhwc else y.permute(0, 3, 1, 2).contiguous()
-    if not in_q8 and not act_absmax:
-        conv.slot_absmax = lambda x, *_: absmax(x.contiguous())
-    conv.route = "b6"
-    return conv
+        y = qconv(xq.contiguous(), wq, s_act, sws, bias(bs, x.device),
+                  stride, pad, relu, odt, out_absmax)
+        if not one:
+            return store(y.permute(0, 3, 1, 2))
+        return [y if io_nhwc else y.permute(0, 3, 1, 2).contiguous()]
+
+    def b7(x, ws, bs, ss):
+        return bconv(x.to(torch.bfloat16).contiguous(), filt(*ws),
+                     tuple(map(_bias_f32, bs)), members, stride, pad)
+
+    def b8(x, ws, bs, ss):
+        wo, wp = filt(*ws)
+        return [gconv(x.to(torch.bfloat16).contiguous(), wo,
+                      bias(bs, x.device), groups, stride, pad, m0.relu, wp)]
+    kernel = {"b6": b6, "b7": b7, "b8": b8}.get(route)
+
+    def fn(x, *args, **kw):
+        ws, bs, ss = operands(args)
+        if route == "b6":
+            forbid_autograd("qconv", x, *ws, *bs, *ss)
+        if route == "vendor" or records_grad(x, *ws, *bs):
+            outs = store(vconv(x, joined(ws), bias(bs, x.device)))
+        else:
+            outs = kernel(x, ws, bs, ss, **kw)
+        return outs[0] if one else tuple(outs)
+    if route == "b6" and not in_q8 and not act_absmax:
+        fn.slot_absmax = lambda x, *_: absmax(x.contiguous())
+    fn.route = route
+    return fn
+
+
+def _one_output(rfs: OpBase, q8: bool = False):
+    """conv_step of a one-output conv sig (xla_conv, s2d_conv): fn(x, w[,
+    sws][, b]), sws the int8 filter's scales where prequant_w."""
+    fd, relu = rfs.get_dims("filts"), rfs.get_u32_or("conv_has_relu", 0) == 1
+    ns = rfs.get_u32_or("prequant_w", 0)
+
+    def operands(args):
+        w, *rest = args
+        return (w,), (rest[ns] if len(rest) > ns else None,), rest[:ns]
+    return conv_step(rfs, (Member(fd["out_chan"], relu, *_out_store(rfs)),),
+                     operands, q8)
 
 
 @template
@@ -479,7 +541,6 @@ class XlaConv(_ConvBase):
         quant8 = rfs.get_u32_or("quant8", 0) == 1
         in_q8 = rfs.get_u32_or("in_q8", 0) == 1
         out_q8 = rfs.get_u32_or("out_q8", 0) == 1
-        ind, outd, fd, sy, sx, py, px, relu = conv_params(rfs)
         io_nhwc, _ = storage_io(rfs)
         prequant = rfs.get_u32_or("prequant_w", 0) == 1
         act_absmax = _scale_of(rfs, "act_scale")
@@ -495,28 +556,24 @@ class XlaConv(_ConvBase):
         if in_q8 and not (quant8 and prequant and act_absmax > 0):
             raise RtErr("xla_conv: in_q8 needs quant8, prequant_w and a "
                         "static act_scale > 0")
-        if not quant8:
-            return _cudnn_conv(rfs, grad_q8_site(
-                rfs, io_nhwc or rfs.str_vals.get("layout") == "nhwc"))
-        return int8_conv((sy, sx), (py, px), relu,
-                         torch.int8 if out_q8 else store_dtype(rfs), io_nhwc,
-                         prequant, act_absmax, in_q8, out_absmax)
+        return _one_output(rfs, grad_q8_site(
+            rfs, io_nhwc or rfs.str_vals.get("layout") == "nhwc"))
 
 
 @template
 class S2dConv(_ConvBase):
-    """The thin-channel stride-2 stem conv (ResNet conv1: 7x7/s2, C=3) on
-    cuDNN as a plain stride-2 conv: the JAX package's 2x2 phase stacking
-    only re-indexes the same arithmetic, so it is dropped."""
+    """The thin-channel stride-2 stem conv (ResNet conv1: 7x7/s2, C=3) as a
+    plain stride-2 conv step: the JAX package's 2x2 phase stacking only
+    re-indexes the same arithmetic, so it is dropped."""
 
     name = "s2d_conv"
 
     @classmethod
     def build(cls, rfs: OpBase):
-        ind, outd, fd, sy, sx, py, px, relu = conv_params(rfs)
-        if (sy, sx) != (2, 2):
-            raise RtErr(f"s2d_conv: needs stride 2, got ({sy}, {sx})")
-        return _cudnn_conv(rfs)
+        stride = stride_pad(rfs)[0]
+        if stride != (2, 2):
+            raise RtErr(f"s2d_conv: needs stride 2, got {stride}")
+        return _one_output(rfs)
 
 
 @template
@@ -586,7 +643,7 @@ class Deconv(_ConvBase):
         def fn(x, w, b=None):
             return vendor_store(conv(x, w.transpose(0, 1), b), relu, odt,
                                 io_nhwc)
-        fn.route = "vendor"
+        fn.route = conv_route(rfs)
         return fn
 
 

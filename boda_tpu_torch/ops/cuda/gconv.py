@@ -1,5 +1,5 @@
 """gconv (kernel B8): the grouped conv under prec=bf16 with NHWC storage,
-on inference (the route ops/cuda/conv.takes_b8 gives).
+on inference (the route ops/cuda/conv.conv_route gives).
 
 Replaces no TPU kernel: the JAX package has no grouped conv. It is the bf16
 vendor conv's function in g groups, each output channel summing over its

@@ -53,8 +53,8 @@ import torch.nn.functional as F
 from ...core.error import RtErr
 from .build import check_launch, load_kernels
 from .qsgemm import K_MAX
-from .util import GEMM_TILE_M, check_operand, cuda_stream, forbid_autograd, \
-    gemm_plan, sm_count, use_kernel
+from .util import GEMM_TILE_M, check_operand, copy_width, cuda_stream, \
+    forbid_autograd, gemm_plan, sm_count, use_kernel
 
 TILE_N = 128                 # block tile: 128 pixels x 128 output channels
 # Split-K as util.gemm_plan reads it (below, least, fill, min_chunks): a
@@ -72,7 +72,7 @@ TILE_N = 128                 # block tile: 128 pixels x 128 output channels
 # 0.1995 -> 0.0248 ms in 12)
 SPLIT = {torch.int8: (1, 2, 1, 4)}
 OUT_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
-COPY_WIDTHS = (16, 8, 4, 1)
+COPY_WIDTHS = (16, 8, 4, 1)   # bytes; 1: element by element
 
 
 def static_act_scale(act_absmax: float) -> float:
@@ -313,12 +313,6 @@ class QconvPlan:
         return self.copy_b == 16
 
 
-def copy_width(extent: int, ptr: int = 0) -> int:
-    """The widest copy (16, 8, 4 or 1 bytes) that divides a run of `extent`
-    int8 values starting at address ptr."""
-    return next(v for v in COPY_WIDTHS if extent % v == 0 and ptr % v == 0)
-
-
 def split_ranges(chunks: int, splits: int) -> list[tuple[int, int]]:
     """Each split's K chunks [kc0, kc1), as the kernel takes them: sizes
     that differ by at most one, none empty while splits <= chunks."""
@@ -345,7 +339,8 @@ def qconv_plan(n: int, H: int, W: int, C: int, oc: int, ky: int, kx: int,
     chunks = math.ceil(K / g.bk)
     full, splits, grid = ring_walk(g, math.ceil(oc / TILE_N), chunks,
                                    SPLIT[torch.int8][3], sms)
-    copy, copy_b = copy_width(C), copy_width(K)
+    copy = copy_width(C, 0, COPY_WIDTHS)
+    copy_b = copy_width(K, 0, COPY_WIDTHS)
     tma_a = copy == 16 and (ky, kx) == (1, 1) and tuple(stride) == (1, 1) \
         and tuple(pad) == (0, 0)
     return QconvPlan(copy, copy_b, tma_a, g.blocks, chunks, full, splits,
@@ -493,7 +488,8 @@ def launch_qconv(xq, wq, s_act, sws, bias, out, stride, pad, relu,
         n, H, W, C, oc, ky, kx, stride[0], stride[1], pad[0], pad[1],
         int(bool(relu)), OUT_DTYPES.index(odt),
         out_q_scale(out_absmax) if odt == torch.int8 else 0.0,
-        copy_width(C, xq.data_ptr()), copy_width(ky * kx * C, wq.data_ptr()),
+        copy_width(C, xq.data_ptr(), COPY_WIDTHS),
+        copy_width(ky * kx * C, wq.data_ptr(), COPY_WIDTHS),
         full, splits, grid, cuda_stream(xq.device))
     check_launch(rc, "qconv")
 

@@ -97,14 +97,19 @@ def launch_counts(reset: bool = False) -> dict[str, int]:
     return counts
 
 
+def records_grad(*tensors) -> bool:
+    """Whether a forward on these tensors is recorded for autograd."""
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
 def forbid_autograd(name: str, *tensors) -> None:
     """The guard of an inference-only kernel's wrapper (ops/mxu_grad.
     INFERENCE_ONLY): raise where a forward under autograd reaches it, on the
     CPU as on the card. Its plain version would differentiate on the CPU,
     and the kernel's output has no grad_fn: either way the gradient would
     differ from the JAX package, which has no backward for it."""
-    if torch.is_grad_enabled() and any(
-            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+    if records_grad(*tensors):
         raise RtErr(f"{name}: an inference-only kernel reached under autograd "
                     f"(its tensors require grad); it has no backward")
 
@@ -166,6 +171,13 @@ def gemm_plan(name: str, M: int, N: int, K: int, vec_extent: int,
                     GEMM_BK[dtype], splits, blocks)
 
 
+def copy_width(nbytes: int, ptr: int, widths: tuple[int, ...]) -> int:
+    """The widest copy of `widths` (bytes, widest first, the last one
+    element) that divides a run of `nbytes` bytes starting at address ptr:
+    how B6 and B7 stage a window row or a filter row."""
+    return next(v for v in widths if nbytes % v == 0 and ptr % v == 0)
+
+
 def cuda_stream(dev: torch.device) -> int:
     """The raw handle of dev's current CUDA stream, as
     torch.cuda.current_stream(dev).cuda_stream gives it, without making a
@@ -185,11 +197,11 @@ def storage_io(rfs: OpBase) -> tuple[bool, torch.dtype | None]:
     return nhwc, edt
 
 
-def store_dtype(rfs: OpBase) -> torch.dtype:
-    """Stored dtype of a step's "out": the edge dtype in storage form
+def store_dtype(rfs: OpBase, out: str = "out") -> torch.dtype:
+    """Stored dtype of a step's output `out`: the edge dtype in storage form
     (where edge_prec sets one), else the node's dtype."""
     io_nhwc, edt = storage_io(rfs)
-    odt = torch_dtype(rfs.get_dims("out").dtype)
+    odt = torch_dtype(rfs.get_dims(out).dtype)
     return (edt or odt) if io_nhwc else odt
 
 

@@ -432,12 +432,14 @@ LAUNCHES = {"f32": UNFUSED_LAUNCHES,
             "bf16_nhwc": {**UNFUSED_LAUNCHES, "bconv": 1},
             "fused_f32": FUSED_LAUNCHES, "fused_bf16_nhwc": FUSED_LAUNCHES,
             "headline": VENDOR_LAUNCHES, INT8: INT8_LAUNCHES}
-# the hand kernel each template launches once per step (the vendor
-# templates xla_conv, xla_conv2, s2d_conv launch B7 where _b7_step says so,
-# the plain-torch ones none)
+# the hand kernel each template launches once per step (the conv steps,
+# conv.CONV_STEPS, launch the kernel of their conv.conv_route, the
+# plain-torch templates none)
 TEMPLATE_KERNEL = {"k1conv": "matmul_ext", "conv": "matmul_ext",
                    "ipconv": "matmul_ext", "tconv": "tconv",
                    "fused_stem": "fused_stem", "resblock": "resblock"}
+# the hand kernel of a conv step's float route on inference
+ROUTE_KERNEL = {"b7": "bconv", "b8": "gconv"}
 # each kernel's own main path: the tune whose forward runs it, or the
 # per-op sweep (ops_prof's int8 sgemm run) for sgemm_int8
 KERNEL_PATH = {"matmul_ext": "f32", "tconv": "f32",
@@ -2771,31 +2773,27 @@ def _counts_reset(wrappers: dict) -> None:
         w.launches = 0
 
 
-def _b7_step(sig) -> bool:
-    """Whether a step takes B7 on an inference forward: a float vendor conv
-    (xla_conv, xla_conv2, s2d_conv) whose sig conv.takes_b7 routes there."""
-    from boda_tpu_torch.ops.cuda.conv import takes_b7
-    from boda_tpu_torch.ops.cuda.util import compute_dtype, storage_io
-    return sig.func_name in ("xla_conv", "xla_conv2", "s2d_conv") \
-        and not sig.get_u32_or("quant8", 0) \
-        and takes_b7(compute_dtype(sig), storage_io(sig)[0])
-
-
 def _planned_launches(plan, counts: dict, grad: bool = False) -> dict:
     """The launches the plan's steps send to each hand kernel on a
-    forward: one per step of a template that wraps one, one B7 per float
-    vendor step that takes it (on inference; under autograd, grad, the
-    vendor conv runs with its VJP), and per int8 vendor step one qconv and,
-    unless its input arrives int8, one act_quantize."""
+    forward: one per step of a template that wraps one, and per conv step
+    what conv.conv_route gives it: one B7 (bconv) or one B8 (gconv) on
+    inference (under autograd, grad, the vendor conv runs with its VJP),
+    one qconv and, unless its input arrives int8, one act_quantize on
+    B6."""
+    from boda_tpu_torch.ops.cuda.conv import CONV_STEPS, conv_route
+    from boda_tpu_torch.ops.registry import get_template
     planned = dict.fromkeys(counts, 0)
     for st in plan.steps:
         if st.func_name in TEMPLATE_KERNEL:
             planned[TEMPLATE_KERNEL[st.func_name]] += 1
-        if st.sig.get_u32_or("quant8", 0):
+        if st.func_name not in CONV_STEPS:
+            continue
+        route = conv_route(get_template(st.func_name).check_args(st.sig))
+        if route == "b6":
             planned["qconv"] += 1
             planned["act_quantize"] += 1 - st.sig.get_u32_or("in_q8", 0)
-        elif _b7_step(st.sig) and not grad:
-            planned["bconv"] += 1
+        elif route in ROUTE_KERNEL and not grad:
+            planned[ROUTE_KERNEL[route]] += 1
     return planned
 
 
@@ -5845,7 +5843,7 @@ def _int8_dynamic_spec() -> str:
 def _scales_seen():
     """[(x, s_act)] of every int8 step's quantize in the block, in call
     order (the engine's slots run each step in mesh order):
-    conv.int8_conv's act_quantize wrapped to keep its input and scale."""
+    conv.conv_step's act_quantize wrapped to keep its input and scale."""
     from boda_tpu_torch.ops.cuda import conv
     seen = []
     real = conv.act_quantize

@@ -117,8 +117,9 @@ def main() -> int:
         print("b6_ablation: no CUDA card", file=sys.stderr)
         return 1
     from boda_tpu_torch.ops.cuda.build import ENTRY_POINTS
-    from boda_tpu_torch.ops.cuda.qconv import copy_width, qconv_plain, \
+    from boda_tpu_torch.ops.cuda.qconv import COPY_WIDTHS, qconv_plain, \
         qconv_plan
+    from boda_tpu_torch.ops.cuda.util import copy_width
     OUT.mkdir(parents=True, exist_ok=True)
     with ThreadPoolExecutor(len(VARIANTS)) as ex:
         paths = dict(zip(VARIANTS, ex.map(lambda kv: build(*kv),
@@ -161,7 +162,8 @@ def main() -> int:
                 rc = fn(xq.data_ptr(), wq.data_ptr(), s_act.data_ptr(),
                         sws.data_ptr(), bias.data_ptr(), out.data_ptr(),
                         ws.data_ptr(), n, H, H, C, oc, k, k, st, st, p, p, 1,
-                        1, 0.0, copy_width(C), copy_width(k * k * C), full,
+                        1, 0.0, copy_width(C, 0, COPY_WIDTHS),
+                        copy_width(k * k * C, 0, COPY_WIDTHS), full,
                         sp, min(full + (plan.blocks - full) * sp, sms),
                         torch.cuda.current_stream().cuda_stream)
                 if rc != 0:

@@ -26,8 +26,9 @@ from boda_tpu_torch.engine.iface import make_engine
 from boda_tpu_torch.models.zoo import build_model
 from boda_tpu_torch.ops.cuda import bconv as B
 from boda_tpu_torch.ops.cuda import conv as C
-from boda_tpu_torch.ops.cuda.conv import make_conv_op, make_deconv_op, \
-    vendor_conv, vendor_store
+from boda_tpu_torch.ops.cuda.conv import conv_route, make_conv_op, \
+    make_deconv_op, vendor_conv, vendor_store
+from boda_tpu_torch.ops.cuda.util import copy_width
 from boda_tpu_torch.ops.op_base import OpBase
 from boda_tpu_torch.ops.registry import get_template
 
@@ -82,7 +83,7 @@ def test_bconv_plan_at_the_cells_shapes(shape):
         assert plan.chunks // plan.splits >= 1
     # the copies: 16 bytes where C is a multiple of 8, element by element
     # at C = 3 (the wrapper widens it first: thin_pad)
-    assert plan.copy == B.copy_width(C_)
+    assert plan.copy == copy_width(2 * C_, 0, B.COPY_WIDTHS)
     assert plan.tma_a == (plan.copy == 16 and k == 1 and s == 1 and p == 0)
     assert plan.tma_b == (2 * K % 16 == 0)
 
@@ -104,11 +105,12 @@ def test_bconv_plan_splits_where_the_tiles_do_not_fill_the_card():
                                             (17, 0, 2)])
 def test_thin_pad_and_copy_width(C_, extra, width):
     assert B.thin_pad(C_) == extra
-    assert B.copy_width(C_) == width
+    assert copy_width(2 * C_, 0, B.COPY_WIDTHS) == width
     if extra:
-        assert B.copy_width(C_ + extra) >= 8
+        assert copy_width(2 * (C_ + extra), 0, B.COPY_WIDTHS) >= 8
     # an address that is not 16-byte aligned narrows the copy
-    assert B.copy_width(8, ptr=8) == 8 and B.copy_width(8, ptr=2) == 2
+    assert copy_width(16, 8, B.COPY_WIDTHS) == 8
+    assert copy_width(16, 2, B.COPY_WIDTHS) == 2
 
 
 # ------------------------------------------------------------- the routes
@@ -125,27 +127,6 @@ def _conv_op(func="xla_conv", prec="bf16", nhwc=True, **kw):
     for k, v in kw.items():
         op.set_u32(k, v)
     return op
-
-
-def _route(op):
-    t = get_template(op.func_name)
-    return t.build(t.check_args(op)).route
-
-
-@pytest.mark.parametrize("func,prec,nhwc,q8,route", [
-    ("xla_conv", "bf16", True, False, "b7"),
-    ("s2d_conv", "bf16", True, False, "b7"),
-    ("xla_conv", "", True, False, "vendor"),        # prec=f32
-    ("s2d_conv", "", True, False, "vendor"),
-    ("xla_conv", "bf16", False, False, "vendor"),   # NCHW storage
-    ("s2d_conv", "bf16", False, False, "vendor"),
-    ("xla_conv", "bf16", True, True, "b6"),         # quant8: B6
-])
-def test_route_of_the_conv_templates(func, prec, nhwc, q8, route):
-    op = _conv_op(func, prec, nhwc, **({"quant8": 1} if q8 else {}))
-    assert _route(op) == route
-    assert C.takes_b7(torch.bfloat16 if prec else torch.float32, nhwc) \
-        == (route == "b7" or q8)
 
 
 def _group_op(prec="bf16", nhwc=True, quant8=False):
@@ -174,18 +155,62 @@ def _group_op(prec="bf16", nhwc=True, quant8=False):
     return op
 
 
-@pytest.mark.parametrize("prec,nhwc,quant8,route", [
-    ("bf16", True, False, "b7"), ("", True, False, "vendor"),
-    ("bf16", False, False, "vendor"), ("bf16", True, True, "b6")])
-def test_route_of_xla_conv2(prec, nhwc, quant8, route):
-    assert _route(_group_op(prec, nhwc, quant8)) == route
+def _grouped_op(prec="bf16", nhwc=True, groups=16, edge_prec=None):
+    """A grouped xla_conv sig: 64 channels in `groups` groups, 3x3/s2."""
+    op = make_conv_op(2, 64, 9, 9, 64, 3, 3, 2, 2, 1, 1, relu=True,
+                      groups=groups)
+    if prec:
+        op.str_vals["prec"] = prec
+    if nhwc:
+        op.str_vals["io_layout"] = "nhwc"
+        ep = edge_prec if edge_prec is not None else prec
+        if ep:
+            op.str_vals["edge_prec"] = ep
+    return op
 
 
-def test_deconv_keeps_the_vendor_conv():
+def _deconv_op():
     op = make_deconv_op(2, 8, 5, 5, 4, 4, 4, 2, 2, 1, 1)
     op.str_vals.update(NHWC_BF16)
-    assert _route(op) == "vendor"
-    assert not C.takes_b7(torch.bfloat16, True, transposed=True)
+    return op
+
+
+ROUTES = {
+    # xla_conv and s2d_conv
+    "xla_conv-bf16-nhwc": (lambda: _conv_op("xla_conv"), "b7"),
+    "s2d_conv-bf16-nhwc": (lambda: _conv_op("s2d_conv"), "b7"),
+    "xla_conv-f32": (lambda: _conv_op("xla_conv", ""), "vendor"),
+    "s2d_conv-f32": (lambda: _conv_op("s2d_conv", ""), "vendor"),
+    "xla_conv-nchw": (lambda: _conv_op("xla_conv", nhwc=False), "vendor"),
+    "s2d_conv-nchw": (lambda: _conv_op("s2d_conv", nhwc=False), "vendor"),
+    "xla_conv-quant8": (lambda: _conv_op(quant8=1), "b6"),
+    # xla_conv2: every member in one launch
+    "xla_conv2-bf16-nhwc": (lambda: _group_op(), "b7"),
+    "xla_conv2-f32": (lambda: _group_op(""), "vendor"),
+    "xla_conv2-nchw": (lambda: _group_op(nhwc=False), "vendor"),
+    "xla_conv2-quant8": (lambda: _group_op(quant8=True), "b6"),
+    # a deconv keeps the vendor conv
+    "deconv": (_deconv_op, "vendor"),
+    # a grouped conv: B8 within its widths, else the vendor conv in groups
+    "grouped-bf16-nhwc": (lambda: _grouped_op(), "b8"),
+    "grouped-f32": (lambda: _grouped_op(prec=""), "vendor"),
+    "grouped-nchw": (lambda: _grouped_op(nhwc=False), "vendor"),
+    # f32 edges: B8 stores bf16
+    "grouped-f32-edges": (lambda: _grouped_op(edge_prec="f32"), "vendor"),
+    # groups of 2: no instance
+    "grouped-cg2": (lambda: _grouped_op(groups=32), "vendor"),
+    "grouped-ungrouped": (lambda: _grouped_op(groups=1), "b7"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTES))
+def test_route_of_the_conv_templates(case):
+    make, route = ROUTES[case]
+    op = make()
+    t = get_template(op.func_name)
+    rfs = t.check_args(op)
+    assert conv_route(rfs) == route
+    assert t.build(rfs).route == route
 
 
 def _operands(op, rng):
@@ -399,6 +424,31 @@ def test_filter_cache_makes_a_filter_once_per_weights():
     cache(wi, w2)
     cache(wi, w2)   # no version counter: made at every call
     assert len(made) == 5
+
+
+def test_b6_filter_is_made_once_per_weights(monkeypatch):
+    # an int8 xla_conv step whose weights arrive float: B6's filter (the
+    # weight quantize and its OHWI reorder) is made once per set of
+    # weights, again after an in-place update, and gives what a new step
+    # gives
+    op = _conv_op(quant8=1)
+    t = get_template("xla_conv")
+    fn = t.build(t.check_args(op))
+    x, w, b = _operands(op, np.random.RandomState(6))
+    x = x.float()
+    calls = []
+    real = C.quantize_filter
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    monkeypatch.setattr(C, "quantize_filter", spy)
+    first = fn(x, w, b)
+    assert torch.equal(fn(x, w, b), first) and calls == [1]
+    w.mul_(0.5)
+    got = fn(x, w, b)
+    assert calls == [1, 1]
+    assert torch.equal(got, t.build(t.check_args(op))(x, w, b))
 
 
 # ---------------------------------------------------- the forward's routes

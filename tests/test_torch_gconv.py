@@ -1,9 +1,9 @@
 """Grouped convolutions in the port, on the CPU: kernel B8's plain version
 (ops/cuda/gconv.py) against per-group convs of channel slices, its plan and
-its refusals; the route rule of a grouped conv step (b8 or the vendor conv in
-groups); the IR's and the importer's groups; the lowering (no sibling
-fusion, fused stem or resblock takes a grouped conv, quant8 at a grouped site
-raises); engine=ref against the port on a small grouped net; the step spans'
+its refusals; a grouped conv step on B8 bit-equal to the vendor conv in
+groups (tests/test_torch_bconv.py holds its route); the IR's and the
+importer's groups; the lowering (no sibling fusion, fused stem or resblock
+takes a grouped conv, quant8 at a grouped site raises); engine=ref against the port on a small grouped net; the step spans'
 route and groups; and the kernel against its plain version where a card is
 present (skipped here: B8 is CUDA C++ with no CPU form).
 
@@ -251,23 +251,6 @@ def _gop(prec="bf16", nhwc=True, groups=16, cin=64, edge_prec=None):
 def _build(op):
     t = get_template(op.func_name)
     return t.build(t.check_args(op))
-
-
-@pytest.mark.parametrize("kw,route", [
-    ({}, "b8"),
-    ({"prec": ""}, "vendor"),                 # prec=f32
-    ({"nhwc": False}, "vendor"),              # NCHW storage
-    ({"edge_prec": "f32"}, "vendor"),         # f32 edges: B8 stores bf16
-    ({"groups": 32}, "vendor"),               # groups of 2: no instance
-    ({"groups": 1}, "b7")])                   # ungrouped: B7, as before
-def test_route_of_a_grouped_conv(kw, route):
-    assert _build(_gop(**kw)).route == route
-    op = _gop(**kw)
-    cdt = torch.bfloat16 if op.str_vals.get("prec") else torch.float32
-    odt = torch.bfloat16 if op.str_vals.get("edge_prec") == "bf16" \
-        else torch.float32
-    assert C.takes_b8(cdt, "io_layout" in op.str_vals, odt, 64, 64,
-                      kw.get("groups", 16), 9) == (route == "b8")
 
 
 def test_b8_step_is_the_vendor_path_bit_for_bit():

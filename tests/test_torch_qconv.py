@@ -48,6 +48,7 @@ from boda_tpu_torch.engine.lower import lower_pipe
 from boda_tpu_torch.models.zoo import build_model
 from boda_tpu_torch.ops.cnn_variants import make_op_tune
 from boda_tpu_torch.ops.cuda import qconv as qc
+from boda_tpu_torch.ops.cuda.util import copy_width
 from boda_tpu_torch.ops.op_base import OpBase
 from boda_tpu_torch.ops.registry import get_template
 from boda_tpu_torch.testing.comp import comp_digests
@@ -440,12 +441,12 @@ def test_split_ranges_cover_k_exactly_once(chunks, splits):
                                       (16, 16), (40, 8), (12, 4)])
 def test_copy_width_follows_the_channels(C, width):
     plan = qc.qconv_plan(2, 9, 9, C, 40, 3, 3, (1, 1), (1, 1), 132)
-    assert plan.copy == width == qc.copy_width(C)
+    assert plan.copy == width == copy_width(C, 0, qc.COPY_WIDTHS)
     # B's rows are ky*kx*C long: 16-byte rows go by TMA
-    assert plan.copy_b == qc.copy_width(9 * C)
+    assert plan.copy_b == copy_width(9 * C, 0, qc.COPY_WIDTHS)
     assert plan.tma_b == (plan.copy_b == 16)
     # a misaligned operand narrows the copy
-    assert qc.copy_width(C, 4) == min(width, 4)
+    assert copy_width(C, 4, qc.COPY_WIDTHS) == min(width, 4)
 
 
 def _split_sums(xq, wq, stride, pad, ranges, chunk=128):
