@@ -144,19 +144,21 @@ def timer(tag: str, log: Optional[TimerLog] = None, request: bool = False,
           **attrs):
     """Adds the scope's duration to tag's aggregate row; while a profiler
     records, the scope is also a span (attrs: its attributes; request:
-    it opens a request) and a record_function range."""
+    it opens a request) and a record_function range. Yields attrs, which
+    the scope may add to: what it adds is the span's too where the span
+    was opened with some."""
     log = log or global_timer_log
     t0 = time.perf_counter()
     if not _profiler._is_profiler_enabled:
         try:
-            yield
+            yield attrs
         finally:
             log.add(tag, time.perf_counter() - t0)
         return
     i = log.open(tag, request, attrs or None)
     try:
         with _profiler.record_function(tag):
-            yield
+            yield attrs
     finally:
         if i is not None:
             log.close(i)

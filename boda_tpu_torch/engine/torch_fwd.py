@@ -47,6 +47,7 @@ from ..core.dims import NDA, Dims
 from ..core.error import RtErr
 from ..core.timers import global_timer_log, recording, timer
 from ..graph.pipe import ConvPipe
+from ..io.device_preproc import PinnedStager
 from ..ops.cnn_variants import OpTune, make_op_tune
 from ..ops.cuda.util import torch_dtype
 from ..ops.mxu_grad import check_trainable, step_has_backward
@@ -619,6 +620,10 @@ class TorchFwd(ConvFwd):
                                   dp=self.mesh_dp, mp=self.mesh_mp,
                                   devices=global_devices(self.device))
         self.fwd = self._build_fwd()
+        # host inputs reach a card through a pinned buffer; the CPU takes
+        # the caller's arrays as they are
+        self._stager = PinnedStager(self.dev) if self.dev.type == "cuda" \
+            else None
         if self.mesh is not None:
             self._info_log.append(f"mesh: {self.mesh.shape} "
                                   f"routes {self.fwd.routes}")
@@ -660,14 +665,9 @@ class TorchFwd(ConvFwd):
         step_hook = StepSpans(getattr(self.fwd, "conv_routes", None)) \
             if recording() else None
         with timer("run_fwd", request=True):
-            with timer("run_fwd.upload",
-                       bytes=sum(v.v.nbytes for v in to_set.values())):
-                inputs = {n: torch.from_numpy(np.ascontiguousarray(v.v))
-                          .to(self.dev) for n, v in to_set.items()}
-                if DROP_SEED_NODE in self.plan.input_nodes:
-                    # an unfed seed is 0, the JAX engine's first-touch zero
-                    inputs.setdefault(DROP_SEED_NODE, torch.zeros(
-                        1, dtype=torch.int32, device=self.dev))
+            with timer("run_fwd.upload", bytes=sum(
+                    v.v.nbytes for v in to_set.values())) as span:
+                inputs, span["staged"] = self.upload(to_set)
             t0 = time.perf_counter()
             with torch.no_grad():
                 outs = self.fwd(inputs, self.weights, out_nodes=want,
@@ -691,6 +691,27 @@ class TorchFwd(ConvFwd):
                        self.weights[n].cpu().numpy() if n in self.weights
                        else outs[n])
                 for n in to_get}
+
+    def upload(self, to_set: dict[str, NDA]) -> tuple[dict, int]:
+        """run_fwd's inputs on the engine's device, by node, and the bytes
+        that went through the engine's PinnedStager: on a card each host
+        array goes through it (returning with its DMA still in flight on
+        the current stream), on the CPU the array itself is the input; an
+        unfed drop seed is 0 on the device."""
+        staged = 0
+        if self._stager is None:
+            inputs = {n: torch.from_numpy(np.ascontiguousarray(v.v))
+                      .to(self.dev) for n, v in to_set.items()}
+        else:
+            inputs = {}
+            for n, v in to_set.items():
+                inputs[n], k = self._stager.upload(n, v.v)
+                staged += k
+        if DROP_SEED_NODE in self.plan.input_nodes:
+            # an unfed seed is 0, the JAX engine's first-touch zero
+            inputs.setdefault(DROP_SEED_NODE, torch.zeros(
+                1, dtype=torch.int32, device=self.dev))
+        return inputs, staged
 
     def set_input_preproc(self, node: str, fn, wire_dims: Dims) -> None:
         """Put the device-side transform fn in front of input `node`

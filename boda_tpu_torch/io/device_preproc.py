@@ -4,7 +4,9 @@ The port's copy of boda_tpu/io/device_preproc.py, on torch ops. Decode
 stays on the host (PIL); everything after the raw uint8 image (resize,
 RGB->BGR, mean subtraction, HWC->CHW) runs on the input tensor's device,
 and `PrefetchFeeder` overlaps the next batch's host-to-card copy with the
-current batch's compute.
+current batch's compute. `PinnedStager` is the fused engine's upload of a
+host array on a card: one copy into a page-locked buffer it owns, then a
+non-blocking DMA.
 
 The resize is the function `jax.image.resize(..., method="bilinear")`
 computes, the way it computes it: per spatial axis whose size changes, a
@@ -18,6 +20,7 @@ H100); without antialias a downscale differs by up to half the range.
 
 from __future__ import annotations
 
+import threading
 from typing import Iterator, Optional
 
 import numpy as np
@@ -238,6 +241,57 @@ class PrefetchFeeder:
             out = self._preproc(cur)
             pending = self._stage()  # overlaps with the consumer's compute
             yield out
+
+
+class PinnedStager:
+    """Host arrays to a card through one page-locked buffer per key.
+
+    upload(key, arr) gives arr's copy on the card `dev` (its shape and
+    dtype, the same bytes) and the bytes it copied through the pinned
+    buffer. The host copies arr into the key's buffer (torch's `copy_`, on
+    the intra-op threads), enqueues the buffer's non-blocking copy to the
+    card on the current stream and returns: work the caller enqueues after
+    it on that stream is ordered after the copy. A key's buffer is
+    allocated at its first upload and grown only for a larger array. An
+    event recorded after the copy is waited on before the buffer is written
+    again, so no DMA still in flight from an earlier upload (one whose
+    caller raised before syncing, say) reads bytes of a later one. Uploads
+    from several threads take turns.
+
+    One copy and one DMA, not chunks whose DMAs run under the host's copy
+    of the next, which gained nothing measurable. On an H100 80GB HBM3 at
+    700 W with 8 host threads, the b128 u8 wire (19,267,584 B) took
+    0.36-0.42 ms of pinned DMA (46-54 GB/s) and 0.38-0.76 ms of torch's
+    copy into pinned memory (25-51 GB/s), against 2.21-3.82 ms through a
+    pageable copy; ResNet-50's b128 run_fwd took 9.48-10.98 ms with one
+    copy, 9.56-18.30 ms in 4 MiB chunks and 10.96-12.29 ms pageable."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self._bufs: dict = {}
+        self._events: dict = {}
+        self._lock = threading.Lock()
+
+    def upload(self, key, arr: np.ndarray) -> tuple[torch.Tensor, int]:
+        src = torch.from_numpy(np.ascontiguousarray(arr))
+        out = torch.empty(src.shape, dtype=src.dtype, device=self.dev)
+        n = src.numel() * src.element_size()
+        if n == 0:
+            return out, 0
+        with self._lock:
+            ev = self._events.get(key)
+            if ev is None:
+                ev = self._events[key] = torch.cuda.Event()
+            else:
+                ev.synchronize()  # the last upload's DMA has read the buffer
+            buf = self._bufs.get(key)
+            if buf is None or buf.numel() < n:
+                buf = self._bufs[key] = torch.empty(n, dtype=torch.uint8,
+                                                    pin_memory=True)
+            buf[:n].copy_(src.view(-1).view(torch.uint8))
+            out.view(-1).view(torch.uint8).copy_(buf[:n], non_blocking=True)
+            ev.record(torch.cuda.current_stream(self.dev))
+        return out, n
 
 
 def preprocess_batch_nda(imgs: np.ndarray, dims: Dims, bgr: bool = True,

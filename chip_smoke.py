@@ -135,6 +135,11 @@ Phases, run in order, each fatal on failure (all of them by default):
            held-out images written as an LMDB (top-1 >= 0.90); wisdom_fn
            (tests/data/wisdom-resnet50-b32.wis) at b32: the CPU's plan, one
            timed forward
+  upload   the u8 wire's upload at b128 and b8 (224x224x3), from a pool of
+           8 batches read in turn: io/device_preproc.PinnedStager's copy
+           bit-equal to the pageable one (torch.from_numpy(x).to(card)),
+           and both timed (wall ms to the copy's end; the staged one also
+           until it returns)
   ops_prof the per-op path (mode ops_prof, be=torch): the vendor
            sgemm under prec=bf16 returns the unrounded f32 product; the six
            square SGEMMs of tests/data/ops/sgemm-baseline.txt (128^3-4096^3) under
@@ -3235,6 +3240,70 @@ BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "headline_config",
               "mixed_peak_tflops", "int8_frac_of_mixed_roofline")
 
 
+# distinct batches the upload phase cycles through, as the benchmark's
+# request pool does: each call reads host memory no cache still holds
+UPLOAD_POOL = 8
+
+
+def _pool_ms(fn, pool: list, reps: int, sync: bool = True) -> float:
+    """Median host milliseconds of fn(a) over `reps` calls, a the next
+    array of pool in turn, after one call on each; with sync each call ends
+    in a synchronize, else the card is synchronized outside the timing (the
+    time until fn returns)."""
+    import torch
+    for a in pool:
+        fn(a)
+    torch.cuda.synchronize()
+    ts = []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        fn(pool[i % len(pool)])
+        if sync:
+            torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    return sorted(ts)[reps // 2]
+
+
+def phase_upload(ctx: dict) -> None:
+    """The u8 wire's upload at b128 and b8 from a pool of UPLOAD_POOL
+    batches: io/device_preproc.PinnedStager's copy bit-equal to the
+    pageable one, and both timed, medians of 21 calls."""
+    import numpy as np
+    import torch
+    from boda_tpu_torch.io import device_preproc as dp
+    dev = torch.device("cuda", 0)
+    reps = 21
+    print(f"  host threads {torch.get_num_threads()}, a pool of "
+          f"{UPLOAD_POOL} batches [{ctx['smi']}]")
+    out = {}
+    for batch in (128, 8):
+        rs = np.random.RandomState(batch)
+        pool = [rs.randint(0, 256, (batch, 224, 224, 3)).astype(np.uint8)
+                for _ in range(UPLOAD_POOL)]
+        n = pool[0].nbytes
+        st = dp.PinnedStager(dev)
+        for x in pool:
+            got, k = st.upload("data", x)
+            check(k == n and torch.equal(got, torch.from_numpy(x).to(dev)),
+                  f"upload b{batch}: the staged copy differs from the "
+                  f"pageable one, or staged {k} of {n} B")
+        row = {"bytes": n,
+               "pageable_ms": _pool_ms(
+                   lambda x: torch.from_numpy(x).to(dev), pool, reps),
+               "staged_ms": _pool_ms(lambda x: st.upload("data", x), pool,
+                                     reps),
+               "staged_return_ms": _pool_ms(lambda x: st.upload("data", x),
+                                            pool, reps, sync=False)}
+        print(f"  upload b{batch} {n} B: pageable {row['pageable_ms']:.3f} "
+              f"ms ({n / row['pageable_ms'] / 1e6:.1f} GB/s), staged "
+              f"{row['staged_ms']:.3f} ({n / row['staged_ms'] / 1e6:.1f}), "
+              f"returns after {row['staged_return_ms']:.3f}", flush=True)
+        out[f"b{batch}"] = row
+        del pool, st
+    ctx["upload"] = out
+
+
 def phase_bench(ctx: dict) -> None:
     """The bench twin (python3 -m boda_tpu_torch.bench) in this process:
     one JSON line with bench.py's keys, finite step times, the int8 preset
@@ -3977,8 +4046,9 @@ def _direct_rows(srv, img, top_k: int):
 def _engine_split(srv) -> dict:
     """Where a b<max_batch> engine call's time goes, on the server's engine
     and a u8 or f32 wire batch: run_fwd's wall ms (upload, forward,
-    readback), the upload alone (wall), the forward alone on a batch
-    already on the card (CUDA events) and the card's busy ms in one
+    readback), the upload alone (wall; run_fwd's own upload path, on a
+    card the engine's PinnedStager), the forward alone on a batch already
+    on the card (CUDA events) and the card's busy ms in one
     run_fwd (torch.profiler)."""
     import numpy as np
     import torch
@@ -3992,7 +4062,7 @@ def _engine_split(srv) -> dict:
         return eng.run_fwd({data: NDA(d, x)}, [top])
 
     def upload():
-        torch.from_numpy(x).to(eng.dev)
+        eng.upload({data: NDA(d, x)})
         torch.cuda.synchronize()
     xd = torch.from_numpy(x).to(eng.dev)
     with torch.inference_mode():
@@ -6391,6 +6461,7 @@ PHASES = {"env": phase_env, "build": phase_build, "kernels": phase_kernels,
           "vendor": phase_vendor, "gconv": phase_gconv,
           "digests": phase_digests,
           "agree": phase_agree, "full": phase_full, "engine": phase_engine,
+          "upload": phase_upload,
           "ops_prof": phase_ops_prof, "zoo": phase_zoo, "serve": phase_serve,
           "pyra": phase_pyra, "train": phase_train, "tune": phase_tune,
           "cli": phase_cli, "parallel": phase_parallel,
@@ -6484,7 +6555,7 @@ def main() -> int:
                       "forward_ms_b128": ctx["fwd_ms_b128"],
                       "device_busy_ms_b32": ctx["busy_ms"],
                       "template_ms_b32": ctx["template_ms"],
-                      "engine": ctx["engine"],
+                      "engine": ctx["engine"], "upload": ctx["upload"],
                       "vendor_conv_ms_b32": ctx["vendor_ms"],
                       "zoo": ctx["zoo"], "serve": ctx["serve"],
                       "pyra": ctx["pyra"], "train": ctx["train"],

@@ -119,7 +119,8 @@ def test_profiled_run_fwd_is_one_request(tune):
     ends = [s[2] for s in in_fwd[:-1]]
     starts = [s[1] for s in in_fwd[1:]]
     assert all(e <= s for e, s in zip(ends, starts))
-    assert spans[up][5] == {"bytes": feed["data"].v.nbytes}
+    # off the card nothing goes through the pinned stager
+    assert spans[up][5] == {"bytes": feed["data"].v.nbytes, "staged": 0}
     assert spans[rb][5] == {"bytes": 2 * 10 * 4}  # mini's prob, b2 f32
     # on time.time_ns()'s clock
     assert abs(spans[root][1] - time.time_ns()) < 60e9
@@ -198,6 +199,24 @@ def test_a_span_closes_when_its_scope_raises():
     assert o[2] is not None and i[2] is not None and i[3] == 0
     assert a[3] is None and a[4] is None
     assert global_timer_log.tags["inner"][0] == 1
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_a_scope_adds_to_its_spans_attrs(profiled):
+    def scopes():
+        with timer("up", bytes=4) as attrs:
+            attrs["staged"] = 3
+        with timer("bare") as attrs:
+            attrs["late"] = 1   # a span opened with none keeps none
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU]):
+            scopes()
+        assert [(s[0], s[5]) for s in global_timer_log.spans] == [
+            ("up", {"bytes": 4, "staged": 3}), ("bare", None)]
+    else:
+        scopes()
+        assert global_timer_log.spans == []
+    assert global_timer_log.tags["up"][0] == 1
 
 
 def test_clear_and_the_cap(monkeypatch):
